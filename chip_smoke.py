@@ -1,0 +1,757 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``paddle_tpu_torch``) on one NVIDIA GPU.
+
+Phases, in order; each prints one JSON line, and any failure exits
+non-zero:
+
+1. device  — ``torch.cuda.is_available()``, the card's name and power
+   limit from nvidia-smi, the torch / CUDA versions.
+2. build   — the four CUDA kernels from ``paddle_tpu_torch/csrc`` with
+   ``nvcc`` (one process per source, started together).
+3. kernels — each kernel against its plain PyTorch version on the card
+   at the serving path's shapes, with its tolerance; its median time
+   over 20 launches (CUDA events, L2 flushed before each launch), the
+   plain version's, one PyTorch yardstick call's, and the least time
+   the card could take (bytes at 3.35 TB/s or fp32 FMA operations at
+   67 TFLOP/s, whichever is larger).
+4. engine  — GPT-1.3B (seed-0 random weights, fp32) through the paged
+   continuous-batching engine: the kernel path against the plain path
+   on prefill and decode, then 8 requests whose prompts span every
+   prefill bucket, with every kernel's launch count read from that run;
+   then the engine's other two kernel paths (``fused_step=False`` and
+   ``kv_int8``), each against its plain run.
+5. server  — the newline-JSON server on localhost with the same model:
+   4 generate requests (2 streaming), health, stats, drain, leak_check.
+
+Then a ``kernels`` line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.
+
+Run: ``python3 chip_smoke.py`` from the repository root, on a machine
+with one CUDA GPU and ``nvcc``. It takes no arguments.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+FP32_FLOPS = 67e12          # fp32 outside the tensor cores
+
+# tolerances, stated: fp32 sums run in another order in the kernel than
+# in the plain version (atol/rtol 1e-4); argmax must be index-exact;
+# the whole model's hidden states and logits within 1e-3 relative
+ATTN_TOL = 1e-4
+PAGED_TOL = 1e-4
+PROJ_TOL = 1e-4
+MODEL_REL_TOL = 1e-3
+# bf16 storage (f32 accumulation), absolute: about 2.5x the largest
+# error an H100 showed on these seeded inputs (paged_decode 7.6e-6,
+# decode_out_proj 3.9e-3, attention_fwd 2.0e-3); the outputs are
+# rounded to bf16 from f32 sums taken in another order
+BF16_ATOL = {"paged_decode": 2e-5, "decode_out_proj": 1e-2,
+             "attention_fwd": 5e-3}
+
+# (kernel, source, TPU kernel it replaces)
+KERNEL_META = {
+    "paged_decode": ("paddle_tpu_torch/csrc/paged_decode.cu",
+                     "paddle_tpu/ops/pallas/paged_attention.py:227"),
+    "decode_out_proj": ("paddle_tpu_torch/csrc/decode_out_proj.cu",
+                        "paddle_tpu/ops/pallas/paged_attention.py:287"),
+    "fused_argmax": ("paddle_tpu_torch/csrc/fused_argmax.cu",
+                     "paddle_tpu/ops/pallas/fused_sample.py:241"),
+    "attention_fwd": ("paddle_tpu_torch/csrc/attention_fwd.cu",
+                      "paddle_tpu/ops/pallas/flash_attention.py:414"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Timer:
+    """Median ms of ``fn`` over ``iters`` launches, each bracketed by
+    CUDA events, with the L2 cache flushed before every launch (the
+    serving path meets each weight cold)."""
+
+    def __init__(self, torch, device):
+        self.torch = torch
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+
+    def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            self.flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        times.sort()
+        return times[len(times) // 2]
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max().item())
+
+
+def check_close(name, got, want, tol, rtol=None):
+    import torch
+    rtol = tol if rtol is None else rtol
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=rtol):
+        raise AssertionError(
+            f"{name}: max abs err {max_err(got, want):.3g} over "
+            f"atol {tol} rtol {rtol}")
+    return max_err(got, want)
+
+
+# -- phase 1 -----------------------------------------------------------------
+
+def phase_device(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, timeout=60)
+    line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    info = {"phase": "device", "ok": True,
+            "name": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+            "nvidia_smi": line, "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "python": sys.version.split()[0]}
+    emit(info)
+    return line
+
+
+# -- phase 2 -----------------------------------------------------------------
+
+def phase_build():
+    from paddle_tpu_torch.ops.kernels import _build
+    t0 = time.monotonic()
+    path = _build.build(verbose=True)
+    _build.lib()
+    emit({"phase": "build", "ok": True, "lib": os.path.relpath(path, HERE),
+          "seconds": round(time.monotonic() - t0, 3)})
+
+
+# -- phase 3 -----------------------------------------------------------------
+
+def kernel_paged(torch, timer, dev, gen, records):
+    from paddle_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_reference, paged_decode)
+    from paddle_tpu_torch.quantization.quant import quantize_kv
+    H, D, page, B = 16, 128, 64, 8
+    max_pages = 32                     # 2048 / 64
+    P = B * max_pages
+    lens = torch.tensor([0, 1, 37, 64, 100, 700, 1500, 2048],
+                        dtype=torch.int32, device=dev)
+    perm = torch.randperm(P, generator=gen, device=dev).to(torch.int32)
+    table = perm.reshape(B, max_pages).contiguous()
+    kf = torch.randn((P + 1, page, H, D), generator=gen, device=dev)
+    vf = torch.randn((P + 1, page, H, D), generator=gen, device=dev)
+    q = torch.randn((B, H, D), generator=gen, device=dev)
+    errs = []
+    cases = [("fp32", kf, vf, None, None)]
+    kq, ks = quantize_kv(kf)
+    vq, vs = quantize_kv(vf)
+    cases.append(("int8", kq, vq, ks, vs))
+    for tag, kp, vp, ksc, vsc in cases:
+        got = paged_decode(q, kp, vp, table, lens, k_scale=ksc, v_scale=vsc)
+        want = paged_attention_reference(
+            q[:, None], kp, vp, table, lens, k_scale=ksc,
+            v_scale=vsc)[:, 0]
+        torch.cuda.synchronize()
+        if got[0].abs().max().item() != 0.0:
+            raise AssertionError("paged_decode: len 0 must give zeros")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"paged_decode {tag}: non-finite output")
+        errs.append(check_close(f"paged_decode {tag}", got, want,
+                                PAGED_TOL))
+    ms = timer(lambda: paged_decode(q, kf, vf, table, lens))
+    plain_ms = timer(lambda: paged_attention_reference(
+        q[:, None], kf, vf, table, lens), iters=20)
+    tokens = int(lens.sum().item())
+    nbytes = (2 * tokens * H * D * 4 + 2 * B * H * D * 4
+              + B * max_pages * 4 + B * 4)
+    flops = 4 * tokens * H * D
+    b, by = bound_ms(nbytes, flops)
+    records["paged_decode"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
+        bound_by=by, library_ms=None,
+        shape=f"B={B} H={H} D={D} page={page} lens={lens.tolist()} fp32")
+    emit({"phase": "kernels", "kernel": "paged_decode", "ok": True,
+          **records["paged_decode"], "tol": PAGED_TOL,
+          "cases": ["fp32", "int8"]})
+
+
+def kernel_out_proj(torch, timer, dev, gen, records):
+    from paddle_tpu_torch.ops.kernels.paged_attention import (
+        decode_out_proj, decode_out_proj_reference)
+    B, E = 8, 2048
+    ctx = torch.randn((B, E), generator=gen, device=dev)
+    w = torch.randn((E, E), generator=gen, device=dev) * 0.02
+    bias = torch.randn((E,), generator=gen, device=dev)
+    errs = []
+    for bb in (bias, None):
+        got = decode_out_proj(ctx, w, bb)
+        want = decode_out_proj_reference(ctx, w, bb)
+        errs.append(check_close("decode_out_proj", got, want, PROJ_TOL))
+    ms = timer(lambda: decode_out_proj(ctx, w, bias))
+    plain_ms = timer(lambda: decode_out_proj_reference(ctx, w, bias))
+    lib_ms = timer(lambda: torch.addmm(bias, ctx, w))
+    nbytes = (B * E + E * E + E + B * E) * 4
+    b, by = bound_ms(nbytes, 2 * B * E * E)
+    records["decode_out_proj"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
+        bound_by=by, library_ms=lib_ms, shape=f"B={B} E={E} fp32")
+    emit({"phase": "kernels", "kernel": "decode_out_proj", "ok": True,
+          **records["decode_out_proj"], "tol": PROJ_TOL,
+          "library": "torch.addmm"})
+
+
+def kernel_argmax(torch, timer, dev, gen, records):
+    from paddle_tpu_torch.ops.kernels.fused_sample import (
+        fused_argmax, fused_argmax_reference)
+    B, D = 8, 2048
+    for V in (50304, 50257):  # the served vocab, and a partial last tile
+        h = torch.randn((B, D), generator=gen, device=dev)
+        w = torch.randn((V, D), generator=gen, device=dev) * 0.02
+        bias = torch.randn((V,), generator=gen, device=dev) * 0.1
+        # planted tie on row 0: two identical winning vocab rows
+        t1, t2 = 1234, 40000
+        w[t1] = h[0] / h[0].norm() * 5.0
+        w[t2] = w[t1]
+        # planted NaN on row 1: the first NaN index must win over a
+        # later NaN and over any number
+        n1, n2 = 777, 30000
+        for tag, ww, bb, ty in (
+                ("vocab_major", w, None, True),
+                ("vocab_major+bias", w, bias, True),
+                ("feature_major", w.t().contiguous(), None, False),
+                ("feature_major+bias", w.t().contiguous(), bias, False)):
+            vd = 0 if ty else 1
+            ww_nan = ww.clone()
+            if ty:
+                ww_nan[n1, 0] = float("nan")
+                ww_nan[n2, 0] = float("nan")
+            else:
+                ww_nan[0, n1] = float("nan")
+                ww_nan[0, n2] = float("nan")
+            for wname, wt in (("clean", ww), ("nan", ww_nan)):
+                got = fused_argmax(h, wt, bb, transpose_y=ty)
+                want = fused_argmax_reference(h, wt, vd, bias=bb)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"fused_argmax V={V} {tag} {wname}: "
+                        f"{got.tolist()} != {want.tolist()}")
+                if wname == "clean" and bb is None and \
+                        int(got[0]) != t1:
+                    raise AssertionError(
+                        f"fused_argmax tie: {int(got[0])} != {t1}")
+                if wname == "nan" and int(got[0]) != n1:
+                    raise AssertionError(
+                        f"fused_argmax NaN: {int(got[0])} != {n1}")
+    V = 50304
+    h = torch.randn((B, D), generator=gen, device=dev)
+    w = torch.randn((V, D), generator=gen, device=dev) * 0.02
+    ms = timer(lambda: fused_argmax(h, w, None, transpose_y=True))
+    plain_ms = timer(lambda: fused_argmax_reference(h, w, 0))
+    lib_ms = timer(lambda: torch.argmax(h @ w.t(), dim=-1))
+    nbytes = (V * D + B * D) * 4 + B * 4
+    b, by = bound_ms(nbytes, 2 * B * V * D)
+    records["fused_argmax"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b,
+        bound_by=by, library_ms=lib_ms,
+        shape=f"B={B} D={D} V={V} [V,D] fp32")
+    emit({"phase": "kernels", "kernel": "fused_argmax", "ok": True,
+          **records["fused_argmax"], "tol": "index-exact",
+          "library": "torch.argmax(h @ W.T)",
+          "cases": "V in (50304, 50257) x both layouts x bias x "
+                   "{clean with planted tie, planted NaN}"})
+
+
+def kernel_attention(torch, timer, dev, gen, records):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels.attention import (
+        attention_fwd, attention_reference)
+    B, H, D = 1, 16, 128
+    per_shape = []
+    errs = []
+    for S in (128, 256, 512, 1024, 2048):
+        qkv = torch.randn((B, S, 3, H, D), generator=gen, device=dev)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        want_o, want_l = attention_reference(q, k, v, causal=True)
+        for lse_on in (True, False):
+            got_o, got_l = attention_fwd(q, k, v, causal=True,
+                                         return_lse=lse_on)
+            errs.append(check_close(f"attention_fwd S={S} out", got_o,
+                                    want_o, ATTN_TOL))
+            if lse_on:
+                errs.append(check_close(f"attention_fwd S={S} lse", got_l,
+                                        want_l, ATTN_TOL))
+        if S == 512:  # non-causal, one case
+            g2, _ = attention_fwd(q, k, v, causal=False)
+            w2, _ = attention_reference(q, k, v, causal=False)
+            errs.append(check_close("attention_fwd S=512 non-causal", g2,
+                                    w2, ATTN_TOL))
+        ms = timer(lambda: attention_fwd(q, k, v, causal=True))
+        plain_ms = timer(lambda: attention_reference(q, k, v, causal=True),
+                         iters=20)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        nbytes = 4 * B * S * H * D * 4 + B * S * H * 4
+        flops = 4 * B * H * D * S * (S + 1) // 2
+        b, by = bound_ms(nbytes, flops)
+        rec = dict(S=S, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b, bound_by=by)
+        per_shape.append(rec)
+        emit({"phase": "kernels", "kernel": "attention_fwd", "ok": True,
+              "shape": f"B={B} S={S} H={H} D={D} causal fp32", **rec})
+    last = per_shape[-1]
+    records["attention_fwd"] = dict(
+        max_abs_err=max(errs), ms=last["ms"], plain_ms=last["plain_ms"],
+        bound_ms=last["bound_ms"], bound_by=last["bound_by"],
+        library_ms=last["library_ms"],
+        shape=f"B={B} S=2048 H={H} D={D} causal fp32",
+        per_shape=per_shape)
+    emit({"phase": "kernels", "kernel": "attention_fwd", "ok": True,
+          "max_abs_err": max(errs), "tol": ATTN_TOL,
+          "library": "F.scaled_dot_product_attention"})
+
+
+def kernels_bf16(torch, dev, gen):
+    """bf16 storage through every kernel (f32 accumulation) against the
+    plain versions on the same bf16 inputs, within ``BF16_ATOL`` (no
+    relative term); argmax index-exact."""
+    from paddle_tpu_torch.ops.kernels.attention import (
+        attention_fwd, attention_reference)
+    from paddle_tpu_torch.ops.kernels.fused_sample import (
+        fused_argmax, fused_argmax_reference)
+    from paddle_tpu_torch.ops.kernels.paged_attention import (
+        decode_out_proj, decode_out_proj_reference,
+        paged_attention_reference, paged_decode)
+    bf = torch.bfloat16
+    tol = BF16_ATOL
+    errs = {}
+    H, D, page, B, mp = 16, 128, 64, 4, 8
+    lens = torch.tensor([0, 5, 64, 500], dtype=torch.int32, device=dev)
+    table = torch.arange(B * mp, dtype=torch.int32,
+                         device=dev).reshape(B, mp)
+    kp = torch.randn((B * mp + 1, page, H, D), generator=gen,
+                     device=dev).to(bf)
+    vp = torch.randn((B * mp + 1, page, H, D), generator=gen,
+                     device=dev).to(bf)
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(bf)
+    errs["paged_decode"] = check_close(
+        "paged_decode bf16", paged_decode(q, kp, vp, table, lens),
+        paged_attention_reference(q[:, None], kp, vp, table,
+                                  lens)[:, 0], tol["paged_decode"], 0.0)
+    ctx = torch.randn((B, 2048), generator=gen, device=dev).to(bf)
+    w = (torch.randn((2048, 2048), generator=gen, device=dev)
+         * 0.02).to(bf)
+    errs["decode_out_proj"] = check_close(
+        "decode_out_proj bf16", decode_out_proj(ctx, w),
+        decode_out_proj_reference(ctx, w), tol["decode_out_proj"], 0.0)
+    h = torch.randn((B, 2048), generator=gen, device=dev).to(bf)
+    wv = (torch.randn((50304, 2048), generator=gen, device=dev)
+          * 0.02).to(bf)
+    got = fused_argmax(h, wv, None, transpose_y=True)
+    want = fused_argmax_reference(h.float(), wv.float(), 0)
+    if not torch.equal(got, want):
+        raise AssertionError(f"fused_argmax bf16: {got.tolist()} != "
+                             f"{want.tolist()}")
+    qkv = torch.randn((1, 512, 3, H, D), generator=gen, device=dev).to(bf)
+    qq, kk, vv = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    go, gl = attention_fwd(qq, kk, vv, causal=True)
+    wo, wl = attention_reference(qq, kk, vv, causal=True)
+    ta = tol["attention_fwd"]
+    errs["attention_fwd"] = max(
+        check_close("attention_fwd bf16", go, wo, ta, 0.0),
+        check_close("attention_fwd bf16 lse", gl, wl, ta, 0.0))
+    emit({"phase": "kernels_bf16", "ok": True, "atol": tol,
+          "max_abs_err": errs, "fused_argmax": "index-exact"})
+
+
+def phase_kernels(torch, dev, records):
+    timer = Timer(torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for fn in (kernel_paged, kernel_out_proj, kernel_argmax,
+               kernel_attention):
+        fn(torch, timer, dev, gen, records)
+    kernels_bf16(torch, dev, gen)
+    torch.cuda.synchronize()
+
+
+# -- phase 4 -----------------------------------------------------------------
+
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max().item()
+                 / max(b.float().abs().max().item(), 1e-30))
+
+
+def path_outputs(torch, model, prompt, plain: bool, first_token=None,
+                 fused: bool = True, quantized: bool = False):
+    """Prefill ``prompt`` into a fresh paged cache and decode one token,
+    through the kernels or (``plain``) their plain versions, as the
+    engine does with ``fused_step=fused`` and ``kv_int8=quantized``.
+    Returns (prefill hidden, last-row logits, first token, decode
+    hidden, decode logits)."""
+    from paddle_tpu_torch.models.gpt import paged_cache_create
+    from paddle_tpu_torch.nn.decode import fused_sample_token, sample_token
+    from paddle_tpu_torch.ops.nn_functional import plain_kernels
+    cfg = model.config
+    dev = model.device
+    page = 64
+    mp = -(-cfg.max_seq_len // page)
+    n = len(prompt)
+    caches = [paged_cache_create(1, mp, page, cfg.num_heads, cfg.head_dim,
+                                 torch.float32, mp, quantized=quantized,
+                                 device=dev)
+              for _ in range(cfg.num_layers)]
+    ids = torch.tensor(prompt, dtype=torch.int64, device=dev)[None]
+    plen = torch.tensor([n], dtype=torch.int32, device=dev)
+    ctx = plain_kernels() if plain else contextlib.nullcontext()
+    w, ty, bias = model.head_params()
+    with ctx, torch.no_grad():
+        hidden, caches = model.decode_hidden(ids, caches, prefill_lens=plen,
+                                             fused=fused)
+        last = hidden[:, n - 1].contiguous()
+        logits = model.logits(last)
+        if fused:
+            tok = fused_sample_token(last, w, 0.0, transpose_y=ty,
+                                     bias=bias)
+        else:
+            tok = sample_token(logits, 0.0)
+        if first_token is not None:
+            tok = first_token
+        h2, _ = model.decode_hidden(tok[:, None].long(), caches,
+                                    fused=fused)
+        last2 = h2[:, -1].contiguous()
+        logits2 = model.logits(last2)
+    return hidden[:, :n], logits, tok, last2, logits2
+
+
+def run_engine(torch, model, prompts, max_new, plain: bool,
+               **engine_kw):
+    from paddle_tpu_torch.inference import create_decode_engine
+    from paddle_tpu_torch.ops.nn_functional import plain_kernels
+    eng = create_decode_engine(model, device=model.device, num_slots=8,
+                               page_size=64, num_pages=96, **engine_kw)
+    ctx = plain_kernels() if plain else contextlib.nullcontext()
+    with ctx:
+        rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    eng.check_no_leak()
+    outs = [res[r][len(p):].tolist() for r, p in zip(rids, prompts)]
+    decode_ms = sorted(e["decode_ms"] for e in eng.step_timeline()
+                       if "decode_ms" in e)
+    info = {"wall_s": wall, "steps": eng.steps,
+            "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
+            "prefill_launches": eng.programs_launched.get("prefill", 0),
+            "tokens_per_s": sum(len(o) for o in outs) / wall}
+    eng.close()
+    return outs, info
+
+
+def profile_decode_steps(torch, model):
+    """Device time vs host time of steady decode steps at 8 slots
+    (torch.profiler; the eager launch overhead of this slice)."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference import create_decode_engine
+    eng = create_decode_engine(model, device=model.device, num_slots=8,
+                               page_size=64)
+    gen = torch.Generator().manual_seed(1)
+    for n in (300, 500, 700, 900, 1100, 1300, 1500, 1700):
+        eng.submit(torch.randint(0, model.config.vocab_size, (n,),
+                                 generator=gen).numpy(), max_new_tokens=40)
+    for _ in range(6):  # admissions + warm decode steps
+        eng.step()
+    torch.cuda.synchronize()
+    steps = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3 / steps
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")]
+    dev_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    eng.close()
+    return {"decode_step_wall_ms": wall_ms,
+            "device_kernel_ms_per_step": dev_us / 1e3 / steps,
+            "device_kernels_per_step": len(kernels) / steps,
+            "idle_share": (1.0 - (dev_us / 1e3 / steps) / wall_ms)
+            if wall_ms else None,
+            "top_kernels_ms_per_step": [
+                [name[:60], us / 1e3 / steps] for name, us in top]}
+
+
+def phase_engine(torch, dev, records, launches):
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    t0 = time.monotonic()
+    model = GPTForCausalLM(gpt_1p3b(), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(0))
+    model.eval()
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    V = model.config.vocab_size
+    gen = torch.Generator().manual_seed(0)
+
+    # kernel path vs plain path on the card: prefill buckets reaching
+    # folded (128), flash single-block (512) and flash streaming (1024)
+    parity = []
+    for n in (128, 512, 1024):
+        prompt = torch.randint(0, V, (n,), generator=gen).tolist()
+        hk, lk, tk, h2k, l2k = path_outputs(torch, model, prompt, False)
+        hp, lp, tp, h2p, l2p = path_outputs(torch, model, prompt, True,
+                                            first_token=tk)
+        rec = {"bucket": n, "prefill_hidden_rel": rel_err(hk, hp),
+               "prefill_logits_rel": rel_err(lk, lp),
+               "decode_hidden_rel": rel_err(h2k, h2p),
+               "decode_logits_rel": rel_err(l2k, l2p),
+               "first_token_equal": bool(torch.equal(tk, tp))}
+        parity.append(rec)
+        for key in ("prefill_hidden_rel", "prefill_logits_rel",
+                    "decode_hidden_rel", "decode_logits_rel"):
+            if not rec[key] <= MODEL_REL_TOL:
+                raise AssertionError(f"engine parity bucket {n}: {key} "
+                                     f"{rec[key]:.3g} > {MODEL_REL_TOL}")
+    emit({"phase": "engine_parity", "ok": True, "tol_rel": MODEL_REL_TOL,
+          "cases": parity})
+
+    # the main path: every prefill bucket, page recycling (96 pages:
+    # the 8th request waits for pages freed by the first seven)
+    lengths = (40, 100, 200, 400, 900, 1500, 2000, 600)
+    prompts = [torch.randint(0, V, (n,), generator=gen).numpy()
+               for n in lengths]
+    max_new = 32
+    reset_launch_counts()
+    outs, info = run_engine(torch, model, prompts, max_new, plain=False)
+    launches.update(launch_counts())
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"main path")
+    for o in outs:
+        if len(o) != max_new or not all(0 <= t < V for t in o):
+            raise AssertionError(f"bad generation {o[:8]}...")
+    outs_plain, info_plain = run_engine(torch, model, prompts, max_new,
+                                        plain=True)
+    agree = sum(a == b for oa, ob in zip(outs, outs_plain)
+                for a, b in zip(oa, ob)) / float(len(lengths) * max_new)
+    first_agree = sum(oa[0] == ob[0] for oa, ob in
+                      zip(outs, outs_plain)) / float(len(lengths))
+    prof = profile_decode_steps(torch, model)
+    emit({"phase": "engine", "ok": True, "model": "gpt_1p3b",
+          "model_build_s": build_s, "prompt_lengths": list(lengths),
+          "max_new_tokens": max_new, "launches": dict(launches),
+          "kernel_path": info, "plain_path": info_plain,
+          "token_agreement": agree, "first_token_agreement": first_agree,
+          "decode_profile": prof,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    engine_variants(torch, model, gen)
+    return model
+
+
+def engine_variants(torch, model, gen):
+    """The engine's two other kernel paths, each against its plain run
+    on the card: ``fused_step=False`` (unfused paged attention, the
+    out-projection as a GEMM, argmax over the logits; the fused
+    kernels must stay at 0 launches) and ``kv_int8`` (int8 pages
+    through the fused path)."""
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    V = model.config.vocab_size
+    variants = (
+        ("fused_step=False", dict(fused_step=False),
+         ("paged_decode", "attention_fwd"),
+         ("decode_out_proj", "fused_argmax")),
+        ("kv_int8", dict(kv_int8=True), tuple(KERNEL_META), ()),
+    )
+    max_new = 8
+    for tag, kw, used, unused in variants:
+        fused = kw.get("fused_step", True)
+        int8 = kw.get("kv_int8", False)
+        prompt = torch.randint(0, V, (512,), generator=gen).tolist()
+        hk, lk, tk, h2k, l2k = path_outputs(torch, model, prompt, False,
+                                            fused=fused, quantized=int8)
+        hp, lp, tp, h2p, l2p = path_outputs(torch, model, prompt, True,
+                                            first_token=tk, fused=fused,
+                                            quantized=int8)
+        rec = {"prefill_hidden_rel": rel_err(hk, hp),
+               "prefill_logits_rel": rel_err(lk, lp),
+               "decode_hidden_rel": rel_err(h2k, h2p),
+               "decode_logits_rel": rel_err(l2k, l2p)}
+        for key, val in rec.items():
+            if not val <= MODEL_REL_TOL:
+                raise AssertionError(f"{tag} parity: {key} {val:.3g} > "
+                                     f"{MODEL_REL_TOL}")
+        prompts = [torch.randint(0, V, (n,), generator=gen).numpy()
+                   for n in (100, 600, 1100)]
+        reset_launch_counts()
+        outs, info = run_engine(torch, model, prompts, max_new,
+                                plain=False, **kw)
+        counts = launch_counts()
+        for name in used:
+            if counts[name] <= 0:
+                raise AssertionError(f"{tag}: kernel {name} was not "
+                                     f"launched")
+        for name in unused:
+            if counts[name] != 0:
+                raise AssertionError(f"{tag}: kernel {name} launched "
+                                     f"{counts[name]} times off its path")
+        for o in outs:
+            if len(o) != max_new or not all(0 <= t < V for t in o):
+                raise AssertionError(f"{tag}: bad generation {o}")
+        outs_plain, _ = run_engine(torch, model, prompts, max_new,
+                                   plain=True, **kw)
+        agree = sum(a == b for oa, ob in zip(outs, outs_plain)
+                    for a, b in zip(oa, ob)) / float(len(prompts) * max_new)
+        emit({"phase": "engine_variant", "ok": True, "variant": tag,
+              "tol_rel": MODEL_REL_TOL, "parity_bucket": 512, **rec,
+              "first_token_equal": bool(torch.equal(tk, tp)),
+              "prompt_lengths": [len(p) for p in prompts],
+              "launches": counts, "token_agreement": agree,
+              "decode_step_ms_median": info["decode_step_ms_median"]})
+
+
+# -- phase 5 -----------------------------------------------------------------
+
+def phase_server(torch, dev, model):
+    from paddle_tpu_torch.serving.server import ServingServer, client_request
+    V = model.config.vocab_size
+    gen = torch.Generator().manual_seed(2)
+    server = ServingServer(model, device=dev, num_slots=8, page_size=64,
+                           num_pages=96)
+    port = server.start()
+    replies = [None] * 4
+    streamed = [[] for _ in range(4)]
+    lengths = (50, 300, 700, 1200)
+
+    def one(i):
+        prompt = torch.randint(0, V, (lengths[i],), generator=gen).tolist()
+        replies[i] = client_request(
+            "127.0.0.1", port,
+            {"op": "generate", "prompt": prompt, "max_new_tokens": 16,
+             "stream": i < 2}, timeout_s=300,
+            on_token=streamed[i].append)
+
+    try:
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        for i, r in enumerate(replies):
+            if not r or not r.get("done") or len(r["generated"]) != 16:
+                raise AssertionError(f"generate {i}: {r}")
+            if i < 2 and streamed[i] != r["generated"]:
+                raise AssertionError(f"stream {i} != reply")
+        health = client_request("127.0.0.1", port, {"op": "health"})
+        stats = client_request("127.0.0.1", port, {"op": "stats"})
+        drain = client_request("127.0.0.1", port, {"op": "drain"})
+        late = client_request("127.0.0.1", port,
+                              {"op": "generate", "prompt": [1, 2, 3]})
+        leak = client_request("127.0.0.1", port, {"op": "leak_check"})
+        if health.get("status") != "ok" or "stats" not in stats or \
+                not drain.get("ok") or \
+                late.get("error") != "ServerDraining" or \
+                not leak.get("ok"):
+            raise AssertionError(f"server ops: {health} {drain} {late} "
+                                 f"{leak}")
+        emit({"phase": "server", "ok": True,
+              "ttft_ms": [r["stats"].get("ttft_s", 0) * 1e3
+                          for r in replies],
+              "tokens_out": [len(r["generated"]) for r in replies],
+              "health": {k: health[k] for k in ("status", "free_pages",
+                                                "num_pages", "steps")},
+              "leak_check": leak.get("ok")})
+    finally:
+        server.stop()
+
+
+def main() -> int:
+    if len(sys.argv) > 1:
+        print("chip_smoke: takes no arguments", file=sys.stderr)
+        return 2
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: torch is not importable: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this "
+              "script runs only on a CUDA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        import paddle_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: paddle_tpu_torch is not importable next to "
+              f"this script: {e}", file=sys.stderr)
+        return 2
+    paddle_tpu_torch.setup_precision()
+    dev = paddle_tpu_torch.resolve_device("cuda")
+    records = {}
+    launches = {}
+    smi_line = phase_device(torch)
+    phase_build()
+    phase_kernels(torch, dev, records)
+    model = phase_engine(torch, dev, records, launches)
+    phase_server(torch, dev, model)
+    kernels = []
+    for name, (src, replaces) in KERNEL_META.items():
+        r = records[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    emit({"kernels": kernels})
+    print(smi_line, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,339 @@
+"""Page ledger: per-page event forensics for the paged KV pool (r18).
+
+PR 10 made *latency* attributable (the span was the unit); this module
+makes *memory* attributable — the page is the unit, exactly as in the
+Ragged Paged Attention layout the allocator books. Every page event
+the `PageAllocator` (and the engine's spill/restore device IO) performs
+is appended to a BOUNDED ring with its owner, the engine step it
+happened on, and the reason the engine was touching pages at the time
+(admit / done / deadline / stalled / spec_rollback / macro_grow —
+the r19 multi-step launch's reservation→page growth — / dedup_hit —
+the r23 cross-request fold that releases a content-duplicate page
+and moves the shared one to a ("dedup", key) owner — / close / ...).
+
+What this buys:
+
+- **Forensics, not counts**: ``check_no_leak`` used to say *how many*
+  pages dangle; with a ledger attached it dumps each dangling page's
+  ownership history (who allocated it, on which step, why, and every
+  transfer since) — the difference between "3 pages leaked" and "page
+  7 was alloc'd by request 12 at step 41 during admit and transferred
+  to the prefix cache, which never released it".
+- **Reconciliation**: the ledger maintains its own live ownership view
+  from the event stream alone; ``reconcile(allocator)`` cross-checks
+  it against the allocator's books. A mismatch means some code path
+  moved pages without going through the allocator — the class of bug
+  no leak counter can localize. The chaos harness asserts this per
+  replica after drain (invariant 5).
+- **Capacity timeline**: ``PageAllocator.occupancy()`` breaks the pool
+  into owner classes (inflight / prefix-device / reserved / free, which
+  sum to the pool size by construction); the engine stamps it into the
+  step-timeline ring, and ``forecast_exhaustion`` turns ring deltas
+  into an EWMA time-to-exhaustion estimate — the headroom signal the
+  autoscaler actuator (ROADMAP 3a) and KV-shipping (item 1) need.
+
+Bounded memory throughout: the event ring is a fixed-size deque, the
+per-page history keeps the last few events per page (pages are bounded
+by the pool), and the live ownership dicts are bounded by live owners.
+The plane is BEHAVIOR-NEUTRAL: it only records host-side bookkeeping
+the allocator already performs — greedy outputs are bit-identical
+ledger on/off (pinned by tests/test_memory_observer.py).
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import time
+from typing import Any, Dict, Hashable, List, Optional, Sequence
+
+__all__ = ["PageLedger", "forecast_exhaustion"]
+
+# the event vocabulary (ISSUE r18): allocator-side events plus the
+# engine's spill/restore/splice device-IO events
+EVENT_KINDS = ("alloc", "reserve", "alloc_reserved", "release", "free",
+               "transfer", "spill", "restore", "splice")
+
+
+def _fmt_owner(owner: Hashable) -> Any:
+    """JSON-safe owner spelling: ints pass through (request ids),
+    everything else (("prefix", b"...") tuples, strings) reprs."""
+    if owner is None or isinstance(owner, (int, str)):
+        return owner
+    return repr(owner)
+
+
+class PageLedger:
+    """Bounded ring of page events plus a live ownership shadow.
+
+    The allocator calls ``record`` after every successful mutation;
+    the engine sets ``step`` at the top of each step and threads the
+    REASON for a page operation through the ``why`` context manager
+    (``with ledger.why("deadline", req_id=3): allocator.free(3)``), so
+    every event says not just *what* moved but *why the engine was
+    moving pages at that moment*.
+
+    ``events`` hold plain JSON-safe dicts, so the ring tail travels in
+    flight bundles and the ``capacity`` op without conversion."""
+
+    def __init__(self, capacity: int = 1024, page_history: int = 8):
+        self.capacity = max(1, int(capacity))
+        self.ring: "collections.deque" = collections.deque(
+            maxlen=self.capacity)
+        self.seq = 0                 # lifetime event count
+        self.dropped_total = 0       # events that rolled off the ring
+        self.events_by_kind: Dict[str, int] = {}
+        # last few events per page (bounded: pool size x page_history)
+        self._page_history = max(1, int(page_history))
+        self._page_hist: Dict[int, "collections.deque"] = {}
+        # live ownership shadow, derived from the event stream ONLY —
+        # reconcile() cross-checks it against the allocator's books
+        self._live: Dict[Hashable, int] = {}
+        self._reserved: Dict[Hashable, int] = {}
+        # engine-context fields (mutated by the owning engine thread)
+        self.step = 0
+        self._reason: Optional[str] = None
+        self._req: Optional[int] = None
+
+    # -- engine context ----------------------------------------------------
+
+    @contextlib.contextmanager
+    def why(self, reason: str, req_id: Optional[int] = None):
+        """Attribute every event recorded inside the block to
+        ``reason`` (and optionally a request id). Re-entrant: the
+        previous context is restored on exit."""
+        prev = (self._reason, self._req)
+        self._reason = reason
+        self._req = req_id
+        try:
+            yield
+        finally:
+            self._reason, self._req = prev
+
+    # -- recording ---------------------------------------------------------
+
+    def record(self, event: str, owner: Hashable,
+               pages: Sequence[int] = (), n: int = 0,
+               new_owner: Hashable = None,
+               rereserve: bool = False,
+               reserved_freed: int = 0) -> None:
+        """Append one event and update the live shadow. ``n`` carries
+        counts for page-less events (reserve); ``reserved_freed`` is
+        the reservation a ``free`` dropped alongside the pages."""
+        self.seq += 1
+        npages = len(pages)
+        rec: Dict[str, Any] = {
+            "seq": self.seq,
+            "t_us": time.monotonic() * 1e6,
+            "ev": event,
+            "owner": _fmt_owner(owner),
+            "pages": [int(p) for p in pages],
+            "step": self.step,
+        }
+        if n:
+            rec["n"] = int(n)
+        if new_owner is not None:
+            rec["to"] = _fmt_owner(new_owner)
+        # reservation side-effects travel IN the event too (not just
+        # the in-memory shadow): a ring-tail consumer must be able to
+        # tell a rollback-release from a final release and reconstruct
+        # reservation state from the events alone
+        if rereserve:
+            rec["rereserve"] = True
+        if reserved_freed:
+            rec["reserved_freed"] = int(reserved_freed)
+        if self._reason is not None:
+            rec["reason"] = self._reason
+        if self._req is not None:
+            rec["req"] = self._req
+        if len(self.ring) == self.capacity:
+            self.dropped_total += 1
+        self.ring.append(rec)
+        self.events_by_kind[event] = \
+            self.events_by_kind.get(event, 0) + 1
+        for p in rec["pages"]:
+            h = self._page_hist.get(p)
+            if h is None:
+                h = self._page_hist[p] = collections.deque(
+                    maxlen=self._page_history)
+            h.append(rec)
+        # live shadow (spill/restore/splice are device-IO annotations,
+        # not ownership moves — they don't touch the shadow)
+        if event == "alloc":
+            self._bump(self._live, owner, npages)
+        elif event == "reserve":
+            self._bump(self._reserved, owner, int(n))
+        elif event == "alloc_reserved":
+            self._bump(self._live, owner, npages)
+            self._bump(self._reserved, owner, -npages)
+        elif event == "release":
+            self._bump(self._live, owner, -npages)
+            if rereserve:
+                self._bump(self._reserved, owner, npages)
+        elif event == "free":
+            self._live.pop(owner, None)
+            self._reserved.pop(owner, None)
+        elif event == "transfer":
+            self._bump(self._live, owner, -npages)
+            self._bump(self._live, new_owner, npages)
+
+    @staticmethod
+    def _bump(d: Dict[Hashable, int], owner: Hashable, n: int) -> None:
+        v = d.get(owner, 0) + n
+        if v:
+            d[owner] = v
+        else:
+            d.pop(owner, None)
+
+    # -- read surfaces -----------------------------------------------------
+
+    def tail(self, n: int = 256) -> List[Dict[str, Any]]:
+        """The most recent ``n`` events, oldest first (JSON-safe —
+        what the flight bundle and the ``capacity`` op carry). Conn
+        threads read this while the engine appends; retry the benign
+        mutation-during-copy race (the health-op discipline)."""
+        if n <= 0:
+            return []
+        for _ in range(3):
+            try:
+                return list(self.ring)[-n:]
+            except RuntimeError:
+                continue
+        return []
+
+    def history(self, page: int) -> List[Dict[str, Any]]:
+        """The retained event history of one page, oldest first."""
+        h = self._page_hist.get(int(page))
+        return list(h) if h is not None else []
+
+    def history_for_owner(self, owner: Hashable
+                          ) -> List[Dict[str, Any]]:
+        """Ring events that name ``owner`` (as owner, target, or
+        request context), oldest first — the stall/deadline unwind
+        dump's source."""
+        key = _fmt_owner(owner)
+        return [r for r in self.ring
+                if r.get("owner") == key or r.get("to") == key
+                or r.get("req") == key]
+
+    def stats(self) -> Dict[str, Any]:
+        for _ in range(3):  # scrape-thread reads vs engine appends
+            try:
+                by_kind = dict(self.events_by_kind)
+                break
+            except RuntimeError:
+                by_kind = {}
+        return {"events_total": self.seq,
+                "ring": len(self.ring),
+                "capacity": self.capacity,
+                "dropped_total": self.dropped_total,
+                "by_kind": by_kind,
+                "live_owners": len(self._live),
+                "reserved_owners": len(self._reserved)}
+
+    # -- forensics ---------------------------------------------------------
+
+    def forensics(self, owned: Dict[Hashable, Sequence[int]],
+                  reserved: Dict[Hashable, int],
+                  max_pages: int = 16) -> str:
+        """Human-readable ownership history for dangling pages — what
+        ``check_no_leak`` appends to its failure so a leak names the
+        owner chain and last event instead of a count."""
+        lines: List[str] = []
+        shown = 0
+        for owner, pages in owned.items():
+            for p in pages:
+                if shown >= max_pages:
+                    lines.append(f"  ... ({sum(map(len, owned.values())) - shown} more pages)")
+                    return "\n".join(lines)
+                shown += 1
+                hist = self.history(p)
+                if hist:
+                    chain = " -> ".join(
+                        f"#{r['seq']} step {r['step']} {r['ev']} "
+                        f"owner={r['owner']!r}"
+                        + (f"->{r['to']!r}" if "to" in r else "")
+                        + (f" ({r['reason']})" if "reason" in r else "")
+                        for r in hist)
+                else:
+                    chain = "(no retained events)"
+                lines.append(f"  page {int(p)} owned by "
+                             f"{_fmt_owner(owner)!r}: {chain}")
+        for owner, n in reserved.items():
+            lines.append(f"  reservation of {n} page(s) held by "
+                         f"{_fmt_owner(owner)!r}")
+        return "\n".join(lines)
+
+    # -- reconciliation (chaos invariant 5) --------------------------------
+
+    def reconcile(self, allocator=None) -> Dict[str, Any]:
+        """Cross-check the event-derived live shadow against the
+        allocator's actual books: every alloc/reserve must have been
+        matched by a release/free (drained engines), and the shadow's
+        surviving owners (e.g. prefix-cache chains) must agree with
+        the allocator exactly. A mismatch means pages moved outside
+        the recorded event stream — the bug class counters can't
+        localize."""
+        live = {k: v for k, v in self._live.items() if v}
+        res = {k: v for k, v in self._reserved.items() if v}
+        out: Dict[str, Any] = {"enabled": True,
+                               "events_total": self.seq,
+                               "dropped_total": self.dropped_total,
+                               "live_owners": len(live),
+                               "reserved_owners": len(res)}
+        mismatches: List[str] = []
+        if allocator is not None:
+            actual = {o: len(p) for o, p in
+                      allocator.owners().items()}
+            for o in set(live) | set(actual):
+                if live.get(o, 0) != actual.get(o, 0):
+                    mismatches.append(
+                        f"owner {_fmt_owner(o)!r}: ledger "
+                        f"{live.get(o, 0)} != allocator "
+                        f"{actual.get(o, 0)} pages")
+            act_res = {o: n for o, n in
+                       getattr(allocator, "_reserved", {}).items() if n}
+            for o in set(res) | set(act_res):
+                if res.get(o, 0) != act_res.get(o, 0):
+                    mismatches.append(
+                        f"owner {_fmt_owner(o)!r}: ledger reservation "
+                        f"{res.get(o, 0)} != allocator "
+                        f"{act_res.get(o, 0)}")
+        out["ok"] = not mismatches
+        if mismatches:
+            out["mismatches"] = mismatches[:16]
+        return out
+
+
+def forecast_exhaustion(entries: Sequence[Dict[str, Any]],
+                        alpha: float = 0.3) -> Dict[str, Any]:
+    """EWMA time-to-exhaustion forecast over step-timeline ring
+    deltas: consecutive entries' ``free_pages`` drops per wall second
+    are EWMA-smoothed into a consumption rate; positive rate projects
+    ``free / rate`` seconds to an empty free list. Negative/zero net
+    rate (freeing or steady) forecasts no exhaustion (``tte_s`` None).
+    Pure host math over numbers the ring already records — unit-tested
+    against synthetic entries (tests/test_memory_observer.py)."""
+    ewma: Optional[float] = None
+    prev_t = prev_free = None
+    samples = 0
+    for e in entries:
+        f, t = e.get("free_pages"), e.get("t_us")
+        if f is None or t is None:
+            continue
+        if prev_t is not None:
+            dt = (t - prev_t) / 1e6
+            if dt > 0:
+                rate = (prev_free - f) / dt  # pages consumed per s
+                ewma = (rate if ewma is None
+                        else (1.0 - alpha) * ewma + alpha * rate)
+                samples += 1
+        prev_t, prev_free = t, f
+    out: Dict[str, Any] = {"samples": samples,
+                           "free_pages": prev_free,
+                           "rate_pages_per_s": None, "tte_s": None}
+    if ewma is not None:
+        out["rate_pages_per_s"] = round(float(ewma), 6)
+        if ewma > 1e-9 and prev_free is not None:
+            out["tte_s"] = round(float(prev_free) / float(ewma), 3)
+    return out

@@ -1,0 +1,100 @@
+"""The layers GPT serving needs, in the JAX package's conventions.
+
+- ``Linear`` keeps the JAX layout: weight ``[in, out]``, ``y = x @ W +
+  b`` (``paddle_tpu/distributed/mp_layers.py:128,158``), so checkpoints
+  load without transposes and the tests compare like with like.
+- ``ColumnParallelLinear`` / ``RowParallelLinear`` /
+  ``VocabParallelEmbedding`` are their single-device meaning: a plain
+  ``Linear`` / ``Embedding``. Tensor-parallel serving is not ported yet.
+- ``gelu`` is the tanh form the GPT MLP uses.
+
+Parameters are created on an explicit ``device`` and initialised from an
+explicit ``torch.Generator`` (normal(0, std) weights, zero biases, unit
+layer-norm scales).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _normal(shape, std: float, device, dtype, generator) -> nn.Parameter:
+    w = torch.empty(shape, device=device, dtype=dtype)
+    w.normal_(0.0, std, generator=generator)
+    return nn.Parameter(w)
+
+
+class Linear(nn.Module):
+    """``y = x @ weight + bias`` with ``weight`` of shape ``[in, out]``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 has_bias: bool = True, *, device=None,
+                 dtype=torch.float32, std: float = 0.02,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = _normal((in_features, out_features), std, device,
+                              dtype, generator)
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device,
+                                              dtype=dtype))
+                     if has_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.matmul(x, self.weight)
+        if self.bias is not None:
+            out = out + self.bias
+        return out
+
+
+class ColumnParallelLinear(Linear):
+    """Single-device ColumnParallelLinear: a plain ``Linear``."""
+
+
+class RowParallelLinear(Linear):
+    """Single-device RowParallelLinear: a plain ``Linear``."""
+
+
+class Embedding(nn.Module):
+    """Row lookup into ``weight [num_embeddings, dim]``."""
+
+    def __init__(self, num_embeddings: int, dim: int, *, device=None,
+                 dtype=torch.float32, std: float = 0.02,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = _normal((num_embeddings, dim), std, device, dtype,
+                              generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)
+
+
+class VocabParallelEmbedding(Embedding):
+    """Single-device VocabParallelEmbedding: a plain ``Embedding``."""
+
+
+class LayerNorm(nn.Module):
+    """Layer norm over the last dim with ``weight``/``bias`` named as in
+    the JAX package's checkpoints."""
+
+    def __init__(self, dim: int, epsilon: float = 1e-5, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.weight = nn.Parameter(torch.ones(dim, device=device,
+                                              dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device,
+                                             dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias,
+                            self.epsilon)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate GELU (``paddle_tpu/models/gpt.py:905``)."""
+    return F.gelu(x, approximate="tanh")

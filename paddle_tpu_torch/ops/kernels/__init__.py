@@ -1,0 +1,30 @@
+"""The port's hand-written CUDA kernels and their launch counts.
+
+Each wrapper adds one to its ``launches`` attribute where it launches
+its kernel (never when a CPU tensor sends it to the plain version), so
+a run can show that the main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from .attention import attention_fwd
+from .fused_sample import fused_argmax
+from .paged_attention import decode_out_proj, paged_decode
+
+KERNELS = {
+    "paged_decode": paged_decode,
+    "decode_out_proj": decode_out_proj,
+    "fused_argmax": fused_argmax,
+    "attention_fwd": attention_fwd,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: int(fn.launches) for name, fn in KERNELS.items()}

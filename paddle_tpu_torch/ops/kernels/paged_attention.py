@@ -1,0 +1,202 @@
+"""Ragged paged-attention decode over a block-paged KV pool.
+
+Port of ``paddle_tpu/ops/pallas/paged_attention.py``. Two CUDA kernels
+(``csrc/paged_decode.cu``, ``csrc/decode_out_proj.cu``) with their plain
+PyTorch versions beside them:
+
+- :func:`paged_decode` — single-token decode: each (sequence, head)
+  walks the ``ceil(len/page)`` pages of its page-table row with an online
+  softmax (the TPU's ``_decode_kernel``).
+- :func:`decode_out_proj` — ``ctx @ W + bias`` at decode batch sizes,
+  the epilogue of the TPU's ``_decode_fused_kernel``; on Hopper it is a
+  separate launch right after :func:`paged_decode` (see the source note).
+
+Layouts as in the JAX package: pools ``[P + 1, page, H, D]`` (the last
+page is the scratch page), int8 scales ``[P + 1, page, H]``, page table
+``[B, max_pages]`` int32, lengths ``[B]`` int32 INCLUDING the appended
+query token.
+
+A wrapper takes the plain version only for CPU tensors; for CUDA
+tensors it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+_NEG_INF = -1e30
+DEFAULT_PAGE_SIZE = 64
+
+
+def paged_attention_reference(q, k_pages, v_pages, page_table, seq_lens,
+                              k_scale=None, v_scale=None,
+                              scale: Optional[float] = None,
+                              q_offsets=None):
+    """Dense-gather reference with the kernel's semantics
+    (``paged_attention.py:309-356``). ``q``: [B, Sq, H, D]; the query
+    tokens are the LAST Sq positions of each sequence unless
+    ``q_offsets`` ([B], absolute position of the first query token)
+    says otherwise. Positions past each query's own are masked; fully
+    masked rows return zeros, not NaN."""
+    from ...quantization.quant import dequantize_kv
+    b, sq, h, d = q.shape
+    page = k_pages.shape[1]
+    mp = page_table.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    table = page_table.long()
+
+    def gather(pages, scales):
+        g = pages[table]  # [B, mp, page, H, D]
+        if scales is not None:
+            g = dequantize_kv(g, scales[table], torch.float32)
+        else:
+            g = g.to(torch.float32)
+        return g.reshape(b, mp * page, h, d)
+
+    k = gather(k_pages, k_scale)
+    v = gather(v_pages, v_scale)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k) * scale
+    if q_offsets is None:
+        q_offsets = seq_lens - sq
+    dev = q.device
+    kpos = torch.arange(mp * page, device=dev, dtype=torch.int32)
+    qpos = (q_offsets.to(device=dev, dtype=torch.int32)[:, None]
+            + torch.arange(sq, device=dev, dtype=torch.int32)[None])
+    mask = kpos[None, None, :] <= qpos[:, :, None]  # [B, Sq, T]
+    logits = torch.where(mask[:, None], logits,
+                         torch.tensor(_NEG_INF, device=dev))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)  # noqa: E741
+    out = torch.einsum("bhqk,bkhd->bqhd", p / l.clamp_min(1e-30), v)
+    any_valid = mask.any(-1)  # [B, Sq]
+    out = torch.where(any_valid[..., None, None], out,
+                      torch.zeros((), device=dev))
+    return out.to(q.dtype)
+
+
+def paged_attention_fused_reference(q, k_pages, v_pages, page_table,
+                                    seq_lens, w, bias=None, k_scale=None,
+                                    v_scale=None,
+                                    scale: Optional[float] = None,
+                                    q_offsets=None):
+    """Reference for the fused epilogue: exactly the unfused model math
+    (attention, head-concat reshape, ``x @ W``, bias add) in one op, so
+    fused and unfused greedy decoding agree bit for bit on the CPU."""
+    ctx = paged_attention_reference(
+        q, k_pages, v_pages, page_table, seq_lens, k_scale=k_scale,
+        v_scale=v_scale, scale=scale, q_offsets=q_offsets)
+    b, sq, h, d = ctx.shape
+    out = torch.matmul(ctx.reshape(b, sq, h * d), w)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def paged_attention_supported(q_shape, kp_shape) -> bool:
+    """The JAX package's shape gate for the page-walk kernel
+    (``paged_attention.py:465-478``): single-token decode over head
+    groups that tile 128 lanes. Other shapes (ragged prefill chunks, odd
+    head widths) take the reference, as on the TPU."""
+    b, sq, h, d = q_shape
+    page = kp_shape[1]
+    return (sq == 1 and d in (64, 128) and (h * d) % 128 == 0 and
+            page % 8 == 0)
+
+
+def fused_epilogue_supported(q_shape, kp_shape, w_shape) -> bool:
+    """:func:`paged_attention_supported` plus a projection whose input
+    width is the head concat. The TPU gate also capped ``W`` at 8 MB to
+    keep it resident in VMEM (``paged_attention.py:540-557``); that
+    limit is the TPU's alone, and the port's fused path applies at every
+    ``W`` size."""
+    if not paged_attention_supported(q_shape, kp_shape):
+        return False
+    e_in, e_out = w_shape
+    _, _, h, d = q_shape
+    return e_in == h * d and e_out % 128 == 0
+
+
+def paged_decode(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
+                 v_scale=None, scale: Optional[float] = None):
+    """Single-token paged attention: ``q`` [B, H, D] -> context
+    [B, H, D] in ``q.dtype``. CPU tensors take the plain version."""
+    b, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return paged_attention_reference(
+            q.reshape(b, 1, h, d), k_pages, v_pages, page_table, seq_lens,
+            k_scale=k_scale, v_scale=v_scale,
+            scale=scale).reshape(b, h, d)
+    quant = k_pages.dtype == torch.int8
+    if quant != (k_scale is not None) or (k_scale is None) != (v_scale is
+                                                                None):
+        raise ValueError("paged_decode: int8 pools need k_scale and "
+                         "v_scale, float pools take neither")
+    dev = _build.require_cuda("paged_decode", q, k_pages, v_pages, k_scale,
+                              v_scale, page_table, seq_lens)
+    if page_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError("paged_decode: page_table and seq_lens must be "
+                        "int32")
+    if d > 256 or k_pages.shape[2:] != (h, d) or \
+            v_pages.shape != k_pages.shape:
+        raise ValueError(f"paged_decode: pools {tuple(k_pages.shape)} do "
+                         f"not match q {tuple(q.shape)} (D <= 256)")
+    qc = _build.dtype_code(q, "paged_decode q")
+    kc = _build.dtype_code(k_pages, "paged_decode pages",
+                           (torch.float32, torch.bfloat16, torch.int8))
+    out = torch.empty_like(q)
+    err = _build.lib().pt_paged_decode(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        _build.ptr(k_scale), _build.ptr(v_scale), page_table.data_ptr(),
+        seq_lens.data_ptr(), out.data_ptr(), b, h, d, k_pages.shape[1],
+        page_table.shape[1], qc, kc, float(scale), _build.stream(dev))
+    _build.check(err, "paged_decode")
+    paged_decode.launches += 1
+    return out
+
+
+paged_decode.launches = 0
+
+
+def decode_out_proj_reference(ctx, w, bias=None):
+    """``ctx [B, E] @ w [E, E_out] + bias`` in ``ctx.dtype``."""
+    out = torch.matmul(ctx, w.to(ctx.dtype))
+    if bias is not None:
+        out = out + bias.to(ctx.dtype)
+    return out
+
+
+def decode_out_proj(ctx, w, bias=None):
+    """Skinny decode projection ``[B, E] x [E, E_out]`` (+ bias) with f32
+    accumulation. CPU tensors take the plain version."""
+    if ctx.device.type == "cpu":
+        return decode_out_proj_reference(ctx, w, bias)
+    dev = _build.require_cuda("decode_out_proj", ctx, w, bias)
+    b, k = ctx.shape
+    k_w, n = w.shape
+    if k_w != k or (bias is not None and bias.shape != (n,)):
+        raise ValueError(f"decode_out_proj: ctx {tuple(ctx.shape)}, w "
+                         f"{tuple(w.shape)}, bias "
+                         f"{None if bias is None else tuple(bias.shape)}")
+    if bias is not None and bias.dtype != w.dtype:
+        raise TypeError("decode_out_proj: bias must have w's dtype")
+    ac = _build.dtype_code(ctx, "decode_out_proj ctx")
+    wc = _build.dtype_code(w, "decode_out_proj w")
+    out = torch.empty((b, n), device=dev, dtype=ctx.dtype)
+    err = _build.lib().pt_decode_out_proj(
+        ctx.data_ptr(), w.data_ptr(), _build.ptr(bias), out.data_ptr(),
+        b, k, n, ac, wc, int(bias is not None), _build.stream(dev))
+    _build.check(err, "decode_out_proj")
+    decode_out_proj.launches += 1
+    return out
+
+
+decode_out_proj.launches = 0

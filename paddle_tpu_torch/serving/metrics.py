@@ -1,0 +1,749 @@
+"""Per-request serving observability.
+
+Aggregates the engine's `RequestStats` records (admit time, prefill
+ms, first-token time, tokens emitted — continuous_batching.py) into
+TTFT / TPOT / queue-delay histograms plus cache-hit and shed counters,
+and exports both as a Prometheus-style text page. Counters live in
+core/monitor.py's process-global ``StatRegistry`` (the reference's
+StatValue/StatRegistry monitor), so any other subsystem's stats ride
+the same export.
+
+This is the fix for the "which number is the framework" ambiguity
+(VERDICT weak #5) at per-request granularity: TTFT (submit → first
+token, queueing included) and TPOT (steady decode cadence) are
+separate distributions instead of one blended wall-clock figure.
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+from bisect import bisect_left
+from collections import deque
+from typing import Dict, List, Optional, Sequence
+
+from ..core.monitor import GLOBAL_STATS, StatRegistry
+
+__all__ = ["Histogram", "ServingMetrics", "SLOAttainment",
+           "merge_exports", "quantile_from_buckets", "export_snapshot",
+           "attainment_from_export"]
+
+# log-ish spaced latency buckets (ms): sub-ms CPU-smoke prefills up to
+# multi-second chip TTFTs land in distinct buckets
+DEFAULT_MS_BUCKETS = (0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50, 100,
+                      250, 500, 1000, 2500, 5000, 10000)
+
+# speculative-decoding distributions: acceptance rate is a ratio in
+# [0, 1]; tokens-per-step lives in [1, k+1] (1 = speculation bought
+# nothing, k+1 = every draft accepted)
+RATIO_BUCKETS = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9,
+                 0.95, 1.0)
+TOKENS_PER_STEP_BUCKETS = (1.0, 1.25, 1.5, 2.0, 2.5, 3.0, 4.0, 5.0,
+                           6.0, 8.0, 12.0, 16.0)
+
+# chunked prefill (r11): per-request prefill launch counts. 1 = whole
+# prefill (or a prompt that fits one chunk); an 8k prompt at a
+# 256-token chunk lands at 32.
+CHUNK_COUNT_BUCKETS = (1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0,
+                       24.0, 32.0, 48.0, 64.0)
+
+# memory observatory (r18): per-request peak private page holdings —
+# page-count scale (a 64-page request at page 64 is a 4k-token context)
+PAGE_COUNT_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0,
+                      256.0, 512.0)
+
+# multi-step decode (r19): decode steps executed per macro launch —
+# lives in [1, multi_step]; below-N buckets show early EOS exits
+STEPS_PER_LAUNCH_BUCKETS = (1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0,
+                            24.0, 32.0, 48.0, 64.0)
+
+
+class Histogram:
+    """Fixed-bucket latency histogram with quantiles over a bounded
+    uniform RESERVOIR of all observations (replace-with-probability
+    n/i, so late traffic keeps entering the sample and quantiles track
+    a live regression instead of freezing on warm-up-era values); the
+    buckets stay exact forever."""
+
+    def __init__(self, name: str,
+                 buckets: Sequence[float] = DEFAULT_MS_BUCKETS,
+                 max_samples: int = 65536):
+        self.name = name
+        self.buckets = tuple(sorted(float(b) for b in buckets))
+        self.counts = [0] * (len(self.buckets) + 1)  # last = +Inf
+        self.total = 0
+        self.sum = 0.0
+        self._samples: List[float] = []
+        self._max_samples = int(max_samples)
+        self._resv_rng = random.Random(0)  # deterministic reservoir
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        with self._lock:
+            self.counts[bisect_left(self.buckets, v)] += 1
+            self.total += 1
+            self.sum += v
+            if len(self._samples) < self._max_samples:
+                self._samples.append(v)
+            else:
+                j = self._resv_rng.randrange(self.total)
+                if j < self._max_samples:
+                    self._samples[j] = v
+
+    def percentile(self, p: float) -> Optional[float]:
+        """Exact percentile over the retained samples (None if empty)."""
+        with self._lock:
+            if not self._samples:
+                return None
+            s = sorted(self._samples)
+            idx = min(len(s) - 1, max(0, round(p / 100 * (len(s) - 1))))
+            return s[idx]
+
+    def snapshot(self) -> Dict[str, Optional[float]]:
+        with self._lock:
+            n = self.total
+            mean = self.sum / n if n else None
+        return {"count": n, "mean": mean,
+                "p50": self.percentile(50), "p90": self.percentile(90),
+                "p99": self.percentile(99)}
+
+    def prometheus_lines(self) -> List[str]:
+        """Cumulative-bucket text exposition (histogram type)."""
+        name = self.name.replace(".", "_")
+        out = [f"# TYPE {name} histogram"]
+        with self._lock:
+            acc = 0
+            for le, c in zip(self.buckets, self.counts):
+                acc += c
+                out.append(f'{name}_bucket{{le="{le:g}"}} {acc}')
+            acc += self.counts[-1]
+            out.append(f'{name}_bucket{{le="+Inf"}} {acc}')
+            out.append(f"{name}_sum {self.sum:g}")
+            out.append(f"{name}_count {self.total}")
+        return out
+
+    # -- fleet telemetry (r17) ---------------------------------------------
+
+    def export(self) -> Dict:
+        """Wire-friendly exact state: per-bucket (NON-cumulative)
+        counts with the last slot the +Inf overflow, plus sum/total.
+        The fixed ladder makes replica exports MERGEABLE bucket-exactly
+        (``merge_exports``); the reservoir is deliberately excluded —
+        samples don't merge, fleet quantiles come from the buckets."""
+        with self._lock:
+            return {"name": self.name.replace(".", "_"),
+                    "buckets": list(self.buckets),
+                    "counts": list(self.counts),
+                    "sum": self.sum, "total": self.total}
+
+
+def merge_exports(exports: Sequence[Dict]) -> Dict:
+    """Fold N ``Histogram.export()`` dicts (same bucket ladder) into
+    one bucket-exact fleet export: counts sum element-wise, sum/total
+    add. The merged ``_count``/``_sum``/``_bucket`` therefore equal
+    the sums of the replica exports exactly — the fleet-rollup
+    invariant the tests pin. Raises ValueError on a ladder mismatch
+    (merging histograms measured in different buckets would silently
+    misattribute mass)."""
+    exports = [e for e in exports if e]
+    if not exports:
+        return {"name": "empty", "buckets": [], "counts": [0],
+                "sum": 0.0, "total": 0}
+    base = exports[0]
+    buckets = list(base["buckets"])
+    counts = [0] * (len(buckets) + 1)
+    total, total_sum = 0, 0.0
+    name = base.get("name", "merged")
+    for e in exports:
+        if list(e["buckets"]) != buckets:
+            raise ValueError(
+                f"bucket ladder mismatch merging {e.get('name')!r}: "
+                f"{e['buckets']} != {buckets}")
+        if len(e["counts"]) != len(counts):
+            raise ValueError(
+                f"count vector length {len(e['counts'])} != "
+                f"{len(counts)} for {e.get('name')!r}")
+        for i, c in enumerate(e["counts"]):
+            counts[i] += int(c)
+        total += int(e["total"])
+        total_sum += float(e["sum"])
+    return {"name": name, "buckets": buckets, "counts": counts,
+            "sum": total_sum, "total": total}
+
+
+def quantile_from_buckets(export: Dict, p: float) -> Optional[float]:
+    """Interpolated quantile from an export's bucket counts (the
+    prometheus ``histogram_quantile`` estimator): walk the cumulative
+    counts to the target rank and interpolate linearly inside the
+    containing bucket. The +Inf bucket clamps to the highest finite
+    edge (there is no upper bound to interpolate toward). This is the
+    FLEET quantile path — replica reservoirs don't merge, fixed
+    buckets do — so it trades exactness for mergeability; on one
+    replica it must land within a bucket width of the reservoir
+    quantile (pinned by tests)."""
+    total = int(export.get("total", 0))
+    if total <= 0:
+        return None
+    buckets = export["buckets"]
+    counts = export["counts"]
+    target = (p / 100.0) * total
+    acc = 0.0
+    for i, c in enumerate(counts[:-1]):
+        prev_acc = acc
+        acc += c
+        if acc >= target and c > 0:
+            lo = buckets[i - 1] if i > 0 else 0.0
+            hi = buckets[i]
+            return lo + (hi - lo) * (target - prev_acc) / c
+    # rank lands in the +Inf overflow bucket: no finite upper bound
+    return float(buckets[-1]) if buckets else None
+
+
+def export_snapshot(export: Dict) -> Dict[str, Optional[float]]:
+    """Bucket-derived snapshot of an export (fleet rollups: same shape
+    as ``Histogram.snapshot`` but quantiles interpolated, not
+    reservoir-exact)."""
+    n = int(export.get("total", 0))
+    return {"count": n,
+            "mean": (export["sum"] / n) if n else None,
+            "p50": quantile_from_buckets(export, 50),
+            "p90": quantile_from_buckets(export, 90),
+            "p99": quantile_from_buckets(export, 99)}
+
+
+# priority-int -> class-name mapping (serving/scheduler.py Priority);
+# kept here as plain ints so metrics never imports the scheduler
+_CLASS_NAMES = {0: "batch", 1: "normal", 2: "interactive"}
+
+
+class SLOAttainment:
+    """Live SLO-attainment tracker (r17 fleet telemetry): the rolling-
+    window fraction of finished requests whose TTFT/TPOT met the
+    configured targets, per priority class — computed ONLINE from the
+    same lifecycle markers (submit/first-token/finish) the goodput
+    bench reads from traces, so the live gauge and the trace-computed
+    attainment must agree (the fleet_goodput bench pins ±0.05).
+
+    Targets are optional (``None`` = that dimension always counts as
+    met); ``window_s`` bounds memory AND recency — an autoscaler wants
+    the last minute, not the process lifetime. ``observe`` runs on the
+    engine thread inside ``observe_request``; export/attainment can run
+    on scrape threads, hence the lock. Window entries are per finished
+    request (one small tuple), pruned lazily at observe/read time.
+
+    Merging: ``export()`` carries per-class (total, ttft_met,
+    tpot_met, met) COUNTS over the window — counts sum across
+    replicas, so the fleet attainment is exact over the union window
+    (fleet_metrics.merge_slo_exports)."""
+
+    def __init__(self, ttft_ms: Optional[float] = None,
+                 tpot_ms: Optional[float] = None,
+                 window_s: float = 120.0,
+                 max_events: int = 65536):
+        self.ttft_ms = None if ttft_ms is None else float(ttft_ms)
+        self.tpot_ms = None if tpot_ms is None else float(tpot_ms)
+        self.window_s = float(window_s)
+        # (t, class_name, ttft_met, tpot_met) per finished request.
+        # maxlen caps memory AND the export()-walk cost at sustained
+        # high request rates (oldest events drop first — attainment
+        # then covers the most recent max_events inside the window,
+        # which is the recency an autoscaler wants anyway)
+        self._events: "deque" = deque(maxlen=max(1, int(max_events)))
+        self._lock = threading.Lock()
+
+    @property
+    def configured(self) -> bool:
+        return self.ttft_ms is not None or self.tpot_ms is not None
+
+    def set_targets(self, ttft_ms: Optional[float],
+                    tpot_ms: Optional[float]) -> None:
+        """Retarget at runtime (the server's ``slo`` op — calibration
+        without a replica restart). Resets the window: attainment
+        against old targets is not attainment against new ones."""
+        with self._lock:
+            self.ttft_ms = None if ttft_ms is None else float(ttft_ms)
+            self.tpot_ms = None if tpot_ms is None else float(tpot_ms)
+            self._events.clear()
+
+    def _prune(self, now: float) -> None:
+        horizon = now - self.window_s
+        while self._events and self._events[0][0] < horizon:
+            self._events.popleft()
+
+    def observe(self, priority: int, ttft_s: Optional[float],
+                tpot_s: Optional[float],
+                now: Optional[float] = None) -> None:
+        """One finished request's markers. A missing marker counts as
+        MET for its dimension (a 1-token request has no TPOT; a
+        request that produced no token never reaches here — terminal
+        non-done states are not attainment inputs, matching the trace
+        path which skips traces without lifecycle markers)."""
+        now = time.monotonic() if now is None else now
+        ttft_met = (self.ttft_ms is None or ttft_s is None
+                    or ttft_s * 1e3 <= self.ttft_ms)
+        tpot_met = (self.tpot_ms is None or tpot_s is None
+                    or tpot_s * 1e3 <= self.tpot_ms)
+        cls = _CLASS_NAMES.get(int(priority), "normal")
+        with self._lock:
+            self._events.append((now, cls, ttft_met, tpot_met))
+            self._prune(now)
+
+    def export(self, now: Optional[float] = None) -> Dict:
+        """Wire form: per-class met/total counts over the window plus
+        the targets (the fleet collector checks replicas agree)."""
+        now = time.monotonic() if now is None else now
+        classes: Dict[str, Dict[str, int]] = {}
+        with self._lock:
+            self._prune(now)
+            for _t, cls, ttft_met, tpot_met in self._events:
+                c = classes.setdefault(
+                    cls, {"total": 0, "ttft_met": 0, "tpot_met": 0,
+                          "met": 0})
+                c["total"] += 1
+                c["ttft_met"] += ttft_met
+                c["tpot_met"] += tpot_met
+                c["met"] += ttft_met and tpot_met
+        return {"ttft_ms": self.ttft_ms, "tpot_ms": self.tpot_ms,
+                "window_s": self.window_s, "classes": classes}
+
+    def attainment(self) -> Dict[str, Optional[float]]:
+        """Per-class attained fraction over the window (None = no
+        finished requests in the window), plus an "all" rollup."""
+        return attainment_from_export(self.export())
+
+
+def attainment_from_export(slo_export: Dict
+                           ) -> Dict[str, Optional[float]]:
+    """Per-class + "all" attainment fractions from an ``SLOAttainment``
+    export (replica-local or fleet-merged — counts are counts)."""
+    out: Dict[str, Optional[float]] = {}
+    tot = met = 0
+    for cls, c in (slo_export.get("classes") or {}).items():
+        out[cls] = (c["met"] / c["total"]) if c["total"] else None
+        tot += c["total"]
+        met += c["met"]
+    out["all"] = (met / tot) if tot else None
+    return out
+
+
+class ServingMetrics:
+    """The serving layer's stat surface.
+
+    ``observe_request`` consumes a finished `DecodeRequest` (any
+    terminal state) from the engine's ``on_complete`` hook; counters
+    land in the shared StatRegistry under ``serving.*`` names so
+    ``GLOBAL_STATS.snapshot()`` sees them too."""
+
+    COUNTERS = ("requests_total", "tokens_generated_total",
+                "cache_hit_pages_total", "cache_miss_pages_total",
+                "cache_hit_requests_total", "shed_total",
+                "rejected_total", "evicted_total", "failed_total",
+                "prefill_retries_total", "engine_errors_total",
+                "spec_drafted_total", "spec_accepted_total",
+                # crash-safe serving (r9): resurrection + typed-evict
+                # accounting
+                "engine_restarts_total", "replayed_requests_total",
+                "engine_teardown_leaks_total",
+                "engine_resurrect_failures_total",
+                "deadline_exceeded_total", "stalled_total",
+                "net_recv_drops_total",
+                # chunked prefill (r11): prefill launches across every
+                # terminal state (a deadline-evicted half-prefill's
+                # chunks were still compute spent). NOT named
+                # prefill_chunks_total: OpenMetrics reserves the
+                # _total suffix for counter families, which would
+                # collide with the serving_prefill_chunks HISTOGRAM
+                # family on strict parsers.
+                "prefill_chunk_launches_total",
+                # hierarchical prefix cache (r15): per-tier hit split —
+                # cache_hit_pages_total stays TOTAL reuse (device +
+                # restored), these break out the spill-tier share —
+                # plus the typed corrupt-blob fallback count
+                "cache_host_hit_pages_total",
+                "cache_disk_hit_pages_total",
+                "cache_restored_pages_total",
+                "cache_restore_corrupt_total",
+                # end-to-end tracing (r16): sampling/ring accounting —
+                # synced from the SpanTracer's lifetime counters at
+                # scrape time (tracer counts are monotonic, so the
+                # counter contract holds)
+                "traces_sampled_total", "traces_finished_total",
+                "trace_spans_dropped_total",
+                # multi-step decode (r19): macro launches — synced
+                # from the engine's lifetime macro_launches counter at
+                # scrape time (monotonic across resurrections is NOT
+                # guaranteed engine-side, so the server accumulates)
+                "macro_steps_total",
+                # disaggregated serving (r20): cross-replica KV
+                # handoff accounting — pages spliced from wire-fetched
+                # blobs, bytes pulled over fetch_pages, and fetch
+                # failures (each one a counted fall-back to local
+                # prefill, never a hang)
+                "handoff_pages_total", "handoff_bytes_total",
+                "handoff_failures_total",
+                # weight hot-swap (r24): swap outcomes — three flat
+                # registry counters, rendered in the exposition as ONE
+                # labeled weight_swaps_total{outcome=...} family — plus
+                # cross-generation fetch/prefetch hints skipped typed
+                # (a generation-mismatched peer page is never spliced)
+                "weight_swaps_committed_total",
+                "weight_swaps_rolled_back_total",
+                "weight_swaps_failed_total",
+                "cross_generation_skips_total")
+
+    # outcome labels for the weight_swaps_total family; index-aligned
+    # with the weight_swaps_*_total counters above
+    SWAP_OUTCOMES = ("committed", "rolled_back", "failed")
+
+    def __init__(self, registry: Optional[StatRegistry] = None,
+                 prefix: str = "serving",
+                 slo: Optional[SLOAttainment] = None):
+        self.registry = registry if registry is not None else GLOBAL_STATS
+        self.prefix = prefix
+        # live SLO monitor (r17): always present so export()/the slo
+        # op have a stable surface; without targets it tracks nothing
+        # binding (every request counts as met) and exports no gauges
+        self.slo = slo if slo is not None else SLOAttainment()
+        # live gauge source (engine occupancy): a callable returning
+        # {name: value}, sampled at scrape time — the server wires
+        # in-flight slots / free vs reserved pages / prefix-cache
+        # residency through this
+        self._gauge_fn = None
+        self.ttft_ms = Histogram(f"{prefix}.ttft_ms")
+        self.tpot_ms = Histogram(f"{prefix}.tpot_ms")
+        self.queue_delay_ms = Histogram(f"{prefix}.queue_delay_ms")
+        self.prefill_ms = Histogram(f"{prefix}.prefill_ms")
+        self.e2e_ms = Histogram(f"{prefix}.e2e_ms")
+        # speculative decoding: per-request acceptance rate and decode
+        # tokens per verify step (both ride the Prometheus export)
+        self.spec_accept_rate = Histogram(
+            f"{prefix}.spec_accept_rate", buckets=RATIO_BUCKETS)
+        self.spec_tokens_per_step = Histogram(
+            f"{prefix}.spec_tokens_per_step",
+            buckets=TOKENS_PER_STEP_BUCKETS)
+        # chunked prefill (r11): launches per request and per-chunk
+        # latency (total prefill_ms / chunks — the fixed chunk bucket
+        # makes the mean representative)
+        self.prefill_chunks = Histogram(
+            f"{prefix}.prefill_chunks", buckets=CHUNK_COUNT_BUCKETS)
+        self.prefill_chunk_ms = Histogram(
+            f"{prefix}.prefill_chunk_ms")
+        # hierarchical prefix cache (r15): wall time of the spill-tier
+        # restore at admission (device_put + page-table splice) — the
+        # number that must sit well under the prefill it replaces
+        self.restore_ms = Histogram(f"{prefix}.restore_ms")
+        # step timeline (r16): whole-engine-step wall time, fed from
+        # the engine's ring-buffer deltas at scrape time (the server
+        # tracks which steps it has already observed)
+        self.step_ms = Histogram(f"{prefix}.step_ms")
+        # memory observatory (r18): per-request peak page attribution
+        # from the engine's ledger-era RequestStats (every terminal
+        # state that held pages contributes — an evicted request's
+        # footprint was still capacity spent)
+        self.request_peak_pages = Histogram(
+            f"{prefix}.request_peak_pages", buckets=PAGE_COUNT_BUCKETS)
+        # multi-step decode (r19): decode steps per macro launch
+        # (early-EOS exits land under N) and host time spent BLOCKED
+        # on a macro drain (0-ish = the overlap worked: the device
+        # finished while the host ran the serving loop) — both fed
+        # from step-timeline macro records at scrape time, like
+        # step_ms
+        self.steps_per_launch = Histogram(
+            f"{prefix}.steps_per_launch",
+            buckets=STEPS_PER_LAUNCH_BUCKETS)
+        self.host_overlap_idle_ms = Histogram(
+            f"{prefix}.host_overlap_idle_ms")
+        # disaggregated serving (r20): wall time of the fetch_pages
+        # RPC a decode replica's connection thread spent pulling a
+        # request's chain from a peer (the number that must sit well
+        # under the prefill it replaces, like restore_ms one wire hop
+        # out)
+        self.handoff_ms = Histogram(f"{prefix}.handoff_ms")
+        # weight hot-swap (r24): wall time of the engine-side apply
+        # (validate + set_state_dict + identity-cache refresh + cache
+        # re-salt) — the pause a roll's clients actually feel
+        self.swap_ms = Histogram(f"{prefix}.swap_ms")
+
+    def counter(self, name: str):
+        return self.registry.get(f"{self.prefix}.{name}")
+
+    def reset(self) -> None:
+        """Zero the serving counters (tests); histograms are rebuilt."""
+        for c in self.COUNTERS:
+            self.counter(c).reset()
+        self.slo.set_targets(self.slo.ttft_ms, self.slo.tpot_ms)
+        for h in ("ttft_ms", "tpot_ms", "queue_delay_ms", "prefill_ms",
+                  "e2e_ms"):
+            setattr(self, h, Histogram(f"{self.prefix}.{h}"))
+        self.spec_accept_rate = Histogram(
+            f"{self.prefix}.spec_accept_rate", buckets=RATIO_BUCKETS)
+        self.spec_tokens_per_step = Histogram(
+            f"{self.prefix}.spec_tokens_per_step",
+            buckets=TOKENS_PER_STEP_BUCKETS)
+        self.prefill_chunks = Histogram(
+            f"{self.prefix}.prefill_chunks",
+            buckets=CHUNK_COUNT_BUCKETS)
+        self.prefill_chunk_ms = Histogram(
+            f"{self.prefix}.prefill_chunk_ms")
+        self.restore_ms = Histogram(f"{self.prefix}.restore_ms")
+        self.step_ms = Histogram(f"{self.prefix}.step_ms")
+        self.request_peak_pages = Histogram(
+            f"{self.prefix}.request_peak_pages",
+            buckets=PAGE_COUNT_BUCKETS)
+        self.steps_per_launch = Histogram(
+            f"{self.prefix}.steps_per_launch",
+            buckets=STEPS_PER_LAUNCH_BUCKETS)
+        self.host_overlap_idle_ms = Histogram(
+            f"{self.prefix}.host_overlap_idle_ms")
+        self.handoff_ms = Histogram(f"{self.prefix}.handoff_ms")
+        self.swap_ms = Histogram(f"{self.prefix}.swap_ms")
+
+    # -- ingestion ---------------------------------------------------------
+
+    def set_gauge_fn(self, fn) -> None:
+        """Install the occupancy-gauge source (None disables)."""
+        self._gauge_fn = fn
+
+    def gauges(self) -> Dict[str, float]:
+        """Sample the gauge source (empty when unset or failing — a
+        scrape must never die because the engine is mid-swap)."""
+        if self._gauge_fn is None:
+            return {}
+        try:
+            return {str(k): float(v)
+                    for k, v in self._gauge_fn().items()}
+        except Exception:
+            return {}
+
+    def observe_request(self, req) -> None:
+        """Terminal-state hook (engine ``on_complete``)."""
+        st = req.stats
+        self.counter("requests_total").add()
+        if st.prefill_chunks:
+            # counted for EVERY terminal state: chunks launched for a
+            # later-evicted request were still compute spent (the
+            # chunk histograms below stay done-requests-only so they
+            # describe complete prefills)
+            self.counter("prefill_chunk_launches_total").add(
+                st.prefill_chunks)
+        if st.restored_pages or st.restore_corrupt:
+            # spill-tier restore work happened at admission, so it is
+            # counted for every terminal state too (r15)
+            self.counter("cache_restored_pages_total").add(
+                st.restored_pages)
+            if st.restored_host_pages:
+                self.counter("cache_host_hit_pages_total").add(
+                    st.restored_host_pages)
+            if st.restored_disk_pages:
+                self.counter("cache_disk_hit_pages_total").add(
+                    st.restored_disk_pages)
+            if st.restore_corrupt:
+                self.counter("cache_restore_corrupt_total").add(
+                    st.restore_corrupt)
+            if st.restore_ms:
+                self.restore_ms.observe(st.restore_ms)
+        if getattr(st, "peak_pages", 0):
+            # any terminal state: pages held by a later-evicted
+            # request were still pool capacity spent (r18)
+            self.request_peak_pages.observe(st.peak_pages)
+        if getattr(st, "handoff_pages", 0) or \
+                getattr(st, "handoff_ms", 0.0):
+            # disaggregated handoff (r20): counted for every terminal
+            # state — the wire fetch and splice happened at admission,
+            # like restore accounting (bytes/failures are counted by
+            # the server at fetch time on the connection thread)
+            self.counter("handoff_pages_total").add(st.handoff_pages)
+            if st.handoff_ms:
+                self.handoff_ms.observe(st.handoff_ms)
+        if req.state == "shed":
+            self.counter("shed_total").add()
+            return
+        if req.state == "evicted":
+            self.counter("evicted_total").add()
+            return
+        if req.state == "deadline":
+            self.counter("deadline_exceeded_total").add()
+            # streamed tokens delivered before expiry still count
+            self.counter("tokens_generated_total").add(st.tokens_out)
+            return
+        if req.state == "stalled":
+            self.counter("stalled_total").add()
+            self.counter("tokens_generated_total").add(st.tokens_out)
+            return
+        if req.state == "failed":
+            self.counter("failed_total").add()
+            if st.prefill_attempts:
+                self.counter("prefill_retries_total").add(
+                    st.prefill_attempts - 1)
+            return
+        self.counter("tokens_generated_total").add(st.tokens_out)
+        if st.cache_enabled:
+            # hit/miss accounting only when a prefix cache exists — a
+            # cache-less deployment must not read as a 0%-hit cache
+            if st.cached_pages:
+                self.counter("cache_hit_requests_total").add()
+                self.counter("cache_hit_pages_total").add(
+                    st.cached_pages)
+            self.counter("cache_miss_pages_total").add(
+                max(0, st.prompt_pages - st.cached_pages))
+        if st.prefill_attempts > 1:
+            self.counter("prefill_retries_total").add(
+                st.prefill_attempts - 1)
+        if st.first_token_t:
+            # live SLO monitor (r17): a DONE request that produced a
+            # first token is an attainment input — the same lifecycle
+            # markers the goodput bench reads from traces, evaluated
+            # online against the configured targets
+            self.slo.observe(getattr(req, "priority", 1),
+                             st.ttft_s, st.tpot_s)
+        if st.ttft_s is not None:
+            self.ttft_ms.observe(st.ttft_s * 1e3)
+        if st.tpot_s is not None:
+            self.tpot_ms.observe(st.tpot_s * 1e3)
+        if st.queue_delay_s is not None:
+            self.queue_delay_ms.observe(st.queue_delay_s * 1e3)
+        if st.prefill_ms:
+            self.prefill_ms.observe(st.prefill_ms)
+        if st.prefill_chunks:
+            self.prefill_chunks.observe(st.prefill_chunks)
+            if st.prefill_ms:
+                self.prefill_chunk_ms.observe(
+                    st.prefill_ms / st.prefill_chunks)
+        if st.finish_t and st.submit_t:
+            self.e2e_ms.observe((st.finish_t - st.submit_t) * 1e3)
+        if st.spec_steps:
+            self.counter("spec_drafted_total").add(st.spec_drafted)
+            self.counter("spec_accepted_total").add(st.spec_accepted)
+            if st.acceptance_rate is not None:
+                self.spec_accept_rate.observe(st.acceptance_rate)
+            if st.tokens_per_step is not None:
+                self.spec_tokens_per_step.observe(st.tokens_per_step)
+
+    # -- export ------------------------------------------------------------
+
+    def snapshot(self) -> Dict:
+        counters = {c: self.counter(c).get() for c in self.COUNTERS}
+        return {
+            "counters": counters,
+            "gauges": self.gauges(),
+            "ttft_ms": self.ttft_ms.snapshot(),
+            "tpot_ms": self.tpot_ms.snapshot(),
+            "queue_delay_ms": self.queue_delay_ms.snapshot(),
+            "prefill_ms": self.prefill_ms.snapshot(),
+            "e2e_ms": self.e2e_ms.snapshot(),
+            "spec_accept_rate": self.spec_accept_rate.snapshot(),
+            "spec_tokens_per_step":
+                self.spec_tokens_per_step.snapshot(),
+            "prefill_chunks": self.prefill_chunks.snapshot(),
+            "prefill_chunk_ms": self.prefill_chunk_ms.snapshot(),
+            "restore_ms": self.restore_ms.snapshot(),
+            "step_ms": self.step_ms.snapshot(),
+            "request_peak_pages": self.request_peak_pages.snapshot(),
+            "handoff_ms": self.handoff_ms.snapshot(),
+            "swap_ms": self.swap_ms.snapshot(),
+            # live SLO monitor (r17): targets + rolling attainment
+            "slo": {"ttft_ms": self.slo.ttft_ms,
+                    "tpot_ms": self.slo.tpot_ms,
+                    "attainment": self.slo.attainment()},
+        }
+
+    def _histograms(self) -> Dict[str, Histogram]:
+        """Every histogram this surface owns, by attribute name — the
+        one list export()/prometheus_text iterate so a histogram added
+        later can't silently miss either surface."""
+        return {"ttft_ms": self.ttft_ms, "tpot_ms": self.tpot_ms,
+                "queue_delay_ms": self.queue_delay_ms,
+                "prefill_ms": self.prefill_ms, "e2e_ms": self.e2e_ms,
+                "spec_accept_rate": self.spec_accept_rate,
+                "spec_tokens_per_step": self.spec_tokens_per_step,
+                "prefill_chunks": self.prefill_chunks,
+                "prefill_chunk_ms": self.prefill_chunk_ms,
+                "restore_ms": self.restore_ms,
+                "step_ms": self.step_ms,
+                "request_peak_pages": self.request_peak_pages,
+                "steps_per_launch": self.steps_per_launch,
+                "host_overlap_idle_ms": self.host_overlap_idle_ms,
+                "handoff_ms": self.handoff_ms,
+                "swap_ms": self.swap_ms}
+
+    def export(self) -> Dict:
+        """Fleet-telemetry wire form (r17): exact counters, sampled
+        gauges, every histogram's bucket-exact ``export()``, and the
+        SLO monitor's window counts — everything the supervisor-side
+        collector needs, structured, so the fleet plane never parses
+        exposition text. Deliberately excludes reservoirs (don't
+        merge) and traces (their own op)."""
+        return {"v": 1, "t": time.time(),
+                "prefix": self.prefix,
+                "counters": {c: self.counter(c).get()
+                             for c in self.COUNTERS},
+                "gauges": self.gauges(),
+                "histograms": {k: h.export()
+                               for k, h in self._histograms().items()},
+                "slo": self.slo.export()}
+
+    def _slo_lines(self) -> List[str]:
+        """``serving_slo_attainment{class=...}`` gauges (plus the
+        targets) — only once targets are configured, so a deployment
+        without SLOs doesn't export a meaningless 1.0."""
+        if not self.slo.configured:
+            return []
+        lines = [f"# TYPE {self.prefix}_slo_attainment gauge"]
+        att = self.slo.attainment()
+        for cls in sorted(att):
+            v = att[cls]
+            if v is not None:
+                lines.append(
+                    f'{self.prefix}_slo_attainment{{class="{cls}"}} '
+                    f"{v:g}")
+        for dim, target in (("ttft", self.slo.ttft_ms),
+                            ("tpot", self.slo.tpot_ms)):
+            if target is not None:
+                gname = f"{self.prefix}_slo_{dim}_target_ms"
+                lines.append(f"# TYPE {gname} gauge")
+                lines.append(f"{gname} {target:g}")
+        return lines
+
+    def _swap_lines(self) -> List[str]:
+        """The ``weight_swaps_total{outcome=...}`` labeled family
+        (r24): the three flat outcome counters rendered as one
+        counter family; the raw per-outcome registry names are
+        suppressed from the generic counter loop so strict parsers
+        see exactly one family."""
+        fam = f"{self.prefix}_weight_swaps_total"
+        lines = [f"# TYPE {fam} counter"]
+        for outcome in self.SWAP_OUTCOMES:
+            v = self.counter(f"weight_swaps_{outcome}_total").get()
+            lines.append(f'{fam}{{outcome="{outcome}"}} {v}')
+        return lines
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition: serving histograms + every
+        counter in the shared registry (``.`` → ``_``)."""
+        # materialize the declared counters so a FRESH server exports
+        # them at 0 (Prometheus convention: absent-until-first-event
+        # counters break rate() and alerting on the scrape side)
+        for c in self.COUNTERS:
+            self.counter(c)
+        lines: List[str] = []
+        for h in self._histograms().values():
+            lines.extend(h.prometheus_lines())
+        lines.extend(self._slo_lines())
+        lines.extend(self._swap_lines())
+        for name, val in sorted(self.gauges().items()):
+            gname = f"{self.prefix}_{name}".replace(".", "_")
+            lines.append(f"# TYPE {gname} gauge")
+            lines.append(f"{gname} {val:g}")
+        # the per-outcome swap counters are already exported above as
+        # the labeled weight_swaps_total family
+        labeled = {f"{self.prefix}.weight_swaps_{o}_total"
+                   for o in self.SWAP_OUTCOMES}
+        for name, val in sorted(self.registry.snapshot().items()):
+            if name in labeled:
+                continue
+            pname = name.replace(".", "_")
+            lines.append(f"# TYPE {pname} counter")
+            lines.append(f"{pname} {val}")
+        return "\n".join(lines) + "\n"

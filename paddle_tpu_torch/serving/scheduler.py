@@ -1,0 +1,253 @@
+"""SLO-aware admission scheduling for the serving layer.
+
+Replaces the engine's built-in blocking FIFO (admit the head or admit
+nothing) with a policy that knows about service classes:
+
+- **Priority classes** (`Priority`): INTERACTIVE > NORMAL > BATCH.
+  Higher classes are admitted first when several requests fit.
+- **Max-queue-delay promotion**: a request that has waited longer than
+  ``promote_after_s`` gains one effective priority level per elapsed
+  interval (capped at INTERACTIVE), so BATCH work cannot wait forever
+  behind a steady INTERACTIVE stream.
+- **Bounded fairness**: admitting a later request over an earlier one
+  increments the earlier request's ``bypass_count``; once any request
+  has been bypassed ``max_bypass`` times it becomes the only admissible
+  candidate until it fits. Long prompts therefore cannot starve short
+  ones (short ones keep flowing while the long one's pages free up),
+  and short ones cannot starve the long head indefinitely (the bypass
+  bound eventually reserves the free list for it).
+- **Overload shedding**: requests queued past ``shed_after_s`` (and,
+  at submit time, beyond ``max_queue`` depth) are rejected with the
+  typed `ServerOverloaded` — the server turns it into a structured
+  error reply instead of an ever-growing queue of doomed work.
+- **Chunk-budget policy** (r11 chunked prefill): ``select_chunk``
+  decides whether the engine's per-step prefill budget (one chunk of
+  one half-prefilled slot) runs or yields — INTERACTIVE decode steps
+  preempt lower-class prefill chunks so a BATCH 8k-prompt can't dent
+  interactive TPOT, bounded by ``max_chunk_deferrals`` so the prefill
+  still finishes. ``max_prefill_debt_tokens`` caps each class's
+  in-flight half-prefilled debt at admission (the engine's
+  ``_debt_allows`` gate), so a stream of long prompts can't turn every
+  slot into prefill work at once.
+
+The scheduler is duck-typed against the engine
+(``select(queue, fits, now)`` / ``shed(queue, now)``), so the engine
+stays importable without the serving package.
+
+Reference analog: the multi-stream priority scheduling of the
+reference's serving stack, rebuilt host-side over one jitted step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Callable, List, Optional
+
+__all__ = ["Priority", "SLOConfig", "SLOScheduler", "ServerOverloaded"]
+
+
+class Priority(enum.IntEnum):
+    BATCH = 0
+    NORMAL = 1
+    INTERACTIVE = 2
+
+
+class ServerOverloaded(RuntimeError):
+    """Typed admission rejection: the queue is past its SLO. Carries a
+    client-actionable retry hint; the server serializes it as
+    ``{"error": "ServerOverloaded", "reason": ..., "retry_after_ms":
+    ...}``."""
+
+    def __init__(self, reason: str, retry_after_ms: int = 1000):
+        super().__init__(reason)
+        self.reason = reason
+        self.retry_after_ms = int(retry_after_ms)
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOConfig:
+    # one effective priority level gained per this many seconds queued
+    promote_after_s: float = 1.0
+    # queued longer than this -> shed with ServerOverloaded (None = never)
+    shed_after_s: Optional[float] = 30.0
+    # submit-time depth bound (None = unbounded); checked by the server
+    max_queue: Optional[int] = None
+    # how many times a queued request may be jumped before it becomes
+    # the mandatory next admission
+    max_bypass: int = 4
+    retry_after_ms: int = 1000
+    # chunked prefill (r11): consecutive ENGINE BOUNDARIES a
+    # lower-class prefill chunk may be deferred by higher-class decode
+    # before it runs anyway (the starvation bound of
+    # decode-preempts-prefill). Units are engine step() calls — with
+    # multi-step decode (r19, multi_step=N) each boundary covers up
+    # to N generated tokens, so a deferral budget of 4 means up to
+    # 4*N decode tokens of delay, not 4; TTFT-sensitive deployments
+    # running large N should shrink this accordingly. With the r22
+    # in-program inner loop a GRANT costs decode nothing (the chunks
+    # ride inside the macro launch, one per iteration, instead of
+    # stalling the boundary) and each grant advances up to N chunks,
+    # so deferring is only worth it when the launch itself must stay
+    # small — the default budget is then an upper bound, not a tune.
+    max_chunk_deferrals: int = 4
+    # per-class cap on in-flight half-prefilled debt (tokens) at
+    # admission; None = unbounded. A class with zero in-flight debt is
+    # always admissible (the cap bounds concurrency, never locks a
+    # class out).
+    max_prefill_debt_tokens: Optional[int] = None
+    # disaggregated serving (r20): priority levels granted to a
+    # HANDOFF-BLOCKING prefill job (a prefill-class replica's
+    # prefill_only request — the router is mid-handoff and a decode
+    # replica is literally waiting on the chain, so it must not queue
+    # behind a BATCH backlog). Capped at INTERACTIVE like promotion;
+    # 0 restores the pre-r20 ordering.
+    handoff_boost: int = 1
+
+
+class SLOScheduler:
+    """Admission policy over the engine's wait queue.
+
+    ``select`` returns the queue INDEX to admit next (or None to admit
+    nothing this step); ``shed`` returns the requests to reject. Both
+    run on the engine thread; ``check_admission`` is the submit-time
+    depth gate and may run on server connection threads (it only reads
+    the depth it is handed)."""
+
+    def __init__(self, config: Optional[SLOConfig] = None):
+        self.cfg = config or SLOConfig()
+
+    # -- submit-time gate --------------------------------------------------
+
+    def check_admission(self, queued: int) -> None:
+        cfg = self.cfg
+        if cfg.max_queue is not None and queued >= cfg.max_queue:
+            raise ServerOverloaded(
+                f"queue depth {queued} at max_queue {cfg.max_queue}",
+                retry_after_ms=cfg.retry_after_ms)
+
+    # -- engine hooks ------------------------------------------------------
+
+    def effective_priority(self, req, now: float) -> int:
+        waited = max(0.0, now - req.stats.submit_t)
+        promo = int(waited / self.cfg.promote_after_s) \
+            if self.cfg.promote_after_s > 0 else 0
+        # handoff-blocking prefill jobs (r20) jump handoff_boost
+        # levels: a decode replica is stalled on this chain
+        boost = (self.cfg.handoff_boost
+                 if getattr(req, "handoff", False) else 0)
+        return min(int(Priority.INTERACTIVE),
+                   req.priority + promo + boost)
+
+    def select(self, queue: List, fits: Callable[[object], bool],
+               now: float) -> Optional[int]:
+        if not queue:
+            return None
+        cfg = self.cfg
+        # fairness bound: a request bypassed too often is the only
+        # admissible candidate until it fits
+        starved = [r for r in queue
+                   if r.bypass_count >= cfg.max_bypass]
+        pool = starved if starved else list(queue)
+        # stable order: effective priority desc, then earliest deadline
+        # (requests without one sort last within their class), then
+        # arrival — EDF inside a class so a tight deadline_ms is spent
+        # queueing as little as possible
+        pool.sort(key=lambda r: (
+            -self.effective_priority(r, now),
+            getattr(r, "deadline_t", None)
+            if getattr(r, "deadline_t", None) is not None
+            else float("inf"),
+            r.stats.submit_t))
+        for cand in pool:
+            if fits(cand):
+                return queue.index(cand)
+        return None
+
+    def explain(self, req, now: float) -> dict:
+        """Queue-delay attribution for the tracer (r16): WHY this
+        request waited — its class, any promotion it earned, and how
+        often it was bypassed. Duck-typed: the engine attaches this to
+        the queue span's close when the scheduler provides it."""
+        eff = self.effective_priority(req, now)
+        out = {"priority": int(req.priority),
+               "effective_priority": int(eff),
+               "promoted": bool(eff > req.priority),
+               "waited_ms": round(
+                   max(0.0, now - req.stats.submit_t) * 1e3, 3)}
+        if getattr(req, "handoff", False):
+            out["handoff"] = True  # handoff-blocking prefill (r20)
+        return out
+
+    def note_admitted(self, req, queue: List, now: float) -> None:
+        """Called by the engine AFTER an admission COMMITS: charge one
+        bypass to every earlier-arrived request still queued. Charging
+        here (not in ``select``) keeps a failed/unwound admission from
+        accumulating phantom bypasses that would flip the queue into
+        starved-only mode without any real jump having happened."""
+        for other in queue:
+            if other.stats.submit_t < req.stats.submit_t:
+                other.bypass_count += 1
+
+    def select_chunk(self, partial: List, decoding: List,
+                     now: float) -> Optional[int]:
+        """Chunk-budget policy (r11 chunked prefill), called by the
+        engine once per step: ``partial`` is [(slot, request)] for
+        every half-prefilled slot, ``decoding`` the requests past
+        prefill. Returns the slot whose next chunk should run, or None
+        to yield this step's budget to pure decode.
+
+        INTERACTIVE decode preempts lower-class prefill chunks (the
+        step stays a pure decode step, so interactive TPOT never pays
+        for a BATCH prompt's prefill), but only ``max_chunk_deferrals``
+        times in a row — then the chunk runs regardless, so the long
+        prompt still finishes (the bypass-bound idea applied to the
+        prefill budget). With nothing decoding there is nothing to
+        protect: the top-ranked chunk always runs (the engine relies
+        on this for drain progress).
+
+        Multi-step decode (r19): this hook runs once per BOUNDARY, so
+        under ``multi_step=N`` each deferral costs up to N decode
+        tokens of prefill delay and each granted chunk displaces
+        nothing (the chunk runs at the boundary, outside the macro
+        launch) — the deferral bound is a boundary count, exactly as
+        the deadline gate's estimates are per-launch
+        (``decode_ema_s`` tracks one macro launch there).
+
+        In-program inner loop (r22): a grant now schedules up to N of
+        the slot's CHAINED chunks inside the macro launch itself — the
+        decode batch keeps decoding through the same iterations, so
+        preempting the chunk no longer protects interactive TPOT from
+        a launch stall; it only bounds the launch's extra chunk work.
+        The deadline gate mirrors this by charging ceil(chunks/N)
+        whole launches at ``decode_ema_s`` (in-program units) instead
+        of per-chunk boundary wall time."""
+        if not partial:
+            return None
+        ranked = sorted(partial, key=lambda sr: (
+            -self.effective_priority(sr[1], now),
+            getattr(sr[1], "deadline_t", None)
+            if getattr(sr[1], "deadline_t", None) is not None
+            else float("inf"),
+            sr[1].stats.submit_t))
+        slot, req = ranked[0]
+        if not decoding:
+            req.chunk_deferrals = 0
+            return slot
+        top_decode = max(self.effective_priority(r, now)
+                         for r in decoding)
+        if self.effective_priority(req, now) >= top_decode:
+            req.chunk_deferrals = 0
+            return slot
+        req.chunk_deferrals += 1
+        if req.chunk_deferrals > self.cfg.max_chunk_deferrals:
+            req.chunk_deferrals = 0
+            return slot
+        return None
+
+    def shed(self, queue: List, now: float) -> List:
+        if self.cfg.shed_after_s is None:
+            return []
+        limit = self.cfg.shed_after_s
+        return [r for r in queue
+                if now - r.stats.submit_t > limit]

@@ -1,0 +1,107 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor
+``paddle_tpu``, and its default entry points run on CUDA or raise —
+they never carry on on the CPU by themselves.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "paddle_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_module_of_the_port_imports_jax_or_paddle_tpu(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {sorted(bad)}"
+
+
+def test_package_imports_with_jax_and_paddle_tpu_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'paddle_tpu'):\n"
+        "    sys.modules[name] = None  # any import of them now fails\n"
+        "import paddle_tpu_torch\n"
+        "import paddle_tpu_torch.models.gpt, paddle_tpu_torch.nn.decode\n"
+        "import paddle_tpu_torch.inference, paddle_tpu_torch.serving\n"
+        "import paddle_tpu_torch.serving.server\n"
+        "import paddle_tpu_torch.ops.kernels\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'paddle_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('isolated')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "isolated" in r.stdout
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults run on it")
+
+
+def test_default_entry_points_raise_without_a_gpu():
+    _no_card()
+    from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.inference import create_decode_engine
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny
+    from paddle_tpu_torch.serving.server import ServingServer, main
+    with pytest.raises(RuntimeError, match="no usable GPU"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no usable GPU"):
+        GPTForCausalLM(gpt_tiny())
+    cpu_model = GPTForCausalLM(gpt_tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="no usable GPU"):
+        create_decode_engine(cpu_model)
+    with pytest.raises(RuntimeError, match="no usable GPU"):
+        ServingServer(cpu_model)
+    with pytest.raises(RuntimeError, match="no usable GPU"):
+        main(["--model", "gpt_tiny"])
+
+
+def test_engine_refuses_a_model_on_another_device():
+    from paddle_tpu_torch.inference import create_decode_engine
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny
+    cpu_model = GPTForCausalLM(gpt_tiny(), device="cpu")
+    with pytest.raises(ValueError, match="lives on"):
+        create_decode_engine(cpu_model, device="meta")
+
+
+def test_chip_smoke_fails_without_a_gpu_and_alone(tmp_path):
+    _no_card()
+    script = os.path.join(REPO, "chip_smoke.py")
+    r = subprocess.run([sys.executable, script], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and '"ok": true' not in r.stdout
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(script, lone)
+    r = subprocess.run([sys.executable, str(lone)], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and '"ok": true' not in r.stdout
