@@ -6,22 +6,31 @@ non-zero:
 
 1. device  — ``torch.cuda.is_available()``, the card's name and power
    limit from nvidia-smi, the torch / CUDA versions.
-2. build   — the four CUDA kernels from ``paddle_tpu_torch/csrc`` with
+2. build   — the CUDA kernels from ``paddle_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together).
 3. kernels — each kernel against its plain PyTorch version on the card
-   at the serving path's shapes, with its tolerance; its median time
-   over 20 launches (CUDA events, L2 flushed before each launch), the
-   plain version's, one PyTorch yardstick call's, and the least time
-   the card could take (bytes at 3.35 TB/s or fp32 FMA operations at
-   67 TFLOP/s, whichever is larger).
+   at the serving and training paths' shapes, in fp32 and bf16, with
+   its tolerance; its median time over 20 launches (CUDA events, L2
+   flushed before each launch), the plain version's, one PyTorch
+   yardstick call's, and the least time the card could take (bytes at
+   3.35 TB/s or fp32 FMA operations at 67 TFLOP/s, whichever is
+   larger).
 4. engine  — GPT-1.3B (seed-0 random weights, fp32) through the paged
    continuous-batching engine: the kernel path against the plain path
    on prefill and decode, then 8 requests whose prompts span every
-   prefill bucket, with every kernel's launch count read from that run;
-   then the engine's other two kernel paths (``fused_step=False`` and
-   ``kv_int8``), each against its plain run.
+   prefill bucket, with the serving kernels' launch counts read from
+   that run; then the engine's other two kernel paths
+   (``fused_step=False`` and ``kv_int8``), each against its plain run.
 5. server  — the newline-JSON server on localhost with the same model:
    4 generate requests (2 streaming), health, stats, drain, leak_check.
+6. train   — GPT-1.3B training (fp32, dropout 0, ``AdamW(1e-4)``):
+   one forward+backward at full depth, B=2, S=2048, through the kernels
+   against the plain versions (loss and every parameter's gradient);
+   ``TrainStep.multi_step`` over 6 steps on a repeated batch (losses,
+   ms per step, tokens/s, peak memory, the backward kernels' launch
+   counts) and one step repeated bitwise from one state; then steps at
+   S=512 and S=256 and with remat + chunked loss (4 layers) against
+   their plain steps.
 
 Then a ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -34,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -51,13 +61,25 @@ FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 ATTN_TOL = 1e-4
 PAGED_TOL = 1e-4
 PROJ_TOL = 1e-4
+BWD_TOL = 1e-4
 MODEL_REL_TOL = 1e-3
+# training, kernel path against plain path: the loss within 1e-5
+# relative, every parameter's gradient within 1e-3 relative in L2 norm
+LOSS_REL_TOL = 1e-5
+GRAD_REL_TOL = 1e-3
+TRAIN_LR = 1e-4
 # bf16 storage (f32 accumulation), absolute: about 2.5x the largest
 # error an H100 showed on these seeded inputs (paged_decode 7.6e-6,
-# decode_out_proj 3.9e-3, attention_fwd 2.0e-3); the outputs are
-# rounded to bf16 from f32 sums taken in another order
+# decode_out_proj 3.9e-3, attention_fwd 2.0e-3, attention_bwd_fused
+# 9.8e-4, folded_attention_bwd 2.0e-3); the outputs are rounded to bf16
+# from f32 sums taken in another order. The dQ and dK/dV passes read 0
+# (their sums run in the order of the plain version's GEMMs), so they
+# take the limit of the folded kernel, which computes the same products
+# on the same S=512 inputs
 BF16_ATOL = {"paged_decode": 2e-5, "decode_out_proj": 1e-2,
-             "attention_fwd": 5e-3}
+             "attention_fwd": 5e-3,
+             "attention_bwd_fused": 2.5e-3, "attention_bwd_dq": 5e-3,
+             "attention_bwd_dkv": 5e-3, "folded_attention_bwd": 5e-3}
 
 # (kernel, source, TPU kernel it replaces)
 KERNEL_META = {
@@ -69,7 +91,20 @@ KERNEL_META = {
                      "paddle_tpu/ops/pallas/fused_sample.py:241"),
     "attention_fwd": ("paddle_tpu_torch/csrc/attention_fwd.cu",
                       "paddle_tpu/ops/pallas/flash_attention.py:414"),
+    "attention_bwd_fused": ("paddle_tpu_torch/csrc/attention_bwd.cu",
+                            "paddle_tpu/ops/pallas/flash_attention.py:462"),
+    "attention_bwd_dq": ("paddle_tpu_torch/csrc/attention_bwd.cu",
+                         "paddle_tpu/ops/pallas/flash_attention.py:496"),
+    "attention_bwd_dkv": ("paddle_tpu_torch/csrc/attention_bwd.cu",
+                          "paddle_tpu/ops/pallas/flash_attention.py:515"),
+    "folded_attention_bwd": ("paddle_tpu_torch/csrc/attention_bwd.cu",
+                             "paddle_tpu/ops/pallas/folded_attention.py:176"),
 }
+# the kernels each main path launches; their counts are read from it
+SERVING_KERNELS = ("paged_decode", "decode_out_proj", "fused_argmax",
+                   "attention_fwd")
+TRAINING_KERNELS = ("attention_bwd_fused", "attention_bwd_dq",
+                    "attention_bwd_dkv", "folded_attention_bwd")
 
 
 def emit(obj) -> None:
@@ -393,6 +428,155 @@ def kernels_bf16(torch, dev, gen):
           "max_abs_err": errs, "fused_argmax": "index-exact"})
 
 
+# (label, kernels, B, S, causal, with an lse cotangent); H=16, D=128.
+# The first three are the training path's shapes (GPT-1.3B at B=2).
+BWD_CASES = (
+    ("S=2048 causal", ("attention_bwd_dq", "attention_bwd_dkv"), 2, 2048,
+     True, False),
+    ("S=512 causal", ("attention_bwd_fused",), 2, 512, True, False),
+    ("S=256 causal", ("folded_attention_bwd",), 2, 256, True, False),
+    ("S=512 non-causal", TRAINING_KERNELS, 1, 512, False, False),
+    ("S=512 causal, lse cotangent", ("attention_bwd_fused",
+                                     "attention_bwd_dq",
+                                     "attention_bwd_dkv"), 1, 512, True,
+     True),
+)
+# flops per (query, key) pair and head-dim element: 2 per multiply-add
+# of each product the function needs (S = QK^T, dP = dO V^T, then dQ;
+# dV and dK; all three)
+BWD_FLOPS = {"attention_bwd_dq": 6, "attention_bwd_dkv": 8,
+             "attention_bwd_fused": 10, "folded_attention_bwd": 10}
+# [B, S, H, D] rows read and written, and f32 [B, S, H] rows read
+# (lse, delta), by each function
+BWD_ROWS = {"attention_bwd_dq": (4, 1, 2), "attention_bwd_dkv": (4, 2, 2),
+            "attention_bwd_fused": (4, 3, 2),
+            "folded_attention_bwd": (4, 3, 0)}
+
+
+def _bwd_inputs(torch, gen, dev, B, S, dtype, causal, with_glse,
+                H=16, D=128):
+    """q, k, v as slices of one fused [B, S, 3, H, D] projection (the
+    model's strides), dO, and the flash entries' lse and delta =
+    rowsum(dO*O) - g_lse from the plain forward on the same inputs."""
+    from paddle_tpu_torch.ops.kernels.attention import attention_reference
+    qkv = torch.randn((B, S, 3, H, D), generator=gen, device=dev).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+    out, lse = attention_reference(q, k, v, causal=causal)
+    delta = (do.float() * out.float()).sum(-1)
+    if with_glse:
+        delta = delta - torch.randn((B, S, H), generator=gen, device=dev)
+    return q, k, v, do, lse, delta.contiguous()
+
+
+def _bwd_call(name, q, k, v, do, lse, delta, causal):
+    """The kernel ``name`` and its plain version on the same inputs, as
+    dicts {"dq"/"dk"/"dv": tensor}."""
+    from paddle_tpu_torch.ops.kernels import attention as A
+    if name == "folded_attention_bwd":
+        got = A.folded_attention_bwd(q, k, v, do, causal)
+        want = A.folded_bwd_reference(q, k, v, do, causal)
+        keys = ("dq", "dk", "dv")
+    else:
+        want = A.attention_bwd_reference(q, k, v, do, lse, delta, causal)
+        if name == "attention_bwd_dq":
+            got, keys, want = (A.attention_bwd_dq(q, k, v, do, lse, delta,
+                                                  causal),), ("dq",), want[:1]
+        elif name == "attention_bwd_dkv":
+            got, keys, want = (A.attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                   causal), ("dk", "dv"),
+                               want[1:])
+        else:
+            got = A.attention_bwd_fused(q, k, v, do, lse, delta, causal)
+            keys = ("dq", "dk", "dv")
+    return dict(zip(keys, got)), dict(zip(keys, want))
+
+
+def _sdpa_bwd_ms(torch, timer, q, k, v, do, causal):
+    """The library yardstick: the backward of
+    ``F.scaled_dot_product_attention`` on the same tensors ([B, H, S, D]
+    copies), with the first backend that takes them."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (t.transpose(1, 2).detach().contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=causal)
+            torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        except RuntimeError:
+            continue
+        ms = timer(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True))
+        return ms, backend.name
+    raise AssertionError("no SDPA backend ran the yardstick")
+
+
+def kernel_attention_bwd(torch, timer, dev, gen, records):
+    """The four backward kernels against their plain versions in fp32
+    (atol/rtol ``BWD_TOL``) and bf16 (``BF16_ATOL``, absolute) on
+    ``BWD_CASES``; each run twice must give the same bits (no float
+    atomics). Then each is timed at its training-path shape (the first
+    three cases, fp32)."""
+    errs = {torch.float32: {}, torch.bfloat16: {}}
+    timed = {}
+    for label, names, B, S, causal, with_glse in BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = _bwd_inputs(torch, gen, dev, B, S, dtype, causal,
+                              with_glse)
+            for name in names:
+                got, want = _bwd_call(name, *ins, causal)
+                again, _ = _bwd_call(name, *ins, causal)
+                torch.cuda.synchronize()
+                for key, g in got.items():
+                    tag = f"{name} {label} {dtype} {key}"
+                    if not torch.isfinite(g).all():
+                        raise AssertionError(f"{tag}: non-finite output")
+                    if not torch.equal(g, again[key]):
+                        raise AssertionError(f"{tag}: two runs differ")
+                    if dtype == torch.float32:
+                        e = check_close(tag, g, want[key], BWD_TOL)
+                    else:
+                        e = check_close(tag, g, want[key],
+                                        BF16_ATOL[name], 0.0)
+                    errs[dtype][name] = max(errs[dtype].get(name, 0.0), e)
+                if dtype == torch.float32 and label in (
+                        "S=2048 causal", "S=512 causal", "S=256 causal"):
+                    timed[name] = (label, B, S, causal, ins)
+    for name, (label, B, S, causal, ins) in timed.items():
+        from paddle_tpu_torch.ops.kernels import attention as A
+        q, k, v, do, lse, delta = ins
+        fn = getattr(A, name)
+        if name == "folded_attention_bwd":
+            ms = timer(lambda: fn(q, k, v, do, causal))
+            plain_ms = timer(lambda: A.folded_bwd_reference(q, k, v, do,
+                                                            causal))
+        else:
+            ms = timer(lambda: fn(q, k, v, do, lse, delta, causal))
+            plain_ms = timer(lambda: A.attention_bwd_reference(
+                q, k, v, do, lse, delta, causal))
+        lib_ms, backend = _sdpa_bwd_ms(torch, timer, q, k, v, do, causal)
+        H, D = q.shape[2], q.shape[3]
+        pairs = S * (S + 1) // 2 if causal else S * S
+        rd, wr, st = BWD_ROWS[name]
+        nbytes = (rd + wr) * B * S * H * D * 4 + st * B * S * H * 4
+        b, by = bound_ms(nbytes, BWD_FLOPS[name] * B * H * pairs * D)
+        records[name] = dict(
+            max_abs_err=errs[torch.float32][name], ms=ms,
+            plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib_ms,
+            shape=f"B={B} S={S} H={H} D={D} {label} fp32")
+        emit({"phase": "kernels", "kernel": name, "ok": True,
+              **records[name], "tol": BWD_TOL,
+              "bf16_max_abs_err": errs[torch.bfloat16][name],
+              "bf16_atol": BF16_ATOL[name],
+              "library": f"SDPA backward ({backend}), dQ+dK+dV",
+              "cases": [c[0] for c in BWD_CASES if name in c[1]]})
+
+
 def phase_kernels(torch, dev, records):
     timer = Timer(torch, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -400,6 +584,7 @@ def phase_kernels(torch, dev, records):
                kernel_attention):
         fn(torch, timer, dev, gen, records)
     kernels_bf16(torch, dev, gen)
+    kernel_attention_bwd(torch, timer, dev, gen, records)
     torch.cuda.synchronize()
 
 
@@ -563,11 +748,16 @@ def phase_engine(torch, dev, records, launches):
     max_new = 32
     reset_launch_counts()
     outs, info = run_engine(torch, model, prompts, max_new, plain=False)
-    launches.update(launch_counts())
-    for name, n in launches.items():
-        if n <= 0:
+    counts = launch_counts()
+    launches.update({name: counts[name] for name in SERVING_KERNELS})
+    for name in SERVING_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
+                                 f"serving path")
+    for name in TRAINING_KERNELS:
+        if counts[name] != 0:
+            raise AssertionError(f"backward kernel {name} launched "
+                                 f"{counts[name]} times while serving")
     for o in outs:
         if len(o) != max_new or not all(0 <= t < V for t in o):
             raise AssertionError(f"bad generation {o[:8]}...")
@@ -602,7 +792,7 @@ def engine_variants(torch, model, gen):
         ("fused_step=False", dict(fused_step=False),
          ("paged_decode", "attention_fwd"),
          ("decode_out_proj", "fused_argmax")),
-        ("kv_int8", dict(kv_int8=True), tuple(KERNEL_META), ()),
+        ("kv_int8", dict(kv_int8=True), SERVING_KERNELS, ()),
     )
     max_new = 8
     for tag, kw, used, unused in variants:
@@ -707,6 +897,244 @@ def phase_server(torch, dev, model):
         server.stop()
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+def _train_model(torch, dev, **cfg_kw):
+    """GPT-1.3B as ``bench.py`` trains it (fp32, dropout 0), seed-0
+    weights; ``cfg_kw`` overrides fields (depth, remat, loss chunks)."""
+    import dataclasses
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
+    cfg = dataclasses.replace(gpt_1p3b(dropout=0.0, attn_dropout=0.0),
+                              **cfg_kw)
+    return GPTForCausalLM(cfg, device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(0))
+
+
+def _loss_and_grads(torch, model, ids, plain: bool):
+    """One forward+backward of the next-token loss through the kernels
+    or (``plain``) their plain versions; returns (loss, {name: grad})."""
+    from paddle_tpu_torch.ops.nn_functional import plain_kernels
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with plain_kernels(plain):
+        loss = model(ids, labels=ids)
+        loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def _grad_rel(got, want):
+    """Relative L2 error of every parameter's gradient."""
+    return {n: float((got[n] - w).norm() / w.norm().clamp_min(1e-30))
+            for n, w in want.items()}
+
+
+def _check_train_parity(tag, loss_k, loss_p, errs):
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst = max(errs, key=errs.get)
+    if not loss_rel <= LOSS_REL_TOL:
+        raise AssertionError(f"{tag}: loss {float(loss_k)} vs plain "
+                             f"{float(loss_p)} ({loss_rel:.3g} relative)")
+    if not errs[worst] <= GRAD_REL_TOL:
+        raise AssertionError(f"{tag}: gradient of {worst} off by "
+                             f"{errs[worst]:.3g} relative")
+    return {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+            "loss_rel": loss_rel, "grad_rel_max": errs[worst],
+            "grad_rel_max_param": worst}
+
+
+def _snapshot(torch, step):
+    """Copies of the parameters, the optimizer's state (updated in place
+    by each step) and the step's generator."""
+    opt = {k: v.clone() if torch.is_tensor(v) else v
+           for k, v in step.optimizer.state_dict().items()}
+    return ({n: p.detach().clone()
+             for n, p in step.model.named_parameters()},
+            opt, step.generator.get_state())
+
+
+def _restore(torch, step, snap):
+    params, opt_state, gen_state = snap
+    with torch.no_grad():
+        for n, p in step.model.named_parameters():
+            p.copy_(params[n])
+    step.optimizer.set_state_dict(opt_state)
+    step.generator.set_state(gen_state)
+
+
+def _step_vs_plain(torch, step, ids):
+    """One ``TrainStep`` through the kernels, then the same step from
+    the same state through the plain versions; returns the parity
+    record and the kernel step's launch counts."""
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.ops.nn_functional import plain_kernels
+    snap = _snapshot(torch, step)
+    reset_launch_counts()
+    loss_k = step(ids)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    grads_k = {n: p.grad.clone() for n, p in step.model.named_parameters()}
+    _restore(torch, step, snap)
+    with plain_kernels():
+        loss_p = step(ids)
+    errs = _grad_rel(grads_k, {n: p.grad for n, p in
+                               step.model.named_parameters()})
+    return _check_train_parity("train step", loss_k, loss_p, errs), counts
+
+
+# kernel-name substrings -> the group a train step's device time is
+# summed under (first match wins)
+TRAIN_KERNEL_GROUPS = (
+    ("attention kernels", ("attention_fwd", "attention_bwd", "dq_reduce")),
+    ("GEMM", ("gemm", "cutlass", "xmma")),
+    ("softmax / CE", ("softmax", "nll", "gather", "scatter")),
+    ("layer norm", ("layer_norm",)),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def profile_train_step(torch, step, ids):
+    """One train step under ``torch.profiler``: wall time, device kernel
+    time by group and by kernel, and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(ids)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")]
+    by_name, by_group = {}, {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        low = e.name.lower()
+        group = next((g for g, keys in TRAIN_KERNEL_GROUPS
+                      if any(k in low for k in keys)), "other")
+        by_group[group] = by_group.get(group, 0.0) + us
+    dev_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_kernel_ms": dev_ms,
+            "kernels": len(kernels),
+            "idle_share": 1.0 - dev_ms / wall_ms,
+            "by_group_ms": {g: us / 1e3 for g, us in sorted(
+                by_group.items(), key=lambda kv: -kv[1])},
+            "top_kernels_ms": [[n[:60], us / 1e3] for n, us in top]}
+
+
+def phase_train(torch, dev, launches):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.optimizer import AdamW
+    B, S = 2, 2048
+    # (a) full depth, one forward+backward: kernels against plain
+    model = _train_model(torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ids = torch.randint(0, model.config.vocab_size, (B, S), generator=gen,
+                        device=dev)
+    loss_k, grads_k = _loss_and_grads(torch, model, ids, plain=False)
+    loss_p, grads_p = _loss_and_grads(torch, model, ids, plain=True)
+    errs = _grad_rel(grads_k, grads_p)
+    rec = _check_train_parity("train parity", loss_k, loss_p, errs)
+    del grads_k, grads_p
+    emit({"phase": "train_parity", "ok": True, "model": "gpt_1p3b",
+          "layers": model.config.num_layers, "B": B, "S": S,
+          "tol": {"loss_rel": LOSS_REL_TOL, "grad_rel": GRAD_REL_TOL},
+          **rec, "grad_rel": {n: float(f"{e:.3g}")
+                              for n, e in errs.items()}})
+
+    # (b) the main path: TrainStep.multi_step on a repeated batch
+    step = TrainStep(model, AdamW(learning_rate=TRAIN_LR), lambda m, x:
+                     m(x, labels=x), seed=0, device=dev)
+    first = float(step(ids))  # warm-up step: Adam slots allocated here
+    n_steps = 6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    losses = step.multi_step(ids[None].expand(n_steps, B, S))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = losses.tolist()
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses do not fall: {first} "
+                             f"{losses}")
+    for name in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"training path")
+    qkv_grads = [float(blk.attn.qkv_proj.weight.grad.norm())
+                 for blk in model.gpt.h]
+    if not all(math.isfinite(g) and g > 0.0 for g in qkv_grads):
+        raise AssertionError(f"qkv_proj gradients: {qkv_grads}")
+    # one step, twice from one state: the same bits
+    snap = _snapshot(torch, step)
+    l1 = step(ids)
+    p1 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    _restore(torch, step, snap)
+    l2 = step(ids)
+    same = bool(torch.equal(l1, l2)) and all(
+        torch.equal(p1[n], p) for n, p in model.named_parameters())
+    if not same:
+        raise AssertionError("one train step from one state gave two "
+                             "results")
+    del snap, p1
+    prof = profile_train_step(torch, step, ids)
+    emit({"phase": "train", "ok": True, "model": "gpt_1p3b",
+          "layers": model.config.num_layers, "B": B, "S": S,
+          "optimizer": f"AdamW({TRAIN_LR})", "warmup_loss": first,
+          "losses": losses, "ms_per_step": wall * 1e3 / n_steps,
+          "tokens_per_s": B * S * n_steps / wall,
+          "peak_mem_gb": peak / 1e9, "launches": counts,
+          "qkv_proj_grad_norm_min": min(qkv_grads),
+          "repeat_step_bitwise_equal": same, "step_profile": prof})
+    for name in ("attention_bwd_dq", "attention_bwd_dkv"):
+        launches[name] = counts[name]
+    del step, model
+    torch.cuda.empty_cache()
+
+    # (c) the other backward kernels, (d) remat + chunked loss: one
+    # step each through the kernels against the plain step, 4 layers
+    variants = (("S=512", {}, 512, "attention_bwd_fused"),
+                ("S=256", {}, 256, "folded_attention_bwd"),
+                ("remat+loss_chunk_size=512 S=2048",
+                 dict(remat=True, loss_chunk_size=512), 2048,
+                 "attention_bwd_dq"))
+    for tag, kw, s, kernel in variants:
+        model = _train_model(torch, dev, num_layers=4, **kw)
+        step = TrainStep(model, AdamW(learning_rate=TRAIN_LR), lambda m, x:
+                         m(x, labels=x), seed=0, device=dev)
+        step(ids[:, :s])  # a first step, so Adam's moments are live
+        rec, counts = _step_vs_plain(torch, step, ids[:, :s])
+        if counts[kernel] <= 0:
+            raise AssertionError(f"{tag}: kernel {kernel} not launched")
+        if kernel in ("attention_bwd_fused", "folded_attention_bwd"):
+            launches[kernel] = counts[kernel]
+        if kw:  # the chunked loss against the full-logits loss
+            with torch.no_grad():
+                chunked = float(model(ids[:, :s], labels=ids[:, :s]))
+                model.config.loss_chunk_size = 0
+                full = float(model(ids[:, :s], labels=ids[:, :s]))
+            rec["loss_rel_chunked_vs_full"] = abs(chunked - full) / full
+            if not rec["loss_rel_chunked_vs_full"] <= LOSS_REL_TOL:
+                raise AssertionError(f"{tag}: chunked loss {chunked} vs "
+                                     f"full {full}")
+        emit({"phase": "train_variant", "ok": True, "variant": tag,
+              "layers": 4, "B": B, "S": s, **rec, "launches": counts})
+        del step, model
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -736,6 +1164,9 @@ def main() -> int:
     phase_kernels(torch, dev, records)
     model = phase_engine(torch, dev, records, launches)
     phase_server(torch, dev, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_train(torch, dev, launches)
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         r = records[name]

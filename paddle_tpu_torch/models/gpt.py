@@ -1,4 +1,4 @@
-"""GPT decoder-only transformer for serving (port of
+"""GPT decoder-only transformer for serving and training (port of
 ``paddle_tpu/models/gpt.py``).
 
 Same architecture and conventions as the JAX model, so a JAX checkpoint
@@ -15,8 +15,14 @@ donates the pools to its jitted step, :func:`paged_kv_append` here
 writes into the pools in place (``index_put_``) and returns a cache
 that shares them.
 
-Not ported yet (see ROADMAP.md): training losses, MoE, sequence
-parallelism, remat, the static KV cache and ``generate``.
+Training (``forward(ids, labels=ids)``) computes the shifted next-token
+cross entropy and its plain mean over every position, ignored ones
+included, as the JAX model does; ``loss_chunk_size`` computes it over
+sequence chunks whose logits are recomputed in backward, and ``remat``
+recomputes blocks in backward (``torch.utils.checkpoint``).
+
+Not ported yet (see ROADMAP.md): ``remat_save_attention``, MoE, sequence
+parallelism, the static KV cache and ``generate``.
 """
 
 from __future__ import annotations
@@ -28,9 +34,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
+from ..core import rng
 from ..device import resolve_device
-from ..nn.layers import (ColumnParallelLinear, Embedding, LayerNorm,
-                         RowParallelLinear, VocabParallelEmbedding, gelu)
+from ..nn.layers import (ColumnParallelLinear, Dropout, Embedding,
+                         LayerNorm, ParallelCrossEntropy, RowParallelLinear,
+                         VocabParallelEmbedding, gelu)
 from ..ops import nn_functional as NF
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -50,7 +60,30 @@ class GPTConfig:
     layer_norm_epsilon: float = 1e-5
     tie_word_embeddings: bool = True
     use_flash_attention: bool = True
+    seq_parallel_mode: Optional[str] = None
     dtype: str = "float32"
+    moe_experts: int = 0
+    # next-token loss over sequence chunks of this many positions, each
+    # chunk's logits recomputed in backward; 0 = the full logits
+    loss_chunk_size: int = 0
+    # recompute blocks with layer_idx % remat_every == 0 in backward
+    remat: bool = False
+    remat_every: int = 1
+    remat_save_attention: bool = False
+
+    def __post_init__(self):
+        if self.remat and self.remat_every < 1:
+            raise ValueError(
+                "remat_every must be >= 1 (1 = remat every block); to "
+                "disable rematerialization set remat=False")
+        for flag, what in ((self.remat_save_attention,
+                            "remat_save_attention"),
+                           (self.moe_experts > 0, "MoE (moe_experts > 0)"),
+                           (self.seq_parallel_mode is not None,
+                            "seq_parallel_mode")):
+            if flag:
+                raise NotImplementedError(
+                    f"{what} is not yet ported, see ROADMAP.md")
 
     @property
     def head_dim(self) -> int:
@@ -173,6 +206,35 @@ def paged_kv_append(cache: PagedKVCache, k, v,
     return cache._replace(seq_lens=new_lens)
 
 
+def _remat_block(block: nn.Module, x):
+    """Run ``block`` under ``torch.utils.checkpoint`` (``gpt.py:663-686``):
+    its activations are recomputed in backward instead of kept.
+
+    The recompute runs on autograd's thread, so it re-opens what the
+    forward saw in this thread: the ``key_scope`` generator, rewound to
+    its state before the forward so dropout draws the same masks, and
+    the kernel selection (:func:`NF.plain_kernels`)."""
+    gen = rng.next_generator()
+    plain = NF.plain_mode()
+    before = gen.get_state() if gen is not None else None
+    ran = []
+
+    def run(h):
+        after = None
+        if ran and gen is not None:
+            after = gen.get_state()
+            gen.set_state(before)
+        ran.append(True)
+        try:
+            with rng.key_scope(gen), NF.plain_kernels(plain):
+                return block(h)
+        finally:
+            if after is not None:
+                gen.set_state(after)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 class GPTAttention(nn.Module):
     def __init__(self, config: GPTConfig, device=None, dtype=torch.float32,
                  generator=None):
@@ -279,7 +341,7 @@ class GPTBlock(nn.Module):
         self.ln_2 = LayerNorm(config.hidden_size, eps, device=device,
                               dtype=dtype)
         self.mlp = GPTMLP(config, **kw)
-        self.dropout = nn.Dropout(config.dropout)
+        self.dropout = Dropout(config.dropout)
 
     def forward(self, x, cache=None, prefill_len=None,
                 prefill_chained=False, fused=False):
@@ -306,7 +368,7 @@ class GPTModel(nn.Module):
                   generator=generator)
         self.wte = VocabParallelEmbedding(c.vocab_size, c.hidden_size, **kw)
         self.wpe = Embedding(c.max_seq_len, c.hidden_size, **kw)
-        self.drop = nn.Dropout(c.dropout)
+        self.drop = Dropout(c.dropout)
         self.h = nn.ModuleList([
             GPTBlock(c, device=device, dtype=dtype, generator=generator)
             for _ in range(c.num_layers)])
@@ -328,8 +390,12 @@ class GPTModel(nn.Module):
         x = self.wte(input_ids) + self.wpe(position_ids)
         x = self.drop(x)
         if caches is None:
-            for block in self.h:
-                x = block(x)
+            remat = self.config.remat and torch.is_grad_enabled()
+            for i, block in enumerate(self.h):
+                if remat and i % self.config.remat_every == 0:
+                    x = _remat_block(block, x)
+                else:
+                    x = block(x)
             return self.ln_f(x)
         new_caches = []
         for block, cache in zip(self.h, caches):
@@ -355,6 +421,7 @@ class GPTForCausalLM(nn.Module):
         self.config = config
         self.gpt = GPTModel(config, device=dev, dtype=dtype,
                             generator=generator)
+        self.loss_fn = ParallelCrossEntropy()
         if config.tie_word_embeddings:
             self.lm_head = None
         else:
@@ -388,15 +455,48 @@ class GPTForCausalLM(nn.Module):
         return self.gpt(input_ids, None, caches, prefill_lens=prefill_lens,
                         prefill_chained=prefill_chained, fused=fused)
 
-    def forward(self, input_ids, position_ids=None, caches=None,
-                prefill_lens=None, prefill_chained: bool = False,
-                fused: bool = False):
+    def _chunked_lm_loss(self, hidden, labels, chunk: int):
+        """Mean next-token CE over sequence chunks (``gpt.py:1103-1162``):
+        each chunk's logits and CE run under ``torch.utils.checkpoint``,
+        so the [B, S, vocab] logits never exist and backward recomputes
+        one chunk's at a time. The mean divides by every position, as
+        the full-logits loss does."""
+        hid = hidden[:, :-1]
+        lab = labels[:, 1:].long()
+        b, s = lab.shape
+
+        def chunk_loss(h, lab_c):
+            per = self.loss_fn(self.logits(h), lab_c)
+            return torch.where(lab_c != self.loss_fn.ignore_index, per,
+                               torch.zeros_like(per)).sum()
+
+        total = hidden.new_zeros((), dtype=torch.float32)
+        for c0 in range(0, s, chunk):
+            total = total + checkpoint(chunk_loss, hid[:, c0:c0 + chunk],
+                                       lab[:, c0:c0 + chunk],
+                                       use_reentrant=False)
+        return total / (b * s)
+
+    def forward(self, input_ids, labels=None, position_ids=None,
+                caches=None, prefill_lens=None,
+                prefill_chained: bool = False, fused: bool = False):
+        """Logits, or with ``labels`` the mean next-token loss
+        (``gpt.py:1164-1190``): the CE of ``logits[:, :-1]`` against
+        ``labels[:, 1:]`` (``ignore_index`` -100 gives 0) averaged over
+        all B * (S - 1) positions."""
         if caches is not None:
             hidden, new_caches = self.gpt(
                 input_ids, position_ids, caches, prefill_lens=prefill_lens,
                 prefill_chained=prefill_chained, fused=fused)
             return self.logits(hidden), new_caches
-        return self.logits(self.gpt(input_ids, position_ids))
+        hidden = self.gpt(input_ids, position_ids)
+        if labels is None:
+            return self.logits(hidden)
+        if self.config.loss_chunk_size:
+            return self._chunked_lm_loss(hidden, labels,
+                                         self.config.loss_chunk_size)
+        logits = self.logits(hidden)
+        return self.loss_fn(logits[:, :-1], labels[:, 1:]).mean()
 
 
 def checkpoint_state(model: nn.Module) -> Dict[str, np.ndarray]:

@@ -1,4 +1,5 @@
-"""The layers GPT serving needs, in the JAX package's conventions.
+"""The layers GPT serving and training need, in the JAX package's
+conventions.
 
 - ``Linear`` keeps the JAX layout: weight ``[in, out]``, ``y = x @ W +
   b`` (``paddle_tpu/distributed/mp_layers.py:128,158``), so checkpoints
@@ -7,6 +8,11 @@
   ``VocabParallelEmbedding`` are their single-device meaning: a plain
   ``Linear`` / ``Embedding``. Tensor-parallel serving is not ported yet.
 - ``gelu`` is the tanh form the GPT MLP uses.
+- ``Dropout`` (``paddle_tpu/nn/common.py:72``) draws from the
+  ``core.rng.key_scope`` generator that ``jit.TrainStep`` opens, not
+  from torch's global one; ``ParallelCrossEntropy``
+  (``distributed/mp_layers.py:178-190``) is its single-device meaning,
+  the per-position hard-label cross entropy.
 
 Parameters are created on an explicit ``device`` and initialised from an
 explicit ``torch.Generator`` (normal(0, std) weights, zero biases, unit
@@ -20,6 +26,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import nn_functional as NF
 
 
 def _normal(shape, std: float, device, dtype, generator) -> nn.Parameter:
@@ -93,6 +101,38 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias,
                             self.epsilon)
+
+
+class Dropout(nn.Module):
+    """``nn_functional.dropout`` in ``self.training`` mode."""
+
+    def __init__(self, p: float = 0.5, axis=None,
+                 mode: str = "upscale_in_train"):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return NF.dropout(x, p=self.p, training=self.training,
+                          mode=self.mode, axis=self.axis)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+class ParallelCrossEntropy(nn.Module):
+    """Per-position cross entropy (``reduction="none"``) that gives 0 at
+    ``ignore_index`` labels."""
+
+    def __init__(self, ignore_index: int = -100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, input: torch.Tensor,  # noqa: A002
+                label: torch.Tensor) -> torch.Tensor:
+        return NF.cross_entropy(input, label, reduction="none",
+                                ignore_index=self.ignore_index)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

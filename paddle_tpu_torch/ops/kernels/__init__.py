@@ -9,7 +9,9 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .attention import attention_fwd
+from .attention import (attention_bwd_dkv, attention_bwd_dq,
+                        attention_bwd_fused, attention_fwd,
+                        folded_attention_bwd)
 from .fused_sample import fused_argmax
 from .paged_attention import decode_out_proj, paged_decode
 
@@ -18,6 +20,10 @@ KERNELS = {
     "decode_out_proj": decode_out_proj,
     "fused_argmax": fused_argmax,
     "attention_fwd": attention_fwd,
+    "attention_bwd_fused": attention_bwd_fused,
+    "attention_bwd_dq": attention_bwd_dq,
+    "attention_bwd_dkv": attention_bwd_dkv,
+    "folded_attention_bwd": folded_attention_bwd,
 }
 
 

@@ -60,6 +60,12 @@ SIGNATURES: Dict[str, List] = {
     "pt_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _F, _I, _P],
+    # q, k, v, dout, lse, delta, dq, dk, dv, dq_part, B, Sq, Sk, H, D,
+    # q/k/v/dout strides (b, s, h), causal, dtype, scale, mode, stream
+    "pt_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -192,6 +198,18 @@ def require_cuda(name: str, *tensors) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
     return dev
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record through a kernel that has no
+    backward (the JAX package has none for it either): grad mode is on
+    and an operand requires grad. The plain version would differentiate
+    on the CPU where the kernel could not on the card."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or on "
+            f"tensors that do not require grad")
 
 
 def ptr(t: Optional[torch.Tensor]):

@@ -108,6 +108,7 @@ def fused_argmax(hidden, weight, bias=None, transpose_y: bool = True):
     """Greedy tokens [B] int32 = argmax of ``hidden @ W.T`` (``[V, D]``,
     ``transpose_y=True``) or ``hidden @ W`` (``[D, V]``), plus ``bias``.
     CPU tensors take the plain version."""
+    _build.refuse_grad("fused_argmax", hidden, weight, bias)
     vdim = _vocab_dim(transpose_y)
     if hidden.device.type == "cpu":
         return fused_argmax_reference(hidden, weight, vdim, bias=bias)

@@ -127,6 +127,8 @@ def paged_decode(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
                  v_scale=None, scale: Optional[float] = None):
     """Single-token paged attention: ``q`` [B, H, D] -> context
     [B, H, D] in ``q.dtype``. CPU tensors take the plain version."""
+    _build.refuse_grad("paged_decode", q, k_pages, v_pages, k_scale,
+                       v_scale)
     b, h, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -177,6 +179,7 @@ def decode_out_proj_reference(ctx, w, bias=None):
 def decode_out_proj(ctx, w, bias=None):
     """Skinny decode projection ``[B, E] x [E, E_out]`` (+ bias) with f32
     accumulation. CPU tensors take the plain version."""
+    _build.refuse_grad("decode_out_proj", ctx, w, bias)
     if ctx.device.type == "cpu":
         return decode_out_proj_reference(ctx, w, bias)
     dev = _build.require_cuda("decode_out_proj", ctx, w, bias)

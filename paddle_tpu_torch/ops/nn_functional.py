@@ -1,15 +1,18 @@
-"""Kernel selection for the serving path (port of the attention and
-sampling entries of ``paddle_tpu/ops/nn_functional.py``).
+"""Kernel selection and the functional ops of the serving and training
+paths (port of the attention, sampling, dropout and cross-entropy
+entries of ``paddle_tpu/ops/nn_functional.py``).
 
-Each entry picks a CUDA kernel by the JAX package's shape rules, gated
-on the tensors lying on a CUDA device where the JAX package gated on a
-TPU backend; everywhere else it runs the plain PyTorch math, as the JAX
-package runs XLA or its reference off the TPU.
+Each attention or sampling entry picks a CUDA kernel by the JAX
+package's shape rules, gated on the tensors lying on a CUDA device where
+the JAX package gated on a TPU backend; everywhere else it runs the
+plain PyTorch math, as the JAX package runs XLA or its reference off the
+TPU. Attention reaches its kernels only through the autograd Functions
+of ``kernels/attention.py``, so training differentiates through them.
 
 :func:`plain_kernels` switches the selection to the plain versions on
 the card as well. It exists so that ``chip_smoke.py`` can hold the
-kernel path against the plain path on the same inputs; serving never
-enters it.
+kernel path against the plain path on the same inputs; serving and
+training never enter it.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import threading
 
 import torch
 
+from ..core import rng
 from .kernels.attention import (flash_attention, flash_attention_supported,
                                 folded_attention,
                                 folded_attention_supported)
@@ -40,20 +44,73 @@ _MODE = threading.local()
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(enabled: bool = True):
     """Run the plain PyTorch versions instead of the CUDA kernels in
     this thread for the duration (a comparison harness, not a
-    fallback)."""
-    prev = getattr(_MODE, "plain", False)
-    _MODE.plain = True
+    fallback). ``enabled=False`` selects the kernels again."""
+    prev = plain_mode()
+    _MODE.plain = bool(enabled)
     try:
         yield
     finally:
         _MODE.plain = prev
 
 
+def plain_mode() -> bool:
+    """Whether :func:`plain_kernels` is in force in this thread."""
+    return getattr(_MODE, "plain", False)
+
+
 def _on_card(t: torch.Tensor) -> bool:
-    return t.is_cuda and not getattr(_MODE, "plain", False)
+    return t.is_cuda and not plain_mode()
+
+
+def dropout(x, p: float = 0.5, training: bool = True,
+            mode: str = "upscale_in_train", axis=None, generator=None):
+    """``nn_functional.py:200-216``: keep each element (or each slice
+    along ``axis``) with probability ``1 - p``; ``upscale_in_train``
+    divides the kept ones by ``1 - p``. Draws from ``generator``, else
+    from the :func:`core.rng.key_scope` generator, else the device's
+    default one."""
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
+        return x
+    gen = generator if generator is not None else rng.next_generator()
+    if axis is not None:
+        axes = (axis,) if isinstance(axis, int) else tuple(axis)
+        shape = tuple(s if i in axes else 1 for i, s in enumerate(x.shape))
+    else:
+        shape = x.shape
+    keep = torch.rand(shape, device=x.device, generator=gen) < (1.0 - p)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), zero).to(x.dtype)
+    return torch.where(keep, x, zero).to(x.dtype)
+
+
+def cross_entropy(input, label, ignore_index: int = -100,  # noqa: A002
+                  reduction: str = "mean", axis: int = -1):
+    """Hard-label softmax cross entropy (``nn_functional.py:986-1027``):
+    positions whose label is ``ignore_index`` give 0, and ``"mean"``
+    divides by the number of the others. Soft labels, class weights and
+    label smoothing are not ported yet."""
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"cross_entropy: reduction {reduction!r}")
+    label = label.long()
+    if label.dim() == input.dim():
+        label = label.squeeze(axis)
+    logp = torch.log_softmax(input, dim=axis)
+    valid = label != ignore_index
+    picked = torch.gather(logp, axis, torch.where(valid, label, 0)
+                          .unsqueeze(axis)).squeeze(axis)
+    loss = torch.where(valid, -picked, torch.zeros((), dtype=logp.dtype,
+                                                   device=logp.device))
+    if reduction == "mean":
+        return loss.sum() / valid.sum().clamp_min(1)
+    if reduction == "sum":
+        return loss.sum()
+    return loss
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
@@ -61,7 +118,10 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                  generator=None, use_flash=None):
     """q, k, v: [B, S, H, D]. ``use_flash``: None = the kernels from the
     JAX package's measured crossovers, True = a kernel whenever its gate
-    admits, False = never (``nn_functional.py:799-866``)."""
+    admits, False = never (``nn_functional.py:799-866``). The kernels
+    take no mask and no active dropout; they differentiate through their
+    backward kernels. Dropout on the plain path draws from
+    ``generator`` or the :func:`core.rng.key_scope` generator."""
     allowed = use_flash is True or (use_flash is None and
                                     k.shape[1] >= _FLASH_MIN_SEQ)
     folded_allowed = use_flash is True or (
@@ -92,9 +152,7 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
             logits = logits + attn_mask
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     if dropout_p > 0.0 and training:
-        keep = torch.rand(probs.shape, device=probs.device,
-                          generator=generator) >= dropout_p
-        probs = probs * keep / (1.0 - dropout_p)
+        probs = dropout(probs, dropout_p, training=True, generator=generator)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vT)
     return out.transpose(1, 2)
 

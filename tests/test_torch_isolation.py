@@ -52,6 +52,8 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "import paddle_tpu_torch.inference, paddle_tpu_torch.serving\n"
         "import paddle_tpu_torch.serving.server\n"
         "import paddle_tpu_torch.ops.kernels\n"
+        "import paddle_tpu_torch.jit, paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.core.rng\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
@@ -84,6 +86,51 @@ def test_default_entry_points_raise_without_a_gpu():
         ServingServer(cpu_model)
     with pytest.raises(RuntimeError, match="no usable GPU"):
         main(["--model", "gpt_tiny"])
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    with pytest.raises(RuntimeError, match="no usable GPU"):
+        TrainStep(cpu_model, AdamW(), lambda m, x: m(x, labels=x))
+
+
+def test_train_step_refuses_a_model_on_another_device():
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny
+    from paddle_tpu_torch.optimizer import AdamW
+    cpu_model = GPTForCausalLM(gpt_tiny(), device="cpu")
+    with pytest.raises(ValueError, match="lives on"):
+        TrainStep(cpu_model, AdamW(), lambda m, x: m(x, labels=x),
+                  device="meta")
+
+
+def test_kernels_without_a_backward_refuse_inputs_that_require_grad():
+    """``paged_decode``, ``decode_out_proj`` and ``fused_argmax`` have no
+    backward (nor do their TPU kernels): with grad mode on, an operand
+    that requires grad raises instead of leaving it without a gradient
+    on the card. Under ``torch.no_grad()`` they run."""
+    from paddle_tpu_torch.ops.kernels.fused_sample import fused_argmax
+    from paddle_tpu_torch.ops.kernels.paged_attention import (
+        decode_out_proj, paged_decode)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 2, 64, generator=g)
+    pages = torch.randn(5, 8, 2, 64, generator=g)
+    table = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    lens = torch.tensor([9, 3], dtype=torch.int32)
+    w = torch.randn(128, 128, generator=g)
+    hidden = torch.randn(2, 128, generator=g)
+    calls = {
+        "paged_decode": lambda r: paged_decode(
+            q.clone().requires_grad_(r), pages, pages, table, lens),
+        "decode_out_proj": lambda r: decode_out_proj(
+            hidden, w.clone().requires_grad_(r)),
+        "fused_argmax": lambda r: fused_argmax(
+            hidden.clone().requires_grad_(r), w),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+            call(True)
+        with torch.no_grad():
+            call(True)
+        call(False)
 
 
 def test_engine_refuses_a_model_on_another_device():
