@@ -9,8 +9,8 @@ non-zero:
 2. build   — the CUDA kernels from ``paddle_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together).
 3. kernels — each kernel against its plain PyTorch version on the card
-   at the serving and training paths' shapes, in fp32 and bf16, with
-   its tolerance; its median time over 20 launches (CUDA events, L2
+   at the serving, training and ResNet paths' shapes, in fp32 and bf16,
+   with its tolerance, each check on inputs from its own generator; its median time over 20 launches (CUDA events, L2
    flushed before each launch), the plain version's, one PyTorch
    yardstick call's, and the least time the card could take (bytes at
    3.35 TB/s or fp32 FMA operations at 67 TFLOP/s, whichever is
@@ -31,6 +31,12 @@ non-zero:
    counts) and one step repeated bitwise from one state; then steps at
    S=512 and S=256 and with remat + chunked loss (4 layers) against
    their plain steps.
+7. resnet  — ResNet-50 eval inference (NHWC, 224x224, N=128, fp32,
+   seed-0 weights, seeded BN statistics) on the fused-bottleneck kernel
+   path, the plain path and the ``fuse_conv_bn`` path: logits against
+   the plain path, 5 kernel launches per forward, ms per forward,
+   imgs/s, peak memory, N=1 latency, and a profiled forward of the
+   kernel and plain paths.
 
 Then a ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -49,6 +55,7 @@ import subprocess
 import sys
 import threading
 import time
+import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -69,13 +76,17 @@ LOSS_REL_TOL = 1e-5
 GRAD_REL_TOL = 1e-3
 TRAIN_LR = 1e-4
 # bf16 storage (f32 accumulation), absolute: about 2.5x the largest
-# error an H100 showed on these seeded inputs (paged_decode 7.6e-6,
+# error an H100 showed on seeded inputs (paged_decode 7.6e-6,
 # decode_out_proj 3.9e-3, attention_fwd 2.0e-3, attention_bwd_fused
 # 9.8e-4, folded_attention_bwd 2.0e-3); the outputs are rounded to bf16
 # from f32 sums taken in another order. The dQ and dK/dV passes read 0
 # (their sums run in the order of the plain version's GEMMs), so they
 # take the limit of the folded kernel, which computes the same products
-# on the same S=512 inputs
+# on the same S=512 inputs. paged_decode's 2e-5 is below one bf16 ulp
+# at its outputs' size, so its limit is at least BF16_ULPS ulps of the
+# largest plain output (``bf16_limit``); so is fused_bottleneck's, whose
+# output is rounded to bf16 once more after the residual
+BF16_ULPS = 2
 BF16_ATOL = {"paged_decode": 2e-5, "decode_out_proj": 1e-2,
              "attention_fwd": 5e-3,
              "attention_bwd_fused": 2.5e-3, "attention_bwd_dq": 5e-3,
@@ -99,6 +110,8 @@ KERNEL_META = {
                           "paddle_tpu/ops/pallas/flash_attention.py:515"),
     "folded_attention_bwd": ("paddle_tpu_torch/csrc/attention_bwd.cu",
                              "paddle_tpu/ops/pallas/folded_attention.py:176"),
+    "fused_bottleneck": ("paddle_tpu_torch/csrc/fused_bottleneck.cu",
+                         "paddle_tpu/ops/pallas/fused_conv_block.py:143"),
 }
 # the kernels each main path launches; their counts are read from it
 SERVING_KERNELS = ("paged_decode", "decode_out_proj", "fused_argmax",
@@ -143,6 +156,22 @@ class Timer:
             times.append(s.elapsed_time(e))
         times.sort()
         return times[len(times) // 2]
+
+
+def check_gen(torch, dev, name: str):
+    """The generator of one named check, seeded from its name: each check
+    draws its own inputs, so adding or reordering checks changes no other
+    check's inputs."""
+    return torch.Generator(device=dev).manual_seed(zlib.crc32(name.encode()))
+
+
+def bf16_limit(floor: float, want) -> float:
+    """``floor``, or ``BF16_ULPS`` bf16 ulps (8 significant bits) of the
+    largest magnitude of the plain output ``want``, whichever is
+    larger."""
+    top = float(want.float().abs().max().item())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    return max(floor, BF16_ULPS * ulp)
 
 
 def max_err(a, b) -> float:
@@ -375,10 +404,12 @@ def kernel_attention(torch, timer, dev, gen, records):
           "library": "F.scaled_dot_product_attention"})
 
 
-def kernels_bf16(torch, dev, gen):
+def kernels_bf16(torch, dev):
     """bf16 storage through every kernel (f32 accumulation) against the
     plain versions on the same bf16 inputs, within ``BF16_ATOL`` (no
-    relative term); argmax index-exact."""
+    relative term; paged_decode at least ``BF16_ULPS`` ulps of its
+    output); argmax index-exact. Each check draws from its own
+    generator."""
     from paddle_tpu_torch.ops.kernels.attention import (
         attention_fwd, attention_reference)
     from paddle_tpu_torch.ops.kernels.fused_sample import (
@@ -393,21 +424,25 @@ def kernels_bf16(torch, dev, gen):
     lens = torch.tensor([0, 5, 64, 500], dtype=torch.int32, device=dev)
     table = torch.arange(B * mp, dtype=torch.int32,
                          device=dev).reshape(B, mp)
+    gen = check_gen(torch, dev, "bf16 paged_decode")
     kp = torch.randn((B * mp + 1, page, H, D), generator=gen,
                      device=dev).to(bf)
     vp = torch.randn((B * mp + 1, page, H, D), generator=gen,
                      device=dev).to(bf)
     q = torch.randn((B, H, D), generator=gen, device=dev).to(bf)
+    want = paged_attention_reference(q[:, None], kp, vp, table, lens)[:, 0]
+    limits = {"paged_decode": bf16_limit(tol["paged_decode"], want)}
     errs["paged_decode"] = check_close(
-        "paged_decode bf16", paged_decode(q, kp, vp, table, lens),
-        paged_attention_reference(q[:, None], kp, vp, table,
-                                  lens)[:, 0], tol["paged_decode"], 0.0)
+        "paged_decode bf16", paged_decode(q, kp, vp, table, lens), want,
+        limits["paged_decode"], 0.0)
+    gen = check_gen(torch, dev, "bf16 decode_out_proj")
     ctx = torch.randn((B, 2048), generator=gen, device=dev).to(bf)
     w = (torch.randn((2048, 2048), generator=gen, device=dev)
          * 0.02).to(bf)
     errs["decode_out_proj"] = check_close(
         "decode_out_proj bf16", decode_out_proj(ctx, w),
         decode_out_proj_reference(ctx, w), tol["decode_out_proj"], 0.0)
+    gen = check_gen(torch, dev, "bf16 fused_argmax")
     h = torch.randn((B, 2048), generator=gen, device=dev).to(bf)
     wv = (torch.randn((50304, 2048), generator=gen, device=dev)
           * 0.02).to(bf)
@@ -416,6 +451,7 @@ def kernels_bf16(torch, dev, gen):
     if not torch.equal(got, want):
         raise AssertionError(f"fused_argmax bf16: {got.tolist()} != "
                              f"{want.tolist()}")
+    gen = check_gen(torch, dev, "bf16 attention_fwd")
     qkv = torch.randn((1, 512, 3, H, D), generator=gen, device=dev).to(bf)
     qq, kk, vv = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     go, gl = attention_fwd(qq, kk, vv, causal=True)
@@ -424,7 +460,7 @@ def kernels_bf16(torch, dev, gen):
     errs["attention_fwd"] = max(
         check_close("attention_fwd bf16", go, wo, ta, 0.0),
         check_close("attention_fwd bf16 lse", gl, wl, ta, 0.0))
-    emit({"phase": "kernels_bf16", "ok": True, "atol": tol,
+    emit({"phase": "kernels_bf16", "ok": True, "atol": dict(tol, **limits),
           "max_abs_err": errs, "fused_argmax": "index-exact"})
 
 
@@ -516,7 +552,7 @@ def _sdpa_bwd_ms(torch, timer, q, k, v, do, causal):
     raise AssertionError("no SDPA backend ran the yardstick")
 
 
-def kernel_attention_bwd(torch, timer, dev, gen, records):
+def kernel_attention_bwd(torch, timer, dev, records):
     """The four backward kernels against their plain versions in fp32
     (atol/rtol ``BWD_TOL``) and bf16 (``BF16_ATOL``, absolute) on
     ``BWD_CASES``; each run twice must give the same bits (no float
@@ -526,6 +562,7 @@ def kernel_attention_bwd(torch, timer, dev, gen, records):
     timed = {}
     for label, names, B, S, causal, with_glse in BWD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
+            gen = check_gen(torch, dev, f"attention_bwd {label} {dtype}")
             ins = _bwd_inputs(torch, gen, dev, B, S, dtype, causal,
                               with_glse)
             for name in names:
@@ -577,14 +614,128 @@ def kernel_attention_bwd(torch, timer, dev, gen, records):
               "cases": [c[0] for c in BWD_CASES if name in c[1]]})
 
 
+# (label, N, H, W, C, M): the two shapes ResNet-50's main path gives the
+# kernel at 224x224 and N=128 (layer1 and layer2), then small ones whose
+# tiles have masked edges: M=8 C=32, a non-square 6x5 plane
+FB_CASES = (
+    ("layer1 56x56", 128, 56, 56, 256, 64),
+    ("layer2 28x28", 128, 28, 28, 512, 128),
+    ("M=8 C=32 28x28", 2, 28, 28, 32, 8),
+    ("6x5", 2, 6, 5, 32, 8),
+)
+FB_TOL = 1e-4
+
+
+def _fb_params(torch, gen, dev, c, m, dtype):
+    """Packed weights of the Kaiming scale a folded block has, and f32
+    biases: ``(w1 [C, M], b1, w2 [9M, M], b2, w3 [M, C], b3)``."""
+    def draw(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    return (draw((c, m), (2.0 / c) ** 0.5).to(dtype), draw((1, m), 0.1),
+            draw((9 * m, m), (2.0 / (9 * m)) ** 0.5).to(dtype),
+            draw((1, m), 0.1), draw((m, c), (1.0 / m) ** 0.5).to(dtype),
+            draw((1, c), 0.1))
+
+
+def _fb_chain(torch, w1, b1, w2, b2, w3, b3):
+    """The library yardstick: the unfused block on the same folded
+    weights, three ``F.conv2d`` (cuDNN, NHWC memory) with the bias, relu
+    and residual epilogues. Returns ``fn(x)``."""
+    import torch.nn.functional as F
+    c, m = w1.shape
+    k1 = w1.t().reshape(m, c, 1, 1).contiguous()
+    k2 = w2.reshape(3, 3, m, m).permute(3, 2, 0, 1).contiguous()
+    k3 = w3.t().reshape(c, m, 1, 1).contiguous()
+    bb1, bb2, bb3 = (b[0].to(w1.dtype) for b in (b1, b2, b3))
+
+    def fn(x):
+        xc = x.permute(0, 3, 1, 2)
+        y1 = torch.relu(F.conv2d(xc, k1, bb1))
+        y2 = torch.relu(F.conv2d(y1, k2, bb2, padding=1))
+        return torch.relu(F.conv2d(y2, k3, bb3) + xc).permute(0, 2, 3, 1)
+    return fn
+
+
+def kernel_fused_bottleneck(torch, timer, dev, records):
+    """The fused bottleneck against its plain version on ``FB_CASES`` and
+    the delta image of ``tests/test_fused_conv_block.py`` (edge columns):
+    fp32 within atol/rtol ``FB_TOL``, twice with the same bits; bf16
+    within ``BF16_ULPS`` ulps of the largest output (absolute). Timed at
+    the two ResNet-50 shapes in fp32 beside the plain version and the
+    unfused cuDNN chain."""
+    from paddle_tpu_torch.ops.kernels.fused_conv_block import (
+        fused_bottleneck_eval, fused_bottleneck_reference)
+    cases = list(FB_CASES) + [("delta 4x4", 1, 4, 4, 32, 8)]
+    errs = {"fp32": 0.0, "bf16": 0.0}
+    bf16_limits = {}
+    per_shape = []
+    for label, n, h, w, c, m in cases:
+        gen = check_gen(torch, dev, f"fused_bottleneck {label}")
+        params32 = _fb_params(torch, gen, dev, c, m, torch.float32)
+        if label.startswith("delta"):
+            x32 = torch.zeros((n, h, w, c), device=dev)
+            x32[0, 1, 0] = 1.0
+            x32[0, 2, 3] = -1.0
+        else:
+            x32 = torch.randn((n, h, w, c), generator=gen, device=dev)
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            x = x32.to(dtype)
+            params = tuple(p.to(dtype) if i % 2 == 0 else p
+                           for i, p in enumerate(params32))
+            got = fused_bottleneck_eval(x, *params)
+            want = fused_bottleneck_reference(x, *params)
+            torch.cuda.synchronize()
+            name = f"fused_bottleneck {label} {tag}"
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{name}: non-finite output")
+            if tag == "fp32":
+                e = check_close(name, got, want, FB_TOL)
+                if not torch.equal(got, fused_bottleneck_eval(x, *params)):
+                    raise AssertionError(f"{name}: two runs differ")
+            else:
+                lim = bf16_limit(0.0, want)
+                bf16_limits[label] = lim
+                e = check_close(name, got, want, lim, 0.0)
+            errs[tag] = max(errs[tag], e)
+        if n != RESNET_BATCH:  # only the main path's shapes are timed
+            continue
+        x, params = x32, params32
+        chain = _fb_chain(torch, *params)
+        chain_err = check_close(f"cuDNN chain {label}", chain(x),
+                                fused_bottleneck_reference(x, *params),
+                                FB_TOL)
+        ms = timer(lambda: fused_bottleneck_eval(x, *params))
+        plain_ms = timer(lambda: fused_bottleneck_reference(x, *params))
+        lib_ms = timer(lambda: chain(x))
+        nbytes = (2 * x.numel() + 2 * c * m + 9 * m * m) * 4 + (2 * m + c) * 4
+        b, by = bound_ms(nbytes, 2 * n * h * w * (2 * c * m + 9 * m * m))
+        rec = dict(label=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b, bound_by=by, chain_max_abs_err=chain_err)
+        per_shape.append(rec)
+        emit({"phase": "kernels", "kernel": "fused_bottleneck", "ok": True,
+              "shape": f"N={n} H={h} W={w} C={c} M={m} fp32", **rec})
+    first = per_shape[0]
+    records["fused_bottleneck"] = dict(
+        max_abs_err=errs["fp32"], ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+        library_ms=first["library_ms"], shape="N=128 56x56 C=256 M=64 fp32",
+        per_shape=per_shape)
+    emit({"phase": "kernels", "kernel": "fused_bottleneck", "ok": True,
+          "max_abs_err": errs["fp32"], "tol": FB_TOL,
+          "bf16_max_abs_err": errs["bf16"], "bf16_atol": bf16_limits,
+          "library": "chain of 3 F.conv2d (cuDNN) + bias/relu/residual "
+                     "epilogues, not one call",
+          "cases": [c[0] for c in cases]})
+
+
 def phase_kernels(torch, dev, records):
     timer = Timer(torch, dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
     for fn in (kernel_paged, kernel_out_proj, kernel_argmax,
                kernel_attention):
-        fn(torch, timer, dev, gen, records)
-    kernels_bf16(torch, dev, gen)
-    kernel_attention_bwd(torch, timer, dev, gen, records)
+        fn(torch, timer, dev, check_gen(torch, dev, fn.__name__), records)
+    kernels_bf16(torch, dev)
+    kernel_attention_bwd(torch, timer, dev, records)
+    kernel_fused_bottleneck(torch, timer, dev, records)
     torch.cuda.synchronize()
 
 
@@ -754,10 +905,10 @@ def phase_engine(torch, dev, records, launches):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"serving path")
-    for name in TRAINING_KERNELS:
+    for name in TRAINING_KERNELS + ("fused_bottleneck",):
         if counts[name] != 0:
-            raise AssertionError(f"backward kernel {name} launched "
-                                 f"{counts[name]} times while serving")
+            raise AssertionError(f"kernel {name} launched {counts[name]} "
+                                 f"times while serving")
     for o in outs:
         if len(o) != max_new or not all(0 <= t < V for t in o):
             raise AssertionError(f"bad generation {o[:8]}...")
@@ -997,15 +1148,16 @@ TRAIN_KERNEL_GROUPS = (
 )
 
 
-def profile_train_step(torch, step, ids):
-    """One train step under ``torch.profiler``: wall time, device kernel
-    time by group and by kernel, and the device's idle share."""
+def profile_once(torch, fn, groups=TRAIN_KERNEL_GROUPS):
+    """One call of ``fn`` under ``torch.profiler``: wall time, device
+    kernel time by group (``groups``: name substrings, first match wins)
+    and by kernel, launches, and the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        step(ids)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     kernels = [e for e in prof.events()
@@ -1016,7 +1168,7 @@ def profile_train_step(torch, step, ids):
         us = e.time_range.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         low = e.name.lower()
-        group = next((g for g, keys in TRAIN_KERNEL_GROUPS
+        group = next((g for g, keys in groups
                       if any(k in low for k in keys)), "other")
         by_group[group] = by_group.get(group, 0.0) + us
     dev_ms = sum(by_name.values()) / 1e3
@@ -1089,7 +1241,7 @@ def phase_train(torch, dev, launches):
         raise AssertionError("one train step from one state gave two "
                              "results")
     del snap, p1
-    prof = profile_train_step(torch, step, ids)
+    prof = profile_once(torch, lambda: step(ids))
     emit({"phase": "train", "ok": True, "model": "gpt_1p3b",
           "layers": model.config.num_layers, "B": B, "S": S,
           "optimizer": f"AdamW({TRAIN_LR})", "warmup_loss": first,
@@ -1135,6 +1287,122 @@ def phase_train(torch, dev, launches):
         torch.cuda.empty_cache()
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+RESNET_BATCH = 128      # tools/fused_eval_bench.py's batch
+RESNET_REL_TOL = 1e-4   # logits, relative in L2, against the plain path
+RESNET_FOLDS = 53       # conv+BN pairs of ResNet-50
+RESNET_FUSED_BLOCKS = 5  # stride-1 identity blocks with H*W >= 784
+# kernel-name substrings -> the group a forward's device time is summed
+# under (first match wins)
+RESNET_KERNEL_GROUPS = (
+    ("fused_bottleneck", ("bottleneck_kernel",)),
+    ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "gemm", "winograd",
+                             "implicit", "fprop", "nchw", "nhwc")),
+    ("pooling", ("pool",)),
+    ("elementwise (BN, relu, add)", ("elementwise", "vectorized")),
+    ("reductions", ("reduce",)),
+)
+
+
+def phase_resnet(torch, dev, launches):
+    """ResNet-50 eval inference, NHWC, 1000 classes, 224x224, fp32 (TF32
+    off), seed-0 weights and seeded BN running statistics (mean N(0,
+    0.3), variance U(0.5, 2)), at N=128, on three paths over the same
+    weights under ``torch.inference_mode()``: (a) the kernel path, opted
+    in to the fused bottleneck; (b) the plain path, opted out (eager BN,
+    cuDNN convolutions); (c) ``fuse_conv_bn`` on a deep copy."""
+    import copy
+    from paddle_tpu_torch.inference.fusion import fuse_conv_bn
+    from paddle_tpu_torch.nn.norm import BatchNorm2D
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.ops.kernels import fused_conv_block as FC
+    from paddle_tpu_torch.vision.models import resnet50
+    t0 = time.monotonic()
+    model = resnet50(data_format="NHWC", device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    model.eval()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm2D):
+                mod._mean.normal_(0.0, 0.3, generator=gen)
+                mod._variance.uniform_(0.5, 2.0, generator=gen)
+    folded = copy.deepcopy(model)
+    folds = fuse_conv_bn(folded)
+    if folds != RESNET_FOLDS:
+        raise AssertionError(f"fuse_conv_bn folded {folds} pairs, not "
+                             f"{RESNET_FOLDS}")
+    x = torch.randn((RESNET_BATCH, 3, 224, 224), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    paths = {"kernel": (model, True), "plain": (model, False),
+             "folded": (folded, False)}
+
+    def forward(name, inp):
+        m, fused = paths[name]
+        FC.enable_fused_conv_eval(fused)
+        try:
+            with torch.inference_mode():
+                return m(inp)
+        finally:
+            FC.enable_fused_conv_eval(False)
+
+    logits, counts = {}, {}
+    for name in paths:
+        reset_launch_counts()
+        logits[name] = forward(name, x)
+        torch.cuda.synchronize()
+        counts[name] = launch_counts()
+    for name, c in counts.items():
+        want = RESNET_FUSED_BLOCKS if name == "kernel" else 0
+        if c["fused_bottleneck"] != want:
+            raise AssertionError(f"resnet {name} path: fused_bottleneck "
+                                 f"launched {c['fused_bottleneck']} times "
+                                 f"in one forward, not {want}")
+        others = {k: v for k, v in c.items() if k != "fused_bottleneck"
+                  and v}
+        if others:
+            raise AssertionError(f"resnet {name} path launched {others}")
+    launches["fused_bottleneck"] = counts["kernel"]["fused_bottleneck"]
+    plain = logits["plain"].float()
+    rel = {}
+    for name, out in logits.items():
+        if tuple(out.shape) != (RESNET_BATCH, 1000) or \
+                not torch.isfinite(out).all():
+            raise AssertionError(f"resnet {name} logits: shape "
+                                 f"{tuple(out.shape)} or non-finite")
+        rel[name] = float((out.float() - plain).norm() / plain.norm())
+        if not rel[name] <= RESNET_REL_TOL:
+            raise AssertionError(f"resnet {name} path: logits {rel[name]:.3g}"
+                                 f" relative off the plain path")
+    top1 = {name: float((out.argmax(-1) == plain.argmax(-1)).float()
+                        .mean()) for name, out in logits.items()}
+    timer = Timer(torch, dev)
+    timing = {}
+    for name in paths:
+        torch.cuda.reset_peak_memory_stats()
+        ms = timer(lambda: forward(name, x), iters=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated()
+        ms1 = timer(lambda: forward(name, x[:1]), iters=10, warmup=2)
+        timing[name] = {"ms_per_forward": ms,
+                        "imgs_per_s": RESNET_BATCH / ms * 1e3,
+                        "peak_mem_gb": peak / 1e9, "latency_ms_n1": ms1}
+    prof = {name: profile_once(torch, lambda: forward(name, x),
+                               RESNET_KERNEL_GROUPS)
+            for name in ("kernel", "plain")}
+    emit({"phase": "resnet", "ok": True, "model": "resnet50",
+          "data_format": "NHWC", "batch": RESNET_BATCH, "image": 224,
+          "dtype": "float32", "model_build_s": build_s, "folds": folds,
+          "launches_per_forward": {n: c["fused_bottleneck"]
+                                   for n, c in counts.items()},
+          "tol_rel": RESNET_REL_TOL, "logits_rel_l2_vs_plain": rel,
+          "top1_agreement_vs_plain": top1, "timing": timing,
+          "profile": prof})
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -1167,6 +1435,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_train(torch, dev, launches)
+    phase_resnet(torch, dev, launches)
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         r = records[name]

@@ -28,9 +28,8 @@ parallelism, the static KV cache and ``generate``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -38,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import rng
 from ..device import resolve_device
+from ..nn.layer import checkpoint_state, load_jax_state  # noqa: F401
 from ..nn.layers import (ColumnParallelLinear, Dropout, Embedding,
                          LayerNorm, ParallelCrossEntropy, RowParallelLinear,
                          VocabParallelEmbedding, gelu)
@@ -497,30 +497,3 @@ class GPTForCausalLM(nn.Module):
                                          self.config.loss_chunk_size)
         logits = self.logits(hidden)
         return self.loss_fn(logits[:, :-1], labels[:, 1:]).mean()
-
-
-def checkpoint_state(model: nn.Module) -> Dict[str, np.ndarray]:
-    """The model's weights as host numpy arrays keyed by structured name —
-    the same keys as ``paddle_tpu.models.gpt.checkpoint_state``."""
-    return {name: t.detach().cpu().numpy()
-            for name, t in model.state_dict().items()}
-
-
-def load_jax_state(model: nn.Module, state: Dict[str, Any]) -> None:
-    """Load a ``paddle_tpu.models.gpt.checkpoint_state`` dict (keys such
-    as ``gpt.h.0.attn.qkv_proj.weight (E, 3E)``) without renaming or
-    transposing. Missing or unexpected keys and shape mismatches
-    raise."""
-    own = model.state_dict()
-    missing = sorted(set(own) - set(state))
-    extra = sorted(set(state) - set(own))
-    if missing or extra:
-        raise KeyError(f"state does not match the model: missing "
-                       f"{missing[:4]}, unexpected {extra[:4]}")
-    with torch.no_grad():
-        for name, t in own.items():
-            src = torch.from_numpy(np.array(state[name]))
-            if tuple(src.shape) != tuple(t.shape):
-                raise ValueError(f"{name}: shape {tuple(src.shape)} != "
-                                 f"{tuple(t.shape)}")
-            t.copy_(src.to(dtype=t.dtype))

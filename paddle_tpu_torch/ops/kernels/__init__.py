@@ -12,6 +12,7 @@ from typing import Dict
 from .attention import (attention_bwd_dkv, attention_bwd_dq,
                         attention_bwd_fused, attention_fwd,
                         folded_attention_bwd)
+from .fused_conv_block import fused_bottleneck_eval
 from .fused_sample import fused_argmax
 from .paged_attention import decode_out_proj, paged_decode
 
@@ -24,6 +25,7 @@ KERNELS = {
     "attention_bwd_dq": attention_bwd_dq,
     "attention_bwd_dkv": attention_bwd_dkv,
     "folded_attention_bwd": folded_attention_bwd,
+    "fused_bottleneck": fused_bottleneck_eval,
 }
 
 

@@ -1,6 +1,7 @@
-"""Kernel selection and the functional ops of the serving and training
-paths (port of the attention, sampling, dropout and cross-entropy
-entries of ``paddle_tpu/ops/nn_functional.py``).
+"""Kernel selection and the functional ops of the serving, training and
+vision paths (port of the attention, sampling, dropout, cross-entropy,
+convolution, pooling and batch-norm entries of
+``paddle_tpu/ops/nn_functional.py``).
 
 Each attention or sampling entry picks a CUDA kernel by the JAX
 package's shape rules, gated on the tensors lying on a CUDA device where
@@ -18,9 +19,11 @@ training never enter it.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 
 import torch
+import torch.nn.functional as F
 
 from ..core import rng
 from .kernels.attention import (flash_attention, flash_attention_supported,
@@ -211,3 +214,194 @@ def fused_sample(hidden, weight, bias=None, transpose_y=False, top_k=None,
                             transpose_y=transpose_y)
     return fused_argmax_reference(hidden, weight, vdim, bias=bias,
                                   tile=tile)
+
+
+# -- activations, convolution, pooling, batch norm (the vision path) ---------
+
+def relu(x):
+    """``nn_functional.py:26``."""
+    return torch.relu(x)
+
+
+def _norm_tuple(v, n: int):
+    if isinstance(v, int):
+        return (v,) * n
+    return tuple(v)
+
+
+def _conv_padding(padding, nsp: int):
+    """The JAX package's padding spec (``nn_functional.py:273-285``): an
+    int, one int per spatial dim, ``2 * nsp`` ints (lo, hi per dim),
+    per-dim pairs, or ``'SAME'`` / ``'VALID'`` (returned upper-cased)."""
+    if isinstance(padding, str):
+        return padding.upper()
+    if isinstance(padding, int):
+        return [(padding, padding)] * nsp
+    padding = list(padding)
+    if len(padding) == nsp and all(isinstance(p, int) for p in padding):
+        return [(p, p) for p in padding]
+    if len(padding) == 2 * nsp:
+        return [(padding[2 * i], padding[2 * i + 1]) for i in range(nsp)]
+    return [tuple(p) for p in padding]
+
+
+def _explicit_pads(padding, in_sp, ksize, stride, dilation):
+    """``_conv_padding`` with ``'SAME'`` and ``'VALID'`` resolved to
+    (lo, hi) pairs as XLA resolves them: SAME gives ``ceil(in /
+    stride)`` outputs, the odd pad on the high side."""
+    pads = _conv_padding(padding, len(in_sp))
+    if pads == "VALID":
+        return [(0, 0)] * len(in_sp)
+    if pads == "SAME":
+        out = []
+        for i, k, s, d in zip(in_sp, ksize, stride, dilation):
+            total = max((-(-i // s) - 1) * s + (k - 1) * d + 1 - i, 0)
+            out.append((total // 2, total - total // 2))
+        return out
+    if isinstance(pads, str):
+        raise ValueError(f"padding {padding!r}: expected 'SAME' or 'VALID'")
+    return [(int(lo), int(hi)) for lo, hi in pads]
+
+
+def _pad_spatial(x_nchw, pads, value: float):
+    """Pad H and W of an NCHW tensor with (lo, hi) pairs."""
+    (hl, hh), (wl, wh) = pads
+    return F.pad(x_nchw, (wl, wh, hl, hh), value=value)
+
+
+def _to_nchw(x, channel_last: bool):
+    # an NHWC tensor viewed as NCHW: channels-last memory, no copy, and
+    # cuDNN / the pooling kernels then run in NHWC
+    return x.permute(0, 3, 1, 2) if channel_last else x
+
+
+def _from_nchw(y, channel_last: bool):
+    return y.permute(0, 2, 3, 1) if channel_last else y
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    """``nn_functional.py:287-302``. ``weight`` is ``[out, in/groups, kh,
+    kw]`` whatever ``data_format`` is. XLA's convolution in the JAX
+    package; cuDNN here (no kernel of the JAX package's own)."""
+    channel_last = data_format in ("NHWC", "NLC", "NDHWC")
+    stride = _norm_tuple(stride, 2)
+    dilation = _norm_tuple(dilation, 2)
+    xin = _to_nchw(x, channel_last)
+    pads = _explicit_pads(padding, tuple(xin.shape[2:]),
+                          tuple(weight.shape[2:]), stride, dilation)
+    if all(lo == hi for lo, hi in pads):
+        out = F.conv2d(xin, weight, bias, stride, [lo for lo, _ in pads],
+                       dilation, groups)
+    else:
+        out = F.conv2d(_pad_spatial(xin, pads, 0.0), weight, bias, stride, 0,
+                       dilation, groups)
+    return _from_nchw(out, channel_last)
+
+
+def _pool_args(x_nchw, kernel_size, stride, padding):
+    ksize = _norm_tuple(kernel_size, 2)
+    stride = _norm_tuple(stride if stride is not None else ksize, 2)
+    pads = _explicit_pads(padding, tuple(x_nchw.shape[2:]), ksize, stride,
+                          (1, 1))
+    return ksize, stride, pads
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW"):
+    """``nn_functional.py:431-465``: the window max with -inf padding
+    (the dtype's minimum for integers). ``ceil_mode`` is ignored, as the
+    JAX package's ``_pool`` ignores it."""
+    if return_mask:
+        raise NotImplementedError("max_pool2d(return_mask=True) is not yet "
+                                  "ported, see ROADMAP.md")
+    channel_last = data_format == "NHWC"
+    xin = _to_nchw(x, channel_last)
+    ksize, stride, pads = _pool_args(xin, kernel_size, stride, padding)
+    if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads, ksize)):
+        # torch pads with -inf itself when the pad is symmetric and at
+        # most half the window
+        out = F.max_pool2d(xin, ksize, stride, [lo for lo, _ in pads])
+    else:
+        low = (-math.inf if x.dtype.is_floating_point
+               else torch.iinfo(x.dtype).min)
+        out = F.max_pool2d(_pad_spatial(xin, pads, low), ksize, stride, 0)
+    return _from_nchw(out, channel_last)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCHW"):
+    """``nn_functional.py:512-526``: the window sum over zero padding,
+    divided by ``divisor_override``, else by the count of unpadded
+    positions (``exclusive`` with numeric padding), else by the window
+    size (also for ``'SAME'``/``'VALID'``, as in the JAX package)."""
+    channel_last = data_format == "NHWC"
+    xin = _to_nchw(x, channel_last)
+    ksize, stride, pads = _pool_args(xin, kernel_size, stride, padding)
+    summed = F.avg_pool2d(_pad_spatial(xin, pads, 0.0), ksize, stride, 0,
+                          divisor_override=1)
+    if divisor_override:
+        out = summed / divisor_override
+    elif exclusive and not isinstance(padding, str):
+        ones = torch.ones((1, 1) + tuple(xin.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        counts = F.avg_pool2d(_pad_spatial(ones, pads, 0.0), ksize, stride,
+                              0, divisor_override=1)
+        out = summed / counts
+    else:
+        out = summed / (ksize[0] * ksize[1])
+    return _from_nchw(out.to(x.dtype), channel_last)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    """``nn_functional.py:576-614``: a plain average pool when each input
+    size divides by its output size; otherwise the mean over the windows
+    ``[floor(i*in/out), ceil((i+1)*in/out))``, one spatial axis after the
+    other, as the JAX package computes it."""
+    channel_last = data_format == "NHWC"
+    out_size = _norm_tuple(output_size, 2)
+    sp_axes = (1, 2) if channel_last else (2, 3)
+    in_size = tuple(x.shape[a] for a in sp_axes)
+    if all(i % o == 0 for i, o in zip(in_size, out_size)):
+        k = tuple(i // o for i, o in zip(in_size, out_size))
+        return avg_pool2d(x, k, k, 0, data_format=data_format)
+    out = x
+    for ax, osz in zip(sp_axes, out_size):
+        isz = out.shape[ax]
+        pieces = []
+        for j in range(osz):
+            s, e = (j * isz) // osz, ((j + 1) * isz + osz - 1) // osz
+            pieces.append(out.narrow(ax, s, e - s).mean(dim=ax, keepdim=True))
+        out = torch.cat(pieces, dim=ax)
+    return out
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW"):
+    """``nn_functional.py:685-715``; returns ``(out, new_mean,
+    new_var)``. Training normalises with the batch statistics, the
+    biased variance ``E[x^2] - E[x]^2`` in f32, and updates the running
+    ones the JAX (and Paddle) way, ``momentum * old + (1 - momentum) *
+    new`` (torch's ``F.batch_norm`` weighs the other way and keeps the
+    unbiased variance, so it is not used)."""
+    ch = 1 if data_format.startswith("NC") and x.dim() > 1 else x.dim() - 1
+    axes = [i for i in range(x.dim()) if i != ch]
+    if training:
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=axes)
+        var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+        new_rm = momentum * running_mean + (1.0 - momentum) * mean.detach()
+        new_rv = momentum * running_var + (1.0 - momentum) * var.detach()
+    else:
+        mean, var = running_mean, running_var
+        new_rm, new_rv = running_mean, running_var
+    shape = [1] * x.dim()
+    shape[ch] = -1
+    out = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                  + epsilon)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out.to(x.dtype), new_rm, new_rv

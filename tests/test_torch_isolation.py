@@ -54,6 +54,9 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "import paddle_tpu_torch.ops.kernels\n"
         "import paddle_tpu_torch.jit, paddle_tpu_torch.optimizer\n"
         "import paddle_tpu_torch.core.rng\n"
+        "import paddle_tpu_torch.vision.models\n"
+        "import paddle_tpu_torch.inference.fusion\n"
+        "import paddle_tpu_torch.ops.kernels.fused_conv_block\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
@@ -90,6 +93,43 @@ def test_default_entry_points_raise_without_a_gpu():
     from paddle_tpu_torch.optimizer import AdamW
     with pytest.raises(RuntimeError, match="no usable GPU"):
         TrainStep(cpu_model, AdamW(), lambda m, x: m(x, labels=x))
+
+
+@pytest.mark.parametrize("name", ["resnet18", "resnet34", "resnet50",
+                                  "resnet101", "resnet152",
+                                  "wide_resnet50_2"])
+def test_resnet_constructors_raise_without_a_gpu(name):
+    _no_card()
+    from paddle_tpu_torch.vision import models
+    with pytest.raises(RuntimeError, match="no usable GPU"):
+        getattr(models, name)()
+    with pytest.raises(RuntimeError, match="no usable GPU"):
+        getattr(models, name)(data_format="NHWC", device="cuda")
+
+
+def test_fused_bottleneck_has_no_backward():
+    """The fused bottleneck has no backward (nor has its TPU kernel):
+    with grad mode on, an operand that requires grad raises; under
+    ``torch.no_grad()`` it runs."""
+    from paddle_tpu_torch.ops.kernels.fused_conv_block import (
+        fused_bottleneck_eval)
+    g = torch.Generator().manual_seed(0)
+    c, m = 32, 8
+    x = torch.randn(1, 5, 6, c, generator=g)
+    params = [torch.randn(c, m, generator=g), torch.zeros(1, m),
+              torch.randn(9 * m, m, generator=g), torch.zeros(1, m),
+              torch.randn(m, c, generator=g), torch.zeros(1, c)]
+    with pytest.raises(RuntimeError, match="fused_bottleneck has no "
+                                           "backward"):
+        fused_bottleneck_eval(x.clone().requires_grad_(True), *params)
+    w1 = params[0].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        fused_bottleneck_eval(x, w1, *params[1:])
+    with torch.no_grad():
+        out = fused_bottleneck_eval(x.clone().requires_grad_(True), w1,
+                                    *params[1:])
+    assert out.shape == x.shape and not out.requires_grad
+    assert fused_bottleneck_eval(x, *params).shape == x.shape
 
 
 def test_train_step_refuses_a_model_on_another_device():
