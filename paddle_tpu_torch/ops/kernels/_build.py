@@ -48,8 +48,10 @@ SIGNATURES: Dict[str, List] = {
     # B, H, D, page, max_pages, q_dtype, kv_dtype, scale, stream
     "pt_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # ctx, w, bias, out, B, K, N, act_dtype, w_dtype, has_bias, stream
-    "pt_decode_out_proj": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # ctx, w, bias, out, B, K, N, act_dtype, w_dtype, has_bias,
+    # splits, rows per split, stream
+    "pt_decode_out_proj": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
     # hidden, weight, bias, tile_max, tile_arg, tile_nan, out,
     # B, D, V, vocab_major, h_dtype, w_dtype, has_bias, n_tiles, stream
     "pt_fused_argmax": [_P, _P, _P, _P, _P, _P, _P,

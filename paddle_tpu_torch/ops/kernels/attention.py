@@ -5,7 +5,8 @@ Port of ``paddle_tpu/ops/pallas/flash_attention.py`` and
 ``paddle_tpu/ops/pallas/folded_attention.py``. On the TPU the forward
 was three kernels for reasons of Mosaic's tiling (see
 ``csrc/attention_fwd.cu``); here :func:`attention_fwd` launches one
-online-softmax kernel that reads ``[B, S, H, D]`` through strides. The
+online-softmax kernel on the tensor cores (3xTF32 for fp32, bf16
+products for bf16) that reads ``[B, S, H, D]`` through strides. The
 backward kernels (``csrc/attention_bwd.cu``) keep the TPU's split:
 
 - :func:`attention_bwd_fused` (TPU #6) when the whole Q axis is one
@@ -94,6 +95,22 @@ def _strides(t):
     return (t.stride(0), t.stride(1), t.stride(2))
 
 
+def check_vector_aligned(name, *named):
+    """Raise unless every ``(name, tensor)`` starts on a 16-byte
+    boundary and its batch, row and head strides are whole 16-byte
+    steps: the forward kernel stages rows with 16-byte copies. Slices of
+    a fused [B, S, 3, H, D] projection pass; a misaligned view is
+    refused, never copied behind the caller's back."""
+    for tname, t in named:
+        size = t.element_size()
+        if t.data_ptr() % 16 or any((st * size) % 16
+                                    for st in _strides(t)):
+            raise ValueError(
+                f"{name}: {tname} needs a 16-byte aligned start and "
+                f"16-byte multiples as batch/row/head strides (strides "
+                f"{_strides(t)}, {size}-byte elements)")
+
+
 def attention_fwd(q, k, v, causal: bool = False,
                   scale: Optional[float] = None, return_lse: bool = True):
     """The kernel's wrapper: q [B, Sq, H, D], k/v [B, Sk, H, D] (any
@@ -108,6 +125,7 @@ def attention_fwd(q, k, v, causal: bool = False,
         out, lse = attention_reference(q, k, v, causal=causal, scale=scale)
         return out, (lse if return_lse else None)
     dev = _check_operands("attention_fwd", q, k, v, (64, 128, 256))
+    check_vector_aligned("attention_fwd", ("q", q), ("k", k), ("v", v))
     code = _build.dtype_code(q, "attention_fwd")
     out = torch.empty((b, sq, h, d), device=dev, dtype=q.dtype)
     lse = (torch.empty((b, sq, h), device=dev, dtype=torch.float32)

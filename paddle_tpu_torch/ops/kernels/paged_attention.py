@@ -176,9 +176,49 @@ def decode_out_proj_reference(ctx, w, bias=None):
     return out
 
 
+# the tile of csrc/decode_out_proj.cu (its constants, checked again at
+# its launch): row threads along K, the W rows each holds in one pass,
+# column threads (16 bytes of W each), and the most splits, one
+# portable thread-block cluster
+OUT_PROJ_ROW_THREADS = 32
+OUT_PROJ_MAX_ROWS = 16
+OUT_PROJ_COL_THREADS = 8
+OUT_PROJ_MAX_SPLITS = 8
+
+
+def decode_out_proj_wave(w_itemsize: int, sms: int) -> int:
+    """Blocks of the out-projection kernel resident at once on ``sms``
+    SMs: two per SM with fp32 W, one with bf16 W (whose W rows take more
+    registers)."""
+    return sms * (2 if w_itemsize == 4 else 1)
+
+
+def decode_out_proj_split(k: int, n: int, w_itemsize: int, sms: int):
+    """The split-K partition of the out-projection kernel: ``(splits,
+    rows)`` with split ``s`` covering W rows ``[s * rows, min(k, (s + 1)
+    * rows))``. ``rows`` is a multiple of the kernel's 32 row threads;
+    up to 512 rows (what they hold) it is one pass, above that the
+    kernel takes several. As many splits as keep the grid in one wave
+    (:func:`decode_out_proj_wave`), at least enough to make one pass
+    each, at most ``OUT_PROJ_MAX_SPLITS``."""
+    step = OUT_PROJ_ROW_THREADS
+    if k <= 0:
+        return 1, step
+    col_blocks = -(-n // (OUT_PROJ_COL_THREADS * (16 // w_itemsize)))
+    fit = max(1, decode_out_proj_wave(w_itemsize, sms) // max(col_blocks, 1))
+    most = OUT_PROJ_ROW_THREADS * OUT_PROJ_MAX_ROWS
+    splits = min(max(-(-k // most), fit), OUT_PROJ_MAX_SPLITS,
+                 -(-k // step))
+    rows = -(-k // splits)
+    rows = -(-rows // step) * step
+    return -(-k // rows), rows
+
+
 def decode_out_proj(ctx, w, bias=None):
     """Skinny decode projection ``[B, E] x [E, E_out]`` (+ bias) with f32
-    accumulation. CPU tensors take the plain version."""
+    accumulation, W read once per launch (split over K and N, the splits
+    of a column slice summed in order inside one thread-block cluster).
+    CPU tensors take the plain version."""
     _build.refuse_grad("decode_out_proj", ctx, w, bias)
     if ctx.device.type == "cpu":
         return decode_out_proj_reference(ctx, w, bias)
@@ -193,10 +233,19 @@ def decode_out_proj(ctx, w, bias=None):
         raise TypeError("decode_out_proj: bias must have w's dtype")
     ac = _build.dtype_code(ctx, "decode_out_proj ctx")
     wc = _build.dtype_code(w, "decode_out_proj w")
+    vec = 16 // w.element_size()
+    if n % vec or w.data_ptr() % 16:
+        raise ValueError(f"decode_out_proj: W is read in 16-byte vectors; "
+                         f"E_out {n} must be a multiple of {vec} and W "
+                         f"16-byte aligned")
+    splits, rows = decode_out_proj_split(
+        k, n, w.element_size(),
+        torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty((b, n), device=dev, dtype=ctx.dtype)
     err = _build.lib().pt_decode_out_proj(
         ctx.data_ptr(), w.data_ptr(), _build.ptr(bias), out.data_ptr(),
-        b, k, n, ac, wc, int(bias is not None), _build.stream(dev))
+        b, k, n, ac, wc, int(bias is not None), splits, rows,
+        _build.stream(dev))
     _build.check(err, "decode_out_proj")
     decode_out_proj.launches += 1
     return out
