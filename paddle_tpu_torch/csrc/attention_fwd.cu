@@ -66,6 +66,8 @@
 //   K tiles wholly above the diagonal are never loaded.
 // - No atomics: every sum runs in a fixed order, so the same inputs give
 //   the same bits on every launch.
+// The copies, splits and products are in mma.cuh, shared with the
+// single-pass backward (attention_bwd.cu).
 // Left for later: wgmma with TMA-fed tiles (and TMA multicast across a
 // cluster), warp specialisation (a producer warp, consumer warpgroups),
 // pre-splitting K and V once per tile instead of once per warp,
@@ -73,8 +75,11 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using namespace pt;
 
 constexpr int kRowGroups = 4;             // warps along the Q tile
 constexpr int kWarps = 2 * kRowGroups;    // each row group: two K halves
@@ -90,229 +95,6 @@ struct Tile {
   static constexpr size_t kSmem =
       static_cast<size_t>(kBQ + 4 * kBK) * kLD * sizeof(T);
 };
-
-// -- copies -------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// rows [r0, r0 + R) of a [rows_total, D] operand with row stride rs
-// (elements) into dst [R][kLD]; rows past rows_total are zeros
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, long long rs,
-                                          int r0, int rows_total, int tid) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  constexpr int kPerRow = D / kVec;
-  constexpr int kLD = Tile<T, D>::kLD;
-  static_assert((R * kPerRow) % kThreads == 0, "tile not a thread multiple");
-#pragma unroll
-  for (int it = 0; it < R * kPerRow / kThreads; ++it) {
-    const int i = tid + it * kThreads;
-    const int r = i / kPerRow, c = (i - r * kPerRow) * kVec;
-    const int s = r0 + r;
-    const bool ok = s < rows_total;
-    cp_async16(dst + r * kLD + c,
-               src + (ok ? static_cast<long long>(s) * rs : 0LL) + c, ok);
-  }
-}
-
-// -- tensor-core products -----------------------------------------------------
-
-// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
-// zero: the bits cvt.rna.tf32.f32 gives for every finite x, in two
-// integer ops. Adding half of the dropped field to the magnitude bits
-// carries into the kept bits exactly when the dropped part is at least
-// half a step. (The conversion instruction itself issues at a fraction
-// of the integer rate; with four conversions per product it held the
-// fp32 path back by about a quarter.)
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x ~ hi + lo, both TF32 (round to nearest)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 3xTF32: the small terms first
-__device__ __forceinline__ void mma3(float* c, const uint32_t* ah,
-                                     const uint32_t* al, const uint32_t* bh,
-                                     const uint32_t* bl) {
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// (x, y) ~ hi + lo, both bf16 pairs
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat16 hx = __float2bfloat16(x), hy = __float2bfloat16(y);
-  hi = pack_bf16(hx, hy);
-  lo = pack_bf16(__float2bfloat16(x - __bfloat162float(hx)),
-                 __float2bfloat16(y - __bfloat162float(hy)));
-}
-
-// Fragment coordinates: lane = 4 g + t. An m16n8 accumulator c holds
-// (row g, cols 2t, 2t+1) in c[0..1] and (row g+8, same cols) in c[2..3].
-
-// s[j] += Q[16 rows] . K[8j .. 8j+7]^T over D, fp32 by 3xTF32.
-// Q: this warp's 16 rows; K: the tile's BK rows.
-template <int D, int BK>
-__device__ __forceinline__ void scores(float (&s)[BK / 8][4], const float* Q,
-                                       const float* K, int g, int t) {
-  constexpr int kLD = Tile<float, D>::kLD;
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    // A (16x8, row-major): (g, t) (g+8, t) (g, t+4) (g+8, t+4)
-    const float* q = Q + g * kLD + kk * 8 + t;
-    uint32_t ah[4], al[4];
-    split(q[0], ah[0], al[0]);
-    split(q[8 * kLD], ah[1], al[1]);
-    split(q[4], ah[2], al[2]);
-    split(q[8 * kLD + 4], ah[3], al[3]);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      // B (8x8, k x n) = K^T: (k = t, n = g) (k = t+4, n = g)
-      const float* kp = K + (j * 8 + g) * kLD + kk * 8 + t;
-      uint32_t bh[2], bl[2];
-      split(kp[0], bh[0], bl[0]);
-      split(kp[4], bh[1], bl[1]);
-      mma3(s[j], ah, al, bh, bl);
-    }
-  }
-}
-
-// the same in bf16 (m16n8k16)
-template <int D, int BK>
-__device__ __forceinline__ void scores(float (&s)[BK / 8][4],
-                                       const __nv_bfloat16* Q,
-                                       const __nv_bfloat16* K, int g, int t) {
-  constexpr int kLD = Tile<__nv_bfloat16, D>::kLD;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    // A (16x16): (g, 2t..2t+1) (g+8, 2t..) (g, 2t+8..) (g+8, 2t+8..)
-    const __nv_bfloat16* q = Q + g * kLD + kk * 16 + 2 * t;
-    const uint32_t a[4] = {ld32(q), ld32(q + 8 * kLD), ld32(q + 8),
-                           ld32(q + 8 * kLD + 8)};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      // B (16x8) = K^T: (k = 2t..2t+1, n = g) (k = 2t+8.., n = g)
-      const __nv_bfloat16* kp = K + (j * 8 + g) * kLD + kk * 16 + 2 * t;
-      const uint32_t b[2] = {ld32(kp), ld32(kp + 8)};
-      mma_bf16(s[j], a, b);
-    }
-  }
-}
-
-// o[n] += P[16 rows, BK keys] . V[BK, 8n .. 8n+7], fp32 by 3xTF32. P
-// comes in the accumulator layout: for key chunk j the thread holds
-// columns 2t, 2t+1, used as logical k = t and t + 4, so B reads V rows
-// 8j + 2t and 8j + 2t + 1.
-template <int D, int BK>
-__device__ __forceinline__ void pv(float (&o)[D / 8][4],
-                                   const float (&p)[BK / 8][4],
-                                   const float* V, int g, int t) {
-  constexpr int kLD = Tile<float, D>::kLD;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    uint32_t ah[4], al[4];
-    split(p[j][0], ah[0], al[0]);  // (g, k = t)
-    split(p[j][2], ah[1], al[1]);  // (g+8, k = t)
-    split(p[j][1], ah[2], al[2]);  // (g, k = t+4)
-    split(p[j][3], ah[3], al[3]);  // (g+8, k = t+4)
-    const float* v = V + (j * 8 + 2 * t) * kLD + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      uint32_t bh[2], bl[2];
-      split(v[n * 8], bh[0], bl[0]);
-      split(v[kLD + n * 8], bh[1], bl[1]);
-      mma3(o[n], ah, al, bh, bl);
-    }
-  }
-}
-
-// the same in bf16: P split into hi + lo bf16 terms, two products
-template <int D, int BK>
-__device__ __forceinline__ void pv(float (&o)[D / 8][4],
-                                   const float (&p)[BK / 8][4],
-                                   const __nv_bfloat16* V, int g, int t) {
-  constexpr int kLD = Tile<__nv_bfloat16, D>::kLD;
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j) {
-    uint32_t ah[4], al[4];
-    split_bf16(p[2 * j][0], p[2 * j][1], ah[0], al[0]);
-    split_bf16(p[2 * j][2], p[2 * j][3], ah[1], al[1]);
-    split_bf16(p[2 * j + 1][0], p[2 * j + 1][1], ah[2], al[2]);
-    split_bf16(p[2 * j + 1][2], p[2 * j + 1][3], ah[3], al[3]);
-    const __nv_bfloat16* v = V + (j * 16 + 2 * t) * kLD + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const __nv_bfloat16* vn = v + n * 8;
-      const uint32_t b[2] = {pack_bf16(vn[0], vn[kLD]),
-                             pack_bf16(vn[8 * kLD], vn[9 * kLD])};
-      mma_bf16(o[n], al, b);
-      mma_bf16(o[n], ah, b);
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -348,10 +130,10 @@ __global__ void __launch_bounds__(kThreads)
   // causal: K tiles wholly above this Q tile's last row are never loaded
   const int k_end = causal ? min(Sk, q0 + kBQ) : Sk;
   const int n_tiles = (k_end + kBK - 1) / kBK;
-  load_rows<T, D, kBQ>(Qs, qb, qss, q0, Sq, tid);
+  load_rows<T, D, kBQ, kLD, kThreads>(Qs, qb, qss, q0, Sq, tid);
   if (n_tiles > 0) {
-    load_rows<T, D, kBK>(Ks, kb, kss, 0, Sk, tid);
-    load_rows<T, D, kBK>(Vs, vb, vss, 0, Sk, tid);
+    load_rows<T, D, kBK, kLD, kThreads>(Ks, kb, kss, 0, Sk, tid);
+    load_rows<T, D, kBK, kLD, kThreads>(Vs, vb, vss, 0, Sk, tid);
   }
   cp_async_commit();
 
@@ -368,10 +150,10 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_wait_all();
     __syncthreads();  // tile it is in; tile it-1's buffer is free
     if (it + 1 < n_tiles) {
-      load_rows<T, D, kBK>(Ks + (buf ^ 1) * kBK * kLD, kb, kss,
-                           (it + 1) * kBK, Sk, tid);
-      load_rows<T, D, kBK>(Vs + (buf ^ 1) * kBK * kLD, vb, vss,
-                           (it + 1) * kBK, Sk, tid);
+      load_rows<T, D, kBK, kLD, kThreads>(Ks + (buf ^ 1) * kBK * kLD, kb,
+                                          kss, (it + 1) * kBK, Sk, tid);
+      load_rows<T, D, kBK, kLD, kThreads>(Vs + (buf ^ 1) * kBK * kLD, vb,
+                                          vss, (it + 1) * kBK, Sk, tid);
     }
     cp_async_commit();
     // every key of this warp's half tile above every row of the warp, or
@@ -384,7 +166,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kHK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    scores<D, kHK>(s, Qs + 16 * rg * kLD, Ks + off, g, t);
+    scores<D, kHK, kLD>(s, Qs + 16 * rg * kLD, Ks + off, g, t);
 
     const bool masked = k0 + kHK > Sk || (causal && k0 + kHK - 1 > w0);
     float mx[2] = {pt::kNegInf, pt::kNegInf};
@@ -429,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
       o[n][2] *= alpha[1];
       o[n][3] *= alpha[1];
     }
-    pv<D, kHK>(o, s, Vs + off, g, t);
+    pv<D, kHK, kLD>(o, s, Vs + off, g, t);
   }
 
   // the two halves of each row meet: the second warp's running max, sum

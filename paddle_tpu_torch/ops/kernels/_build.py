@@ -107,12 +107,15 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> str:
     """Compile the kernels if the library for the current sources does
     not exist yet; returns the library path. ``verbose`` adds
-    ``-Xptxas=-v`` and prints each kernel's registers, shared memory and
-    spills to stderr."""
+    ``-Xptxas=-v``, prints each kernel's registers, shared memory and
+    spills to stderr and keeps them beside the library
+    (:func:`ptxas_report_path`), rebuilding a library that has none."""
     digest = source_hash()
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     stamp = lib_path + ".hash"
-    if os.path.exists(lib_path) and os.path.exists(stamp):
+    report = ptxas_report_path()
+    if os.path.exists(lib_path) and os.path.exists(stamp) and (
+            not verbose or os.path.exists(report)):
         with open(stamp) as f:
             if f.read().strip() == digest:
                 return lib_path
@@ -133,14 +136,19 @@ def build(verbose: bool = False) -> str:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     failures = []
+    outputs = []
     for src, p in procs:
         out, _ = p.communicate()
         if p.returncode != 0:
             failures.append(f"{os.path.basename(src)}:\n{out}")
         elif verbose and out:
             print(out, file=sys.stderr, flush=True)
+            outputs.append(out)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    if verbose:
+        with open(report, "w") as f:
+            f.write("\n".join(outputs))
     tmp = lib_path + f".tmp{os.getpid()}"
     link = subprocess.run([nvcc] + ARCH_FLAGS + ["-shared", "-o", tmp]
                           + objs, stdout=subprocess.PIPE,
@@ -151,6 +159,12 @@ def build(verbose: bool = False) -> str:
     with open(stamp, "w") as f:
         f.write(digest)
     return lib_path
+
+
+def ptxas_report_path() -> str:
+    """Where a verbose build keeps ``ptxas -v``'s lines for the current
+    library."""
+    return os.path.join(BUILD_DIR, LIB_NAME + ".ptxas")
 
 
 def lib() -> ctypes.CDLL:

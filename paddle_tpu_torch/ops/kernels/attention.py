@@ -15,6 +15,10 @@ backward kernels (``csrc/attention_bwd.cu``) keep the TPU's split:
 - :func:`folded_attention_bwd` (#10), which recomputes the softmax from
   q and k (no saved lse).
 
+The single pass (#6, #10) runs on the tensor cores like the forward
+(3xTF32 in fp32, bf16 products for bf16); the dQ and dK/dV passes
+(#7, #8) are FMA kernels.
+
 :func:`flash_attention` returns ``(out, lse)`` with ``lse`` [B, S, H]
 f32, both differentiable (the ``flash_attention_lse`` convention,
 ``flash_attention.py:539-586``); :func:`folded_attention` returns
@@ -98,9 +102,10 @@ def _strides(t):
 def check_vector_aligned(name, *named):
     """Raise unless every ``(name, tensor)`` starts on a 16-byte
     boundary and its batch, row and head strides are whole 16-byte
-    steps: the forward kernel stages rows with 16-byte copies. Slices of
-    a fused [B, S, 3, H, D] projection pass; a misaligned view is
-    refused, never copied behind the caller's back."""
+    steps: the forward kernel and the single-pass backward stage rows
+    with 16-byte copies. Slices of a fused [B, S, 3, H, D] projection
+    pass; a misaligned view is refused, never copied behind the
+    caller's back."""
     for tname, t in named:
         size = t.element_size()
         if t.data_ptr() % 16 or any((st * size) % 16
@@ -145,8 +150,8 @@ attention_fwd.launches = 0
 
 # -- backward -----------------------------------------------------------------
 
-# rows of a K tile in csrc/attention_bwd.cu (kT): the fused entries
-# keep one fp32 dQ share per K tile
+# rows of a K tile in csrc/attention_bwd.cu (kT): the single pass keeps
+# one fp32 dQ share per K tile
 KERNEL_TILE = 64
 BWD_HEAD_DIMS = (64, 128)
 
@@ -212,6 +217,8 @@ def _launch_bwd(name, mode, q, k, v, do, lse, delta, causal, scale):
     ones the mode does not compute left None."""
     do = do if do.stride(3) == 1 else do.contiguous()
     dev = _check_operands(name, q, k, v, BWD_HEAD_DIMS, extra=(do,))
+    if mode >= 2:  # the single pass stages rows with 16-byte copies
+        check_vector_aligned(name, ("q", q), ("k", k), ("v", v), ("dO", do))
     b, sq, h, d = q.shape
     sk = k.shape[1]
     code = _build.dtype_code(q, name)
@@ -269,10 +276,11 @@ def attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
 
 def attention_bwd_fused(q, k, v, do, lse, delta, causal: bool = False,
                         scale: Optional[float] = None):
-    """Single-pass backward (TPU #6, the whole Q axis one block): scores
-    and their exp once per (q, k) pair; dQ shares summed per K tile in
-    a second launch. Returns ``(dq, dk, dv)``. CPU tensors take the
-    plain version."""
+    """Single-pass backward (TPU #6, the whole Q axis one block) on the
+    tensor cores: scores and their exp once per (q, k) pair, one block
+    per K tile writing its dQ share, and the shares summed in K-tile
+    order by a second launch (two launches a call). Returns ``(dq, dk,
+    dv)``. CPU tensors take the plain version."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, do, lse, delta, causal,
@@ -286,10 +294,10 @@ def attention_bwd_fused(q, k, v, do, lse, delta, causal: bool = False,
 def folded_attention_bwd(q, k, v, do, causal: bool = False,
                          scale: Optional[float] = None):
     """Folded backward (TPU #10): a first launch recomputes each row's
-    lse and ``delta = rowsum(p_hat * dp)`` from q, k, v and dO, then the
-    fused pass of :func:`attention_bwd_fused` runs on them (three
-    launches in all). Returns ``(dq, dk, dv)``. CPU tensors take the
-    plain version."""
+    lse and ``delta = rowsum(p_hat * dp)`` from q, k, v and dO on the
+    tensor cores, then the single pass of :func:`attention_bwd_fused`
+    runs on them (three launches a call). Returns ``(dq, dk, dv)``. CPU
+    tensors take the plain version."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if q.device.type == "cpu":
         return folded_bwd_reference(q, k, v, do, causal, scale)

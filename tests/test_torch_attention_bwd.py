@@ -8,9 +8,21 @@ CPU tensors that require grad, are held against ``jax.vjp`` of
 inputs and cotangents. The JAX kernels run as their own tests run them
 on the CPU: through the Pallas interpreter. Tolerance 1e-5 in fp32:
 both sides compute in fp32 on the CPU, with sums in different orders.
+
+The single pass on the tensor cores (``csrc/attention_bwd.cu`` modes 2
+and 3) runs only on the card; its arithmetic is rehearsed here by an
+emulation written in this file: the key-major walk (a block per K tile,
+the Q tiles that see it, each split into two 32-query halves with their
+own dK/dV partial sums), S^T = K Q^T and dP^T = V dO^T with P^T and dS^T
+as A operands, dS staged query-major for the dQ share, the per-K-tile
+dQ shares summed in tile order, all five products (and the two of the
+folded statistics launch) in 3xTF32. It is held within 1e-5 of the
+plain versions and of the JAX vjps.
 """
 
 import functools
+import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +35,7 @@ from paddle_tpu.ops.pallas import folded_attention as jfo
 
 from paddle_tpu_torch.ops.kernels import attention as tat
 from paddle_tpu_torch.ops.kernels import launch_counts
+from test_torch_attention_fwd import _tc_matmul
 
 TOL = 1e-5
 H = 2
@@ -191,3 +204,303 @@ def test_backward_wrappers_on_cpu_are_plain_and_refuse_other_devices():
             fn(*meta, stats, stats, True)
     with pytest.raises(ValueError, match="meta"):
         tat.folded_attention_bwd(*meta, True)
+
+
+# -- the tensor-core single pass, emulated ------------------------------------
+
+KT = tat.KERNEL_TILE  # keys of a K tile and queries of a Q tile
+HALF = KT // 2        # queries of a Q tile each warp takes
+
+
+def _walk(sq, sk, causal):
+    """(K tile, Q tile) pairs in the single pass's order: one block per K
+    tile (tile 0, the longest walk when causal, first), each walking the
+    Q tiles from its first key on (causal) or from 0."""
+    for kt in range(-(-sk // KT)):
+        for qt in range(kt if causal else 0, -(-sq // KT)):
+            yield kt, qt
+
+
+def _stats_walk(sq, sk, causal):
+    """(Q tile, K tile) pairs of the folded statistics launch: one block
+    per Q tile (the last, the longest walk when causal, first), each
+    walking the K tiles up to its last row (causal) or all of them."""
+    for qt in reversed(range(-(-sq // KT))) if causal else \
+            range(-(-sq // KT)):
+        k_end = min(sk, qt * KT + KT) if causal else sk
+        for kt in range(-(-k_end // KT)):
+            yield qt, kt
+
+
+def _visible(sq, sk, causal):
+    """The (K tile, Q tile) pairs holding a visible (query, key) pair."""
+    return {(j // KT, i // KT) for i in range(sq) for j in range(sk)
+            if not causal or j <= i}
+
+
+def _bhsd(*ts):
+    return [t.to(torch.float32).permute(0, 2, 1, 3) for t in ts]
+
+
+def _emulated_single_pass(q, k, v, do, lse, delta, causal, passes=3):
+    """The single pass on [B, S, H, D] f32 with lse and delta [B, Sq, H]:
+    per (K tile, Q tile) of ``_walk`` and per 32-query half, S^T and
+    dP^T, P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta) scale,
+    dV and dK partial sums per query half (half 0 + half 1 at the end),
+    dS^T staged for the K tile's dQ share dS K, the shares summed in K
+    tile order; every product ``_tc_matmul`` with ``passes``."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qb, kb, vb, db = _bhsd(q, k, v, do)
+    lb, deb = (t.transpose(1, 2) for t in (lse, delta))  # [B, H, Sq]
+    dk = torch.zeros((2, b, h, sk, d))
+    dv = torch.zeros((2, b, h, sk, d))
+    shares = {}
+    for kt, qt in _walk(sq, sk, causal):
+        k0, q0 = kt * KT, qt * KT
+        kk, vv = kb[:, :, k0:k0 + KT], vb[:, :, k0:k0 + KT]
+        keys = torch.arange(k0, k0 + kk.shape[2])
+        ds_tile = torch.zeros((b, h, kk.shape[2], min(KT, sq - q0)))
+        for half in (0, 1):
+            a, e = q0 + HALF * half, min(q0 + HALF * (half + 1), sq)
+            if a >= sq:
+                continue
+            qq, dd = qb[:, :, a:e], db[:, :, a:e]
+            st = _tc_matmul(kk, qq.transpose(-1, -2), passes) * scale
+            if causal:
+                seen = keys[:, None] <= torch.arange(a, e)[None, :]
+                st = torch.where(seen, st, torch.tensor(-1e30))
+            pt = torch.exp(st - lb[:, :, None, a:e])
+            dpt = _tc_matmul(vv, dd.transpose(-1, -2), passes)
+            dst = pt * (dpt - deb[:, :, None, a:e]) * scale
+            dv[half, :, :, k0:k0 + KT] += _tc_matmul(pt, dd, passes)
+            dk[half, :, :, k0:k0 + KT] += _tc_matmul(dst, qq, passes)
+            ds_tile[..., a - q0:e - q0] = dst
+        share = shares.setdefault(kt, torch.zeros((b, h, sq, d)))
+        share[:, :, q0:q0 + ds_tile.shape[-1]] = _tc_matmul(
+            ds_tile.transpose(-1, -2), kk, passes)
+    dq = torch.zeros((b, h, sq, d))
+    for kt in sorted(shares):
+        dq = dq + shares[kt]
+    return tuple(x.permute(0, 2, 1, 3) for x in (dq, dk[0] + dk[1],
+                                                  dv[0] + dv[1]))
+
+
+def _merge(s1, s2):
+    """Two online-softmax states (max m, l = rowsum(e), a = rowsum(e dP))
+    merged, the first then the second."""
+    (m1, l1, a1), (m2, l2, a2) = s1, s2
+    mt = torch.maximum(m1, m2)
+    f1, f2 = torch.exp(m1 - mt), torch.exp(m2 - mt)
+    return mt, l1 * f1 + l2 * f2, a1 * f1 + a2 * f2
+
+
+def _emulated_stats(q, k, v, do, causal, passes=3):
+    """The folded statistics launch: per Q tile of ``_stats_walk``, each
+    K tile's two 32-key halves in their own running state (a row that
+    has seen only masked keys takes its exponentials against 0), the
+    halves merged (first, then second) at the end. Returns ``(lse,
+    delta)`` [B, Sq, H]."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qb, kb, vb, db = _bhsd(q, k, v, do)
+    neg = torch.tensor(-1e30)
+    lse = torch.zeros((b, h, sq))
+    delta = torch.zeros((b, h, sq))
+    walk = list(_stats_walk(sq, sk, causal))
+    for qt in range(-(-sq // KT)):
+        q0 = qt * KT
+        rows = torch.arange(q0, min(q0 + KT, sq))
+        qq, dd = qb[:, :, q0:q0 + KT], db[:, :, q0:q0 + KT]
+        halves = []
+        for first in (0, HALF):
+            m = torch.full((b, h, len(rows)), -1e30)
+            l = torch.zeros((b, h, len(rows)))  # noqa: E741
+            acc = torch.zeros((b, h, len(rows)))
+            for kt in (w[1] for w in walk if w[0] == qt):
+                k0 = kt * KT + first
+                kk, vv = kb[:, :, k0:k0 + HALF], vb[:, :, k0:k0 + HALF]
+                if kk.shape[2] == 0:
+                    continue
+                s = _tc_matmul(qq, kk.transpose(-1, -2), passes) * scale
+                if causal:
+                    cols = torch.arange(k0, k0 + kk.shape[2])
+                    s = torch.where(cols[None, :] <= rows[:, None], s, neg)
+                dp = _tc_matmul(dd, vv.transpose(-1, -2), passes)
+                m_new = torch.maximum(m, s.amax(-1))
+                ref = torch.where(m_new == neg, torch.tensor(0.0), m_new)
+                alpha = torch.exp(m - ref)
+                p = torch.exp(s - ref[..., None])
+                l = l * alpha + p.sum(-1)  # noqa: E741
+                acc = acc * alpha + (p * dp).sum(-1)
+                m = m_new
+            halves.append((m, l, acc))
+        m, l, acc = _merge(*halves)  # noqa: E741
+        den = l.clamp_min(1e-30)
+        lse[:, :, rows] = m + torch.log(den)
+        delta[:, :, rows] = acc / den
+    return lse.transpose(1, 2), delta.transpose(1, 2)
+
+
+@pytest.mark.parametrize("sq,sk", [(128, 128), (200, 200), (256, 256),
+                                   (130, 200), (200, 70)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_single_pass_walk_visits_each_visible_tile_pair_once(sq, sk,
+                                                             causal):
+    pairs = list(_walk(sq, sk, causal))
+    assert len(pairs) == len(set(pairs))
+    assert set(pairs) == _visible(sq, sk, causal)
+    # the blocks' walks shorten along the grid: tile 0 is launched first
+    lengths = [sum(1 for kt, _ in pairs if kt == t)
+               for t in range(-(-sk // KT))]
+    if causal:
+        assert lengths == sorted(lengths, reverse=True)
+    # the statistics launch: every visible pair of each Q tile once, the
+    # longest walks first
+    stats = [(kt, qt) for qt, kt in _stats_walk(sq, sk, causal)]
+    assert len(stats) == len(set(stats))
+    assert set(stats) == _visible(sq, sk, causal)
+    if causal:
+        walks = [sum(1 for _, q_ in stats if q_ == qt)
+                 for qt in dict.fromkeys(q_ for _, q_ in stats)]
+        assert walks == sorted(walks, reverse=True)
+
+
+def _flash_case(s, d, causal, glse):
+    q, k, v, do, g = _inputs(300 + s + d + causal + 2 * glse, s, d, glse)
+    tq, tk, tv, tdo = _t(q), _t(k), _t(v), _t(do)
+    out, lse = tat.attention_reference(tq, tk, tv, causal=causal)
+    delta = (tdo * out).sum(-1) - _t(g)
+    return (q, k, v, do, g), (tq, tk, tv, tdo, lse, delta.contiguous())
+
+
+# S=200 is not a multiple of the 64-row tile: the last Q tile's second
+# half and the last K tile are ragged
+@pytest.mark.parametrize("s", [128, 200])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("glse", [False, True])
+def test_emulated_single_pass_keeps_fp32_accuracy(s, d, causal, glse):
+    _, args = _flash_case(s, d, causal, glse)
+    want = tat.attention_bwd_reference(*args, causal=causal)
+    got = _emulated_single_pass(*args, causal)
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, atol=TOL, rtol=TOL)
+    # one TF32 pass keeps about three digits: it misses the fp32 limit
+    one = _emulated_single_pass(*args, causal, passes=1)
+    assert not all(torch.allclose(g_, w, atol=TOL, rtol=TOL)
+                   for g_, w in zip(one, want))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("glse", [False, True])
+def test_emulated_single_pass_matches_jax_vjp(_interpret, d, causal, glse):
+    (q, k, v, do, g), args = _flash_case(128, d, causal, glse)
+    _, _, want = _jax_flash_vjp(q, k, v, do, g, causal)
+    _close(_emulated_single_pass(*args, causal), want)
+
+
+@pytest.mark.parametrize("s", [128, 200])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_emulated_folded_keeps_fp32_accuracy(s, d, causal):
+    q, k, v, do, _ = _inputs(400 + s + d + causal, s, d)
+    tq, tk, tv, tdo = _t(q), _t(k), _t(v), _t(do)
+    want_l = tat.attention_reference(tq, tk, tv, causal=causal)[1]
+    want = tat.folded_bwd_reference(tq, tk, tv, tdo, causal=causal)
+    lse, delta = _emulated_stats(tq, tk, tv, tdo, causal)
+    torch.testing.assert_close(lse, want_l, atol=TOL, rtol=TOL)
+    got = _emulated_single_pass(tq, tk, tv, tdo, lse, delta, causal)
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_emulated_folded_matches_jax_vjp(_interpret, d, causal):
+    q, k, v, do, _ = _inputs(500 + d + causal, 128, d)
+    with jfa.force_flash_for_aot():
+        _, vjp = jax.vjp(functools.partial(jfo.folded_attention,
+                                           causal=causal),
+                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = _t(q), _t(k), _t(v), _t(do)
+    lse, delta = _emulated_stats(tq, tk, tv, tdo, causal)
+    _close(_emulated_single_pass(tq, tk, tv, tdo, lse, delta, causal), want)
+
+
+# -- chip_smoke.py's reading of the build's ptxas report ----------------------
+
+def _ptxas_lines(kernel, dtype, d, regs, spill=0):
+    """``ptxas -v``'s lines for one instantiation, as nvcc prints them."""
+    arg = "f" if dtype == "fp32" else "13__nv_bfloat16"
+    name = (f"_ZN49_GLOBAL__N__52f9eb2c_16_attention_bwd_cu_ccd79dfe"
+            f"{len(kernel)}{kernel}I{arg}Li{d}EEEvPKT_")
+    return (f"ptxas info    : Compiling entry function '{name}' for "
+            f"'sm_90a'\nptxas info    : Function properties for {name}\n"
+            f"    {2 * spill} bytes stack frame, {spill} bytes spill "
+            f"stores, {spill} bytes spill loads\nptxas info    : Used "
+            f"{regs} registers, used 1 barriers, 221184 bytes smem\n")
+
+
+def _served(spill_at=None, skip=None):
+    """The report of the eight served instantiations, one of them
+    spilling 8 bytes (``spill_at``) or left out (``skip``)."""
+    return "".join(
+        _ptxas_lines(k, dt, d, 200 + d // 64,
+                     spill=8 if (k, dt, d) == spill_at else 0)
+        for k in ("attention_bwd_fused_kernel",
+                  "attention_bwd_stats_kernel")
+        for dt in ("fp32", "bf16") for d in (64, 128)
+        if (k, dt, d) != skip)
+
+
+def test_ptxas_report_reads_registers_and_spills_per_kernel():
+    from test_torch_attention_fwd import _chip_smoke
+    usage = _chip_smoke().ptxas_usage(_served())
+    assert len(usage) == 8
+    assert all(u == {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                     "registers": u["registers"]} for u in usage.values())
+    assert sorted({u["registers"] for u in usage.values()}) == [201, 202]
+
+
+def test_chip_smoke_refuses_a_spilling_or_missing_single_pass_kernel():
+    from test_torch_attention_fwd import _chip_smoke
+    cs = _chip_smoke()
+    rows = cs.single_pass_ptxas(cs.ptxas_usage(_served()))
+    assert sorted(rows) == sorted(
+        f"{k} {dt} D={d}" for k in cs.SINGLE_PASS_KERNELS
+        for dt in ("fp32", "bf16") for d in (64, 128))
+    spilling = _served(("attention_bwd_fused_kernel", "fp32", 128))
+    with pytest.raises(AssertionError, match="spills"):
+        cs.single_pass_ptxas(cs.ptxas_usage(spilling))
+    missing = _served(skip=("attention_bwd_stats_kernel", "bf16", 64))
+    with pytest.raises(AssertionError, match="no lines"):
+        cs.single_pass_ptxas(cs.ptxas_usage(missing))
+
+
+def test_chip_smoke_records_a_failed_closeness_check_and_goes_on(capsys):
+    from test_torch_attention_fwd import _chip_smoke
+    cs = _chip_smoke()
+    want = torch.tensor([1.0, 2.0, 4.0])
+    assert cs.check_close("near", want + 1e-6, want, 1e-4) < 1e-4
+    assert cs.FAILED_CHECKS == []
+    got = torch.tensor([1.0, 2.0, 4.0078125])
+    assert cs.check_close("one ulp apart", got, want, 2.5e-3, 0.0) == \
+        pytest.approx(0.0078125)
+    assert cs.FAILED_CHECKS == [
+        "one ulp apart: max abs err 0.00781 over atol 0.0025 rtol 0.0"]
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["check"] == "one ulp apart" and line["ok"] is False
+
+
+def test_chip_smoke_bf16_apart_counts_the_elements_that_differ():
+    from test_torch_attention_fwd import _chip_smoke
+    cs = _chip_smoke()
+    want = torch.tensor([1.0, 2.0, 4.0, 0.5], dtype=torch.bfloat16)
+    got = torch.tensor([1.0, 2.0, 4.03125, 0.5], dtype=torch.bfloat16)
+    assert cs.bf16_apart(got, want) == [0.03125, 0.25]
+    assert cs.bf16_apart(want, want) == [0.0, 0.0]
