@@ -106,6 +106,15 @@ BF16_ATOL = {"paged_decode": 2e-5, "decode_out_proj": 1e-2,
              "attention_fwd": 5e-3,
              "attention_bwd_fused": 2.5e-3, "attention_bwd_dq": 5e-3,
              "attention_bwd_dkv": 5e-3, "folded_attention_bwd": 5e-3}
+# The single pass's bf16 outputs take their BF16_ATOL before the rounding
+# (``check_rounded_from``): each must be the bf16 rounding of a value
+# within the limit of the plain version's f32 result. Held after the
+# rounding, a limit below one bf16 ulp of the larger outputs passes only
+# a sum in the plain version's own order: the exact (f64) gradient
+# rounded to bf16 misses it (tests/test_torch_attention_bwd.py), and a
+# tensor-core sum has another order. A plain emulation of one-term bf16
+# P and dS must fail the check in at least one case of each kernel.
+BF16_BEFORE_ROUNDING = ("attention_bwd_fused", "folded_attention_bwd")
 
 # (kernel, source, TPU kernel it replaces)
 KERNEL_META = {
@@ -254,6 +263,31 @@ def check_close(name, got, want, tol, rtol=None):
                              f"{tol} rtol {rtol}")
         emit({"check": name, "ok": False, "max_abs_err": err, "atol": tol,
               "rtol": rtol})
+    return err
+
+
+def rounded_from(got, want32, tol) -> bool:
+    """Whether every element of ``got`` (bf16) is the rounding of a value
+    within ``tol`` of ``want32``, an f32 result before its rounding: it
+    lies between the roundings of ``want32 - tol`` and ``want32 + tol``.
+    Where ``want32`` is not within ``tol`` of a rounding midpoint, only
+    the plain version's own rounding passes."""
+    lo = (want32.double() - tol).to(got.dtype)
+    hi = (want32.double() + tol).to(got.dtype)
+    return bool(((got >= lo) & (got <= hi)).all().item())
+
+
+def check_rounded_from(name, got, want32, tol):
+    """``check_close`` with ``tol`` taken before the rounding
+    (``rounded_from``); returns the max abs error against the rounded
+    ``want32``."""
+    err = max_err(got, want32.to(got.dtype))
+    if not rounded_from(got, want32, tol):
+        FAILED_CHECKS.append(f"{name}: not the rounding of a value within "
+                             f"{tol} of the plain f32 result (max abs err "
+                             f"{err:.3g} after rounding)")
+        emit({"check": name, "ok": False, "max_abs_err": err, "atol": tol,
+              "before_rounding": True})
     return err
 
 
@@ -797,6 +831,28 @@ def _bwd_call(name, q, k, v, do, lse, delta, causal):
     return dict(zip(keys, got)), dict(zip(keys, want))
 
 
+def bf16_terms_bwd(torch, name, terms, q, k, v, do, lse, delta, causal):
+    """The plain version of ``name`` with P carried as ``terms`` bf16
+    terms into the products (dS = P (dP - delta) scale inherits its
+    error), f32 otherwise: what a kernel with one- or two-term bf16 P/dS
+    computes. Returns {"dq"/"dk"/"dv": tensor} in the inputs' dtype."""
+    from paddle_tpu_torch.ops.kernels import attention as A
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = A._scores(q, k, causal, scale)
+    if name == "folded_attention_bwd":
+        p = torch.softmax(s, dim=-1)
+        dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+        d = (p * dp).sum(dim=-1, keepdim=True)
+    else:
+        p = torch.exp(s - lse.transpose(1, 2)[..., None])
+        d = delta.transpose(1, 2)[..., None]
+    hi = p.to(torch.bfloat16).float()
+    if terms == 2:
+        hi = hi + (p - hi).to(torch.bfloat16).float()
+    return dict(zip(("dq", "dk", "dv"),
+                    A._grads_from_p(q, k, v, do, hi, d, scale)))
+
+
 def _sdpa_bwd_ms(torch, timer, q, k, v, do, causal):
     """The library yardstick: the backward of
     ``F.scaled_dot_product_attention`` on the same tensors ([B, H, S, D]
@@ -823,18 +879,21 @@ def _sdpa_bwd_ms(torch, timer, q, k, v, do, causal):
 
 def kernel_attention_bwd(torch, timer, dev, records):
     """The four backward kernels against their plain versions in fp32
-    (atol/rtol ``BWD_TOL``) and bf16 (``BF16_ATOL``, absolute) on
-    ``BWD_CASES``; each run twice must give the same bits (no float
-    atomics). On the bf16 inputs the fp32 kernel runs too and its
-    outputs, rounded to bf16, are held against the plain version's
-    (``bf16_apart``: the part of the bf16 error that no choice of bf16
-    operands inside the kernel removes; reported, not checked). Then each
+    (atol/rtol ``BWD_TOL``) and bf16 (``BF16_ATOL``, absolute; before the
+    rounding for ``BF16_BEFORE_ROUNDING``, where one-term bf16 P/dS
+    (``bf16_terms_bwd``) must fail in some case) on ``BWD_CASES``; each
+    run twice must give the same bits (no float atomics). On the bf16
+    inputs the fp32 kernel runs too and its outputs, rounded to bf16, are
+    held against the plain version's (``bf16_apart``: the part of the
+    bf16 error that no choice of bf16 operands inside the kernel removes;
+    reported, not checked). Then each
     is timed at its training-path shape (the first three cases, fp32),
     and the folded kernel at D=64 S=1024, with one profiled call's
     launches."""
     errs = {torch.float32: {}, torch.bfloat16: {}}
     apart = {}
     failed = set()
+    one_term_refused = {}
     timed = []
     for label, names, B, S, causal, with_glse, D in BWD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -845,8 +904,8 @@ def kernel_attention_bwd(torch, timer, dev, records):
                 got, want = _bwd_call(name, *ins, causal)
                 again, _ = _bwd_call(name, *ins, causal)
                 if dtype == torch.bfloat16:
-                    got32, _ = _bwd_call(name, *(t.float() for t in ins),
-                                         causal)
+                    got32, want32 = _bwd_call(
+                        name, *(t.float() for t in ins), causal)
                 torch.cuda.synchronize()
                 n_failed = len(FAILED_CHECKS)
                 for key, g in got.items():
@@ -857,9 +916,13 @@ def kernel_attention_bwd(torch, timer, dev, records):
                         raise AssertionError(f"{tag}: two runs differ")
                     if dtype == torch.float32:
                         e = check_close(tag, g, want[key], BWD_TOL)
+                    elif name in BF16_BEFORE_ROUNDING:
+                        e = check_rounded_from(tag, g, want32[key],
+                                               BF16_ATOL[name])
                     else:
                         e = check_close(tag, g, want[key],
                                         BF16_ATOL[name], 0.0)
+                    if dtype == torch.bfloat16:
                         a = apart.setdefault(name, {
                             "kernel": [0.0, 0.0],
                             "fp32_kernel_rounded": [0.0, 0.0]})
@@ -871,8 +934,17 @@ def kernel_attention_bwd(torch, timer, dev, records):
                     errs[dtype][name] = max(errs[dtype].get(name, 0.0), e)
                 if len(FAILED_CHECKS) > n_failed:
                     failed.add(name)
+                if dtype == torch.bfloat16 and name in BF16_BEFORE_ROUNDING:
+                    one = bf16_terms_bwd(torch, name, 1, *ins, causal)
+                    if not all(rounded_from(one[key], want32[key],
+                                            BF16_ATOL[name]) for key in one):
+                        one_term_refused.setdefault(name, []).append(label)
                 if dtype == torch.float32 and label in BWD_TIMED:
                     timed.append((name, label, B, S, causal, ins))
+    for name in BF16_BEFORE_ROUNDING:
+        if name not in one_term_refused:
+            raise AssertionError(f"{name}: the bf16 check passes one-term "
+                                 f"bf16 P/dS in every case")
     for name, label, B, S, causal, ins in timed:
         from paddle_tpu_torch.ops.kernels import attention as A
         q, k, v, do, lse, delta = ins
@@ -906,6 +978,8 @@ def kernel_attention_bwd(torch, timer, dev, records):
               "tol": BWD_TOL,
               "bf16_max_abs_err": errs[torch.bfloat16][name],
               "bf16_atol": BF16_ATOL[name],
+              "bf16_before_rounding": name in BF16_BEFORE_ROUNDING,
+              "bf16_one_term_refused": one_term_refused.get(name),
               "bf16_apart": apart[name],
               "library": f"SDPA backward ({backend}), dQ+dK+dV",
               "cases": [c[0] for c in BWD_CASES if name in c[1]]})

@@ -504,3 +504,97 @@ def test_chip_smoke_bf16_apart_counts_the_elements_that_differ():
     got = torch.tensor([1.0, 2.0, 4.03125, 0.5], dtype=torch.bfloat16)
     assert cs.bf16_apart(got, want) == [0.03125, 0.25]
     assert cs.bf16_apart(want, want) == [0.0, 0.0]
+
+
+# -- chip_smoke.py's bf16 check of the single pass ---------------------------
+
+def _card_case(cs, s, d, seed):
+    """bf16 inputs as chip_smoke's backward phase makes them (B=2, H=16,
+    causal, no lse cotangent), from a CPU generator."""
+    gen = torch.Generator().manual_seed(seed)
+    return cs._bwd_inputs(torch, gen, torch.device("cpu"), 2, s,
+                          torch.bfloat16, True, False, D=d)
+
+
+def _f64_grads(name, q, k, v, do, lse, delta):
+    """The causal gradient in f64 from the same bf16 inputs: the value
+    that every f32 sum order approximates."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    n = q.shape[1]
+    s = s.masked_fill(torch.arange(n)[None, :] > torch.arange(n)[:, None],
+                      -math.inf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    if name == "folded_attention_bwd":
+        p = torch.softmax(s, dim=-1)
+        dl = (p * dp).sum(dim=-1, keepdim=True)
+    else:
+        p = torch.exp(s - lse.double().transpose(1, 2)[..., None])
+        dl = delta.double().transpose(1, 2)[..., None]
+    ds = p * (dp - dl) * scale
+    return {"dq": torch.einsum("bhqk,bkhd->bqhd", ds, k),
+            "dk": torch.einsum("bhqk,bqhd->bkhd", ds, q),
+            "dv": torch.einsum("bhqk,bqhd->bkhd", p, do)}
+
+
+@pytest.mark.parametrize("name,s,seed", [("attention_bwd_fused", 512, 1),
+                                         ("folded_attention_bwd", 256, 2)])
+def test_bf16_limit_after_rounding_refuses_the_exact_gradient(name, s, seed):
+    """Why chip_smoke holds the single pass's bf16 outputs to BF16_ATOL
+    before the rounding: the exact gradient, rounded to bf16, lies one
+    ulp from the plain version's rounded f32 result in some element
+    larger than 0.5, beyond the limit; taken before the rounding, the
+    limit passes it."""
+    from test_torch_attention_fwd import _chip_smoke
+    cs = _chip_smoke()
+    ins = _card_case(cs, s, 128, seed)
+    _, plain32 = cs._bwd_call(name, *(t.float() for t in ins), True)
+    exact = _f64_grads(name, *ins)
+    tol = cs.BF16_ATOL[name]
+    after = [cs.max_err(exact[key].to(torch.bfloat16),
+                        plain32[key].to(torch.bfloat16)) for key in exact]
+    assert max(after) > tol
+    assert all(cs.rounded_from(exact[key].to(torch.bfloat16), plain32[key],
+                               tol) for key in exact)
+
+
+@pytest.mark.parametrize("name,s,seed", [
+    ("attention_bwd_fused", 512, 1), ("folded_attention_bwd", 256, 2),
+    ("attention_bwd_fused", 200, 3), ("folded_attention_bwd", 200, 3)])
+def test_bf16_check_before_rounding_takes_two_term_p_refuses_one_term(
+        name, s, seed):
+    """The check tells the kernel's design (P and dS as two bf16 terms)
+    from one bf16 term on the card check's causal shapes."""
+    from test_torch_attention_fwd import _chip_smoke
+    cs = _chip_smoke()
+    ins = _card_case(cs, s, 128, seed)
+    _, plain32 = cs._bwd_call(name, *(t.float() for t in ins), True)
+    tol = cs.BF16_ATOL[name]
+    two = cs.bf16_terms_bwd(torch, name, 2, *ins, True)
+    one = cs.bf16_terms_bwd(torch, name, 1, *ins, True)
+    assert all(cs.rounded_from(two[key], plain32[key], tol) for key in two)
+    assert not all(cs.rounded_from(one[key], plain32[key], tol)
+                   for key in one)
+
+
+def test_rounded_from_allows_the_other_rounding_only_near_a_midpoint(capsys):
+    from test_torch_attention_fwd import _chip_smoke
+    cs = _chip_smoke()
+    bf = torch.bfloat16
+    # 1.0039 lies 2.6e-5 below the midpoint of 1 and 1.0078125
+    near = torch.tensor([1.0039, 3.0])
+    assert cs.rounded_from(torch.tensor([1.0, 3.0], dtype=bf), near, 2.5e-3)
+    assert cs.rounded_from(torch.tensor([1.0078125, 3.0], dtype=bf), near,
+                           2.5e-3)
+    assert not cs.rounded_from(torch.tensor([1.015625, 3.0], dtype=bf),
+                               near, 2.5e-3)
+    assert not cs.rounded_from(torch.tensor([1.0, 3.015625], dtype=bf),
+                               near, 2.5e-3)
+    assert cs.check_rounded_from("far", torch.tensor([1.0, 3.015625],
+                                                     dtype=bf), near,
+                                 2.5e-3) == pytest.approx(0.015625)
+    assert len(cs.FAILED_CHECKS) == 1 and cs.FAILED_CHECKS[0].startswith(
+        "far: not the rounding of a value within 0.0025")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["check"] == "far" and line["before_rounding"] is True
