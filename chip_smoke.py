@@ -12,8 +12,8 @@ failure exits non-zero at once:
 2. build   — the CUDA kernels from ``paddle_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together); ``ptxas -v``
    prints every kernel's registers, spills and shared memory to stderr,
-   and the build line carries those of the single-pass backward, whose
-   served instantiations must not spill.
+   and the build line carries those of the backward's tensor-core
+   kernels, whose served instantiations must not spill.
 3. kernels — each kernel against its plain PyTorch version on the card
    at the serving, training and ResNet paths' shapes, in fp32 and bf16,
    with its tolerance, each check on inputs from its own generator; its
@@ -56,6 +56,7 @@ with one CUDA GPU and ``nvcc``. It takes no arguments.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -94,10 +95,9 @@ TRAIN_LR = 1e-4
 # error an H100 showed on seeded inputs (paged_decode 7.6e-6,
 # decode_out_proj 3.9e-3, attention_fwd 2.0e-3, attention_bwd_fused
 # 9.8e-4, folded_attention_bwd 2.0e-3); the outputs are rounded to bf16
-# from f32 sums taken in another order. The dQ and dK/dV passes read 0
-# (their sums run in the order of the plain version's GEMMs), so they
-# take the limit of the folded kernel, which computes the same products
-# on the same S=512 inputs. paged_decode's 2e-5 is below one bf16 ulp
+# from f32 sums taken in another order. The dQ and dK/dV passes take the
+# limit of the folded kernel, which computes the same products on the
+# same S=512 inputs. paged_decode's 2e-5 is below one bf16 ulp
 # at its outputs' size, so its limit is at least BF16_ULPS ulps of the
 # largest plain output (``bf16_limit``); so is fused_bottleneck's, whose
 # output is rounded to bf16 once more after the residual
@@ -106,15 +106,17 @@ BF16_ATOL = {"paged_decode": 2e-5, "decode_out_proj": 1e-2,
              "attention_fwd": 5e-3,
              "attention_bwd_fused": 2.5e-3, "attention_bwd_dq": 5e-3,
              "attention_bwd_dkv": 5e-3, "folded_attention_bwd": 5e-3}
-# The single pass's bf16 outputs take their BF16_ATOL before the rounding
-# (``check_rounded_from``): each must be the bf16 rounding of a value
-# within the limit of the plain version's f32 result. Held after the
-# rounding, a limit below one bf16 ulp of the larger outputs passes only
-# a sum in the plain version's own order: the exact (f64) gradient
-# rounded to bf16 misses it (tests/test_torch_attention_bwd.py), and a
-# tensor-core sum has another order. A plain emulation of one-term bf16
-# P and dS must fail the check in at least one case of each kernel.
-BF16_BEFORE_ROUNDING = ("attention_bwd_fused", "folded_attention_bwd")
+# The tensor-core backward kernels' bf16 outputs take their BF16_ATOL
+# before the rounding (``check_rounded_from``): each must be the bf16
+# rounding of a value within the limit of the plain version's f32
+# result. Held after the rounding, a limit below one bf16 ulp of the
+# larger outputs passes only a sum in the plain version's own order:
+# the exact (f64) gradient rounded to bf16 misses it
+# (tests/test_torch_attention_bwd.py), and a tensor-core sum has another
+# order. A plain emulation of one-term bf16 P and dS must fail the check
+# in at least one case of each kernel.
+BF16_BEFORE_ROUNDING = ("attention_bwd_fused", "folded_attention_bwd",
+                        "attention_bwd_dq", "attention_bwd_dkv")
 
 # (kernel, source, TPU kernel it replaces)
 KERNEL_META = {
@@ -311,10 +313,12 @@ def phase_device(torch):
 
 # -- phase 2 -----------------------------------------------------------------
 
-# the single-pass backward's kernels (csrc/attention_bwd.cu modes 2, 3):
-# each served instantiation, {fp32, bf16} x {D=64, 128}, must not spill
-SINGLE_PASS_KERNELS = ("attention_bwd_fused_kernel",
-                       "attention_bwd_stats_kernel")
+# the backward's tensor-core kernels (csrc/attention_bwd.cu: the single
+# pass and the statistics launch of modes 2, 3, the dQ pass of mode 0,
+# the dK/dV pass of mode 1): each served instantiation, {fp32, bf16} x
+# {D=64, 128}, must not spill
+BWD_TC_KERNELS = ("attention_bwd_fused_kernel", "attention_bwd_stats_kernel",
+                  "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")
 
 
 def ptxas_usage(text: str):
@@ -341,18 +345,19 @@ def ptxas_usage(text: str):
     return usage
 
 
-def single_pass_ptxas(usage):
-    """``ptxas -v``'s registers and spills of the single-pass kernels,
-    keyed ``kernel dtype D``; raises if one is missing or spills."""
+def bwd_ptxas(usage):
+    """``ptxas -v``'s registers and spills of the backward's tensor-core
+    kernels, keyed ``kernel dtype D``; raises if one is missing or
+    spills."""
     rows = {}
     for mangled, u in usage.items():
-        kernel = next((k for k in SINGLE_PASS_KERNELS if k in mangled), None)
+        kernel = next((k for k in BWD_TC_KERNELS if k in mangled), None)
         if kernel is None:
             continue
         dtype = "bf16" if "bfloat16" in mangled else "fp32"
         d = re.search(r"Li(\d+)E", mangled).group(1)
         rows[f"{kernel} {dtype} D={d}"] = u
-    want = [f"{k} {dt} D={d}" for k in SINGLE_PASS_KERNELS
+    want = [f"{k} {dt} D={d}" for k in BWD_TC_KERNELS
             for dt in ("fp32", "bf16") for d in (64, 128)]
     missing = [w for w in want if w not in rows]
     if missing:
@@ -360,7 +365,7 @@ def single_pass_ptxas(usage):
     spills = {k: u for k, u in rows.items()
               if u.get("spill_stores", 0) or u.get("spill_loads", 0)}
     if spills:
-        raise AssertionError(f"single-pass backward spills: {spills}")
+        raise AssertionError(f"backward kernel spills: {spills}")
     return rows
 
 
@@ -374,7 +379,7 @@ def phase_build():
         usage = ptxas_usage(f.read())
     emit({"phase": "build", "ok": True, "lib": os.path.relpath(path, HERE),
           "seconds": seconds,
-          "single_pass_ptxas": single_pass_ptxas(usage)})
+          "bwd_ptxas": bwd_ptxas(usage)})
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -760,7 +765,7 @@ def bf16_apart(got, want):
 # (label, kernels, B, S, causal, with an lse cotangent, D); H=16. The
 # first three are the training path's shapes (GPT-1.3B at B=2); S=200 is
 # ragged (a last tile of 8 rows); S=1024 at D=64 is the widest shape the
-# folded gate admits (timed too).
+# folded gate admits (timed too, with the dQ and dK/dV passes).
 BWD_CASES = (
     ("S=2048 causal", ("attention_bwd_dq", "attention_bwd_dkv"), 2, 2048,
      True, False, 128),
@@ -771,13 +776,12 @@ BWD_CASES = (
                                      "attention_bwd_dq",
                                      "attention_bwd_dkv"), 1, 512, True,
      True, 128),
-    ("S=200 causal", ("attention_bwd_fused", "folded_attention_bwd"), 2,
-     200, True, False, 128),
-    ("S=1024 causal D=64", ("folded_attention_bwd",), 2, 1024, True, False,
-     64),
+    ("S=200 causal", TRAINING_KERNELS, 2, 200, True, False, 128),
+    ("S=1024 causal D=64", ("folded_attention_bwd", "attention_bwd_dq",
+                            "attention_bwd_dkv"), 2, 1024, True, False, 64),
 )
-# the rows timed: each kernel at its training-path shape, and the folded
-# kernel at D=64
+# the rows timed: each kernel at its training-path shape, and the folded,
+# dQ and dK/dV kernels at D=64
 BWD_TIMED = ("S=2048 causal", "S=512 causal", "S=256 causal",
              "S=1024 causal D=64")
 # flops per (query, key) pair and head-dim element: 2 per multiply-add
@@ -790,6 +794,10 @@ BWD_FLOPS = {"attention_bwd_dq": 6, "attention_bwd_dkv": 8,
 BWD_ROWS = {"attention_bwd_dq": (4, 1, 2), "attention_bwd_dkv": (4, 2, 2),
             "attention_bwd_fused": (4, 3, 2),
             "folded_attention_bwd": (4, 3, 0)}
+# the gradients each function returns
+BWD_OUTPUTS = {"attention_bwd_dq": ("dq",), "attention_bwd_dkv": ("dk", "dv"),
+               "attention_bwd_fused": ("dq", "dk", "dv"),
+               "folded_attention_bwd": ("dq", "dk", "dv")}
 
 
 def _bwd_inputs(torch, gen, dev, B, S, dtype, causal, with_glse,
@@ -815,19 +823,14 @@ def _bwd_call(name, q, k, v, do, lse, delta, causal):
     if name == "folded_attention_bwd":
         got = A.folded_attention_bwd(q, k, v, do, causal)
         want = A.folded_bwd_reference(q, k, v, do, causal)
-        keys = ("dq", "dk", "dv")
     else:
         want = A.attention_bwd_reference(q, k, v, do, lse, delta, causal)
+        got = getattr(A, name)(q, k, v, do, lse, delta, causal)
         if name == "attention_bwd_dq":
-            got, keys, want = (A.attention_bwd_dq(q, k, v, do, lse, delta,
-                                                  causal),), ("dq",), want[:1]
+            got, want = (got,), want[:1]
         elif name == "attention_bwd_dkv":
-            got, keys, want = (A.attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                   causal), ("dk", "dv"),
-                               want[1:])
-        else:
-            got = A.attention_bwd_fused(q, k, v, do, lse, delta, causal)
-            keys = ("dq", "dk", "dv")
+            want = want[1:]
+    keys = BWD_OUTPUTS[name]
     return dict(zip(keys, got)), dict(zip(keys, want))
 
 
@@ -835,7 +838,8 @@ def bf16_terms_bwd(torch, name, terms, q, k, v, do, lse, delta, causal):
     """The plain version of ``name`` with P carried as ``terms`` bf16
     terms into the products (dS = P (dP - delta) scale inherits its
     error), f32 otherwise: what a kernel with one- or two-term bf16 P/dS
-    computes. Returns {"dq"/"dk"/"dv": tensor} in the inputs' dtype."""
+    computes. Returns the gradients ``name`` returns (``BWD_OUTPUTS``),
+    {"dq"/"dk"/"dv": tensor}, in the inputs' dtype."""
     from paddle_tpu_torch.ops.kernels import attention as A
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = A._scores(q, k, causal, scale)
@@ -849,8 +853,9 @@ def bf16_terms_bwd(torch, name, terms, q, k, v, do, lse, delta, causal):
     hi = p.to(torch.bfloat16).float()
     if terms == 2:
         hi = hi + (p - hi).to(torch.bfloat16).float()
-    return dict(zip(("dq", "dk", "dv"),
-                    A._grads_from_p(q, k, v, do, hi, d, scale)))
+    grads = dict(zip(("dq", "dk", "dv"),
+                     A._grads_from_p(q, k, v, do, hi, d, scale)))
+    return {key: grads[key] for key in BWD_OUTPUTS[name]}
 
 
 def _sdpa_bwd_ms(torch, timer, q, k, v, do, causal):
@@ -1589,6 +1594,7 @@ def phase_train(torch, dev, launches):
     n_steps = 6
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
     reset_launch_counts()
     t0 = time.monotonic()
     losses = step.multi_step(ids[None].expand(n_steps, B, S))
@@ -1626,7 +1632,8 @@ def phase_train(torch, dev, launches):
           "optimizer": f"AdamW({TRAIN_LR})", "warmup_loss": first,
           "losses": losses, "ms_per_step": wall * 1e3 / n_steps,
           "tokens_per_s": B * S * n_steps / wall,
-          "peak_mem_gb": peak / 1e9, "launches": counts,
+          "peak_mem_gb": peak / 1e9, "mem_before_gb": mem_before / 1e9,
+          "launches": counts,
           "qkv_proj_grad_norm_min": min(qkv_grads),
           "repeat_step_bitwise_equal": same, "step_profile": prof})
     for name in ("attention_bwd_dq", "attention_bwd_dkv"):
@@ -1819,6 +1826,10 @@ def main() -> int:
     model = phase_engine(torch, dev, records, launches)
     phase_server(torch, dev, model)
     del model
+    # the engine and the server leave reference cycles: collected here,
+    # they free the model and its KV pool before the train phase reads
+    # its peak memory, instead of whenever the collector next runs
+    gc.collect()
     torch.cuda.empty_cache()
     phase_train(torch, dev, launches)
     phase_resnet(torch, dev, launches)

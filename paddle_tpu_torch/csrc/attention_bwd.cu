@@ -24,35 +24,43 @@
 // in scratch across its sequential grid, the single pass lets the block
 // of each K tile write its dQ share to a per-tile fp32 buffer, and a
 // last launch sums the tiles in a fixed order. There are no float
-// atomics: every output element is summed by one thread in one order,
-// so two runs give the same bits. The scores and their exp are computed
+// atomics: every output element is summed in one fixed order, so two
+// runs give the same bits. The scores and their exp are computed
 // once per (q, k) pair in the single pass, as on the TPU.
 //
 // What bounds it on the H100: operations. 6 (dQ), 8 (dK/dV) or 10
 // (single pass) flops per (q, k) pair and head-dim element against 4-5
 // rows of input per position.
-// - Modes 2 and 3 run on the tensor cores with the forward's building
-//   blocks (mma.cuh): mma.sync m16n8k8 in 3xTF32 for fp32 (hi and lo
-//   TF32 parts rounded to nearest, three products, as exact as fp32
-//   FMA) and m16n8k16 bf16 for bf16, with P and dS carried as two bf16
-//   terms (hi + lo) into their products; f32 accumulation throughout.
-//   All five products (S, dP, dV, dK, the dQ share) and the two of the
-//   statistics launch are mma.sync. The warps are key-major: a warp
-//   computes S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T are already
-//   A operands of dV += P^T dO and dK += dS^T Q, with the forward's
-//   permuted contraction index (accumulator columns 2t, 2t+1 are the
-//   TF32 A fragment's t, t+4). dS^T is staged once per Q tile in padded
-//   shared memory for the dQ share dS K. K and V are staged once per
-//   block; Q, dO, lse and delta are double buffered with cp.async, so
-//   the next Q tile arrives while the current one is multiplied. fp32
-//   D=128 takes 216 KB of shared memory: one block of 8 warps per SM.
-//   Causal: blocks are numbered so that the K tiles with the longest Q
-//   walk (the first keys) start first, over all heads and batches.
-// - Modes 0 and 1 are FMA kernels: 64-row tiles of q and k in
-//   shared memory (rows padded by one float against bank conflicts), 256
-//   threads each owning a 4x4 patch of a 64x64 score tile and a 4 x D/16
-//   patch of a 64 x D accumulator, tiles wholly above the causal
-//   diagonal skipped. Their move to the tensor cores is later work.
+//
+// All four run on the tensor cores with the forward's building blocks
+// (mma.cuh): mma.sync m16n8k8 in 3xTF32 for fp32 (hi and lo TF32 parts
+// rounded to nearest, three products, as exact as fp32 FMA) and
+// m16n8k16 bf16 for bf16, with P and dS carried as two bf16 terms
+// (hi + lo) into their products; f32 accumulation throughout. Rows are
+// staged with 16-byte cp.async copies into shared memory padded by 16
+// bytes, so every fragment load is conflict-free.
+// - Key-major (modes 1-3): one block of 8 warps per (h, b, K tile of 64
+//   keys) walks the Q tiles that see it. A warp computes S^T = K Q^T and
+//   dP^T = V dO^T, so P^T and dS^T are already A operands of dV += P^T
+//   dO and dK += dS^T Q, with the forward's permuted contraction index
+//   (accumulator columns 2t, 2t+1 are the TF32 A fragment's t, t+4). K
+//   and V are staged once per block; Q, dO, lse and delta are double
+//   buffered, so the next Q tile arrives while the current one is
+//   multiplied. The single pass (modes 2, 3) also stages dS^T for the
+//   block's dQ share dS K; the dK/dV pass (mode 1) is the same kernel
+//   without the share. fp32 D=128 takes 216 KB of shared memory: one
+//   block of 8 warps per SM. Causal: blocks are numbered so that the K
+//   tiles with the longest Q walk (the first keys) start first, over all
+//   heads and batches.
+// - Query-major (mode 0, and mode 3's statistics launch): the forward's
+//   structure (attention_fwd.cu), one block of 8 warps per (h, b, Q
+//   tile), 4 row groups of 16 queries, the two warps of a group taking
+//   the two halves of every K tile; Q and dO staged once, K and V double
+//   buffered. The dQ pass computes S = Q K^T and dP = dO V^T, keeps P
+//   and dS in the accumulator layout (lse is given, so there is no
+//   online softmax) and adds dQ += dS K with K in the place of the
+//   forward's V. Causal: the longest Q tiles (the last rows) start
+//   first; K tiles wholly above the diagonal are never loaded.
 #include <math.h>
 
 #include "common.cuh"
@@ -63,277 +71,16 @@ namespace {
 using namespace pt;
 
 constexpr int kT = 64;         // rows of a q tile and of a k tile
-constexpr int kThreads = 256;  // 16 x 16
+constexpr int kThreads = 256;  // 8 warps
 
 struct Strides {
   long long b, s, h;
 };
 
-// one [kT][D] tile of a strided [B, S, H, D] tensor (already offset to
-// its (b, h)) into padded shared memory, zero past row S
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int s0,
-                                          int S, long long ss, int tid) {
-  for (int idx = tid; idx < kT * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
-    const int s = s0 + r;
-    dst[r * (D + 1) + d] = s < S ? pt::to_f(src[s * ss + d]) : 0.f;
-  }
-}
-
-// acc[i][j] = sum_d A[ty*4 + i][d] * Bm[tx + 16j][d]
-template <int D>
-__device__ __forceinline__ void tile_dot(float acc[4][4], const float* A,
-                                         const float* Bm, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Bm[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-  }
-}
-
-// the score of (row ty*4+i, column tx+16j), masked to -1e30 past the
-// sequences and above the diagonal (key j visible to query i when j <= i)
-__device__ __forceinline__ float masked_score(float s, int qi, int kj,
-                                              int Sq, int Sk, int causal) {
-  if (qi >= Sq || kj >= Sk || (causal && kj > qi)) return pt::kNegInf;
-  return s;
-}
-
-template <int D>
-constexpr size_t smem_floats() {
-  return 4 * kT * (D + 1) + kT * (kT + 1) + 2 * kT;
-}
-
 __device__ __forceinline__ size_t row_index(int b, int s, int h, int S,
                                             int H) {
   return (static_cast<size_t>(b) * S + s) * H + h;
 }
-
-// dQ pass (#7): one block per (q tile, h, b) walks the K tiles
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const T* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            T* __restrict__ dq, int Sq, int Sk, int H,
-                            Strides qs, Strides ks, Strides vs, Strides ds,
-                            int causal, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // [kT][D + 1]
-  float* dOs = Qs + kT * (D + 1);      // [kT][D + 1]
-  float* Ks = dOs + kT * (D + 1);      // [kT][D + 1]
-  float* Vs = Ks + kT * (D + 1);       // [kT][D + 1]
-  float* Ps = Vs + kT * (D + 1);       // [kT][kT + 1] dS
-  float* Ls = Ps + kT * (kT + 1);      // [kT] lse
-  float* Dl = Ls + kT;                 // [kT] delta
-  constexpr int kCols = D / 16;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const T* db = dout + b * ds.b + h * ds.h;
-
-  load_tile<T, D>(Qs, qb, q0, Sq, qs.s, tid);
-  load_tile<T, D>(dOs, db, q0, Sq, ds.s, tid);
-  if (tid < kT) {
-    const int s = q0 + tid;
-    const bool in = s < Sq;
-    Ls[tid] = in ? lse[row_index(b, s, h, Sq, H)] : 0.f;
-    Dl[tid] = in ? delta[row_index(b, s, h, Sq, H)] : 0.f;
-  }
-  float acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-
-  const int k_end = causal ? min(Sk, q0 + kT) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += kT) {
-    __syncthreads();  // the previous tile's Ks/Vs/Ps are consumed
-    load_tile<T, D>(Ks, kb, k0, Sk, ks.s, tid);
-    load_tile<T, D>(Vs, vb, k0, Sk, vs.s, tid);
-    __syncthreads();
-    float sacc[4][4], dp[4][4];
-    tile_dot<D>(sacc, Qs, Ks, ty, tx);
-    tile_dot<D>(dp, dOs, Vs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float s = masked_score(sacc[i][j] * scale, q0 + r, k0 + c, Sq,
-                                     Sk, causal);
-        const float p = expf(s - Ls[r]);
-        Ps[r * (kT + 1) + c] = p * (dp[i][j] - Dl[r]) * scale;
-      }
-    }
-    __syncthreads();
-    // dQ += dS K: rows ty*4 + i, columns tx + 16j
-    const int c_end = min(kT, Sk - k0);
-    for (int c = 0; c < c_end; ++c) {
-      float dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = Ps[(ty * 4 + i) * (kT + 1) + c];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float kv = Ks[c * (D + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += dsv[i] * kv;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty * 4 + i;
-    if (s >= Sq) continue;
-    T* row = dq + row_index(b, s, h, Sq, H) * D;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) row[tx + 16 * j] = pt::from_f<T>(acc[i][j]);
-  }
-}
-
-// dK/dV pass (#8): one block per (k tile, h, b) walks the Q tiles that
-// see it
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_dkv_kernel(const T* __restrict__ q,
-                             const T* __restrict__ k,
-                             const T* __restrict__ v,
-                             const T* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             T* __restrict__ dk, T* __restrict__ dv,
-                             int Sq, int Sk, int H, Strides qs, Strides ks,
-                             Strides vs, Strides ds, int causal,
-                             float scale) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                    // [kT][D + 1]
-  float* Vs = Ks + kT * (D + 1);       // [kT][D + 1]
-  float* Qs = Vs + kT * (D + 1);       // [kT][D + 1]
-  float* dOs = Qs + kT * (D + 1);      // [kT][D + 1]
-  float* Ps = dOs + kT * (D + 1);      // [kT][kT + 1] P, then dS
-  float* Ls = Ps + kT * (kT + 1);      // [kT] lse
-  float* Dl = Ls + kT;                 // [kT] delta
-  constexpr int kCols = D / 16;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const T* db = dout + b * ds.b + h * ds.h;
-
-  load_tile<T, D>(Ks, kb, k0, Sk, ks.s, tid);
-  load_tile<T, D>(Vs, vb, k0, Sk, vs.s, tid);
-  float dk_acc[4][kCols], dv_acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  // causal: query rows below k0 see none of this K tile
-  const int q_start = causal ? k0 : 0;
-  for (int q0 = q_start; q0 < Sq; q0 += kT) {
-    __syncthreads();  // the previous Q tile's Qs/dOs/Ps are consumed
-    load_tile<T, D>(Qs, qb, q0, Sq, qs.s, tid);
-    load_tile<T, D>(dOs, db, q0, Sq, ds.s, tid);
-    if (tid < kT) {
-      const int s = q0 + tid;
-      const bool in = s < Sq;
-      Ls[tid] = in ? lse[row_index(b, s, h, Sq, H)] : 0.f;
-      Dl[tid] = in ? delta[row_index(b, s, h, Sq, H)] : 0.f;
-    }
-    __syncthreads();
-    // P and dP: rows (queries) ty*4 + i, columns (keys) tx + 16j
-    float p[4][4], dp[4][4];
-    tile_dot<D>(p, Qs, Ks, ty, tx);
-    tile_dot<D>(dp, dOs, Vs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float s = masked_score(p[i][j] * scale, q0 + r, k0 + c, Sq, Sk,
-                                     causal);
-        p[i][j] = expf(s - Ls[r]);
-        Ps[r * (kT + 1) + c] = p[i][j];
-      }
-    }
-    __syncthreads();
-    // dV += P^T dO: rows (keys) ty*4 + i, columns tx + 16j
-    const int c_end = min(kT, Sq - q0);
-    // unrolled by 4 as ptxas chose while this kernel also wrote the
-    // single pass's dQ shares; left to itself it now unrolls by 2, and
-    // the pass runs slower than it did
-#pragma unroll 4
-    for (int c = 0; c < c_end; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[c * (kT + 1) + ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float o = dOs[c * (D + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dv_acc[i][j] += pv[i] * o;
-      }
-    }
-    __syncthreads();  // P is consumed; dS takes its place
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ps[r * (kT + 1) + tx + 16 * j] =
-            p[i][j] * (dp[i][j] - Dl[r]) * scale;
-    }
-    __syncthreads();
-    // dK += dS^T Q
-#pragma unroll 4
-    for (int c = 0; c < c_end; ++c) {
-      float dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = Ps[c * (kT + 1) + ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float qv = Qs[c * (D + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dk_acc[i][j] += dsv[i] * qv;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = k0 + ty * 4 + i;
-    if (s >= Sk) continue;
-    T* rk = dk + row_index(b, s, h, Sk, H) * D;
-    T* rv = dv + row_index(b, s, h, Sk, H) * D;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      rk[tx + 16 * j] = pt::from_f<T>(dk_acc[i][j]);
-      rv[tx + 16 * j] = pt::from_f<T>(dv_acc[i][j]);
-    }
-  }
-}
-
-// -- the single pass on the tensor cores (modes 2 and 3) ----------------------
 
 template <typename T, int D>
 struct Tc {
@@ -347,15 +94,16 @@ struct Tc {
   // K, V once; Q, dO double buffered; dS^T; lse, delta double buffered
   static constexpr size_t kSmemFused =
       6 * kTile + (static_cast<size_t>(kT) * kLDS + 4 * kT) * sizeof(float);
-  // Q, dO once; K, V double buffered
-  static constexpr size_t kSmemStats = 6 * kTile;
+  // query-major: Q, dO once; K, V double buffered
+  static constexpr size_t kSmemQMajor = 6 * kTile;
 };
 
-// Single pass (#6, and #10 after the statistics): one block of 8 warps
-// per (h, b, K tile) walks the Q tiles that see its 64 keys. Warp w owns
-// keys 16 (w % 4) .. +15 and, of every Q tile, queries 32 (w / 4) ..
-// +31: it computes S^T = K Q^T and dP^T = V dO^T for that 16 x 32 patch,
-// so its accumulators hold P^T and dS^T in the layout of an A operand,
+// The key-major pass. Single pass (#6, and #10 after the statistics;
+// kShare): one block of 8 warps per (h, b, K tile) walks the Q tiles
+// that see its 64 keys. Warp w owns keys 16 (w % 4) .. +15 and, of every
+// Q tile, queries 32 (w / 4) .. +31: it computes S^T = K Q^T and dP^T =
+// V dO^T for that 16 x 32 patch, so its accumulators hold P^T and dS^T
+// in the layout of an A operand,
 // and adds dV += P^T dO and dK += dS^T Q over its 32 queries into
 // registers (16 keys x D each). dS^T goes to shared memory once per Q
 // tile, before the products (dK reads its A operand back from there, so
@@ -365,20 +113,17 @@ struct Tc {
 // dq_part[K tile] (f32), which dq_reduce_kernel sums in tile order. At
 // the end the two warps of a key group hand each other half of their
 // partial sums over the two query halves (query half 0 + half 1, in
-// that order) and write dK and dV.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    attention_bwd_fused_kernel(const T* __restrict__ q,
-                               const T* __restrict__ k,
-                               const T* __restrict__ v,
-                               const T* __restrict__ dout,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ delta,
-                               T* __restrict__ dk, T* __restrict__ dv,
-                               float* __restrict__ dq_part, int B, int Sq,
-                               int Sk, int H, Strides qs, Strides ks,
-                               Strides vs, Strides ds, int causal,
-                               float scale) {
+// that order) and write dK and dV. The dK/dV pass (#8, !kShare) is the
+// same walk without the dQ share: no barrier between the products, no
+// dq_part; each warp reads back only its own staged dS^T.
+template <typename T, int D, bool kShare>
+__device__ __forceinline__ void key_major_pass(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_part,
+    int B, int Sq, int Sk, int H, Strides qs, Strides ks, Strides vs,
+    Strides ds, int causal, float scale) {
   constexpr int kLD = Tc<T, D>::kLD;
   constexpr int kLDS = Tc<T, D>::kLDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -433,7 +178,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
-  const size_t part_stride = static_cast<size_t>(B) * Sq * H * D;
   for (int it = 0; it < n_q; ++it) {
     const int q0 = q_start + it * kT, buf = it & 1;
     cp_async_wait_all();
@@ -491,42 +235,46 @@ __global__ void __launch_bounds__(kThreads, 1)
             return stage[8 * (e >> 1) * kLDS + 8 * j + (e & 1)];
           },
           Qb, g, t);
-    } else {
+    } else if constexpr (kShare) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         store2(stage + 8 * j, 0.f, 0.f);
         store2(stage + 8 * kLDS + 8 * j, 0.f, 0.f);
       }
     }
-    __syncthreads();  // dS^T complete
+    if constexpr (kShare) {
+      __syncthreads();  // dS^T complete
 
-    // this K tile's dQ share dS K: rows (queries) q0 + 16 rg + g (+8),
-    // columns (D / 2) qh + 8n + 2t (+1) in two passes of D / 4 (fewer
-    // live registers beside dK and dV), A read from dS^T transposed
-    const int qr = q0 + 16 * rg;
-    if (qr < Sq) {
-      const float* a = dsT + 16 * rg + g;
-      auto at = [&](int j, int e) {
-        return a[(8 * j + 2 * t + (e & 1)) * kLDS + 8 * (e >> 1)];
-      };
+      // this K tile's dQ share dS K: rows (queries) q0 + 16 rg + g (+8),
+      // columns (D / 2) qh + 8n + 2t (+1) in two passes of D / 4 (fewer
+      // live registers beside dK and dV), A read from dS^T transposed
+      const int qr = q0 + 16 * rg;
+      if (qr < Sq) {
+        const float* a = dsT + 16 * rg + g;
+        auto at = [&](int j, int e) {
+          return a[(8 * j + 2 * t + (e & 1)) * kLDS + 8 * (e >> 1)];
+        };
 #pragma unroll 1
-      for (int pass = 0; pass < 2; ++pass) {
-        const int c0 = (D / 2) * qh + (D / 4) * pass;
-        float acc[D / 32][4];
-#pragma unroll
-        for (int n = 0; n < D / 32; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-        pv_at<D / 4, kT, kLD>(acc, at, Ks + c0, g, t);
-        float* part = dq_part + kt * part_stride + c0 + 2 * t;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int s = qr + g + 8 * r;
-          if (s >= Sq) continue;
-          float* row = part + row_index(b, s, h, Sq, H) * D;
+        for (int pass = 0; pass < 2; ++pass) {
+          const int c0 = (D / 2) * qh + (D / 4) * pass;
+          float acc[D / 32][4];
 #pragma unroll
           for (int n = 0; n < D / 32; ++n)
-            store2(row + 8 * n, acc[n][2 * r], acc[n][2 * r + 1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+          pv_at<D / 4, kT, kLD>(acc, at, Ks + c0, g, t);
+          float* part = dq_part +
+                        kt * (static_cast<size_t>(B) * Sq * H * D) + c0 +
+                        2 * t;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int s = qr + g + 8 * r;
+            if (s >= Sq) continue;
+            float* row = part + row_index(b, s, h, Sq, H) * D;
+#pragma unroll
+            for (int n = 0; n < D / 32; ++n)
+              store2(row + 8 * n, acc[n][2 * r], acc[n][2 * r + 1]);
+          }
         }
       }
     }
@@ -585,6 +333,182 @@ __global__ void __launch_bounds__(kThreads, 1)
     write(dka, dk);
   else
     write(dva, dv);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_bwd_fused_kernel(const T* __restrict__ q,
+                               const T* __restrict__ k,
+                               const T* __restrict__ v,
+                               const T* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               T* __restrict__ dk, T* __restrict__ dv,
+                               float* __restrict__ dq_part, int B, int Sq,
+                               int Sk, int H, Strides qs, Strides ks,
+                               Strides vs, Strides ds, int causal,
+                               float scale) {
+  key_major_pass<T, D, true>(q, k, v, dout, lse, delta, dk, dv, dq_part, B,
+                             Sq, Sk, H, qs, ks, vs, ds, causal, scale);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_bwd_dkv_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dk, T* __restrict__ dv, int Sq,
+                             int Sk, int H, Strides qs, Strides ks,
+                             Strides vs, Strides ds, int causal,
+                             float scale) {
+  key_major_pass<T, D, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, 1,
+                              Sq, Sk, H, qs, ks, vs, ds, causal, scale);
+}
+
+// dQ pass (#7), query-major: warp w takes queries w0 = q0 + 16 (w % 4)
+// .. +15 and, of every K tile, the keys 32 (w / 4) .. +31. S = Q K^T
+// and dP = dO V^T for that 16 x 32 patch, then P = exp(S scale - lse)
+// and dS = P (dP - delta) scale in place, the causal and ragged edges
+// masked to -1e30 before the exp (so P is 0 there), and dQ += dS K
+// (pv(): dS is the A operand in the accumulator layout, K the B operand
+// read as the forward reads V). Half tiles wholly above the diagonal or
+// past Sk are skipped by the warp. At the end the warp of the second K
+// half hands its 16 x D partial sum to the first through the (now free)
+// K/V buffers, which adds it (first half + second) and writes the rows.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dq, int Sq, int Sk, int H,
+                            Strides qs, Strides ks, Strides vs, Strides ds,
+                            int causal, float scale) {
+  constexpr int kLD = Tc<T, D>::kLD;
+  constexpr int kHK = kT / 2;  // keys of a tile each warp takes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [kT][kLD]
+  T* dOs = Qs + kT * kLD;                  // [kT][kLD]
+  T* Ks = dOs + kT * kLD;                  // [2][kT][kLD]
+  T* Vs = Ks + 2 * kT * kLD;               // [2][kT][kLD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp & 3;  // this warp's 16 query rows
+  const int kh = warp >> 2;  // and its half of every K tile
+  const int h = blockIdx.x, b = blockIdx.y;
+  // causal: the longest Q tiles first
+  const int qt = causal ? static_cast<int>(gridDim.z - 1 - blockIdx.z)
+                        : static_cast<int>(blockIdx.z);
+  const int q0 = qt * kT, w0 = q0 + 16 * rg;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+  const T* db = dout + b * ds.b + h * ds.h;
+
+  const int k_end = causal ? min(Sk, q0 + kT) : Sk;
+  const int n_tiles = (k_end + kT - 1) / kT;
+  load_rows<T, D, kT, kLD, kThreads>(Qs, qb, qs.s, q0, Sq, tid);
+  load_rows<T, D, kT, kLD, kThreads>(dOs, db, ds.s, q0, Sq, tid);
+  if (n_tiles > 0) {
+    load_rows<T, D, kT, kLD, kThreads>(Ks, kb, ks.s, 0, Sk, tid);
+    load_rows<T, D, kT, kLD, kThreads>(Vs, vb, vs.s, 0, Sk, tid);
+  }
+  cp_async_commit();
+
+  // lse and delta of rows w0 + g (index 0) and w0 + g + 8 (index 1)
+  float L[2], Dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g + 8 * r;
+    const bool in = row < Sq;
+    L[r] = in ? lse[row_index(b, row, h, Sq, H)] : 0.f;
+    Dl[r] = in ? delta[row_index(b, row, h, Sq, H)] : 0.f;
+  }
+  // rows w0 + g, w0 + g + 8, columns 8n + 2t (+1), over this warp's keys
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kT + kh * kHK, buf = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile it is in; tile it-1's buffer is free
+    if (it + 1 < n_tiles) {
+      const int next = (it + 1) * kT;
+      load_rows<T, D, kT, kLD, kThreads>(Ks + (buf ^ 1) * kT * kLD, kb,
+                                         ks.s, next, Sk, tid);
+      load_rows<T, D, kT, kLD, kThreads>(Vs + (buf ^ 1) * kT * kLD, vb,
+                                         vs.s, next, Sk, tid);
+    }
+    cp_async_commit();
+    if ((causal && k0 > w0 + 15) || k0 >= Sk) continue;
+
+    const int off = (buf * kT + kh * kHK) * kLD;
+    float s[kHK / 8][4], dp[kHK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kHK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    scores<D, kHK, kLD>(s, Qs + 16 * rg * kLD, Ks + off, g, t);
+    scores<D, kHK, kLD>(dp, dOs + 16 * rg * kLD, Vs + off, g, t);
+
+    const bool masked = k0 + kHK > Sk || (causal && k0 + kHK - 1 > w0);
+#pragma unroll
+    for (int j = 0; j < kHK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (masked) {
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          const int row = w0 + g + 8 * (e >> 1);
+          if (col >= Sk || (causal && col > row)) x = kNegInf;
+        }
+        const float p = expf(x - L[e >> 1]);
+        s[j][e] = p * (dp[j][e] - Dl[e >> 1]) * scale;  // dS
+      }
+    pv<D, kHK, kLD>(acc, s, Ks + off, g, t);
+  }
+
+  // the second K half's warp hands its partial sum to the first through
+  // the (now free) K/V buffers
+  cp_async_wait_all();
+  __syncthreads();
+  constexpr int kHand = D / 2;  // floats a thread hands over
+  static_assert(4 * 32 * kHand * sizeof(float) <= 4 * Tc<T, D>::kTile,
+                "the hand-over does not fit the K/V buffers");
+  float* mine = reinterpret_cast<float*>(Ks) + (rg * 32 + lane) * kHand;
+  if (kh == 1) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float4*>(mine + 4 * n) =
+          make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+  }
+  __syncthreads();
+  if (kh == 1) return;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const float4 o = *reinterpret_cast<const float4*>(mine + 4 * n);
+    acc[n][0] += o.x;
+    acc[n][1] += o.y;
+    acc[n][2] += o.z;
+    acc[n][3] += o.w;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g + 8 * r;
+    if (row >= Sq) continue;
+    T* out = dq + row_index(b, row, h, Sq, H) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2(out + 8 * n, acc[n][2 * r], acc[n][2 * r + 1]);
+  }
 }
 
 // Folded entry (#10), first launch: each row's lse and delta =
@@ -771,65 +695,54 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// modes 0 and 1: one FMA launch each
+// mode 0: the dQ pass; mode 1: the dK/dV pass; modes 2 and 3: [the
+// statistics (mode 3),] the single pass, the dQ sum
 template <typename T, int D>
-int launch_fma(const Args& a, int mode, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  const float* lse = static_cast<const float*>(a.lse);
-  const float* delta = static_cast<const float*>(a.delta);
-  cudaError_t e;
-  if (mode == 0) {
-    auto kernel = attention_bwd_dq_kernel<T, D>;
-    if ((e = allow_smem(kernel, smem)) != cudaSuccess) return e;
-    const dim3 grid((a.Sq + kT - 1) / kT, a.H, a.B);
-    kernel<<<grid, kThreads, smem, stream>>>(
-        q, k, v, dout, lse, delta, static_cast<T*>(a.dq), a.Sq, a.Sk, a.H,
-        a.qs, a.ks, a.vs, a.ds, a.causal, a.scale);
-    return static_cast<int>(cudaGetLastError());
-  }
-  auto kernel = attention_bwd_dkv_kernel<T, D>;
-  if ((e = allow_smem(kernel, smem)) != cudaSuccess) return e;
-  const dim3 grid((a.Sk + kT - 1) / kT, a.H, a.B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.Sq, a.Sk, a.H, a.qs, a.ks, a.vs, a.ds,
-      a.causal, a.scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// modes 2 and 3: [the statistics (mode 3),] the single pass, the dQ sum
-template <typename T, int D>
-int launch_single_pass(const Args& a, int mode, cudaStream_t stream) {
+int launch(const Args& a, int mode, cudaStream_t stream) {
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   float* lse = static_cast<float*>(a.lse);
   float* delta = static_cast<float*>(a.delta);
-  float* part = static_cast<float*>(a.dq_part);
-  const int n_kt = (a.Sk + kT - 1) / kT;
+  T* dk = static_cast<T*>(a.dk);
+  T* dv = static_cast<T*>(a.dv);
+  const int n_qt = (a.Sq + kT - 1) / kT, n_kt = (a.Sk + kT - 1) / kT;
   cudaError_t e;
+  if (mode == 0) {
+    auto kernel = attention_bwd_dq_kernel<T, D>;
+    const size_t smem = Tc<T, D>::kSmemQMajor;
+    if ((e = allow_smem(kernel, smem)) != cudaSuccess) return e;
+    kernel<<<dim3(a.H, a.B, n_qt), kThreads, smem, stream>>>(
+        q, k, v, dout, lse, delta, static_cast<T*>(a.dq), a.Sq, a.Sk, a.H,
+        a.qs, a.ks, a.vs, a.ds, a.causal, a.scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (mode == 1) {
+    auto kernel = attention_bwd_dkv_kernel<T, D>;
+    const size_t smem = Tc<T, D>::kSmemFused;
+    if ((e = allow_smem(kernel, smem)) != cudaSuccess) return e;
+    kernel<<<dim3(a.H, a.B, n_kt), kThreads, smem, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, a.Sq, a.Sk, a.H, a.qs, a.ks, a.vs,
+        a.ds, a.causal, a.scale);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (mode == 3) {
     auto stats = attention_bwd_stats_kernel<T, D>;
-    const size_t smem = Tc<T, D>::kSmemStats;
+    const size_t smem = Tc<T, D>::kSmemQMajor;
     if ((e = allow_smem(stats, smem)) != cudaSuccess) return e;
-    const dim3 grid(a.H, a.B, (a.Sq + kT - 1) / kT);
-    stats<<<grid, kThreads, smem, stream>>>(q, k, v, dout, lse, delta, a.Sq,
-                                            a.Sk, a.H, a.qs, a.ks, a.vs,
-                                            a.ds, a.causal, a.scale);
+    stats<<<dim3(a.H, a.B, n_qt), kThreads, smem, stream>>>(
+        q, k, v, dout, lse, delta, a.Sq, a.Sk, a.H, a.qs, a.ks, a.vs, a.ds,
+        a.causal, a.scale);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
+  float* part = static_cast<float*>(a.dq_part);
   auto fused = attention_bwd_fused_kernel<T, D>;
   const size_t smem = Tc<T, D>::kSmemFused;
   if ((e = allow_smem(fused, smem)) != cudaSuccess) return e;
   fused<<<dim3(a.H, a.B, n_kt), kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), part, a.B, a.Sq, a.Sk, a.H, a.qs, a.ks, a.vs,
-      a.ds, a.causal, a.scale);
+      q, k, v, dout, lse, delta, dk, dv, part, a.B, a.Sq, a.Sk, a.H, a.qs,
+      a.ks, a.vs, a.ds, a.causal, a.scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const size_t n = static_cast<size_t>(a.B) * a.Sq * a.H * D;
   const size_t want = (n / 4 + 255) / 256;
@@ -843,11 +756,9 @@ template <typename T>
 int dispatch_d(const Args& a, int D, int mode, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return mode < 2 ? launch_fma<T, 64>(a, mode, stream)
-                      : launch_single_pass<T, 64>(a, mode, stream);
+      return launch<T, 64>(a, mode, stream);
     case 128:
-      return mode < 2 ? launch_fma<T, 128>(a, mode, stream)
-                      : launch_single_pass<T, 128>(a, mode, stream);
+      return launch<T, 128>(a, mode, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

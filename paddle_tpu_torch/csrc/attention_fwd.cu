@@ -21,7 +21,7 @@
 // head) (about half when causal) against 3*S*D inputs.
 // - fp32 inputs run 3xTF32 on the tensor cores: each operand x is split
 //   into hi = tf32(x) (round to nearest, ties away, as cvt.rna) and
-//   lo = tf32(x - hi),
+//   lo = x - hi (read by the tensor core truncated to TF32, mma.cuh),
 //   and each product is lo*hi + hi*lo + hi*hi accumulated in f32. That
 //   keeps fp32 accuracy (single-pass TF32 keeps about 3 digits) at three
 //   TF32 products: the bound is 3 * flops / 495 TFLOP/s.

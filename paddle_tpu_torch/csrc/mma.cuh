@@ -71,10 +71,14 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// x ~ hi + lo, both TF32 (round to nearest)
+// x ~ hi + lo: hi rounded to TF32, lo = x - hi (exact in f32) passed as
+// it is, since the tensor core reads a TF32 operand's top 19 bits and so
+// truncates lo (|lo| <= 2^-11 |x|, so lo's own error is below 2^-21 |x|).
+// Rounding lo as well costs two more integer ops per split, and the
+// splits bound the fp32 attention kernels with the products.
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,

@@ -15,9 +15,10 @@ backward kernels (``csrc/attention_bwd.cu``) keep the TPU's split:
 - :func:`folded_attention_bwd` (#10), which recomputes the softmax from
   q and k (no saved lse).
 
-The single pass (#6, #10) runs on the tensor cores like the forward
-(3xTF32 in fp32, bf16 products for bf16); the dQ and dK/dV passes
-(#7, #8) are FMA kernels.
+Every backward kernel runs on the tensor cores like the forward (3xTF32
+in fp32, bf16 products for bf16): the dK/dV pass (#8) is the single
+pass's key-major walk without its dQ share, the dQ pass (#7) takes the
+forward's query-major structure.
 
 :func:`flash_attention` returns ``(out, lse)`` with ``lse`` [B, S, H]
 f32, both differentiable (the ``flash_attention_lse`` convention,
@@ -102,8 +103,8 @@ def _strides(t):
 def check_vector_aligned(name, *named):
     """Raise unless every ``(name, tensor)`` starts on a 16-byte
     boundary and its batch, row and head strides are whole 16-byte
-    steps: the forward kernel and the single-pass backward stage rows
-    with 16-byte copies. Slices of a fused [B, S, 3, H, D] projection
+    steps: the forward and backward kernels stage rows with 16-byte
+    copies. Slices of a fused [B, S, 3, H, D] projection
     pass; a misaligned view is refused, never copied behind the
     caller's back."""
     for tname, t in named:
@@ -217,8 +218,7 @@ def _launch_bwd(name, mode, q, k, v, do, lse, delta, causal, scale):
     ones the mode does not compute left None."""
     do = do if do.stride(3) == 1 else do.contiguous()
     dev = _check_operands(name, q, k, v, BWD_HEAD_DIMS, extra=(do,))
-    if mode >= 2:  # the single pass stages rows with 16-byte copies
-        check_vector_aligned(name, ("q", q), ("k", k), ("v", v), ("dO", do))
+    check_vector_aligned(name, ("q", q), ("k", k), ("v", v), ("dO", do))
     b, sq, h, d = q.shape
     sk = k.shape[1]
     code = _build.dtype_code(q, name)
@@ -248,8 +248,9 @@ def _launch_bwd(name, mode, q, k, v, do, lse, delta, causal, scale):
 
 def attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                      scale: Optional[float] = None):
-    """dQ pass (TPU #7): one block per Q tile walks the K tiles. CPU
-    tensors take the plain version."""
+    """dQ pass (TPU #7) on the tensor cores: one block per Q tile walks
+    the K tiles (one launch a call). CPU tensors take the plain
+    version."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, do, lse, delta, causal,
@@ -262,8 +263,9 @@ def attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
 
 def attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                       scale: Optional[float] = None):
-    """dK/dV pass (TPU #8): one block per K tile walks the Q tiles that
-    see it. Returns ``(dk, dv)``. CPU tensors take the plain version."""
+    """dK/dV pass (TPU #8) on the tensor cores: one block per K tile
+    walks the Q tiles that see it (one launch a call). Returns ``(dk,
+    dv)``. CPU tensors take the plain version."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, do, lse, delta, causal,

@@ -18,6 +18,13 @@ as A operands, dS staged query-major for the dQ share, the per-K-tile
 dQ shares summed in tile order, all five products (and the two of the
 folded statistics launch) in 3xTF32. It is held within 1e-5 of the
 plain versions and of the JAX vjps.
+
+The dQ and dK/dV passes (modes 0 and 1) are emulated the same way, down
+to the warp's patch and its skip rule: the dK/dV pass is the key-major
+walk without the dQ share (16 keys x one 32-query half a warp), the dQ
+pass the query-major walk of the forward (16 queries x one 32-key half
+of every K tile a warp, the two halves' partial sums added first then
+second).
 """
 
 import functools
@@ -432,6 +439,210 @@ def test_emulated_folded_matches_jax_vjp(_interpret, d, causal):
     _close(_emulated_single_pass(tq, tk, tv, tdo, lse, delta, causal), want)
 
 
+# -- the tensor-core dQ and dK/dV passes, emulated ----------------------------
+
+GROUP = 16  # rows of a warp's patch: keys (dK/dV pass), queries (dQ pass)
+
+
+def _dkv_patches(sq, sk, causal):
+    """(K tile, Q tile, key group, query half) of the dK/dV pass in its
+    order: the single pass's walk (``_walk``), each pair split among 8
+    warps, 16 keys x 32 queries each; a warp skips a patch past Sk or Sq,
+    or whose every query is above every key (causal)."""
+    for kt, qt in _walk(sq, sk, causal):
+        for rg in range(KT // GROUP):
+            for qh in range(2):
+                kw, qw = kt * KT + GROUP * rg, qt * KT + HALF * qh
+                if kw < sk and qw < sq and not (causal and qw + HALF - 1 < kw):
+                    yield kt, qt, rg, qh
+
+
+def _dq_patches(sq, sk, causal):
+    """(Q tile, K tile, row group, key half) of the dQ pass in its order:
+    the query-major walk (``_stats_walk``: the longest Q tiles first, K
+    tiles wholly above the diagonal never loaded), each pair split among
+    8 warps, 16 queries x 32 keys each; a warp skips a half tile past Sk
+    or wholly above its rows (causal)."""
+    for qt, kt in _stats_walk(sq, sk, causal):
+        for rg in range(KT // GROUP):
+            for kh in range(2):
+                w0, k0 = qt * KT + GROUP * rg, kt * KT + HALF * kh
+                if not ((causal and k0 > w0 + GROUP - 1) or k0 >= sk):
+                    yield qt, kt, rg, kh
+
+
+def _patch_pairs(rows, cols, sq, sk, causal):
+    """The visible (query, key) pairs of a patch."""
+    return {(i, j) for i in range(*rows) for j in range(*cols)
+            if i < sq and j < sk and (not causal or j <= i)}
+
+
+def _patch_probs(qq, kk, vv, dd, lb, deb, queries, keys, causal, passes):
+    """P and dS [B, H, queries, keys] of one patch from its rows: S = Q
+    K^T and dP = dO V^T on the emulated tensor cores, the causal mask
+    -1e30 before the exp."""
+    scale = 1.0 / math.sqrt(qq.shape[-1])
+    s = _tc_matmul(qq, kk.transpose(-1, -2), passes) * scale
+    if causal:
+        s = torch.where(keys[None, :] <= queries[:, None], s,
+                        torch.tensor(-1e30))
+    p = torch.exp(s - lb[..., None])
+    dp = _tc_matmul(dd, vv.transpose(-1, -2), passes)
+    return p, p * (dp - deb[..., None]) * scale
+
+
+def _emulated_dkv(q, k, v, do, lse, delta, causal, passes=3):
+    """The dK/dV pass on [B, S, H, D] f32: per patch of ``_dkv_patches``,
+    P and dS of its 16 keys x 32 queries, dV += P^T dO and dK += dS^T Q
+    into the partial sums of its query half; half 0 + half 1 at the end.
+    Returns ``(dk, dv)``."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qb, kb, vb, db = _bhsd(q, k, v, do)
+    lb, deb = (t.transpose(1, 2) for t in (lse, delta))
+    dk = torch.zeros((2, b, h, sk, d))
+    dv = torch.zeros((2, b, h, sk, d))
+    for kt, qt, rg, qh in _dkv_patches(sq, sk, causal):
+        a = kt * KT + GROUP * rg
+        e = min(a + GROUP, sk)
+        qa = qt * KT + HALF * qh
+        qe = min(qa + HALF, sq)
+        qq, dd = qb[:, :, qa:qe], db[:, :, qa:qe]
+        p, ds = _patch_probs(qq, kb[:, :, a:e], vb[:, :, a:e], dd,
+                             lb[:, :, qa:qe], deb[:, :, qa:qe],
+                             torch.arange(qa, qe), torch.arange(a, e),
+                             causal, passes)
+        dv[qh, :, :, a:e] += _tc_matmul(p.transpose(-1, -2), dd, passes)
+        dk[qh, :, :, a:e] += _tc_matmul(ds.transpose(-1, -2), qq, passes)
+    return tuple(x.permute(0, 2, 1, 3) for x in (dk[0] + dk[1],
+                                                  dv[0] + dv[1]))
+
+
+def _emulated_dq(q, k, v, do, lse, delta, causal, passes=3):
+    """The dQ pass on [B, S, H, D] f32: per patch of ``_dq_patches``, P
+    and dS of its 16 queries x 32 keys, dQ += dS K into the partial sum
+    of its key half; the first half + the second at the end."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qb, kb, vb, db = _bhsd(q, k, v, do)
+    lb, deb = (t.transpose(1, 2) for t in (lse, delta))
+    dq = torch.zeros((2, b, h, sq, d))
+    for qt, kt, rg, kh in _dq_patches(sq, sk, causal):
+        a = qt * KT + GROUP * rg
+        e = min(a + GROUP, sq)
+        ka = kt * KT + HALF * kh
+        ke = min(ka + HALF, sk)
+        if a >= e:  # rows past Sq: computed on the card, never written
+            continue
+        kk = kb[:, :, ka:ke]
+        _, ds = _patch_probs(qb[:, :, a:e], kk, vb[:, :, ka:ke],
+                             db[:, :, a:e], lb[:, :, a:e], deb[:, :, a:e],
+                             torch.arange(a, e), torch.arange(ka, ke),
+                             causal, passes)
+        dq[kh, :, :, a:e] += _tc_matmul(ds, kk, passes)
+    return (dq[0] + dq[1]).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("sq,sk", [(128, 128), (200, 200), (256, 256),
+                                   (130, 200), (200, 70), (64, 300),
+                                   (8, 8)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_dq_and_dkv_walks_visit_each_visible_pair_once(sq, sk, causal):
+    visible = _patch_pairs((0, sq), (0, sk), sq, sk, causal)
+    for patches, rows_cols in (
+            (_dkv_patches, lambda kt, qt, rg, qh: (
+                (qt * KT + HALF * qh, qt * KT + HALF * (qh + 1)),
+                (kt * KT + GROUP * rg, kt * KT + GROUP * (rg + 1)))),
+            (_dq_patches, lambda qt, kt, rg, kh: (
+                (qt * KT + GROUP * rg, qt * KT + GROUP * (rg + 1)),
+                (kt * KT + HALF * kh, kt * KT + HALF * (kh + 1))))):
+        seen = []
+        for patch in patches(sq, sk, causal):
+            rows, cols = rows_cols(*patch)
+            seen.extend(_patch_pairs(rows, cols, sq, sk, causal))
+        assert len(seen) == len(set(seen))
+        assert set(seen) == visible, patches.__name__
+    # causal: the blocks' walks shorten along each grid (the dK/dV pass's
+    # K tiles, the dQ pass's Q tiles in launch order)
+    if causal:
+        kts = [kt for kt, _, _, _ in _dkv_patches(sq, sk, causal)]
+        walks = [kts.count(t) for t in dict.fromkeys(kts)]
+        assert walks == sorted(walks, reverse=True)
+        qts = [qt for qt, _ in _stats_walk(sq, sk, causal)]
+        walks = [qts.count(t) for t in dict.fromkeys(qts)]
+        assert walks == sorted(walks, reverse=True)
+
+
+def _cross_case(seed, sq, sk, d, causal, glse):
+    """Inputs with Sq queries and Sk keys, the forward's lse and delta =
+    rowsum(dO*O) - g_lse from the plain forward, as torch tensors."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((1, sq, H, d)).astype(np.float32)
+    k, v = (rng.standard_normal((1, sk, H, d)).astype(np.float32)
+            for _ in range(2))
+    do = (0.1 * rng.standard_normal((1, sq, H, d))).astype(np.float32)
+    g = ((0.1 * rng.standard_normal((1, sq, H))).astype(np.float32)
+         if glse else np.zeros((1, sq, H), np.float32))
+    tq, tk, tv, tdo = _t(q), _t(k), _t(v), _t(do)
+    out, lse = tat.attention_reference(tq, tk, tv, causal=causal)
+    delta = (tdo * out).sum(-1) - _t(g)
+    return tq, tk, tv, tdo, lse, delta.contiguous()
+
+
+# Sq != Sk and sizes that are not multiples of the 64-row tile: ragged
+# last tiles, half tiles and patches past Sq or Sk
+@pytest.mark.parametrize("sq,sk", [(128, 128), (200, 200), (130, 200),
+                                   (200, 70)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_emulated_dq_and_dkv_keep_fp32_accuracy(sq, sk, d, causal):
+    args = _cross_case(600 + sq + sk + d + causal, sq, sk, d, causal,
+                       glse=sq == sk)
+    want = tat.attention_bwd_reference(*args, causal=causal)
+    got = (_emulated_dq(*args, causal),) + _emulated_dkv(*args, causal)
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, atol=TOL, rtol=TOL)
+    # one TF32 pass keeps about three digits: it misses the fp32 limit
+    one = (_emulated_dq(*args, causal, passes=1),) + _emulated_dkv(
+        *args, causal, passes=1)
+    assert not all(torch.allclose(g_, w, atol=TOL, rtol=TOL)
+                   for g_, w in zip(one, want))
+
+
+# S=256 is two 128-row Q blocks: the JAX vjp runs the dQ and dK/dV
+# kernels (#7, #8) in the Pallas interpreter
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("glse", [False, True])
+def test_emulated_dq_and_dkv_match_jax_vjp(_interpret, d, causal, glse):
+    (q, k, v, do, g), args = _flash_case(256, d, causal, glse)
+    _, _, want = _jax_flash_vjp(q, k, v, do, g, causal)
+    _close((_emulated_dq(*args, causal),) + _emulated_dkv(*args, causal),
+           want)
+
+
+@pytest.mark.parametrize("fn", [tat.attention_bwd_dq, tat.attention_bwd_dkv])
+@pytest.mark.parametrize("bad", ["q", "k", "v", "dO"])
+def test_dq_and_dkv_refuse_misaligned_operands(monkeypatch, fn, bad):
+    """The passes stage rows with 16-byte copies: a q, k, v or dO whose
+    rows are not whole 16-byte steps (or that starts off a 16-byte
+    boundary) is refused before any launch."""
+    monkeypatch.setattr(tat, "_check_operands",
+                        lambda name, q, k, v, dims, extra=(): q.device)
+    def operand(name, offset):
+        if name != bad:
+            return torch.empty(1, 128, 2, 64, device="meta")
+        if offset:  # starts 4 bytes in
+            return torch.empty(1 + 128 * 2 * 64, device="meta")[1:].view(
+                1, 128, 2, 64)
+        return torch.empty(1, 128, 2, 66, device="meta")[..., :64]
+    stats = torch.empty(1, 128, 2, device="meta")
+    for offset in (False, True):
+        ops = [operand(n, offset) for n in ("q", "k", "v", "dO")]
+        with pytest.raises(ValueError, match=f"{bad} needs a 16-byte"):
+            fn(*ops, stats, stats, True)
+
+
 # -- chip_smoke.py's reading of the build's ptxas report ----------------------
 
 def _ptxas_lines(kernel, dtype, d, regs, spill=0):
@@ -447,21 +658,23 @@ def _ptxas_lines(kernel, dtype, d, regs, spill=0):
 
 
 def _served(spill_at=None, skip=None):
-    """The report of the eight served instantiations, one of them
-    spilling 8 bytes (``spill_at``) or left out (``skip``)."""
+    """The report of the served instantiations of the backward's
+    tensor-core kernels (four each), one of them spilling 8 bytes
+    (``spill_at``) or left out (``skip``)."""
+    from test_torch_attention_fwd import _chip_smoke
     return "".join(
         _ptxas_lines(k, dt, d, 200 + d // 64,
                      spill=8 if (k, dt, d) == spill_at else 0)
-        for k in ("attention_bwd_fused_kernel",
-                  "attention_bwd_stats_kernel")
+        for k in _chip_smoke().BWD_TC_KERNELS
         for dt in ("fp32", "bf16") for d in (64, 128)
         if (k, dt, d) != skip)
 
 
 def test_ptxas_report_reads_registers_and_spills_per_kernel():
     from test_torch_attention_fwd import _chip_smoke
-    usage = _chip_smoke().ptxas_usage(_served())
-    assert len(usage) == 8
+    cs = _chip_smoke()
+    usage = cs.ptxas_usage(_served())
+    assert len(usage) == 4 * len(cs.BWD_TC_KERNELS) == 16
     assert all(u == {"stack": 0, "spill_stores": 0, "spill_loads": 0,
                      "registers": u["registers"]} for u in usage.values())
     assert sorted({u["registers"] for u in usage.values()}) == [201, 202]
@@ -470,16 +683,17 @@ def test_ptxas_report_reads_registers_and_spills_per_kernel():
 def test_chip_smoke_refuses_a_spilling_or_missing_single_pass_kernel():
     from test_torch_attention_fwd import _chip_smoke
     cs = _chip_smoke()
-    rows = cs.single_pass_ptxas(cs.ptxas_usage(_served()))
+    rows = cs.bwd_ptxas(cs.ptxas_usage(_served()))
     assert sorted(rows) == sorted(
-        f"{k} {dt} D={d}" for k in cs.SINGLE_PASS_KERNELS
+        f"{k} {dt} D={d}" for k in cs.BWD_TC_KERNELS
         for dt in ("fp32", "bf16") for d in (64, 128))
-    spilling = _served(("attention_bwd_fused_kernel", "fp32", 128))
-    with pytest.raises(AssertionError, match="spills"):
-        cs.single_pass_ptxas(cs.ptxas_usage(spilling))
-    missing = _served(skip=("attention_bwd_stats_kernel", "bf16", 64))
-    with pytest.raises(AssertionError, match="no lines"):
-        cs.single_pass_ptxas(cs.ptxas_usage(missing))
+    for kernel in cs.BWD_TC_KERNELS:
+        spilling = _served((kernel, "fp32", 128))
+        with pytest.raises(AssertionError, match="spills"):
+            cs.bwd_ptxas(cs.ptxas_usage(spilling))
+        missing = _served(skip=(kernel, "bf16", 64))
+        with pytest.raises(AssertionError, match="no lines"):
+            cs.bwd_ptxas(cs.ptxas_usage(missing))
 
 
 def test_chip_smoke_records_a_failed_closeness_check_and_goes_on(capsys):
@@ -561,11 +775,14 @@ def test_bf16_limit_after_rounding_refuses_the_exact_gradient(name, s, seed):
 
 @pytest.mark.parametrize("name,s,seed", [
     ("attention_bwd_fused", 512, 1), ("folded_attention_bwd", 256, 2),
-    ("attention_bwd_fused", 200, 3), ("folded_attention_bwd", 200, 3)])
+    ("attention_bwd_fused", 200, 3), ("folded_attention_bwd", 200, 3),
+    ("attention_bwd_dq", 512, 1), ("attention_bwd_dkv", 512, 1),
+    ("attention_bwd_dq", 200, 3), ("attention_bwd_dkv", 200, 3)])
 def test_bf16_check_before_rounding_takes_two_term_p_refuses_one_term(
         name, s, seed):
     """The check tells the kernel's design (P and dS as two bf16 terms)
-    from one bf16 term on the card check's causal shapes."""
+    from one bf16 term on the card check's causal shapes; each holds
+    only the gradients the kernel returns."""
     from test_torch_attention_fwd import _chip_smoke
     cs = _chip_smoke()
     ins = _card_case(cs, s, 128, seed)
@@ -573,6 +790,7 @@ def test_bf16_check_before_rounding_takes_two_term_p_refuses_one_term(
     tol = cs.BF16_ATOL[name]
     two = cs.bf16_terms_bwd(torch, name, 2, *ins, True)
     one = cs.bf16_terms_bwd(torch, name, 1, *ins, True)
+    assert set(two) == set(one) == set(plain32) == set(cs.BWD_OUTPUTS[name])
     assert all(cs.rounded_from(two[key], plain32[key], tol) for key in two)
     assert not all(cs.rounded_from(one[key], plain32[key], tol)
                    for key in one)

@@ -5,7 +5,8 @@ The CUDA kernels (``csrc/attention_fwd.cu``, ``csrc/decode_out_proj.cu``)
 run only on the card. What can be shown here:
 
 - the 3xTF32 split the fp32 forward uses: an emulation (written here,
-  not in the package) of TF32 rounding to nearest at 10 mantissa bits,
+  not in the package) of TF32 rounding to nearest at 10 mantissa bits
+  (hi) and of the tensor core's truncation of the remainder (lo),
   run through the kernel's tile-by-tile online softmax (each tile split
   between two warps whose states merge at the end), stays within
   1e-5 of the fp32 plain version, where single-pass TF32 misses 1e-4;
@@ -50,9 +51,18 @@ def _tf32(x):
     return ((u + 0x1000) & -0x2000).view(torch.float32)
 
 
+def _truncate_tf32(x):
+    """f32 truncated to TF32: the top 19 bits, as the tensor core reads
+    a TF32 operand given in f32."""
+    u = x.contiguous().view(torch.int32)
+    return (u & -0x2000).view(torch.float32)
+
+
 def _split(x):
+    """The kernels' split (``csrc/mma.cuh``): hi rounded to TF32, lo = x
+    - hi passed as it is and read by the tensor core truncated."""
     hi = _tf32(x)
-    return hi, _tf32(x - hi)
+    return hi, _truncate_tf32(x - hi)
 
 
 def _tc_matmul(a, b, passes):
