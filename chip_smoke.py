@@ -16,7 +16,9 @@ failure exits non-zero at once:
    kernels, whose served instantiations must not spill.
 3. kernels — each kernel against its plain PyTorch version on the card
    at the serving, training and ResNet paths' shapes, in fp32 and bf16,
-   with its tolerance, each check on inputs from its own generator; its
+   with its tolerance, each check on inputs from its own generator
+   (paged_decode also against its split emulation, and bit for bit
+   alone against batched and against NaN where it must not read); its
    median time over 20 launches (CUDA events, L2 flushed and a device
    spin queued before each launch, so the host's work stays out of the
    window), the plain version's, one PyTorch yardstick call's, and the
@@ -167,6 +169,22 @@ def attention_fwd_cost(B, S, H, D, causal, itemsize=4):
     pairs = S * (S + 1) // 2 if causal else S * S
     return (4 * B * S * H * D * itemsize + B * S * H * 4,
             4 * B * H * D * pairs)
+
+
+# bytes of one pool value and of the query / context element, by pool
+PAGED_POOLS = {"fp32": (4, 4), "bf16": (2, 2), "int8": (1, 4)}
+
+
+def paged_bytes(tokens, B, H, D, max_pages, pool):
+    """Bytes of one paged_decode call: K and V read once per (position,
+    head), D values of the pool's width plus a 4-byte scale for int8
+    pools; q read and the context written once in the query's dtype
+    (bf16 with bf16 pools, fp32 otherwise); the page table and the
+    lengths read once."""
+    kv, qo = PAGED_POOLS[pool]
+    per_row = D * kv + (4 if pool == "int8" else 0)
+    return (2 * tokens * H * per_row + 2 * B * H * D * qo
+            + B * max_pages * 4 + B * 4)
 
 
 def out_proj_cost(B, K, N, act_size=4, w_size=4):
@@ -384,52 +402,205 @@ def phase_build():
 
 # -- phase 3 -----------------------------------------------------------------
 
-def kernel_paged(torch, timer, dev, gen, records):
-    from paddle_tpu_torch.ops.kernels.paged_attention import (
-        paged_attention_reference, paged_decode)
-    from paddle_tpu_torch.quantization.quant import quantize_kv
-    H, D, page, B = 16, 128, 64, 8
-    max_pages = 32                     # 2048 / 64
+def check_equal(name, got, want):
+    """Where ``got`` and ``want`` are not the same bits, the check is
+    printed and recorded in ``FAILED_CHECKS``."""
+    import torch
+    if not torch.equal(got, want):
+        err = max_err(got, want)
+        FAILED_CHECKS.append(f"{name}: not bitwise equal (max abs err "
+                             f"{err:.3g})")
+        emit({"check": name, "ok": False, "max_abs_err": err,
+              "bitwise": True})
+
+
+# the table shape: the engine's 8 slots at lengths from empty to a full
+# 2048-token row, GPT-1.3B's heads
+PAGED_SHAPE = dict(B=8, H=16, D=128, page=64, max_pages=32,
+                   lens=(0, 1, 37, 64, 100, 700, 1500, 2048))
+
+
+def paged_cases(split):
+    """paged_decode checks beyond the table shape, not timed: (label, H,
+    D, page, max_pages, lens). A head dim of 64 at page 16; a 64-page
+    (4096-token) table, more splits than the engine's 32-page rows; a
+    sequence of exactly one split of ``split`` positions; one a token
+    past a split."""
+    return (("D=64 page=16", 16, 64, 16, 64, (0, 17, split, 1000)),
+            ("64-page table", 16, 128, 64, 64, (4096, 3001, 1, 0)),
+            ("one split", 16, 128, 64, 32, (split,)),
+            ("one past a split", 16, 128, 64, 32, (split + 1,)))
+
+
+def _paged_inputs(torch, gen, dev, H, D, page, max_pages, lens):
+    """q [B, H, D], fp32 pools of B * max_pages pages and the scratch
+    page, a page table that is a random permutation of the pool, and the
+    lengths."""
+    B = len(lens)
     P = B * max_pages
-    lens = torch.tensor([0, 1, 37, 64, 100, 700, 1500, 2048],
-                        dtype=torch.int32, device=dev)
     perm = torch.randperm(P, generator=gen, device=dev).to(torch.int32)
-    table = perm.reshape(B, max_pages).contiguous()
     kf = torch.randn((P + 1, page, H, D), generator=gen, device=dev)
     vf = torch.randn((P + 1, page, H, D), generator=gen, device=dev)
     q = torch.randn((B, H, D), generator=gen, device=dev)
-    errs = []
-    cases = [("fp32", kf, vf, None, None)]
+    return (q, kf, vf, perm.reshape(B, max_pages).contiguous(),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def _paged_pools(torch, q, kf, vf, pool):
+    """(q, k pages, v pages, k scale, v scale) of one pool type: fp32;
+    bf16 pools with a bf16 query; int8 pools (quantize_kv) with an fp32
+    query."""
+    from paddle_tpu_torch.quantization.quant import quantize_kv
+    if pool == "fp32":
+        return q, kf, vf, None, None
+    if pool == "bf16":
+        bf = torch.bfloat16
+        return q.to(bf), kf.to(bf), vf.to(bf), None, None
     kq, ks = quantize_kv(kf)
     vq, vs = quantize_kv(vf)
-    cases.append(("int8", kq, vq, ks, vs))
-    for tag, kp, vp, ksc, vsc in cases:
-        got = paged_decode(q, kp, vp, table, lens, k_scale=ksc, v_scale=vsc)
-        want = paged_attention_reference(
-            q[:, None], kp, vp, table, lens, k_scale=ksc,
-            v_scale=vsc)[:, 0]
-        torch.cuda.synchronize()
-        if got[0].abs().max().item() != 0.0:
-            raise AssertionError("paged_decode: len 0 must give zeros")
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"paged_decode {tag}: non-finite output")
-        errs.append(check_close(f"paged_decode {tag}", got, want,
-                                PAGED_TOL))
-    ms = timer(lambda: paged_decode(q, kf, vf, table, lens))
-    plain_ms = timer(lambda: paged_attention_reference(
-        q[:, None], kf, vf, table, lens), iters=20)
+    return q, kq, vq, ks, vs
+
+
+def _paged_check(torch, name, q, kp, vp, table, lens, ksc, vsc):
+    """paged_decode against the plain version and the split emulation:
+    fp32 queries within ``PAGED_TOL``; bf16 each sequence within the
+    ``bf16_limit`` of its own plain output (absolute), so the long
+    sequences, whose contexts are small, are not held to the limit of
+    the short ones; len 0 exact zeros, no non-finite value. Returns
+    (output, max abs error against the plain version)."""
+    from paddle_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_reference, paged_decode,
+        paged_decode_split_emulation)
+    got = paged_decode(q, kp, vp, table, lens, k_scale=ksc, v_scale=vsc)
+    want = paged_attention_reference(q[:, None], kp, vp, table, lens,
+                                     k_scale=ksc, v_scale=vsc)[:, 0]
+    emu = paged_decode_split_emulation(q, kp, vp, table, lens, k_scale=ksc,
+                                       v_scale=vsc)
+    torch.cuda.synchronize()
+    empty = lens == 0
+    if empty.any() and got[empty].abs().max().item() != 0.0:
+        raise AssertionError(f"{name}: len 0 must give zeros")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    if q.dtype != torch.bfloat16:
+        err = check_close(name, got, want, PAGED_TOL)
+        check_close(f"{name} vs split emulation", got, emu, PAGED_TOL)
+        return got, err
+    err = 0.0
+    for i in range(q.shape[0]):
+        tol = bf16_limit(BF16_ATOL["paged_decode"], want[i])
+        err = max(err, check_close(f"{name} row {i}", got[i], want[i], tol,
+                                   0.0))
+        check_close(f"{name} row {i} vs split emulation", got[i], emu[i],
+                    tol, 0.0)
+    return got, err
+
+
+def _paged_invariance(torch, name, got, q, kp, vp, table, lens, ksc, vsc):
+    """The batched call twice gives the same bits, and each sequence
+    decoded alone with its own table row gives its row's bits."""
+    from paddle_tpu_torch.ops.kernels.paged_attention import paged_decode
+    check_equal(f"{name} repeat", paged_decode(
+        q, kp, vp, table, lens, k_scale=ksc, v_scale=vsc), got)
+    for i in range(q.shape[0]):
+        alone = paged_decode(q[i:i + 1], kp, vp, table[i:i + 1],
+                             lens[i:i + 1], k_scale=ksc, v_scale=vsc)
+        check_equal(f"{name} row {i} alone", alone[0], got[i])
+
+
+def _paged_poisoned(kf, vf, table, lens):
+    """Copies of the inputs with NaN where the walk must not read: the
+    rows past each length in its last page, and the scratch page, which
+    every table entry past a sequence's last page now names."""
+    page = kf.shape[1]
+    kp, vp, tp = kf.clone(), vf.clone(), table.clone()
+    scratch = kf.shape[0] - 1
+    kp[scratch] = float("nan")
+    vp[scratch] = float("nan")
+    for i, n in enumerate(lens.tolist()):
+        used = -(-n // page)
+        tp[i, used:] = scratch
+        if n % page:
+            pg = int(tp[i, n // page])
+            kp[pg, n % page:] = float("nan")
+            vp[pg, n % page:] = float("nan")
+    return kp, vp, tp
+
+
+def kernel_paged(torch, timer, dev, gen, records):
+    """paged_decode at the table shape with fp32, bf16 and int8 pools
+    against the plain version and the split emulation, batch-invariant
+    bit for bit, unchanged by NaN where it must not read; the cases of
+    ``paged_cases``; timed per pool beside its bytes bound, with the
+    device kernels of one call counted under ``torch.profiler``."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as tpa
+    paged_attention_reference = tpa.paged_attention_reference
+    paged_decode = tpa.paged_decode
+    sh = PAGED_SHAPE
+    B, H, D, page, max_pages = (sh["B"], sh["H"], sh["D"], sh["page"],
+                                sh["max_pages"])
+    q32, kf, vf, table, lens = _paged_inputs(torch, gen, dev, H, D, page,
+                                             max_pages, sh["lens"])
+    errs = {}
+    pools = {}
+    for pool in PAGED_POOLS:
+        args = _paged_pools(torch, q32, kf, vf, pool)
+        pools[pool] = args
+        name = f"paged_decode {pool}"
+        got, errs[pool] = _paged_check(torch, name, *args[:3], table, lens,
+                                       *args[3:])
+        _paged_invariance(torch, name, got, *args[:3], table, lens,
+                          *args[3:])
+        if pool == "fp32":
+            base = got
+    kp, vp, tp = _paged_poisoned(kf, vf, table, lens)
+    check_equal("paged_decode fp32 NaN past the length",
+                paged_decode(q32, kp, vp, tp, lens), base)
+    del kp, vp
+    cases = []
+    for label, h, d, pg, mp, lens_c in paged_cases(tpa.PAGED_SPLIT_TOKENS):
+        cgen = check_gen(torch, dev, f"paged_decode {label}")
+        qc, kc, vc, tc, lc = _paged_inputs(torch, cgen, dev, h, d, pg, mp,
+                                           lens_c)
+        for pool in PAGED_POOLS:
+            args = _paged_pools(torch, qc, kc, vc, pool)
+            name = f"paged_decode {label} {pool}"
+            got, err = _paged_check(torch, name, *args[:3], tc, lc,
+                                    *args[3:])
+            if pool != "bf16":
+                errs[pool] = max(errs[pool], err)
+            _paged_invariance(torch, name, got, *args[:3], tc, lc, *args[3:])
+            cases.append(name)
     tokens = int(lens.sum().item())
-    nbytes = (2 * tokens * H * D * 4 + 2 * B * H * D * 4
-              + B * max_pages * 4 + B * 4)
     flops = 4 * tokens * H * D
-    b, by = bound_ms(nbytes, flops)
+    rows = {}
+    for pool, (q, kp, vp, ksc, vsc) in pools.items():
+        ms = timer(lambda: paged_decode(q, kp, vp, table, lens, k_scale=ksc,
+                                        v_scale=vsc))
+        plain_ms = timer(lambda: paged_attention_reference(
+            q[:, None], kp, vp, table, lens, k_scale=ksc, v_scale=vsc))
+        b, by = bound_ms(paged_bytes(tokens, B, H, D, max_pages, pool),
+                         flops, "bf16" if pool == "bf16" else "fp32")
+        prof = profile_once(torch, lambda: paged_decode(
+            q, kp, vp, table, lens, k_scale=ksc, v_scale=vsc))
+        rows[pool] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                          bound_share=b / ms, max_abs_err=errs[pool],
+                          launches_per_call=prof["kernels"],
+                          kernels_in_call=[n for n, _ in
+                                           prof["top_kernels_ms"]])
+    fp32 = rows["fp32"]
     records["paged_decode"] = dict(
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
-        bound_by=by, library_ms=None,
+        max_abs_err=fp32["max_abs_err"], ms=fp32["ms"],
+        plain_ms=fp32["plain_ms"], bound_ms=fp32["bound_ms"],
+        bound_by=fp32["bound_by"], library_ms=None,
         shape=f"B={B} H={H} D={D} page={page} lens={lens.tolist()} fp32")
     emit({"phase": "kernels", "kernel": "paged_decode", "ok": True,
           **records["paged_decode"], "tol": PAGED_TOL,
-          "cases": ["fp32", "int8"]})
+          "launches_per_call": fp32["launches_per_call"],
+          "split_tokens_input": tpa.PAGED_SPLIT_TOKENS, "pools": rows,
+          "cases": [f"paged_decode {p}" for p in PAGED_POOLS] + cases,
+          "checks": "plain version, split emulation, repeat and each row "
+                    "alone bitwise, NaN past the length bitwise"})
 
 
 # decode_out_proj: the engine's slot counts (1, 8, 64) and one past a
@@ -1221,6 +1392,8 @@ def profile_decode_steps(torch, model):
                if getattr(e, "device_type", None) is not None
                and str(e.device_type).endswith("CUDA")]
     dev_us = sum(e.time_range.elapsed_us() for e in kernels)
+    paged_us = sum(e.time_range.elapsed_us() for e in kernels
+                   if "paged_decode" in e.name)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
@@ -1230,6 +1403,7 @@ def profile_decode_steps(torch, model):
     return {"decode_step_wall_ms": wall_ms,
             "device_kernel_ms_per_step": dev_us / 1e3 / steps,
             "device_kernels_per_step": len(kernels) / steps,
+            "paged_decode_ms_per_step": paged_us / 1e3 / steps,
             "idle_share": (1.0 - (dev_us / 1e3 / steps) / wall_ms)
             if wall_ms else None,
             "top_kernels_ms_per_step": [

@@ -45,9 +45,10 @@ _F = ctypes.c_float
 # returns the cudaError_t of its launches as an int
 SIGNATURES: Dict[str, List] = {
     # q, k_pages, v_pages, k_scale, v_scale, page_table, seq_lens, out,
-    # B, H, D, page, max_pages, q_dtype, kv_dtype, scale, stream
-    "pt_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # workspace, tickets, B, H, D, page, max_pages, pages_per_split,
+    # q_dtype, kv_dtype, scale, stream
+    "pt_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # ctx, w, bias, out, B, K, N, act_dtype, w_dtype, has_bias,
     # splits, rows per split, stream
     "pt_decode_out_proj": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

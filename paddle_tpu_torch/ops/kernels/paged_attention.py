@@ -6,7 +6,8 @@ PyTorch versions beside them:
 
 - :func:`paged_decode` — single-token decode: each (sequence, head)
   walks the ``ceil(len/page)`` pages of its page-table row with an online
-  softmax (the TPU's ``_decode_kernel``).
+  softmax (the TPU's ``_decode_kernel``), on the card in splits of
+  :func:`paged_decode_split` merged in split order.
 - :func:`decode_out_proj` — ``ctx @ W + bias`` at decode batch sizes,
   the epilogue of the TPU's ``_decode_fused_kernel``; on Hopper it is a
   separate launch right after :func:`paged_decode` (see the source note).
@@ -23,6 +24,7 @@ tensors it launches its kernel or raises.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -123,10 +125,111 @@ def fused_epilogue_supported(q_shape, kp_shape, w_shape) -> bool:
     return e_in == h * d and e_out % 128 == 0
 
 
+# the split of csrc/paged_decode.cu: each (sequence, head) walks its
+# pages in splits of this many positions, in whole pages (at least one);
+# chosen by paged_split_sweep.py at the 8-slot decode step's lengths
+PAGED_SPLIT_TOKENS = 128
+
+
+def paged_decode_pages_per_split(page: int) -> int:
+    """Pages in one split of the page walk at page size ``page``."""
+    return max(1, PAGED_SPLIT_TOKENS // page)
+
+
+def paged_decode_split(length: int, page: int,
+                       max_pages: Optional[int] = None):
+    """The page walk's partition of one sequence: ``[(first, end), ...]``,
+    split ``s`` covering pages ``[first, end)`` of the sequence's
+    page-table row, in order, together each of its ``ceil(length /
+    page)`` pages (at most ``max_pages``) once; empty for length 0. It
+    depends on the length and the page size alone, so a sequence walks
+    the same splits alone or in any batch."""
+    n = -(-max(int(length), 0) // page)
+    if max_pages is not None:
+        n = min(n, max_pages)
+    step = paged_decode_pages_per_split(page)
+    return [(p, min(n, p + step)) for p in range(0, n, step)]
+
+
+def paged_decode_merge(m, l, acc, m2, l2, acc2):  # noqa: E741
+    """The kernel's merge of two softmax partials, first then second:
+    ``m`` [H] running max, ``l`` [H] sum of exp, ``acc`` [H, D]. An
+    empty partial (m = -1e30, l = 0, acc = 0) weighs exp(-1e30 - m) = 0
+    beside a real one, and two empty ones give an empty one, never
+    NaN."""
+    mn = torch.maximum(m, m2)
+    c1, c2 = torch.exp(m - mn), torch.exp(m2 - mn)
+    return (mn, l * c1 + l2 * c2,
+            acc * c1[..., None] + acc2 * c2[..., None])
+
+
+def paged_decode_split_emulation(q, k_pages, v_pages, page_table, seq_lens,
+                                 k_scale=None, v_scale=None,
+                                 scale: Optional[float] = None):
+    """The kernel's arithmetic in plain PyTorch, for tests and the chip
+    check: each split of :func:`paged_decode_split` takes its own softmax
+    partial ``(m, l, acc)`` in f32 (int8 scales taken out of the dot
+    product, as the kernel does), and the partials merge in split order;
+    the context is rounded once to ``q.dtype``. ``q`` [B, H, D] -> [B, H,
+    D]. (The kernel also splits a split across warps and lanes; that
+    order of sums is not emulated.)"""
+    b, h, d = q.shape
+    page = k_pages.shape[1]
+    mp = page_table.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    out = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
+    for i in range(b):
+        length = min(max(int(seq_lens[i]), 0), mp * page)
+        qi = q[i].to(torch.float32)
+        m = torch.full((h,), _NEG_INF, device=q.device)
+        l = torch.zeros((h,), device=q.device)  # noqa: E741
+        acc = torch.zeros((h, d), device=q.device)
+        for first, end in paged_decode_split(length, page, mp):
+            pages = page_table[i, first:end].long()
+            n = min(length, end * page) - first * page
+            k = k_pages[pages].reshape(-1, h, d)[:n].to(torch.float32)
+            v = v_pages[pages].reshape(-1, h, d)[:n].to(torch.float32)
+            s = torch.einsum("hd,khd->hk", qi, k)
+            if k_scale is not None:
+                s = s * (k_scale[pages].reshape(-1, h)[:n].t() / 127.0)
+            s = s * scale
+            ms = s.amax(dim=-1)
+            p = torch.exp(s - ms[:, None])
+            ls = p.sum(dim=-1)
+            if v_scale is not None:
+                p = p * (v_scale[pages].reshape(-1, h)[:n].t() / 127.0)
+            accs = torch.einsum("hk,khd->hd", p, v)
+            m, l, acc = paged_decode_merge(  # noqa: E741
+                m, l, acc, ms, ls, accs)
+        out[i] = acc / l.clamp_min(1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+# one 32-bit ticket per (sequence, head) for each stream the kernel
+# runs on, zeroed once: the kernel's atomicInc wraps each ticket it
+# draws back to 0 on the last draw of the launch
+_TICKETS = {}
+_TICKETS_LOCK = threading.Lock()
+
+
+def _tickets(dev: torch.device, n: int) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    with _TICKETS_LOCK:
+        t = _TICKETS.get(key)
+        if t is None or t.numel() < n:
+            t = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+            _TICKETS[key] = t
+        return t
+
+
 def paged_decode(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
                  v_scale=None, scale: Optional[float] = None):
     """Single-token paged attention: ``q`` [B, H, D] -> context
-    [B, H, D] in ``q.dtype``. CPU tensors take the plain version."""
+    [B, H, D] in ``q.dtype``. CPU tensors take the plain version. On the
+    card, one launch walks each sequence's pages in the splits of
+    :func:`paged_decode_split`; the partials of a sequence of more than
+    one split go through a workspace allocated here."""
     _build.refuse_grad("paged_decode", q, k_pages, v_pages, k_scale,
                        v_scale)
     b, h, d = q.shape
@@ -147,19 +250,44 @@ def paged_decode(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
     if page_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
         raise TypeError("paged_decode: page_table and seq_lens must be "
                         "int32")
-    if d > 256 or k_pages.shape[2:] != (h, d) or \
+    page = k_pages.shape[1]
+    if d not in (64, 128) or page % 8 or k_pages.shape[2:] != (h, d) or \
             v_pages.shape != k_pages.shape:
         raise ValueError(f"paged_decode: pools {tuple(k_pages.shape)} do "
-                         f"not match q {tuple(q.shape)} (D <= 256)")
+                         f"not match q {tuple(q.shape)} (D 64 or 128, "
+                         f"page a multiple of 8)")
+    if page_table.dim() != 2 or page_table.shape[0] != b or \
+            seq_lens.shape != (b,):
+        raise ValueError(f"paged_decode: page_table "
+                         f"{tuple(page_table.shape)} and seq_lens "
+                         f"{tuple(seq_lens.shape)} must be [B, max_pages] "
+                         f"and [B] for B={b}")
+    if quant and (k_scale.shape != k_pages.shape[:3]
+                  or v_scale.shape != k_pages.shape[:3]
+                  or k_scale.dtype != torch.float32
+                  or v_scale.dtype != torch.float32):
+        raise ValueError(f"paged_decode: int8 scales must be float32 "
+                         f"{tuple(k_pages.shape[:3])}")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_decode: the pools are read in 16-byte "
+                         "vectors and must be 16-byte aligned")
     qc = _build.dtype_code(q, "paged_decode q")
     kc = _build.dtype_code(k_pages, "paged_decode pages",
                            (torch.float32, torch.bfloat16, torch.int8))
+    max_pages = page_table.shape[1]
+    per_split = paged_decode_pages_per_split(page)
+    splits = max(1, -(-max_pages // per_split))
+    ws = None
+    if splits > 1:
+        ws = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                         device=dev)
     out = torch.empty_like(q)
     err = _build.lib().pt_paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         _build.ptr(k_scale), _build.ptr(v_scale), page_table.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), b, h, d, k_pages.shape[1],
-        page_table.shape[1], qc, kc, float(scale), _build.stream(dev))
+        seq_lens.data_ptr(), out.data_ptr(), _build.ptr(ws),
+        _tickets(dev, b * h).data_ptr(), b, h, d, page, max_pages,
+        per_split, qc, kc, float(scale), _build.stream(dev))
     _build.check(err, "paged_decode")
     paged_decode.launches += 1
     return out
