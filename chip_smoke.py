@@ -13,12 +13,15 @@ failure exits non-zero at once:
    ``nvcc`` (one process per source, started together); ``ptxas -v``
    prints every kernel's registers, spills and shared memory to stderr,
    and the build line carries those of the backward's tensor-core
-   kernels, whose served instantiations must not spill.
+   kernels and of the fused bottleneck, whose served instantiations must
+   not spill.
 3. kernels — each kernel against its plain PyTorch version on the card
    at the serving, training and ResNet paths' shapes, in fp32 and bf16,
    with its tolerance, each check on inputs from its own generator
    (paged_decode also against its split emulation, and bit for bit
-   alone against batched and against NaN where it must not read); its
+   alone against batched and against NaN where it must not read; the
+   fused bottleneck also against the emulation of its tiles, at the
+   ResNet-50 shapes and at N=1 blocks of a 896x896 input); its
    median time over 20 launches (CUDA events, L2 flushed and a device
    spin queued before each launch, so the host's work stays out of the
    window), the plain version's, one PyTorch yardstick call's, and the
@@ -387,6 +390,23 @@ def bwd_ptxas(usage):
     return rows
 
 
+def fb_ptxas(usage):
+    """``ptxas -v``'s registers and spills of the fused bottleneck's two
+    instantiations (fp32, bf16); raises if one is missing or spills."""
+    rows = {}
+    for mangled, u in usage.items():
+        if "bottleneck_kernel" in mangled:
+            rows["bf16" if "bfloat16" in mangled else "fp32"] = u
+    if sorted(rows) != ["bf16", "fp32"]:
+        raise AssertionError(f"ptxas -v shows {sorted(rows)} of "
+                             f"bottleneck_kernel, not fp32 and bf16")
+    spills = {k: u for k, u in rows.items()
+              if u.get("spill_stores", 0) or u.get("spill_loads", 0)}
+    if spills:
+        raise AssertionError(f"fused_bottleneck spills: {spills}")
+    return rows
+
+
 def phase_build():
     from paddle_tpu_torch.ops.kernels import _build
     t0 = time.monotonic()
@@ -397,7 +417,7 @@ def phase_build():
         usage = ptxas_usage(f.read())
     emit({"phase": "build", "ok": True, "lib": os.path.relpath(path, HERE),
           "seconds": seconds,
-          "bwd_ptxas": bwd_ptxas(usage)})
+          "bwd_ptxas": bwd_ptxas(usage), "fb_ptxas": fb_ptxas(usage)})
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -1162,13 +1182,18 @@ def kernel_attention_bwd(torch, timer, dev, records):
 
 
 # (label, N, H, W, C, M): the two shapes ResNet-50's main path gives the
-# kernel at 224x224 and N=128 (layer1 and layer2), then small ones whose
-# tiles have masked edges: M=8 C=32, a non-square 6x5 plane
+# kernel at 224x224 and N=128 (layer1 and layer2), small ones whose tiles
+# have masked edges (M=8 C=32, a non-square 6x5 plane), and at N=1 the
+# layer2, layer3 and layer4 blocks of a 896x896 input, which the gate
+# admits and the first, FMA kernel could not place in 227 KB
 FB_CASES = (
     ("layer1 56x56", 128, 56, 56, 256, 64),
     ("layer2 28x28", 128, 28, 28, 512, 128),
     ("M=8 C=32 28x28", 2, 28, 28, 32, 8),
     ("6x5", 2, 6, 5, 32, 8),
+    ("896 layer2 112x112", 1, 112, 112, 512, 128),
+    ("896 layer3 56x56", 1, 56, 56, 1024, 256),
+    ("896 layer4 28x28", 1, 28, 28, 2048, 512),
 )
 FB_TOL = 1e-4
 
@@ -1187,7 +1212,7 @@ def _fb_params(torch, gen, dev, c, m, dtype):
 def _fb_chain(torch, w1, b1, w2, b2, w3, b3):
     """The library yardstick: the unfused block on the same folded
     weights, three ``F.conv2d`` (cuDNN, NHWC memory) with the bias, relu
-    and residual epilogues. Returns ``fn(x)``."""
+    and residual epilogues, in the weights' dtype. Returns ``fn(x)``."""
     import torch.nn.functional as F
     c, m = w1.shape
     k1 = w1.t().reshape(m, c, 1, 1).contiguous()
@@ -1203,18 +1228,40 @@ def _fb_chain(torch, w1, b1, w2, b2, w3, b3):
     return fn
 
 
+def _fb_config(torch, FC, dev, n, h, w, c, m, dtype):
+    """The kernel's launch configuration for these inputs (the wrapper's
+    own choice) and its inputs to the line. The blocks an SM holds by the
+    CUDA occupancy API must be the configuration's (the tile choice
+    weighs them): fewer raises."""
+    cfg = FC.fused_bottleneck_config(
+        h, w, c, m, dtype, n,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    blocks = FC.fused_bottleneck_occupancy(cfg.smem, dtype)
+    if blocks < cfg.blocks_per_sm:
+        raise AssertionError(f"fused_bottleneck {h}x{w} M={m} {dtype}: the "
+                             f"card holds {blocks} blocks an SM, the tile "
+                             f"choice assumed {cfg.blocks_per_sm}")
+    return cfg, dict(tile_rows=cfg.tr, tile_cols=cfg.tc, strips=cfg.strips,
+                     col_tiles=cfg.col_tiles, smem_bytes=cfg.smem,
+                     blocks_per_sm_input=cfg.blocks_per_sm,
+                     blocks_per_sm=blocks, halo_share_input=cfg.halo_share)
+
+
 def kernel_fused_bottleneck(torch, timer, dev, records):
-    """The fused bottleneck against its plain version on ``FB_CASES`` and
-    the delta image of ``tests/test_fused_conv_block.py`` (edge columns):
-    fp32 within atol/rtol ``FB_TOL``, twice with the same bits; bf16
-    within ``BF16_ULPS`` ulps of the largest output (absolute). Timed at
-    the two ResNet-50 shapes in fp32 beside the plain version and the
-    unfused cuDNN chain."""
-    from paddle_tpu_torch.ops.kernels.fused_conv_block import (
-        fused_bottleneck_eval, fused_bottleneck_reference)
+    """The fused bottleneck on ``FB_CASES`` and the delta image of
+    ``tests/test_fused_conv_block.py`` (edge columns), against its plain
+    version and against the plain emulation of its tiles
+    (``fused_bottleneck_strip_emulation``, the same configuration): fp32
+    within atol/rtol ``FB_TOL``, twice with the same bits; bf16 within
+    ``BF16_ULPS`` ulps of the largest output (absolute). Timed at the two
+    ResNet-50 shapes in fp32 and bf16 beside the plain version and the
+    unfused cuDNN chain in the same dtype, with its device kernels a call
+    counted under ``torch.profiler``."""
+    from paddle_tpu_torch.ops.kernels import fused_conv_block as FC
     cases = list(FB_CASES) + [("delta 4x4", 1, 4, 4, 32, 8)]
     errs = {"fp32": 0.0, "bf16": 0.0}
     bf16_limits = {}
+    configs = {}
     per_shape = []
     for label, n, h, w, c, m in cases:
         gen = check_gen(torch, dev, f"fused_bottleneck {label}")
@@ -1229,38 +1276,61 @@ def kernel_fused_bottleneck(torch, timer, dev, records):
             x = x32.to(dtype)
             params = tuple(p.to(dtype) if i % 2 == 0 else p
                            for i, p in enumerate(params32))
-            got = fused_bottleneck_eval(x, *params)
-            want = fused_bottleneck_reference(x, *params)
+            cfg, inputs = _fb_config(torch, FC, dev, n, h, w, c, m, dtype)
+            configs[f"{label} {tag}"] = inputs
+            got = FC.fused_bottleneck_eval(x, *params)
+            want = FC.fused_bottleneck_reference(x, *params)
+            tiles = FC.fused_bottleneck_strip_emulation(x, *params,
+                                                        config=cfg)
             torch.cuda.synchronize()
             name = f"fused_bottleneck {label} {tag}"
             if not torch.isfinite(got).all():
                 raise AssertionError(f"{name}: non-finite output")
             if tag == "fp32":
                 e = check_close(name, got, want, FB_TOL)
-                if not torch.equal(got, fused_bottleneck_eval(x, *params)):
+                check_close(f"{name} vs tile emulation", got, tiles, FB_TOL)
+                if not torch.equal(got, FC.fused_bottleneck_eval(x, *params)):
                     raise AssertionError(f"{name}: two runs differ")
             else:
                 lim = bf16_limit(0.0, want)
                 bf16_limits[label] = lim
                 e = check_close(name, got, want, lim, 0.0)
+                check_close(f"{name} vs tile emulation", got, tiles,
+                            bf16_limit(0.0, tiles), 0.0)
             errs[tag] = max(errs[tag], e)
         if n != RESNET_BATCH:  # only the main path's shapes are timed
             continue
-        x, params = x32, params32
-        chain = _fb_chain(torch, *params)
-        chain_err = check_close(f"cuDNN chain {label}", chain(x),
-                                fused_bottleneck_reference(x, *params),
-                                FB_TOL)
-        ms = timer(lambda: fused_bottleneck_eval(x, *params))
-        plain_ms = timer(lambda: fused_bottleneck_reference(x, *params))
-        lib_ms = timer(lambda: chain(x))
-        nbytes = (2 * x.numel() + 2 * c * m + 9 * m * m) * 4 + (2 * m + c) * 4
-        b, by = bound_ms(nbytes, 2 * n * h * w * (2 * c * m + 9 * m * m))
-        rec = dict(label=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b, bound_by=by, chain_max_abs_err=chain_err)
-        per_shape.append(rec)
-        emit({"phase": "kernels", "kernel": "fused_bottleneck", "ok": True,
-              "shape": f"N={n} H={h} W={w} C={c} M={m} fp32", **rec})
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            x = x32.to(dtype)
+            params = tuple(p.to(dtype) if i % 2 == 0 else p
+                           for i, p in enumerate(params32))
+            chain = _fb_chain(torch, *params)
+            want = FC.fused_bottleneck_reference(x, *params)
+            if tag == "fp32":
+                chain_err = check_close(f"cuDNN chain {label}", chain(x),
+                                        want, FB_TOL)
+            else:  # a yardstick of speed, rounded in its own places
+                chain_err = max_err(chain(x), want)
+            ms = timer(lambda: FC.fused_bottleneck_eval(x, *params))
+            plain_ms = timer(lambda: FC.fused_bottleneck_reference(x, *params))
+            lib_ms = timer(lambda: chain(x))
+            item = x.element_size()
+            nbytes = (2 * x.numel() + 2 * c * m + 9 * m * m) * item \
+                + (2 * m + c) * 4
+            b, by = bound_ms(nbytes, 2 * n * h * w * (2 * c * m + 9 * m * m),
+                             tag)
+            prof = profile_once(
+                torch, lambda: FC.fused_bottleneck_eval(x, *params),
+                (("fused_bottleneck", ("bottleneck_kernel",)),))
+            rec = dict(label=label, dtype=tag, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b, bound_by=by,
+                       bound_share=b / ms, chain_max_abs_err=chain_err,
+                       launches_per_call=prof["kernels"],
+                       kernels_in_call=[k for k, _ in prof["top_kernels_ms"]],
+                       **configs[f"{label} {tag}"])
+            per_shape.append(rec)
+            emit({"phase": "kernels", "kernel": "fused_bottleneck", "ok": True,
+                  "shape": f"N={n} H={h} W={w} C={c} M={m} {tag}", **rec})
     first = per_shape[0]
     records["fused_bottleneck"] = dict(
         max_abs_err=errs["fp32"], ms=first["ms"], plain_ms=first["plain_ms"],
@@ -1272,7 +1342,8 @@ def kernel_fused_bottleneck(torch, timer, dev, records):
           "bf16_max_abs_err": errs["bf16"], "bf16_atol": bf16_limits,
           "library": "chain of 3 F.conv2d (cuDNN) + bias/relu/residual "
                      "epilogues, not one call",
-          "cases": [c[0] for c in cases]})
+          "cases": [c[0] for c in cases], "configs": configs,
+          "checks": "plain version, tile emulation, fp32 repeat bitwise"})
 
 
 def phase_kernels(torch, dev, records):

@@ -69,9 +69,13 @@ SIGNATURES: Dict[str, List] = {
                          _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _F, _I, _P],
-    # x, w1, b1, w2, b2, w3, b3, out, N, H, W, C, M, dtype, stream
+    # x, w1, b1, w2, b2, w3, b3, out, N, H, W, C, M, tile rows, tile
+    # columns, strips, column tiles, shared bytes, dtype, stream
     "pt_fused_bottleneck": [_P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
+    # shared bytes, dtype, int* blocks per SM
+    "pt_fused_bottleneck_occupancy": [_I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -16,6 +16,11 @@ rounded to ``x.dtype`` after their relu, and the output is in
 - :func:`fused_bottleneck_eval` is the wrapper: the plain version for
   CPU tensors, the kernel for CUDA tensors (or it raises). It has no
   backward, as the TPU kernel has none.
+- :func:`fused_bottleneck_config` is the kernel's launch configuration:
+  the tile of rows by columns one block owns, the tiles of an image and
+  the shared bytes; :func:`fused_bottleneck_strip_emulation` runs the
+  plain arithmetic tile by tile as the kernel cuts the image (for tests
+  and the chip check).
 - :func:`fold_bn` / :func:`pack_bottleneck` fold the three BNs.
 - :func:`fused_bottleneck_supported` is the JAX gate, rule for rule.
 
@@ -25,7 +30,10 @@ or ``PT_FUSED_CONV_EVAL=1`` in the environment at import.
 
 from __future__ import annotations
 
+import math
 import os
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -95,6 +103,228 @@ def fused_bottleneck_reference(x, w1, b1, w2, b2, w3, b3):
     return torch.relu(y3).to(x.dtype).reshape(n, h, w, c)
 
 
+# the kernel's layout constants (csrc/fused_bottleneck.cu)
+_FB_BC = 64             # channels of a pass
+_FB_KC = 32             # contraction depth of a staged chunk
+_FB_STAGES = 3          # staged chunks in the ring
+_FB_XP = 128            # positions of a conv1 pass
+_FB_OP = {4: 256, 2: 224}  # positions of a conv2 or conv3 pass, by item size
+FB_MAX_SMEM = 232448    # shared bytes a block may use on an H100 (227 KB)
+FB_SM_SMEM = 233472     # shared bytes of an SM (228 KB)
+FB_BLOCK_RESERVED = 1024  # the runtime's own shared bytes per block
+FB_MAX_ROWS = 8         # rows of a tile at most
+FB_SMS = 132            # SMs of an H100 SXM
+FB_THREADS = 256        # threads of a block
+# blocks an SM holds by the registers a thread takes (the kernel's
+# __launch_bounds__): fp32 one, bf16 two
+FB_REG_BLOCKS = {4: 1, 2: 2}
+
+
+def _align16(b: int) -> int:
+    return (b + 15) // 16 * 16
+
+
+def fused_bottleneck_smem(tr: int, tc: int, m: int, itemsize: int) -> int:
+    """Shared bytes of the kernel's tile of ``tr`` rows by ``tc`` columns
+    (``regions`` in ``csrc/fused_bottleneck.cu``): y1 over the tile and
+    its halo, which conv3's output stage reuses; y2, which conv1's
+    ring of staged x chunks reuses; the ring of staged weight chunks.
+    Rows are padded by 16 bytes."""
+    vec = 16 // itemsize
+    ld = m + vec
+    p1 = (tr + 2) * (tc + 2)
+    p = tr * tc
+    p8 = -(-p // 8) * 8
+    xp = min(_FB_XP, -(-p1 // 32) * 32)
+    r1 = _align16(max(p1 * ld, min(p8, _FB_OP[itemsize]) * (_FB_BC + vec))
+                  * itemsize)
+    r2 = _align16(max(p * ld * itemsize,
+                      _FB_STAGES * xp * (_FB_KC + vec) * itemsize))
+    r3 = _FB_STAGES * _FB_KC * (_FB_BC + 8) * itemsize
+    return r1 + r2 + r3
+
+
+class FusedBottleneckConfig(NamedTuple):
+    """The kernel's launch configuration for one image size: tiles of at
+    most ``tr`` rows by ``tc`` columns, ``strips`` x ``col_tiles`` of them
+    an image (:func:`fused_bottleneck_tiles`), ``smem`` shared bytes a
+    block, ``blocks_per_sm`` as many as an SM holds by its shared memory
+    and the registers a thread takes (``FB_REG_BLOCKS``),
+    and ``halo_share``: the products conv1 spends on the recomputed halo,
+    as a share of the block's useful products."""
+    tr: int
+    tc: int
+    strips: int
+    col_tiles: int
+    smem: int
+    blocks_per_sm: int
+    halo_share: float
+
+
+def fused_bottleneck_tiles(n: int, parts: int):
+    """The kernel's cut of ``n`` rows (or columns) into ``parts`` tiles:
+    ``[(first, end), ...]``, each ``ceil(n / parts)`` or one fewer."""
+    return [(i * n // parts, (i + 1) * n // parts) for i in range(parts)]
+
+
+@lru_cache(maxsize=None)
+def _widest_tiles(c: int, m: int, itemsize: int):
+    """``(rows, widest columns, blocks)`` for each row count 1..
+    ``FB_MAX_ROWS`` and each count of blocks an SM may hold (1 up to
+    ``FB_REG_BLOCKS``): the widest tile whose shared bytes fit that many
+    blocks an SM, where one fits at all."""
+    out = []
+    for blocks in range(1, FB_REG_BLOCKS[itemsize] + 1):
+        budget = min(FB_MAX_SMEM, FB_SM_SMEM // blocks - FB_BLOCK_RESERVED)
+        for tr in range(1, FB_MAX_ROWS + 1):
+            lo, hi = 0, 1
+            while fused_bottleneck_smem(tr, hi, m, itemsize) <= budget:
+                lo, hi = hi, 2 * hi
+            while hi - lo > 1:
+                mid = (lo + hi) // 2
+                if fused_bottleneck_smem(tr, mid, m, itemsize) <= budget:
+                    lo = mid
+                else:
+                    hi = mid
+            if lo:
+                out.append((tr, lo, blocks))
+    return tuple(out)
+
+
+@lru_cache(maxsize=4096)
+def _column_cuts(w: int, c: int, m: int, itemsize: int):
+    """``_widest_tiles`` cut to an image ``w`` wide: ``(rows, column
+    tiles, columns a tile, blocks)`` for each candidate."""
+    out = []
+    for tr, widest, blocks in _widest_tiles(c, m, itemsize):
+        col_tiles = -(-w // min(w, widest))
+        out.append((tr, col_tiles, -(-w // col_tiles), blocks))
+    return tuple(out)
+
+
+# the fixed cost of a staged chunk (its copies, its barrier), in steps of
+# one 8-position tile over the chunk: the value whose picks matched the
+# fastest tiles of sweeps on an H100 (PERF.md)
+_FB_CHUNK_STEPS = 3
+
+
+@lru_cache(maxsize=None)
+def _tile_work(tr: int, tc: int, c: int, m: int, itemsize: int) -> int:
+    """The time of one tile in steps of one 8-position tile over one
+    32-deep chunk: each pass's chunks (64 channels each) take the
+    slowest position warp's tiles plus ``_FB_CHUNK_STEPS``."""
+    def phase(positions, per_warp, chunks):
+        n8 = -(-positions // 8)
+        passes = -(-n8 // (4 * per_warp))
+        return passes * chunks * (-(-(-(-n8 // passes)) // 4)
+                                  + _FB_CHUNK_STEPS)
+    mb, cb, mk = -(-m // _FB_BC), -(-c // _FB_BC), -(-m // _FB_KC)
+    return (phase((tr + 2) * (tc + 2), _FB_XP // 32, mb * -(-c // _FB_KC))
+            + phase(tr * tc, _FB_OP[itemsize] // 32, (9 * mb + cb) * mk))
+
+
+@lru_cache(maxsize=4096)
+def fused_bottleneck_config(h: int, w: int, c: int, m: int, dtype, n: int = 1,
+                            sms: int = FB_SMS) -> FusedBottleneckConfig:
+    """The launch configuration of the kernel for ``n`` images of ``h`` x
+    ``w`` with ``c`` channels and bottleneck width ``m`` (multiples of 8,
+    as the wrapper pads them) in ``dtype``, on a card of ``sms`` SMs.
+
+    Candidates: for each row count 1 .. ``FB_MAX_ROWS`` (at most ``h``),
+    the widest tile that fits 227 KB and the widest that lets an SM hold
+    two blocks (bf16; fp32 takes one block by its registers). Rows and
+    columns are cut evenly (:func:`fused_bottleneck_tiles`). The time of
+    a candidate is taken as its waves (``n`` x tiles over ``sms`` x
+    blocks an SM) times a tile's time (:func:`_tile_work`: the halo, the
+    padding of positions to 8, the share over 4 warps and a fixed cost a
+    chunk counted) times the square root of the blocks an SM holds (a
+    second block hides latency that one block leaves exposed;
+    ``PERF.md``); the least wins, then fewer tiles."""
+    itemsize = dtype.itemsize
+    best = None
+    for tr, col_tiles, tce, blocks in _column_cuts(w, c, m, itemsize):
+        if tr > h:
+            continue
+        strips = -(-h // tr)
+        tre = -(-h // strips)
+        tiles = strips * col_tiles
+        waves = -(-n * tiles // (sms * blocks))
+        key = (waves * _tile_work(tre, tce, c, m, itemsize)
+               * math.sqrt(blocks),
+               tiles)
+        if best is None or key < best[0]:
+            best = (key, tre, tce, strips, col_tiles)
+    if best is None:
+        raise ValueError(f"fused_bottleneck: no tile fits M={m} in "
+                         f"{FB_MAX_SMEM} shared bytes")
+    _, tr, tc, strips, col_tiles = best
+    smem = fused_bottleneck_smem(tr, tc, m, itemsize)
+    bps = min(FB_SM_SMEM // (smem + FB_BLOCK_RESERVED),
+              FB_REG_BLOCKS[itemsize])
+    # sum over the tiles of (rows + 2)(cols + 2) - rows * cols
+    halo = 2 * h * col_tiles + 2 * w * strips + 4 * strips * col_tiles
+    return FusedBottleneckConfig(
+        tr, tc, strips, col_tiles, smem, bps,
+        halo * c * m / (h * w * (2 * c * m + 9 * m * m)))
+
+
+def _pad_to_kernel(x, w1, b1, w2, b2, w3, b3):
+    """The kernel takes M and C in multiples of 8: zero channels past M
+    (and past C, with x) change no output channel, since they carry
+    relu(0) = 0 through the chain. Returns the padded operands (the
+    given ones where no pad is due)."""
+    c, m = w1.shape
+    m8, c8 = -(-m // 8) * 8, -(-c // 8) * 8
+    if (m8, c8) == (m, c):
+        return x, w1, b1, w2, b2, w3, b3
+    dm, dc = m8 - m, c8 - c
+    w2 = F.pad(w2.reshape(9, m, m), (0, dm, 0, dm)).reshape(9 * m8, m8)
+    return (F.pad(x, (0, dc)).contiguous(),
+            F.pad(w1, (0, dm, 0, dc)).contiguous(),
+            F.pad(b1, (0, dm)).contiguous(), w2.contiguous(),
+            F.pad(b2, (0, dm)).contiguous(),
+            F.pad(w3, (0, dc, 0, dm)).contiguous(),
+            F.pad(b3, (0, dc)).contiguous())
+
+
+def fused_bottleneck_strip_emulation(x, w1, b1, w2, b2, w3, b3, config=None):
+    """The kernel's decomposition in plain PyTorch, for tests and the chip
+    check: the image is cut into :func:`fused_bottleneck_config`'s tiles
+    (``config``, or the one for ``x``'s shape); each tile computes y1 over
+    itself and a one-position halo into a zero-padded ``(rows + 2) x
+    (cols + 2) x M`` tile (zero outside the image), conv2 reads the nine
+    taps of that tile at constant offsets, and conv3 adds b3 and the
+    residual. f32 sums, y1 and y2 rounded to ``x.dtype`` as in
+    :func:`fused_bottleneck_reference`. (The kernel's order of sums inside
+    a product is not emulated.)"""
+    f32 = torch.float32
+    n, h, w, c = x.shape
+    m = w1.shape[1]
+    if config is None:
+        config = fused_bottleneck_config(h, w, -(-c // 8) * 8,
+                                         -(-m // 8) * 8, x.dtype, n)
+    w1f, w2f, w3f = w1.to(f32), w2.to(f32), w3.to(f32)
+    out = torch.empty_like(x)
+    for r0, r1 in fused_bottleneck_tiles(h, config.strips):
+        for c0, c1 in fused_bottleneck_tiles(w, config.col_tiles):
+            tr, tc = r1 - r0, c1 - c0
+            # the halo tile, zero outside the image
+            lo_r, hi_r = max(r0 - 1, 0), min(r1 + 1, h)
+            lo_c, hi_c = max(c0 - 1, 0), min(c1 + 1, w)
+            xin = x[:, lo_r:hi_r, lo_c:hi_c].to(f32)
+            y1 = torch.relu(xin @ w1f + b1[0]).to(x.dtype).to(f32)
+            tile = x.new_zeros((n, tr + 2, tc + 2, m), dtype=f32)
+            tile[:, lo_r - r0 + 1:hi_r - r0 + 1,
+                 lo_c - c0 + 1:hi_c - c0 + 1] = y1
+            cols = torch.cat([tile[:, ky:ky + tr, kx:kx + tc]
+                              for ky in range(3) for kx in range(3)], -1)
+            y2 = torch.relu(cols @ w2f + b2[0]).to(x.dtype).to(f32)
+            res = x[:, r0:r1, c0:c1].to(f32)
+            out[:, r0:r1, c0:c1] = torch.relu(
+                y2 @ w3f + b3[0] + res).to(x.dtype)
+    return out
+
+
 def fused_bottleneck_eval(x, w1, b1, w2, b2, w3, b3):
     """The block on NHWC ``x`` with packed weights (see the module
     docstring). CPU tensors take the plain version; CUDA tensors launch
@@ -123,16 +353,38 @@ def fused_bottleneck_eval(x, w1, b1, w2, b2, w3, b3):
         if got[name].dtype != torch.float32:
             raise TypeError(f"fused_bottleneck: {name} must be float32")
     code = _build.dtype_code(x, "fused_bottleneck x")
-    out = torch.empty_like(x)
     if x.numel() == 0:
-        return out
+        return torch.empty_like(x)
+    kx, *kparams = _pad_to_kernel(x, w1, b1, w2, b2, w3, b3)
+    # 16-byte rows for the kernel's loads (a fresh allocation is aligned;
+    # a view with an offset may not be)
+    kx, *kparams = (t if t.data_ptr() % 16 == 0 else t.clone()
+                    for t in (kx, *kparams))
+    kc, km = kparams[0].shape
+    cfg = fused_bottleneck_config(
+        h, w, kc, km, x.dtype, n,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = torch.empty_like(kx)
     err = _build.lib().pt_fused_bottleneck(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
-        n, h, w, c, m, code, _build.stream(dev))
-    _build.check(err, f"fused_bottleneck (x {tuple(x.shape)}, M={m})")
+        kx.data_ptr(), *(t.data_ptr() for t in kparams), out.data_ptr(),
+        n, h, w, kc, km, cfg.tr, cfg.tc, cfg.strips, cfg.col_tiles,
+        cfg.smem, code, _build.stream(dev))
+    _build.check(err, f"fused_bottleneck (x {tuple(x.shape)}, M={m}, "
+                 f"tile {cfg.tr}x{cfg.tc})")
     fused_bottleneck_eval.launches += 1
-    return out
+    return out if kc == c else out[..., :c].contiguous()
+
+
+def fused_bottleneck_occupancy(smem: int, dtype) -> int:
+    """Blocks of the kernel one SM of the current card holds at once with
+    ``smem`` shared bytes (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``:
+    shared memory, registers and threads together)."""
+    import ctypes
+    blocks = ctypes.c_int(0)
+    code = _build.DTYPE_CODES[dtype]
+    _build.check(_build.lib().pt_fused_bottleneck_occupancy(
+        smem, code, ctypes.addressof(blocks)), "fused_bottleneck occupancy")
+    return int(blocks.value)
 
 
 fused_bottleneck_eval.launches = 0

@@ -42,7 +42,7 @@ from paddle_tpu.ops.pallas import folded_attention as jfo
 
 from paddle_tpu_torch.ops.kernels import attention as tat
 from paddle_tpu_torch.ops.kernels import launch_counts
-from test_torch_attention_fwd import _tc_matmul
+from tf32_emulation import tc_matmul as _tc_matmul
 
 TOL = 1e-5
 H = 2

@@ -33,6 +33,9 @@ from paddle_tpu.ops.pallas import paged_attention as jpa
 
 from paddle_tpu_torch.ops.kernels import attention as tat
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
+from tf32_emulation import split as _split
+from tf32_emulation import tc_matmul as _tc_matmul
+from tf32_emulation import tf32 as _tf32
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,39 +44,7 @@ def _t(x):
     return torch.from_numpy(np.asarray(x).copy())
 
 
-# -- 3xTF32 emulation ---------------------------------------------------------
-
-def _tf32(x):
-    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away
-    from zero, as ``cvt.rna.tf32.f32`` does: add half of the dropped
-    field to the magnitude's bits, then clear the field."""
-    u = x.contiguous().view(torch.int32)
-    return ((u + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _truncate_tf32(x):
-    """f32 truncated to TF32: the top 19 bits, as the tensor core reads
-    a TF32 operand given in f32."""
-    u = x.contiguous().view(torch.int32)
-    return (u & -0x2000).view(torch.float32)
-
-
-def _split(x):
-    """The kernels' split (``csrc/mma.cuh``): hi rounded to TF32, lo = x
-    - hi passed as it is and read by the tensor core truncated."""
-    hi = _tf32(x)
-    return hi, _truncate_tf32(x - hi)
-
-
-def _tc_matmul(a, b, passes):
-    """a @ b from TF32 parts with f32 sums: one pass (hi*hi) or three
-    (lo*hi + hi*lo, then hi*hi)."""
-    ah, al = _split(a)
-    bh, bl = _split(b)
-    if passes == 1:
-        return ah @ bh
-    return (al @ bh + ah @ bl) + ah @ bh
-
+# -- the forward on the emulated tensor cores (tests/tf32_emulation.py) ------
 
 def _emulated_fwd(q, k, v, causal, passes, block_k=32):
     """The kernel's forward on [B, S, H, D] f32: K tiles of ``block_k``
