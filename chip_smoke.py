@@ -21,7 +21,10 @@ failure exits non-zero at once:
    (paged_decode also against its split emulation, and bit for bit
    alone against batched and against NaN where it must not read; the
    fused bottleneck also against the emulation of its tiles, at the
-   ResNet-50 shapes and at N=1 blocks of a 896x896 input); its
+   ResNet-50 shapes and at N=1 blocks of a 896x896 input; adam_update,
+   the port's own kernel, bitwise against the eager chain it replaced
+   over 3 steps in each storage variant and decay, and one call over a
+   list bitwise against one call a tensor); its
    median time over 20 launches (CUDA events, L2 flushed and a device
    spin queued before each launch, so the host's work stays out of the
    window), the plain version's, one PyTorch yardstick call's, and the
@@ -41,9 +44,19 @@ failure exits non-zero at once:
    against the plain versions (loss and every parameter's gradient);
    ``TrainStep.multi_step`` over 6 steps on a repeated batch (losses,
    ms per step, tokens/s, peak memory, the backward kernels' launch
-   counts) and one step repeated bitwise from one state; then steps at
-   S=512 and S=256 and with remat + chunked loss (4 layers) against
-   their plain steps, each then timed over 5 steps.
+   counts, ``adam_update`` among them), one step repeated bitwise from
+   one state and once more under ``fuse_optimizer`` (the same bits, one
+   ``adam_update`` launch a dtype group); then steps at S=512 and S=256
+   and with remat + chunked loss, with and without
+   ``remat_save_attention`` (4 layers) against their plain steps, each
+   then timed over 5 steps; then the three remat settings' gradients
+   (saved attention bitwise remat's), forward launches and memory.
+6b. train_bf16 — the JAX headline step (``bench.py:119-138``) at full
+   depth: GPT-1.3B, V=32768, the bf16 recipe, bf16 Adam slots, B=2,
+   S=2048: one forward+backward against the plain path within limits
+   derived from bf16's unit roundoff, ``multi_step`` over 6 steps (ms,
+   tokens/s, peak memory, MFU against 989 TFLOP/s), a bitwise repeat, a
+   ``fuse_optimizer`` step and a profiled step.
 7. resnet  — ResNet-50 eval inference (NHWC, 224x224, N=128, fp32,
    seed-0 weights, seeded BN statistics) on the fused-bottleneck kernel
    path, the plain path and the ``fuse_conv_bn`` path: logits against
@@ -111,17 +124,19 @@ BF16_ATOL = {"paged_decode": 2e-5, "decode_out_proj": 1e-2,
              "attention_fwd": 5e-3,
              "attention_bwd_fused": 2.5e-3, "attention_bwd_dq": 5e-3,
              "attention_bwd_dkv": 5e-3, "folded_attention_bwd": 5e-3}
-# The tensor-core backward kernels' bf16 outputs take their BF16_ATOL
-# before the rounding (``check_rounded_from``): each must be the bf16
-# rounding of a value within the limit of the plain version's f32
-# result. Held after the rounding, a limit below one bf16 ulp of the
-# larger outputs passes only a sum in the plain version's own order:
-# the exact (f64) gradient rounded to bf16 misses it
-# (tests/test_torch_attention_bwd.py), and a tensor-core sum has another
-# order. A plain emulation of one-term bf16 P and dS must fail the check
-# in at least one case of each kernel.
-BF16_BEFORE_ROUNDING = ("attention_bwd_fused", "folded_attention_bwd",
-                        "attention_bwd_dq", "attention_bwd_dkv")
+# The tensor-core kernels' bf16 outputs take their BF16_ATOL before the
+# rounding (``check_rounded_from``): each must be the bf16 rounding of a
+# value within the limit of the plain version's f32 result. Held after
+# the rounding, a limit below one bf16 ulp of the larger outputs passes
+# only a sum in the plain version's own order: the exact (f64) result
+# rounded to bf16 misses it (tests/test_torch_attention_bwd.py, and
+# tests/test_torch_attention_fwd.py for the forward, whose 5e-3 is below
+# one ulp at |out| >= 1), and a tensor-core sum has another order. A
+# plain emulation of one-term bf16 P (and dS) must fail the check in at
+# least one case of each kernel (``bf16_terms_fwd``, ``bf16_terms_bwd``).
+BF16_BEFORE_ROUNDING = ("attention_fwd", "attention_bwd_fused",
+                        "folded_attention_bwd", "attention_bwd_dq",
+                        "attention_bwd_dkv")
 
 # (kernel, source, TPU kernel it replaces)
 KERNEL_META = {
@@ -143,6 +158,10 @@ KERNEL_META = {
                              "paddle_tpu/ops/pallas/folded_attention.py:176"),
     "fused_bottleneck": ("paddle_tpu_torch/csrc/fused_bottleneck.cu",
                          "paddle_tpu/ops/pallas/fused_conv_block.py:143"),
+    # the port's own kernel: no TPU kernel; it replaces the JAX Adam
+    # rule that XLA fuses into the jitted step
+    "adam_update": ("paddle_tpu_torch/csrc/adam_update.cu",
+                    "paddle_tpu/optimizer/optimizer.py:420"),
 }
 # the kernels each main path launches; their counts are read from it
 SERVING_KERNELS = ("paged_decode", "decode_out_proj", "fused_argmax",
@@ -802,10 +821,15 @@ def _qkv(torch, gen, dev, B, Sq, Sk, H, D, dtype=None):
 
 def _attn_check(torch, tag, q, k, v, causal, tol, rtol=None):
     """The kernel against its plain version (out and lse), twice with
-    the same bits, and without the lse; returns the largest error."""
+    the same bits, and without the lse; returns the largest error. A
+    bf16 ``out`` takes ``tol`` before its rounding (``check_rounded_from``
+    against the plain version's f32 result, ``BF16_BEFORE_ROUNDING``)."""
     from paddle_tpu_torch.ops.kernels.attention import (
         attention_fwd, attention_reference)
     want_o, want_l = attention_reference(q, k, v, causal=causal)
+    if q.dtype == torch.bfloat16:
+        want_o, _ = attention_reference(q.float(), k.float(), v.float(),
+                                        causal=causal)
     got_o, got_l = attention_fwd(q, k, v, causal=causal)
     again_o, again_l = attention_fwd(q, k, v, causal=causal)
     bare_o, _ = attention_fwd(q, k, v, causal=causal, return_lse=False)
@@ -815,10 +839,13 @@ def _attn_check(torch, tag, q, k, v, causal, tol, rtol=None):
     if not (torch.equal(got_o, again_o) and torch.equal(got_l, again_l)
             and torch.equal(got_o, bare_o)):
         raise AssertionError(f"attention_fwd {tag}: two runs differ")
-    return max(check_close(f"attention_fwd {tag} out", got_o, want_o, tol,
-                           rtol),
-               check_close(f"attention_fwd {tag} lse", got_l, want_l, tol,
-                           rtol))
+    name = f"attention_fwd {tag} out"
+    if q.dtype == torch.bfloat16:
+        out_err = check_rounded_from(name, got_o, want_o, tol)
+    else:
+        out_err = check_close(name, got_o, want_o, tol, rtol)
+    return max(out_err, check_close(f"attention_fwd {tag} lse", got_l,
+                                    want_l, tol, rtol))
 
 
 def kernel_attention(torch, timer, dev, gen, records):
@@ -881,6 +908,37 @@ def kernel_attention(torch, timer, dev, gen, records):
           + [c[0] for c in ATTN_CASES]})
 
 
+# (label, S, D, causal, scale of v) of the bf16 forward checks; H=16,
+# B=1. On unit-variance inputs one-term bf16 P lies within 3.6e-3 of the
+# plain f32 output before the rounding (CPU draws), inside the 5e-3
+# limit; with v four times larger (|out| up to ~12, as a model's values
+# can be) it lies beyond it, so that case shows the check telling one
+# term from two.
+BF16_FWD_CASES = (("S=512", 512, 128, True, 1.0),
+                  ("S=2048", 2048, 128, True, 1.0),
+                  ("S=512 non-causal", 512, 128, False, 1.0),
+                  ("D=64 S=200", 200, 64, True, 1.0),
+                  ("D=256 S=512", 512, 256, True, 1.0),
+                  ("S=512 v x4", 512, 128, True, 4.0))
+
+
+def bf16_terms_fwd(torch, terms, q, k, v, causal):
+    """The plain forward with P carried as ``terms`` bf16 terms into
+    P.V, f32 otherwise (scores, max, row sum and the division by it):
+    what a kernel with one- or two-term bf16 P computes. Returns ``out``
+    rounded to the inputs' dtype."""
+    from paddle_tpu_torch.ops.kernels import attention as A
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = A._scores(q, k, causal, scale)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    den = p.sum(dim=-1, keepdim=True)
+    hi = p.to(torch.bfloat16).float()
+    if terms == 2:
+        hi = hi + (p - hi).to(torch.bfloat16).float()
+    out = torch.einsum("bhqk,bkhd->bqhd", hi / den, v.float())
+    return out.to(q.dtype)
+
+
 def kernels_bf16(torch, dev):
     """bf16 storage through every kernel (f32 accumulation) against the
     plain versions on the same bf16 inputs, within ``BF16_ATOL`` (no
@@ -889,6 +947,7 @@ def kernels_bf16(torch, dev):
     generator."""
     from paddle_tpu_torch.ops.kernels.fused_sample import (
         fused_argmax, fused_argmax_reference)
+    from paddle_tpu_torch.ops.kernels.attention import attention_reference
     from paddle_tpu_torch.ops.kernels.paged_attention import (
         decode_out_proj, decode_out_proj_reference,
         paged_attention_reference, paged_decode)
@@ -931,20 +990,28 @@ def kernels_bf16(torch, dev):
                              f"{want.tolist()}")
     ta = tol["attention_fwd"]
     errs["attention_fwd"] = 0.0
-    for label, S, D_, causal in (("S=512", 512, D, True),
-                                 ("S=2048", 2048, D, True),
-                                 ("S=512 non-causal", 512, D, False),
-                                 ("D=64 S=200", 200, 64, True),
-                                 ("D=256 S=512", 512, 256, True)):
+    refused = []
+    for label, S, D_, causal, v_scale in BF16_FWD_CASES:
         gen = check_gen(torch, dev, "bf16 attention_fwd" +
                         ("" if label == "S=512" else f" {label}"))
         qq, kk, vv = _qkv(torch, gen, dev, 1, S, S, H, D_, bf)
+        vv.mul_(v_scale)  # a power of two: exact in bf16
         errs["attention_fwd"] = max(
             errs["attention_fwd"],
             _attn_check(torch, f"bf16 {label}", qq, kk, vv, causal, ta,
                         0.0))
+        want32, _ = attention_reference(qq.float(), kk.float(), vv.float(),
+                                        causal=causal)
+        if not rounded_from(bf16_terms_fwd(torch, 1, qq, kk, vv, causal),
+                            want32, ta):
+            refused.append(label)
+    if not refused:
+        raise AssertionError("attention_fwd: the bf16 check passes one-term "
+                             "bf16 P in every case")
     emit({"phase": "kernels_bf16", "ok": True, "atol": dict(tol, **limits),
-          "max_abs_err": errs, "fused_argmax": "index-exact"})
+          "max_abs_err": errs, "fused_argmax": "index-exact",
+          "attention_fwd_before_rounding": True,
+          "attention_fwd_one_term_refused": refused})
 
 
 def bf16_apart(got, want):
@@ -1137,7 +1204,7 @@ def kernel_attention_bwd(torch, timer, dev, records):
                         one_term_refused.setdefault(name, []).append(label)
                 if dtype == torch.float32 and label in BWD_TIMED:
                     timed.append((name, label, B, S, causal, ins))
-    for name in BF16_BEFORE_ROUNDING:
+    for name in TRAINING_KERNELS:
         if name not in one_term_refused:
             raise AssertionError(f"{name}: the bf16 check passes one-term "
                                  f"bf16 P/dS in every case")
@@ -1346,6 +1413,173 @@ def kernel_fused_bottleneck(torch, timer, dev, records):
           "checks": "plain version, tile emulation, fp32 repeat bitwise"})
 
 
+# GPT-1.3B's parameter shapes of one block (E=2048: ln_1, qkv_proj,
+# out_proj, ln_2, fc_in, fc_out, weights and biases; 50.3M elements),
+# and a ragged list: a bias, an odd length, an empty tensor, a small
+# matrix
+ADAM_BLOCK_SHAPES = ((2048,), (2048,), (2048, 6144), (6144,), (2048, 2048),
+                     (2048,), (2048,), (2048,), (2048, 8192), (8192,),
+                     (8192, 2048), (2048,))
+ADAM_RAGGED_SHAPES = ((2048,), (1001,), (0,), (3, 5))
+# (label, param dtype, slot dtype): the kernel's three storage variants
+ADAM_VARIANTS = (("fp32", "float32", "float32"),
+                 ("bf16", "bfloat16", "bfloat16"),
+                 ("bf16 params fp32 slots", "bfloat16", "float32"))
+ADAM_STEPS = 3
+ADAM_LR, ADAM_WD = 1e-4, 0.01
+
+
+def adam_bytes(n, p_size, s_size):
+    """Bytes of one update of ``n`` elements: p, g, m, v read once, p, m,
+    v written once (the gradient has the parameter's dtype)."""
+    return n * (3 * p_size + 4 * s_size)
+
+
+def _adam_state(torch, gen, dev, shapes, pdt, sdt):
+    """Seeded parameters (N(0, 0.02)), zero moments, and ``ADAM_STEPS``
+    gradient lists (N(0, 1e-3))."""
+    params = [(torch.randn(s, generator=gen, device=dev) * 0.02).to(pdt)
+              for s in shapes]
+    grads = [[(torch.randn(s, generator=gen, device=dev) * 1e-3).to(pdt)
+              for s in shapes] for _ in range(ADAM_STEPS)]
+    m = [torch.zeros(s, dtype=sdt, device=dev) for s in shapes]
+    v = [torch.zeros(s, dtype=sdt, device=dev) for s in shapes]
+    return params, grads, m, v
+
+
+def kernel_adam(torch, timer, dev, records):
+    """adam_update (the port's own kernel) against its plain version, the
+    eager chain, on the card: each storage variant (``ADAM_VARIANTS``) x
+    each decay (AdamW's decoupled, Adam's L2, none), on a GPT-1.3B
+    block's shapes plus a ragged list, ``ADAM_STEPS`` steps: parameters
+    and both moments bitwise equal; the list in one call against one call
+    a tensor: bitwise equal, one launch against one a non-empty tensor.
+    Then each variant timed on the block's shapes (AdamW) beside the
+    plain chain and ``torch.optim.AdamW(foreach=True)`` over the same
+    list, with the device kernels of one call under ``torch.profiler``."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import optimizer_update as OU
+    if _build.lib().pt_adam_update_max_tensors() != OU.MAX_TENSORS:
+        raise AssertionError("adam_update: the wrapper's MAX_TENSORS is not "
+                             "the kernel's")
+    decays = (("AdamW", OU.DECAY_DECOUPLED), ("Adam L2", OU.DECAY_L2),
+              ("no decay", OU.DECAY_NONE))
+    shapes = ADAM_BLOCK_SHAPES + ADAM_RAGGED_SHAPES
+    live = sum(1 for s in shapes if math.prod(s) > 0)
+    checks = []
+    for label, pname, sname in ADAM_VARIANTS:
+        pdt, sdt = getattr(torch, pname), getattr(torch, sname)
+        for dname, decay in decays:
+            tag = f"adam_update {label} {dname}"
+            gen = check_gen(torch, dev, tag)
+            p, grads, m, v = _adam_state(torch, gen, dev, shapes, pdt, sdt)
+            lists = {"kernel": (p, m, v),
+                     "plain": tuple([t.clone() for t in ts]
+                                    for ts in (p, m, v)),
+                     "per tensor": tuple([t.clone() for t in ts]
+                                         for ts in (p, m, v))}
+            launched = {}
+            for step in range(1, ADAM_STEPS + 1):
+                hyper = dict(lr=ADAM_LR, beta1=0.9, beta2=0.999, eps=1e-8,
+                             step=step, weight_decay=ADAM_WD, decay=decay)
+                g = grads[step - 1]
+                OU.adam_update_reference(*lists["plain"][:1], g,
+                                         *lists["plain"][1:], **hyper)
+                before = OU.adam_update.launches
+                OU.adam_update(lists["kernel"][0], g, *lists["kernel"][1:],
+                               **hyper)
+                launched["list"] = OU.adam_update.launches - before
+                before = OU.adam_update.launches
+                for i in range(len(shapes)):
+                    pt_, mt, vt = (ts[i] for ts in lists["per tensor"])
+                    OU.adam_update([pt_], [g[i]], [mt], [vt], **hyper)
+                launched["per tensor"] = OU.adam_update.launches - before
+            torch.cuda.synchronize()
+            for other in ("plain", "per tensor"):
+                for what, got, want in zip(("param", "moment1", "moment2"),
+                                           lists["kernel"], lists[other]):
+                    for i, (a, b) in enumerate(zip(got, want)):
+                        check_equal(f"{tag} {what} {i} vs {other}", a, b)
+            if launched != {"list": 1, "per tensor": live}:
+                FAILED_CHECKS.append(f"{tag}: launches {launched}, want 1 "
+                                     f"for the list and {live} one by one")
+            checks.append(tag)
+    # more tensors than one launch's table: two launches, same bits
+    tag = "adam_update fp32 AdamW, MAX_TENSORS + 88 tensors"
+    gen = check_gen(torch, dev, tag)
+    many = [(1 + (37 * i) % 301,) for i in range(OU.MAX_TENSORS + 88)]
+    p, grads, m, v = _adam_state(torch, gen, dev, many, torch.float32,
+                                 torch.float32)
+    ref = [[t.clone() for t in ts] for ts in (p, m, v)]
+    hyper = dict(lr=ADAM_LR, beta1=0.9, beta2=0.999, eps=1e-8, step=1,
+                 weight_decay=ADAM_WD, decay=OU.DECAY_DECOUPLED)
+    before = OU.adam_update.launches
+    OU.adam_update(p, grads[0], m, v, **hyper)
+    if OU.adam_update.launches - before != 2:
+        FAILED_CHECKS.append(f"{tag}: {OU.adam_update.launches - before} "
+                             f"launches, want 2")
+    OU.adam_update_reference(ref[0], grads[0], ref[1], ref[2], **hyper)
+    for what, got, want in zip(("param", "moment1", "moment2"), (p, m, v),
+                               ref):
+        check_equal(f"{tag} {what}", torch.cat(got), torch.cat(want))
+    checks.append(tag)
+    del p, grads, m, v, ref
+    per_variant = []
+    n = sum(math.prod(s) for s in ADAM_BLOCK_SHAPES)
+    for label, pname, sname in ADAM_VARIANTS:
+        pdt, sdt = getattr(torch, pname), getattr(torch, sname)
+        gen = check_gen(torch, dev, f"adam_update timing {label}")
+        p, grads, m, v = _adam_state(torch, gen, dev, ADAM_BLOCK_SHAPES,
+                                     pdt, sdt)
+        g = grads[0]
+        hyper = dict(lr=ADAM_LR, beta1=0.9, beta2=0.999, eps=1e-8, step=1,
+                     weight_decay=ADAM_WD, decay=OU.DECAY_DECOUPLED)
+        ms = timer(lambda: OU.adam_update(p, g, m, v, **hyper))
+        plain_ms = timer(lambda: OU.adam_update_reference(p, g, m, v,
+                                                          **hyper))
+        lib_ms = None
+        if pdt == sdt:  # torch.optim keeps the moments in the param dtype
+            lp = [t.clone().requires_grad_() for t in p]
+            for t, gt in zip(lp, g):
+                t.grad = gt.clone()
+            opt = torch.optim.AdamW(lp, lr=ADAM_LR, weight_decay=ADAM_WD,
+                                    foreach=True)
+            lib_ms = timer(opt.step)
+            del lp, opt
+        calls, windows = 3, 1
+
+        def three():
+            for _ in range(calls):
+                OU.adam_update(p, g, m, v, **hyper)
+
+        prof = profile_once(torch, three)
+        if prof["kernels"] == 0:  # a window the profiler recorded nothing
+            windows += 1          # in (seen once, run 1): once more
+            prof = profile_once(torch, three)
+        if prof["kernels"] != calls:
+            FAILED_CHECKS.append(f"adam_update {label}: {prof['kernels']} "
+                                 f"device kernels in {calls} calls")
+        b, by = bound_ms(adam_bytes(n, p[0].element_size(),
+                                    m[0].element_size()), 0.0)
+        per_variant.append(dict(variant=label, ms=ms, plain_ms=plain_ms,
+                                library_ms=lib_ms, bound_ms=b, bound_by=by,
+                                launches_per_call=prof["kernels"] / calls,
+                                profile_windows=windows))
+        emit({"phase": "kernels", "kernel": "adam_update", "ok": True,
+              "shape": f"GPT-1.3B block, {len(ADAM_BLOCK_SHAPES)} tensors, "
+                       f"{n} elements, {label}", **per_variant[-1]})
+        del p, grads, m, v, g
+    first = per_variant[0]
+    records["adam_update"] = dict(
+        max_abs_err=0.0, ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+        library_ms=first["library_ms"], per_variant=per_variant)
+    emit({"phase": "kernels", "kernel": "adam_update", "ok": True,
+          "checks": checks, "steps": ADAM_STEPS, "bitwise": True,
+          "max_tensors_a_launch": OU.MAX_TENSORS,
+          "library": "torch.optim.AdamW(foreach=True)"})
+
+
 def phase_kernels(torch, dev, records):
     timer = Timer(torch, dev)
     # the window's own floor: one launch that does almost nothing
@@ -1359,6 +1593,7 @@ def phase_kernels(torch, dev, records):
     kernels_bf16(torch, dev)
     kernel_attention_bwd(torch, timer, dev, records)
     kernel_fused_bottleneck(torch, timer, dev, records)
+    kernel_adam(torch, timer, dev, records)
     torch.cuda.synchronize()
 
 
@@ -1704,7 +1939,8 @@ def _loss_and_grads(torch, model, ids, plain: bool):
 
 def _grad_rel(got, want):
     """Relative L2 error of every parameter's gradient."""
-    return {n: float((got[n] - w).norm() / w.norm().clamp_min(1e-30))
+    return {n: float((got[n].float() - w.float()).norm()
+                     / w.float().norm().clamp_min(1e-30))
             for n, w in want.items()}
 
 
@@ -1766,7 +2002,8 @@ def _step_vs_plain(torch, step, ids):
 # summed under (first match wins)
 TRAIN_KERNEL_GROUPS = (
     ("attention kernels", ("attention_fwd", "attention_bwd", "dq_reduce")),
-    ("GEMM", ("gemm", "cutlass", "xmma")),
+    ("adam_update", ("adam_update",)),
+    ("GEMM", ("gemm", "cutlass", "xmma", "nvjet")),
     ("softmax / CE", ("softmax", "nll", "gather", "scatter")),
     ("layer norm", ("layer_norm",)),
     ("reductions", ("reduce",)),
@@ -1808,6 +2045,69 @@ def profile_once(torch, fn, groups=TRAIN_KERNEL_GROUPS):
 
 
 VARIANT_STEPS = 5  # kernel-path steps timed per 4-layer variant
+# the kernels every full-depth train step launches (S=2048: the flash
+# forward, the dQ and dK/dV passes, the optimizer update)
+TRAIN_STEP_KERNELS = ("attention_fwd", "attention_bwd_dq",
+                      "attention_bwd_dkv", "adam_update")
+
+
+def _bit_sums(torch, state):
+    """Each tensor of an optimizer ``state_dict`` summed as its integer
+    bit patterns (int64): a fingerprint of the moments' bits that needs
+    no second copy of them."""
+    sums = []
+    for _, t in sorted(state.items()):
+        if torch.is_tensor(t):
+            ity = torch.int32 if t.element_size() == 4 else torch.int16
+            sums.append(t.view(ity).to(torch.int64).sum())
+    return torch.stack(sums)
+
+
+def _repeat_and_fused(torch, step, ids):
+    """One step from one state three times: twice as it is, which must
+    give the same bits, then under ``fuse_optimizer`` (each dtype group
+    in one ``adam_update`` launch), which must give the same loss,
+    parameters and moments (their bit sums, ``_bit_sums``) as the
+    unfused step. Returns (True, the fused step's record); raises on a
+    difference."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    model = step.model
+    snap = _snapshot(torch, step)
+    l1 = step(ids)
+    p1 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    s1 = _bit_sums(torch, step.optimizer.state_dict())
+    _restore(torch, step, snap)
+    l2 = step(ids)
+    if not (torch.equal(l1, l2) and all(
+            torch.equal(p1[n], p) for n, p in model.named_parameters())):
+        raise AssertionError("one train step from one state gave two "
+                             "results")
+    _restore(torch, step, snap)
+    del snap
+    reset_launch_counts()
+    set_flags({"fuse_optimizer": True})
+    try:
+        l3 = step(ids)
+    finally:
+        set_flags({"fuse_optimizer": False})
+    torch.cuda.synchronize()
+    groups = len({(p.dtype, step.optimizer.state_dict()[f"{n}.moment1"]
+                   .dtype) for n, p in model.named_parameters()})
+    fused = {"adam_update_launches": launch_counts()["adam_update"],
+             "dtype_groups": groups}
+    same = torch.equal(l1, l3) and all(
+        torch.equal(p1[n], p) for n, p in model.named_parameters()) and \
+        torch.equal(s1, _bit_sums(torch, step.optimizer.state_dict()))
+    if not same:
+        raise AssertionError("the fuse_optimizer step differs from the "
+                             "unfused step")
+    if fused["adam_update_launches"] != groups:
+        raise AssertionError(f"fuse_optimizer: {fused} (one launch a "
+                             f"group)")
+    fused["bitwise_equal_unfused"] = True
+    return True, fused
 
 
 def phase_train(torch, dev, launches):
@@ -1851,7 +2151,7 @@ def phase_train(torch, dev, launches):
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train losses do not fall: {first} "
                              f"{losses}")
-    for name in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv"):
+    for name in TRAIN_STEP_KERNELS:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"training path")
@@ -1859,18 +2159,7 @@ def phase_train(torch, dev, launches):
                  for blk in model.gpt.h]
     if not all(math.isfinite(g) and g > 0.0 for g in qkv_grads):
         raise AssertionError(f"qkv_proj gradients: {qkv_grads}")
-    # one step, twice from one state: the same bits
-    snap = _snapshot(torch, step)
-    l1 = step(ids)
-    p1 = {n: p.detach().clone() for n, p in model.named_parameters()}
-    _restore(torch, step, snap)
-    l2 = step(ids)
-    same = bool(torch.equal(l1, l2)) and all(
-        torch.equal(p1[n], p) for n, p in model.named_parameters())
-    if not same:
-        raise AssertionError("one train step from one state gave two "
-                             "results")
-    del snap, p1
+    same, fused = _repeat_and_fused(torch, step, ids)
     prof = profile_once(torch, lambda: step(ids))
     emit({"phase": "train", "ok": True, "model": "gpt_1p3b",
           "layers": model.config.num_layers, "B": B, "S": S,
@@ -1880,8 +2169,9 @@ def phase_train(torch, dev, launches):
           "peak_mem_gb": peak / 1e9, "mem_before_gb": mem_before / 1e9,
           "launches": counts,
           "qkv_proj_grad_norm_min": min(qkv_grads),
-          "repeat_step_bitwise_equal": same, "step_profile": prof})
-    for name in ("attention_bwd_dq", "attention_bwd_dkv"):
+          "repeat_step_bitwise_equal": same, "fuse_optimizer": fused,
+          "step_profile": prof})
+    for name in ("attention_bwd_dq", "attention_bwd_dkv", "adam_update"):
         launches[name] = counts[name]
     del step, model
     torch.cuda.empty_cache()
@@ -1892,7 +2182,10 @@ def phase_train(torch, dev, launches):
                 ("S=256", {}, 256, "folded_attention_bwd"),
                 ("remat+loss_chunk_size=512 S=2048",
                  dict(remat=True, loss_chunk_size=512), 2048,
-                 "attention_bwd_dq"))
+                 "attention_bwd_dq"),
+                ("remat_save_attention+loss_chunk_size=512 S=2048",
+                 dict(remat=True, remat_save_attention=True,
+                      loss_chunk_size=512), 2048, "attention_bwd_dq"))
     for tag, kw, s, kernel in variants:
         model = _train_model(torch, dev, num_layers=4, **kw)
         step = TrainStep(model, AdamW(learning_rate=TRAIN_LR), lambda m, x:
@@ -1923,6 +2216,216 @@ def phase_train(torch, dev, launches):
               "ms_per_step": ms, "tokens_per_s": B * s / ms * 1e3})
         del step, model
         torch.cuda.empty_cache()
+    remat_memory(torch, dev, ids)
+
+
+REMAT_LAYERS = 4
+
+
+def remat_memory(torch, dev, ids):
+    """One forward+backward at 4 layers, B=2, S=2048, chunked loss, with
+    no remat, remat and remat with saved attention, from the same seed-0
+    weights: the saved-attention gradients bitwise equal to remat's,
+    ``attention_fwd`` launched once a layer (remat: twice), and the peak
+    memory above the step's start, and the memory the forward keeps for
+    the backward, in between remat's and no remat's."""
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    runs = {}
+    for tag, kw in (("no remat", {}), ("remat", dict(remat=True)),
+                    ("remat_save_attention",
+                     dict(remat=True, remat_save_attention=True))):
+        model = _train_model(torch, dev, num_layers=REMAT_LAYERS,
+                             loss_chunk_size=512, **kw)
+        model.train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        loss = model(ids, labels=ids)
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated() - start
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[tag] = dict(loss=loss.detach(),
+                         grads={n: p.grad for n, p in
+                                model.named_parameters()},
+                         peak_gb=(torch.cuda.max_memory_allocated() - start)
+                         / 1e9, after_forward_gb=kept / 1e9,
+                         attention_fwd=launch_counts()["attention_fwd"])
+        del model, loss
+    want, got = runs["remat"], runs["remat_save_attention"]
+    same = torch.equal(want["loss"], got["loss"]) and all(
+        torch.equal(g, got["grads"][n]) for n, g in want["grads"].items())
+    if not same:
+        raise AssertionError("remat_save_attention: gradients differ from "
+                             "remat's")
+    fwd = {tag: r["attention_fwd"] for tag, r in runs.items()}
+    if fwd != {"no remat": REMAT_LAYERS, "remat": 2 * REMAT_LAYERS,
+               "remat_save_attention": REMAT_LAYERS}:
+        raise AssertionError(f"attention_fwd launches {fwd}")
+    peak = {tag: r["peak_gb"] for tag, r in runs.items()}
+    kept = {tag: r["after_forward_gb"] for tag, r in runs.items()}
+    for what in (peak, kept):
+        if not what["remat"] <= what["remat_save_attention"] \
+                <= what["no remat"]:
+            raise AssertionError(f"remat_save_attention memory {what}")
+    emit({"phase": "train_remat_memory", "ok": True,
+          "layers": REMAT_LAYERS, "B": ids.shape[0], "S": ids.shape[1],
+          "loss_chunk_size": 512, "peak_gb_above_start": peak,
+          "kept_after_forward_gb": kept,
+          "attention_fwd_launches": fwd,
+          "grads_bitwise_equal_remat": same})
+    del runs, want, got
+    torch.cuda.empty_cache()
+
+
+# -- phase 6b ----------------------------------------------------------------
+
+# the bf16 recipe of the JAX headline step (bench_all.py
+# _to_bf16_except_norms): bf16 weights, fp32 for every parameter whose
+# name holds one of these, fp32 floating buffers
+BF16_KEEP_TOKENS = ("bn", "norm", "ln_")
+# kernel path against plain path in bf16. u = 2^-8 is bf16's unit
+# roundoff (8 significant bits). The two paths round at other places:
+# the kernels carry P in two bf16 terms and sum in their own order, the
+# plain path rounds P to one bf16 term, so an attention output differs
+# by up to an ulp (2u relative), and every later bf16 rounding can turn
+# a difference below an ulp into a whole one.
+# - loss: a bf16 value in both paths (log-softmax and mean in bf16, as
+#   the JAX model computes it); their unrounded values lie far closer
+#   than an ulp, so the roundings are at most one ulp apart: 2u relative.
+# - gradients: the differences of 24 layers add as independent
+#   roundings, sqrt(24) ~ 5 of them, each up to u: the L2 error over all
+#   gradients within 8u; a parameter whose gradient sums terms of both
+#   signs over the B*S positions (the layer norms' scales and biases)
+#   loses up to a factor 2 more to cancellation: 16u each.
+BF16_U = 2.0 ** -8
+BF16_LOSS_REL_TOL = 2 * BF16_U
+BF16_GRAD_REL_TOL = 8 * BF16_U
+BF16_PARAM_GRAD_REL_TOL = 16 * BF16_U
+BF16_VOCAB = 32768  # bench.py:129
+
+
+def to_bf16_except_norms(torch, model):
+    """The bf16 recipe (``bench_all._to_bf16_except_norms``) in place."""
+    model.to(torch.bfloat16)
+    for name, p in model.named_parameters():
+        if any(t in name for t in BF16_KEEP_TOKENS):
+            p.data = p.data.float()
+    for _, b in model.named_buffers():
+        if b is not None and b.is_floating_point():
+            b.data = b.data.float()
+    return model
+
+
+def train_flops(B, S, layers, E, V):
+    """Model FLOPs of one train step, forward and backward (3x the
+    forward), at 2 flops a multiply-add: per token 24 E^2 a layer (the
+    qkv, out, fc_in and fc_out products) and 2 E V for the tied head;
+    per sequence and layer 4 E per visible (query, key) pair for QK^T
+    and PV, S (S + 1) / 2 pairs causal. Lookups, norms, elementwise work
+    and remat's recompute are not counted."""
+    fwd = (B * S * (layers * 24 * E * E + 2 * E * V)
+           + B * layers * 4 * E * (S * (S + 1) // 2))
+    return 3 * fwd
+
+
+def _check_bf16_parity(loss_k, loss_p, grads_k, grads_p):
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    errs = _grad_rel(grads_k, grads_p)
+    num = sum(float((grads_k[n].float() - w.float()).norm()) ** 2
+              for n, w in grads_p.items())
+    den = sum(float(w.float().norm()) ** 2 for w in grads_p.values())
+    global_rel = math.sqrt(num / den)
+    worst = max(errs, key=errs.get)
+    if not loss_rel <= BF16_LOSS_REL_TOL:
+        raise AssertionError(f"train bf16: loss {float(loss_k)} vs plain "
+                             f"{float(loss_p)} ({loss_rel:.3g} relative)")
+    if not global_rel <= BF16_GRAD_REL_TOL:
+        raise AssertionError(f"train bf16: gradients off by {global_rel:.3g}"
+                             f" relative (all parameters)")
+    if not errs[worst] <= BF16_PARAM_GRAD_REL_TOL:
+        raise AssertionError(f"train bf16: gradient of {worst} off by "
+                             f"{errs[worst]:.3g} relative")
+    return {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+            "loss_rel": loss_rel, "grad_rel_all": global_rel,
+            "grad_rel_max": errs[worst], "grad_rel_max_param": worst,
+            "grad_rel": {n: float(f"{e:.3g}") for n, e in errs.items()}}
+
+
+def phase_train_bf16(torch, dev, launches):
+    """The JAX headline step (``bench.py:119-138``) at full depth:
+    GPT-1.3B, V=32768, 24 layers, the bf16 recipe, bf16 Adam slots,
+    ``AdamW(1e-4)``, B=2, S=2048, flash on, ``loss_chunk_size=0``. One
+    forward+backward through the kernels against the plain path (the
+    ``BF16_*_TOL`` limits), then ``multi_step`` over 6 steps (losses
+    fall; the attention kernels and ``adam_update`` launched), ms a step,
+    tokens/s, peak memory and MFU against 989 TFLOP/s bf16, one step
+    repeated bitwise and under ``fuse_optimizer``, one profiled step."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.optimizer import AdamW
+    B, S = 2, 2048
+    model = to_bf16_except_norms(torch, _train_model(
+        torch, dev, vocab_size=BF16_VOCAB, dtype="bfloat16"))
+    cfg = model.config
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ids = torch.randint(0, BF16_VOCAB, (B, S), generator=gen, device=dev)
+    loss_k, grads_k = _loss_and_grads(torch, model, ids, plain=False)
+    loss_p, grads_p = _loss_and_grads(torch, model, ids, plain=True)
+    rec = _check_bf16_parity(loss_k, loss_p, grads_k, grads_p)
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    del grads_k, grads_p
+    emit({"phase": "train_bf16_parity", "ok": True, "model": "gpt_1p3b",
+          "layers": cfg.num_layers, "vocab": BF16_VOCAB, "B": B, "S": S,
+          "param_dtypes": dtypes, "loss_dtype": str(loss_k.dtype),
+          "tol": {"loss_rel": BF16_LOSS_REL_TOL,
+                  "grad_rel_all": BF16_GRAD_REL_TOL,
+                  "grad_rel_param": BF16_PARAM_GRAD_REL_TOL}, **rec})
+
+    step = TrainStep(model, AdamW(learning_rate=TRAIN_LR), lambda m, x:
+                     m(x, labels=x), seed=0, device=dev)
+    first = float(step(ids))  # warm-up step: Adam slots allocated here
+    slot_dtypes = sorted({str(v.dtype) for v in
+                          step.optimizer.state_dict().values()
+                          if torch.is_tensor(v)})
+    n_steps = 6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    losses = step.multi_step(ids[None].expand(n_steps, B, S))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses.float().tolist()]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16 train losses do not fall: {first} "
+                             f"{losses}")
+    for name in TRAIN_STEP_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"bf16 training path")
+    same, fused = _repeat_and_fused(torch, step, ids)
+    prof = profile_once(torch, lambda: step(ids))
+    ms = wall * 1e3 / n_steps
+    flops = train_flops(B, S, cfg.num_layers, cfg.hidden_size, BF16_VOCAB)
+    emit({"phase": "train_bf16", "ok": True, "model": "gpt_1p3b",
+          "layers": cfg.num_layers, "vocab": BF16_VOCAB, "B": B, "S": S,
+          "optimizer": f"AdamW({TRAIN_LR})", "slot_dtypes": slot_dtypes,
+          "warmup_loss": first, "losses": losses, "ms_per_step": ms,
+          "tokens_per_s": B * S * n_steps / wall,
+          "peak_mem_gb": peak / 1e9, "mem_before_gb": mem_before / 1e9,
+          "flops_per_step": flops,
+          "mfu": flops / (ms * 1e-3) / BF16_FLOPS,
+          "launches": counts, "repeat_step_bitwise_equal": same,
+          "fuse_optimizer": fused, "step_profile": prof})
+    del step, model
+    torch.cuda.empty_cache()
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -2077,6 +2580,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train(torch, dev, launches)
+    phase_train_bf16(torch, dev, launches)
     phase_resnet(torch, dev, launches)
     if FAILED_CHECKS:
         emit({"phase": "checks", "ok": False, "failed": FAILED_CHECKS})

@@ -12,6 +12,8 @@ built with ``nvcc`` into ``build/kernels/`` at first use and bound with
 PyTorch version beside it, which a wrapper takes only for CPU tensors.
 """
 
+from .core.flags import get_flags, set_flags
 from .device import DEFAULT_DEVICE, resolve_device, setup_precision
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device", "setup_precision"]
+__all__ = ["DEFAULT_DEVICE", "get_flags", "resolve_device", "set_flags",
+           "setup_precision"]

@@ -68,22 +68,28 @@ class TrainStep:
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
 
-    def __call__(self, batch) -> torch.Tensor:
-        """One step; returns the loss before the update as a 0-d tensor
-        on the model's device (no host synchronisation)."""
+    def _one(self, batch, lr: float) -> torch.Tensor:
         self.model.train()
         self.optimizer.clear_grad()
         with rng.key_scope(self.generator):
             loss = self.train_fn(self.model, batch)
             loss.backward()
-        self.optimizer.step()
+        self.optimizer._step(lr)
         return loss.detach()
+
+    def __call__(self, batch) -> torch.Tensor:
+        """One step at the optimizer's current learning rate (read once,
+        on the host); returns the loss before the update as a 0-d tensor
+        on the model's device (no host synchronisation)."""
+        return self._one(batch, self.optimizer.get_lr())
 
     def multi_step(self, batches) -> torch.Tensor:
         """One step per entry of ``batches`` (a tensor, or a dict / tuple
-        of tensors, stacked along a leading steps axis); returns the
-        ``[n_steps]`` losses."""
-        return torch.stack([self(_index(batches, i))
+        of tensors, stacked along a leading steps axis), all at the
+        learning rate read once at the call, as the JAX ``multi_step``
+        passes one rate to its scan; returns the ``[n_steps]`` losses."""
+        lr = self.optimizer.get_lr()
+        return torch.stack([self._one(_index(batches, i), lr)
                             for i in range(_steps_of(batches))])
 
     def sync_to_model(self) -> None:

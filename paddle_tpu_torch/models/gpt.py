@@ -19,10 +19,11 @@ Training (``forward(ids, labels=ids)``) computes the shifted next-token
 cross entropy and its plain mean over every position, ignored ones
 included, as the JAX model does; ``loss_chunk_size`` computes it over
 sequence chunks whose logits are recomputed in backward, and ``remat``
-recomputes blocks in backward (``torch.utils.checkpoint``).
+recomputes blocks in backward (``torch.utils.checkpoint``), with
+``remat_save_attention`` all but the attention kernel's forward.
 
-Not ported yet (see ROADMAP.md): ``remat_save_attention``, MoE, sequence
-parallelism, the static KV cache and ``generate``.
+Not ported yet (see ROADMAP.md): MoE, sequence parallelism, the static
+KV cache and ``generate``.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from ..nn.layers import (ColumnParallelLinear, Dropout, Embedding,
                          LayerNorm, ParallelCrossEntropy, RowParallelLinear,
                          VocabParallelEmbedding, gelu)
 from ..ops import nn_functional as NF
+from ..ops.kernels.attention import SavedAttention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -69,6 +71,8 @@ class GPTConfig:
     # recompute blocks with layer_idx % remat_every == 0 in backward
     remat: bool = False
     remat_every: int = 1
+    # with remat: keep each attention kernel's forward outputs (flash:
+    # out and lse; folded: out), so the recompute skips the kernel
     remat_save_attention: bool = False
 
     def __post_init__(self):
@@ -76,9 +80,7 @@ class GPTConfig:
             raise ValueError(
                 "remat_every must be >= 1 (1 = remat every block); to "
                 "disable rematerialization set remat=False")
-        for flag, what in ((self.remat_save_attention,
-                            "remat_save_attention"),
-                           (self.moe_experts > 0, "MoE (moe_experts > 0)"),
+        for flag, what in ((self.moe_experts > 0, "MoE (moe_experts > 0)"),
                            (self.seq_parallel_mode is not None,
                             "seq_parallel_mode")):
             if flag:
@@ -206,9 +208,13 @@ def paged_kv_append(cache: PagedKVCache, k, v,
     return cache._replace(seq_lens=new_lens)
 
 
-def _remat_block(block: nn.Module, x):
+def _remat_block(block: nn.Module, x, save_attention: bool = False):
     """Run ``block`` under ``torch.utils.checkpoint`` (``gpt.py:663-686``):
-    its activations are recomputed in backward instead of kept.
+    its activations are recomputed in backward instead of kept. With
+    ``save_attention`` (``remat_save_attention``, ``gpt.py:953-971``) the
+    attention kernel's forward outputs are kept aside
+    (``SavedAttention``) and the recompute takes them instead of running
+    the kernel again; everything else is recomputed.
 
     The recompute runs on autograd's thread, so it re-opens what the
     forward saw in this thread: the ``key_scope`` generator, rewound to
@@ -218,15 +224,19 @@ def _remat_block(block: nn.Module, x):
     plain = NF.plain_mode()
     before = gen.get_state() if gen is not None else None
     ran = []
+    saved = SavedAttention() if save_attention else None
 
     def run(h):
         after = None
         if ran and gen is not None:
             after = gen.get_state()
             gen.set_state(before)
+        if saved is not None:
+            saved.replay = bool(ran)
         ran.append(True)
         try:
-            with rng.key_scope(gen), NF.plain_kernels(plain):
+            with rng.key_scope(gen), NF.plain_kernels(plain), \
+                    NF.saved_attention(saved):
                 return block(h)
         finally:
             if after is not None:
@@ -393,7 +403,8 @@ class GPTModel(nn.Module):
             remat = self.config.remat and torch.is_grad_enabled()
             for i, block in enumerate(self.h):
                 if remat and i % self.config.remat_every == 0:
-                    x = _remat_block(block, x)
+                    x = _remat_block(block, x,
+                                     self.config.remat_save_attention)
                 else:
                     x = block(x)
             return self.ln_f(x)

@@ -87,7 +87,12 @@ class VocabParallelEmbedding(Embedding):
 
 class LayerNorm(nn.Module):
     """Layer norm over the last dim with ``weight``/``bias`` named as in
-    the JAX package's checkpoints."""
+    the JAX package's checkpoints. An input of another dtype than the
+    parameters (bf16 activations with the bf16 recipe's fp32 norms) is
+    normalised and scaled in the parameters' dtype and returned in its
+    own, as the JAX function multiplies by its fp32 weight and casts
+    back (``ops/nn_functional.py`` ``layer_norm``); PyTorch's CUDA layer
+    norm takes no mixed dtypes."""
 
     def __init__(self, dim: int, epsilon: float = 1e-5, *, device=None,
                  dtype=torch.float32):
@@ -99,6 +104,10 @@ class LayerNorm(nn.Module):
                                              dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != self.weight.dtype:
+            return F.layer_norm(x.to(self.weight.dtype), (x.shape[-1],),
+                                self.weight, self.bias,
+                                self.epsilon).to(x.dtype)
         return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias,
                             self.epsilon)
 

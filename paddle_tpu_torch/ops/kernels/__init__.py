@@ -14,6 +14,7 @@ from .attention import (attention_bwd_dkv, attention_bwd_dq,
                         folded_attention_bwd)
 from .fused_conv_block import fused_bottleneck_eval
 from .fused_sample import fused_argmax
+from .optimizer_update import adam_update
 from .paged_attention import decode_out_proj, paged_decode
 
 KERNELS = {
@@ -26,6 +27,7 @@ KERNELS = {
     "attention_bwd_dkv": attention_bwd_dkv,
     "folded_attention_bwd": folded_attention_bwd,
     "fused_bottleneck": fused_bottleneck_eval,
+    "adam_update": adam_update,
 }
 
 

@@ -76,6 +76,12 @@ SIGNATURES: Dict[str, List] = {
                             _P],
     # shared bytes, dtype, int* blocks per SM
     "pt_fused_bottleneck_occupancy": [_I, _I, _P],
+    # host table (p, g, m, v, n per tensor), tensors, param dtype, slot
+    # dtype, lr, b1, 1 - b1, b2, 1 - b2, 1 / bc1, 1 / bc2, eps, wd,
+    # lr * wd, decay mode, stream
+    "pt_adam_update": [_P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                       _F, _I, _P],
+    "pt_adam_update_max_tensors": [],
 }
 
 _lock = threading.Lock()

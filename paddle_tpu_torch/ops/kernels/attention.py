@@ -318,16 +318,43 @@ for _fn in (attention_bwd_dq, attention_bwd_dkv, attention_bwd_fused,
 
 # -- autograd entries ---------------------------------------------------------
 
+class SavedAttention:
+    """The forward outputs of the attention kernels in one rematerialised
+    segment (``GPTConfig.remat_save_attention``, JAX ``gpt.py:88-97``):
+    the segment's first run records them in order, its recompute in
+    backward replays them instead of running the forward kernel again.
+    Held outside autograd, so they live until the recompute takes
+    them."""
+
+    def __init__(self):
+        self.items = []
+        self.replay = False
+
+    def forward(self, run):
+        """``run()``'s outputs on the first run; the recorded ones, in
+        order, on the recompute."""
+        if self.replay:
+            return self.items.pop(0)
+        outs = run()
+        self.items.append(tuple(t.detach() for t in outs))
+        return outs
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """``(out, lse)``, both differentiable, with the flash backward
     kernels (``flash_attention.py:539-569``): residuals q, k, v, out,
     lse; the lse cotangent folds into ``delta`` (``:449-453``); ``nq``
-    Q blocks select #6 (``nq <= 1``) or #7 + #8."""
+    Q blocks select #6 (``nq <= 1``) or #7 + #8. ``saved`` (a
+    :class:`SavedAttention`) keeps out and lse for a recompute, as the
+    JAX hook names both (``flash_attention.py:545-556``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, nq):
-        out, lse = attention_fwd(q, k, v, causal=causal, scale=scale,
+    def forward(ctx, q, k, v, causal, scale, nq, saved=None):
+        def run():
+            return attention_fwd(q, k, v, causal=causal, scale=scale,
                                  return_lse=True)
+
+        out, lse = run() if saved is None else saved.forward(run)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale, ctx.nq = causal, scale, nq
         ctx.set_materialize_grads(False)
@@ -348,18 +375,25 @@ class FlashAttentionFunction(torch.autograd.Function):
         else:
             dq = attention_bwd_dq(*args)
             dk, dv = attention_bwd_dkv(*args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 class FoldedAttentionFunction(torch.autograd.Function):
     """``out`` with the folded backward kernel (``folded_attention.py:
     132-194``): residuals q, k, v alone; the backward recomputes the
-    softmax."""
+    softmax. ``saved`` keeps ``out`` for a recompute: the JAX hook names
+    q, k and v (``:155-167``), which spares XLA the projection in its
+    recompute; an eager recompute runs the projection regardless, so the
+    port keeps the output, which spares the forward kernel as the flash
+    path's out and lse do."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, _ = attention_fwd(q, k, v, causal=causal, scale=scale,
-                               return_lse=False)
+    def forward(ctx, q, k, v, causal, scale, saved=None):
+        def run():
+            return attention_fwd(q, k, v, causal=causal, scale=scale,
+                                 return_lse=False)[:1]
+
+        (out,) = run() if saved is None else saved.forward(run)
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.scale = causal, scale
         return out
@@ -369,13 +403,14 @@ class FoldedAttentionFunction(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = folded_attention_bwd(q, k, v, g_out, ctx.causal,
                                           ctx.scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None,
                     block_q: int = DEFAULT_BLOCK_Q,
-                    block_k: int = DEFAULT_BLOCK_K):
+                    block_k: int = DEFAULT_BLOCK_K,
+                    saved: Optional[SavedAttention] = None):
     """``(out [B, Sq, H, D], lse [B, Sq, H] f32)``: the flash entry. The
     blocks only decide, as in the JAX package, whether the backward is
     the single pass (one Q block) or the two passes."""
@@ -383,15 +418,16 @@ def flash_attention(q, k, v, causal: bool = False,
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     block_q, _ = _resolve_blocks(sq, k.shape[1], block_q, block_k)
     return FlashAttentionFunction.apply(q, k, v, bool(causal), float(scale),
-                                        sq // block_q)
+                                        sq // block_q, saved)
 
 
 def folded_attention(q, k, v, causal: bool = False,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None,
+                     saved: Optional[SavedAttention] = None):
     """``out [B, S, H, D]``: the folded entry (no lse)."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     return FoldedAttentionFunction.apply(q, k, v, bool(causal),
-                                         float(scale))
+                                         float(scale), saved)
 
 
 def _resolve_blocks(sq, sk, block_q, block_k):

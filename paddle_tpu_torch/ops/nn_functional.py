@@ -64,6 +64,19 @@ def plain_mode() -> bool:
     return getattr(_MODE, "plain", False)
 
 
+@contextlib.contextmanager
+def saved_attention(saved):
+    """Hand the attention kernels' forward outputs of this thread to
+    ``saved`` (a ``kernels.attention.SavedAttention``, or None for none)
+    for the duration: the remat segments of ``remat_save_attention``."""
+    prev = getattr(_MODE, "saved", None)
+    _MODE.saved = saved
+    try:
+        yield
+    finally:
+        _MODE.saved = prev
+
+
 def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda and not plain_mode()
 
@@ -132,12 +145,14 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     if (_on_card(q) and (allowed or folded_allowed) and attn_mask is None
             and (not is_causal or q.shape[1] == k.shape[1])
             and (dropout_p == 0.0 or not training)):
+        saved = getattr(_MODE, "saved", None)
         if folded_allowed and folded_attention_supported(
                 q.shape, k.shape, is_causal):
-            return folded_attention(q, k, v, causal=is_causal, scale=scale)
+            return folded_attention(q, k, v, causal=is_causal, scale=scale,
+                                    saved=saved)
         if allowed and flash_attention_supported(q.shape, k.shape):
-            return flash_attention(q, k, v, causal=is_causal,
-                                   scale=scale)[0]
+            return flash_attention(q, k, v, causal=is_causal, scale=scale,
+                                   saved=saved)[0]
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)

@@ -1,7 +1,16 @@
-"""Optimizers and gradient clipping of the port (``paddle_tpu.optimizer``)."""
+"""Optimizers, learning-rate schedulers and gradient clipping of the
+port (``paddle_tpu.optimizer``)."""
 
-from .clip import ClipGradByGlobalNorm, GradClipBase
-from .optimizer import Adam, AdamW, Optimizer, load_jax_optimizer_state
+from . import lr
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   GradClipBase)
+from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
+                        DecayedAdagrad, Dpsgd, Ftrl, Lamb, LarsMomentum,
+                        Momentum, Optimizer, RMSProp, Rprop,
+                        load_jax_optimizer_state)
 
-__all__ = ["Adam", "AdamW", "ClipGradByGlobalNorm", "GradClipBase",
-           "Optimizer", "load_jax_optimizer_state"]
+__all__ = ["SGD", "Adadelta", "Adagrad", "Adam", "Adamax", "AdamW",
+           "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+           "DecayedAdagrad", "Dpsgd", "Ftrl", "GradClipBase", "Lamb",
+           "LarsMomentum", "Momentum", "Optimizer", "RMSProp", "Rprop",
+           "load_jax_optimizer_state", "lr"]

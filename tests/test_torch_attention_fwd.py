@@ -288,3 +288,68 @@ def test_chip_smoke_bound_in_bf16_runs_at_the_bf16_rate():
     ms, by = cs.bound_ms(nbytes, flops, "bf16")
     assert by == "bf16"
     assert ms == pytest.approx(flops / 989e12 * 1e3)
+
+
+# -- chip_smoke.py's bf16 check of the forward -------------------------------
+
+def _fwd_case(cs, s, seed, v_scale):
+    """bf16 q, k, v as chip_smoke's bf16 forward checks make them (B=1,
+    H=16, D=128, slices of one fused projection, v scaled), from a CPU
+    generator."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = cs._qkv(torch, gen, torch.device("cpu"), 1, s, s, 16, 128,
+                      torch.bfloat16)
+    v.mul_(v_scale)
+    return q, k, v
+
+
+def _f64_forward(q, k, v):
+    """The causal forward in f64 from the same bf16 inputs: the value
+    every f32 sum order approximates."""
+    q, k, v = (t.double() for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    n = q.shape[1]
+    s = s.masked_fill(torch.arange(n)[None, :] > torch.arange(n)[:, None],
+                      -math.inf)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_bf16_forward_limit_after_rounding_refuses_the_exact_output(seed):
+    """Why chip_smoke holds the forward's bf16 output to its 5e-3 before
+    the rounding: at |out| >= 1 an ulp is 2^-7, so the exact output,
+    rounded to bf16, lies an ulp from the plain version's rounded f32
+    output in some element, beyond the limit; taken before the rounding,
+    the limit passes it."""
+    cs = _chip_smoke()
+    q, k, v = _fwd_case(cs, 512, seed, 4.0)
+    plain32, _ = tat.attention_reference(q.float(), k.float(), v.float(),
+                                         causal=True)
+    exact = _f64_forward(q, k, v).to(torch.bfloat16)
+    tol = cs.BF16_ATOL["attention_fwd"]
+    assert "attention_fwd" in cs.BF16_BEFORE_ROUNDING
+    assert cs.max_err(exact, plain32.to(torch.bfloat16)) > tol
+    assert cs.rounded_from(exact, plain32, tol)
+
+
+@pytest.mark.parametrize("s,seed,v_scale,one_refused", [
+    (512, 0, 4.0, True), (512, 1, 4.0, True), (200, 2, 4.0, True),
+    (512, 0, 1.0, False)])
+def test_bf16_forward_check_takes_two_term_p_refuses_one_term(
+        s, seed, v_scale, one_refused):
+    """The check passes the kernel's design (P as two bf16 terms) and,
+    with v four times larger (chip_smoke's ``S=512 v x4`` case), refuses
+    one bf16 term; on unit-variance values one term stays inside 5e-3
+    before the rounding, which is why that case exists."""
+    cs = _chip_smoke()
+    q, k, v = _fwd_case(cs, s, seed, v_scale)
+    plain32, _ = tat.attention_reference(q.float(), k.float(), v.float(),
+                                         causal=True)
+    tol = cs.BF16_ATOL["attention_fwd"]
+    two = cs.bf16_terms_fwd(torch, 2, q, k, v, True)
+    one = cs.bf16_terms_fwd(torch, 1, q, k, v, True)
+    assert two.dtype == one.dtype == torch.bfloat16
+    assert cs.rounded_from(two, plain32, tol)
+    assert cs.rounded_from(one, plain32, tol) is not one_refused
+    assert any(c[0] == "S=512 v x4" and c[4] == 4.0
+               for c in cs.BF16_FWD_CASES)

@@ -53,6 +53,8 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "import paddle_tpu_torch.serving.server\n"
         "import paddle_tpu_torch.ops.kernels\n"
         "import paddle_tpu_torch.jit, paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.regularizer, paddle_tpu_torch.core.flags\n"
+        "import paddle_tpu_torch.ops.kernels.optimizer_update\n"
         "import paddle_tpu_torch.core.rng\n"
         "import paddle_tpu_torch.vision.models\n"
         "import paddle_tpu_torch.inference.fusion\n"

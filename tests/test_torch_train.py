@@ -299,11 +299,9 @@ def test_dropout_keeps_the_jax_semantics():
                                   mode="downscale_in_infer"), x * 0.75)
 
 
-@pytest.mark.parametrize("field", ["remat_save_attention", "moe_experts",
-                                   "seq_parallel_mode"])
+@pytest.mark.parametrize("field", ["moe_experts", "seq_parallel_mode"])
 def test_unported_training_options_raise(field):
-    value = {"remat_save_attention": True, "moe_experts": 4,
-             "seq_parallel_mode": "ring"}[field]
+    value = {"moe_experts": 4, "seq_parallel_mode": "ring"}[field]
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tgpt.gpt_tiny(**{field: value})
 
