@@ -24,10 +24,25 @@ appends update the pool tensors in place (``index_put_`` in
 through the streaming lm-head argmax; ``fused_step=False`` runs the
 unfused ops. Greedy tokens are identical either way on the CPU.
 
+Serving hooks (each off by default):
+
+- ``prefix_cache``: refcounted full-page sharing across requests
+  (``serving/prefix_cache.py``). Admission reuses the cached prefix
+  pages and prefills only the suffix (the chained prefill: the slot
+  starts at the cached length and attends the stored prefix through the
+  paged reference); a finished prefill's full prompt pages move into the
+  cache. With spill tiers the cache restores evicted pages through
+  ``_read_page`` / ``_splice_page``.
+- ``prefill_retry``: a ``distributed/resilience.py`` RetryPolicy
+  retrying transient prefill failures at the ``serving.prefill`` site.
+- fault sites (``distributed/fault_inject.py``): ``engine.step`` first
+  thing in ``step()``, ``serving.prefill`` inside the prefill call,
+  ``alloc.page`` in the allocator; ``dump_inflight`` and
+  ``set_on_complete`` serve the server's resurrection replay.
+
 Not ported yet (the constructor raises ``NotImplementedError``, see
-ROADMAP.md): the prefix cache, speculative decoding, chunked prefill,
-multi-step decode, tensor-parallel meshes, forecast admission, weight
-hot-swap and prefill retry policies.
+ROADMAP.md): speculative decoding, chunked prefill, multi-step decode,
+tensor-parallel meshes, forecast admission and weight hot-swap.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ import numpy as np
 import torch
 
 from ..device import module_device, resolve_device
+from ..distributed.fault_inject import InjectedFault, fault_point
 
 __all__ = ["PageAllocator", "DecodeRequest", "RequestStats",
            "ContinuousBatchingEngine", "create_decode_engine"]
@@ -77,6 +93,9 @@ class PageAllocator:
         return sum(self._reserved.values())
 
     def alloc(self, owner: Hashable, n: int) -> Optional[List[int]]:
+        # chaos site: a transient allocation failure, raised before any
+        # mutation; admission treats it as a non-fit and requeues
+        fault_point("alloc.page")
         if n > self.free_count:
             return None
         pages = [self._free.pop() for _ in range(n)]
@@ -87,6 +106,7 @@ class PageAllocator:
 
     def reserve(self, owner: Hashable, n: int) -> bool:
         """All-or-nothing capacity claim (no physical pages bound)."""
+        fault_point("alloc.page")
         if n > self.free_count:
             return False
         if n:
@@ -167,19 +187,28 @@ class PageAllocator:
         return {k: tuple(v) for k, v in self._owned.items()}
 
     def occupancy(self) -> Dict[str, int]:
-        """Pool breakdown (``inflight`` / ``reserved`` / ``free``),
-        summing to ``num_pages``; retries the benign dict-iteration race
-        with the engine thread."""
-        infl = reserved = 0
+        """Pool breakdown by owner class: ``inflight`` (request-owned),
+        ``prefix_device`` (prefix-cache chains), ``reserved`` and
+        ``free``, summing to ``num_pages``; retries the benign
+        dict-iteration race with the engine thread."""
+        infl = pfx = reserved = 0
         for _ in range(3):
+            infl = pfx = reserved = 0
             try:
-                infl = sum(len(p) for p in list(self._owned.values()))
+                for owner, pages in list(self._owned.items()):
+                    kind = owner[0] if isinstance(owner, tuple) and \
+                        owner else None
+                    if kind == "prefix":
+                        pfx += len(pages)
+                    else:
+                        infl += len(pages)
                 reserved = self.reserved_total
                 break
             except RuntimeError:
                 continue
-        free = max(0, self.num_pages - infl - reserved)
-        return {"inflight": infl, "reserved": reserved, "free": free}
+        free = max(0, self.num_pages - infl - pfx - reserved)
+        return {"inflight": infl, "prefix_device": pfx,
+                "reserved": reserved, "free": free}
 
     def check_no_leak(self) -> None:
         if self._owned or self._reserved or \
@@ -200,7 +229,8 @@ class PageAllocator:
 class RequestStats:
     """Per-request serving telemetry (time.monotonic timestamps), the
     record ``serving/metrics.py`` aggregates. Fields of features not yet
-    ported (prefix cache, speculation) stay at their defaults."""
+    ported (handoff, chunked prefill, speculation) stay at their
+    defaults."""
 
     submit_t: float = 0.0
     admit_t: float = 0.0
@@ -286,6 +316,7 @@ class DecodeRequest:
     state: str = "queued"
     stats: RequestStats = dataclasses.field(default_factory=RequestStats)
     on_token: Optional[Callable[[int, int, bool], None]] = None
+    cache_keys: Tuple[Hashable, ...] = ()   # prefix-cache chain refs held
     bypass_count: int = 0             # times a later request jumped us
     # absolute time.monotonic() deadline (None = no deadline)
     deadline_t: Optional[float] = None
@@ -307,7 +338,9 @@ class ContinuousBatchingEngine:
 
     ``num_pages`` sizes the shared pool; with fewer pages than
     ``num_slots * max_pages`` admission blocks on the free list and
-    pages are recycled between requests."""
+    pages are recycled between requests. ``prefix_cache``: a
+    :class:`~..serving.prefix_cache.PrefixCache` of the same page size;
+    ``prefill_retry``: a RetryPolicy for the ``serving.prefill`` site."""
 
     def __init__(self, model, num_slots: int = 4, page_size: int = 64,
                  max_seq_len: Optional[int] = None,
@@ -328,8 +361,6 @@ class ContinuousBatchingEngine:
                  multi_step: int = 1, forecast_admission: bool = False,
                  weight_generation: int = 0):
         for name, val, off in (
-                ("prefix_cache", prefix_cache, None),
-                ("prefill_retry", prefill_retry, None),
                 ("speculative", speculative, None),
                 ("mesh", mesh, None),
                 ("prefill_chunk_tokens", prefill_chunk_tokens, None),
@@ -399,6 +430,18 @@ class ContinuousBatchingEngine:
         self._next_id = 0
         self.steps = 0
         self._scheduler = scheduler
+        cache_ps = getattr(prefix_cache, "page_size", None)
+        if cache_ps is not None and int(cache_ps) != self.page_size:
+            # fail at construction, not as a page leak after the first
+            # prefill's insert()
+            raise ValueError(
+                f"prefix_cache.page_size {cache_ps} != engine "
+                f"page_size {self.page_size}")
+        self._prefix_cache = prefix_cache
+        if getattr(prefix_cache, "tiers", None):
+            prefix_cache.attach_device_io(self._read_page,
+                                          self._splice_page)
+        self._prefill_retry = prefill_retry
         self._on_complete = on_complete
         self.max_prefill_attempts = int(max_prefill_attempts)
         self.stall_timeout_s = (None if stall_timeout_s is None
@@ -418,9 +461,11 @@ class ContinuousBatchingEngine:
                eos_token: Optional[int] = None, priority: int = 1,
                on_token: Optional[Callable[[int, int, bool], None]] = None,
                deadline_t: Optional[float] = None,
-               trace_ctx: Optional[Dict] = None) -> int:
-        """Queue a request; returns its id. ``trace_ctx``: an upstream
-        trace context that forces sampling."""
+               trace=None, trace_ctx: Optional[Dict] = None) -> int:
+        """Queue a request; returns its id. ``trace``: an existing
+        RequestTrace to continue (the server's resurrection replay
+        resubmits an in-flight request onto its tree); ``trace_ctx``: an
+        upstream trace context that forces sampling."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) + max_new_tokens > self.max_seq_len:
             raise ValueError(
@@ -452,8 +497,8 @@ class ContinuousBatchingEngine:
         req.stats.submit_t = time.monotonic()
         req.stats.prompt_len = len(prompt)
         self._next_id += 1
-        tr = None
-        if self._tracer is not None:
+        tr = trace
+        if tr is None and self._tracer is not None:
             if trace_ctx is not None:
                 tr = self._tracer.start(
                     "request", ctx=trace_ctx, req_id=req.req_id,
@@ -516,28 +561,119 @@ class ContinuousBatchingEngine:
         return fused_sample_token(hidden_or_logits.contiguous(), w, 0.0,
                                   transpose_y=ty, bias=bias)
 
-    def _run_prefill(self, row: np.ndarray, ids: np.ndarray,
-                     plen: int) -> int:
-        """One fresh-slot prefill of the bucket-padded ``ids`` [1,
-        bucket]; writes the prompt's KV into the slot's pages and returns
-        the first generated token."""
+    def _run_prefill(self, row: np.ndarray, ids: np.ndarray, plen: int,
+                     cached_len: int = 0) -> int:
+        """One slot prefill of the bucket-padded ``ids`` [1, bucket]
+        holding ``plen`` real tokens; writes their KV into the slot's
+        pages and returns the first generated token. ``cached_len`` > 0
+        is the chained prefill (``gpt.py:798-874``): the slot already
+        holds that many tokens in shared prefix pages, the suffix's
+        positions start there and it attends the stored prefix through
+        the paged reference, writing only past ``cached_len``."""
         dev = self.device
         table = torch.from_numpy(row[None]).to(dev)
-        lens = torch.zeros((1,), dtype=torch.int32, device=dev)
+        lens = torch.tensor([cached_len], dtype=torch.int32, device=dev)
         plen_t = torch.tensor([plen], dtype=torch.int32, device=dev)
         ids_t = torch.from_numpy(ids).to(dev)
+        chained = cached_len > 0
         hp = self._fused_head()
         with torch.no_grad():
             caches = self._caches(table, lens)
             if hp is not None:
                 hidden, _ = self.model.decode_hidden(
-                    ids_t, caches, prefill_lens=plen_t, fused=True)
+                    ids_t, caches, prefill_lens=plen_t,
+                    prefill_chained=chained, fused=True)
                 nxt = self._sample(hidden[:1, plen - 1], hp)
             else:
-                logits, _ = self.model.forward(ids_t, caches=caches,
-                                               prefill_lens=plen_t)
+                logits, _ = self.model.forward(
+                    ids_t, caches=caches, prefill_lens=plen_t,
+                    prefill_chained=chained)
                 nxt = self._sample(logits[:1, plen - 1], None)
         return int(nxt[0].item())
+
+    def _host(self, shape, dtype) -> torch.Tensor:
+        """A host staging buffer: page-locked when the pools are on the
+        card, so a copy to or from it is one DMA at the link's rate
+        (PyTorch's host allocator caches these blocks)."""
+        return torch.empty(shape, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    @staticmethod
+    def _as_numpy(host: torch.Tensor) -> np.ndarray:
+        """A numpy view of a host buffer; bf16 as the prefix cache's
+        ``BF16`` bit patterns (numpy has no bfloat16)."""
+        if host.dtype == torch.bfloat16:
+            from ..serving.prefix_cache import BF16
+            return host.view(torch.int16).numpy().view(BF16)
+        return host.numpy()
+
+    def _read_page(self, page: int) -> List[Tuple]:
+        """Copy one pool page to the host for the prefix cache's spill
+        tier: per layer (k, v, k_scale, v_scale) numpy blocks. All
+        layers are gathered into one device buffer (the scales' bytes
+        after the pages' for int8 pools) and copied in ONE transfer with
+        one synchronize, not one copy a layer. bf16 pages come back as
+        their bytes, in the prefix cache's ``BF16`` dtype."""
+        if self.ledger is not None:
+            self.ledger.record("spill", None, pages=[int(page)])
+        p, nl = self._pools, self._nl
+        with torch.no_grad():
+            kv = torch.stack([t[page] for t in p["k"] + p["v"]])
+            if not self.kv_int8:
+                host = self._host(kv.shape, kv.dtype)
+                host.copy_(kv)
+                host = self._as_numpy(host)
+                return [(host[i], host[nl + i], None, None)
+                        for i in range(nl)]
+            sc = torch.stack([t[page] for t in p["ks"] + p["vs"]])
+            flat = torch.cat([kv.reshape(-1).view(torch.uint8),
+                              sc.reshape(-1).view(torch.uint8)])
+            host = self._host(flat.shape, torch.uint8)
+            host.copy_(flat)
+            raw = host.numpy()
+        nkv = kv.numel() * kv.element_size()
+        kvh = raw[:nkv].view(np.int8).reshape(tuple(kv.shape))
+        sch = raw[nkv:].view(np.float32).reshape(tuple(sc.shape))
+        return [(kvh[i], kvh[nl + i], sch[i], sch[nl + i])
+                for i in range(nl)]
+
+    def _splice_page(self, pages: Sequence[int],
+                     layers_list: Sequence[Sequence[Tuple]]) -> None:
+        """Restore a run of spilled pages in one call: gather the
+        per-page, per-layer host blocks into one staging buffer a kind
+        ([nl, n, page, ...], one host copy), copy each to the device
+        once and write every pool in place (``models/gpt.py``
+        ``paged_page_splice``)."""
+        from ..models.gpt import paged_page_splice
+        from ..serving.prefix_cache import BF16
+
+        def stack(idx):
+            first = layers_list[0][0][idx]
+            host = self._host(
+                (self._nl, len(layers_list)) + first.shape,
+                torch.bfloat16 if first.dtype == BF16 else
+                torch.from_numpy(np.empty(0, first.dtype)).dtype)
+            out = self._as_numpy(host)
+            for j, layers in enumerate(layers_list):
+                for i in range(self._nl):
+                    out[i, j] = layers[i][idx]
+            return host.to(self.device, non_blocking=True)
+
+        if self.ledger is not None:
+            self.ledger.record("splice", None,
+                               pages=[int(p) for p in pages])
+        t0 = time.monotonic()
+        k, v = stack(0), stack(1)
+        ks = vs = None
+        if self.kv_int8:
+            ks, vs = stack(2), stack(3)
+        idx = torch.as_tensor(np.asarray(pages, np.int64),
+                              device=self.device)
+        with torch.no_grad():
+            paged_page_splice(self._pools, idx, k, v, ks, vs)
+        self._launched("restore")
+        self._tl_ms["splice_ms"] = (self._tl_ms.get("splice_ms", 0.0)
+                                    + (time.monotonic() - t0) * 1e3)
 
     def _run_decode(self, table: np.ndarray, lens: np.ndarray
                     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -615,8 +751,17 @@ class ContinuousBatchingEngine:
         return self.prompt_buckets[-1]
 
     def _fits(self, req: DecodeRequest) -> bool:
+        """Could ``req`` be admitted now? Free pages plus what the prefix
+        cache could evict, excluding the entries the request's own match
+        would pin (``continuous_batching.py:1956-1992``); ``match``
+        memoizes the chain hashes on the request."""
         need = -(-(len(req.prompt) + req.max_new_tokens) // self.page_size)
-        return need <= self.allocator.free_count
+        avail = self.allocator.free_count
+        if self._prefix_cache is not None:
+            keys, shared = self._prefix_cache.match(req.prompt, memo=req)
+            need -= len(shared)
+            avail += self._prefix_cache.evictable_pages(excluding=keys)
+        return need <= avail
 
     def _select_next(self) -> Optional[DecodeRequest]:
         if not self._queue:
@@ -637,6 +782,12 @@ class ContinuousBatchingEngine:
         for req in doomed:
             self._terminate_queued(req, "shed")
         return doomed
+
+    def set_on_complete(self, fn: Optional[Callable[["DecodeRequest"],
+                                                    None]]) -> None:
+        """Swap the completion hook (the server detaches it before a
+        resurrection's teardown)."""
+        self._on_complete = fn
 
     def _notify_complete(self, req: DecodeRequest) -> None:
         tr = req.trace
@@ -669,6 +820,7 @@ class ContinuousBatchingEngine:
             req.page_forensics = self.ledger.history_for_owner(req.req_id)
         with self._led(state, req.req_id):
             self.allocator.free(req.req_id)
+            self._release_cache_keys(req)
         req.state = state
         req.done = True
         req.stats.finish_t = time.monotonic()
@@ -684,10 +836,19 @@ class ContinuousBatchingEngine:
         req.stats.finish_t = time.monotonic()
         self._notify_complete(req)
 
+    def _release_cache_keys(self, req: DecodeRequest) -> None:
+        """Drop the request's prefix-cache pins (matched at admission,
+        or the whole inserted chain); every exit path calls this."""
+        if self._prefix_cache is not None and req.cache_keys:
+            self._prefix_cache.release(req.cache_keys)
+        req.cache_keys = ()
+
     def _deadline_hopeless(self, req: DecodeRequest, now: float) -> bool:
         """True when the request cannot finish before its deadline:
         already expired, or its best-case remaining decode steps at the
-        observed step time overshoot it."""
+        observed step time overshoot it. The JAX gate charges the prefix
+        cache's hit only to the prefill chunks of chunked mode, which is
+        not ported, so no cache term applies here."""
         if req.deadline_t is None:
             return False
         if now >= req.deadline_t:
@@ -729,6 +890,14 @@ class ContinuousBatchingEngine:
                 out.append(self._evict_slot(slot, "stalled"))
         return out
 
+    def dump_inflight(self) -> List[DecodeRequest]:
+        """Every request the engine still owes an answer (active slots
+        and the wait queue) in submission order: the resurrection input.
+        Each one's prompt plus emitted tokens rebuilds its KV on a fresh
+        engine by one prefill. Releases nothing; close() tears down."""
+        live = [r for r in self._slots if r is not None]
+        return sorted(live + list(self._queue), key=lambda r: r.req_id)
+
     def _admit(self) -> None:
         self._shed_overloaded()
         for slot in range(self.num_slots):
@@ -760,6 +929,7 @@ class ContinuousBatchingEngine:
         fail it typed after ``max_prefill_attempts``."""
         with self._led("prefill_unwind", req.req_id):
             self.allocator.free(req.req_id)
+            self._release_cache_keys(req)
         self._park(slot)
         req.slot = None
         req.stats.prefill_attempts += 1
@@ -779,14 +949,67 @@ class ContinuousBatchingEngine:
 
     def _admit_into(self, slot: int, req: DecodeRequest
                     ) -> Optional[bool]:
-        """Admit ``req`` into ``slot``: True on a committed admission,
-        False when it does not fit (stop admitting this step), None when
-        its deadline expired during the prefill (unwound typed)."""
+        """Admit ``req`` into ``slot`` (``continuous_batching.py:
+        2351-2607``): True on a committed admission, False when it does
+        not fit (stop admitting this step), None when its deadline
+        expired during the prefill (unwound typed).
+
+        With a prefix cache: match, then pin the matched chain before
+        anything is allocated (neither a restore's eviction pressure nor
+        the fallback below may reclaim those pages); extend the match
+        from the spill tiers; allocate the private pages, evicting
+        refcount-0 entries if the free list is short; build the table
+        row with the shared pages first; prefill only the suffix
+        (chained when something was cached); hand the full prompt pages
+        to the cache after a successful prefill."""
+        cache = self._prefix_cache
         tr = req.trace
+        keys: Tuple[Hashable, ...] = ()
+        shared: List[int] = []
+        device_hits = 0
+        if cache is not None:
+            keys, shared = cache.match(req.prompt, memo=req)
+            device_hits = len(keys)
+            cache.acquire(keys)
+            if cache.spill_enabled:
+                rsp = (tr.begin("restore", parent=tr.anchor)
+                       if tr is not None else None)
+                with self._led("restore", req.req_id):
+                    rkeys, rpages, rinfo = cache.restore_from_spill(
+                        req.prompt, keys, self.allocator, memo=req)
+                if rkeys and self.ledger is not None:
+                    self.ledger.record("restore", req.req_id,
+                                       pages=rpages)
+                if tr is not None:
+                    tr.end(rsp, pages=len(rkeys),
+                           corrupt=rinfo.get("corrupt", 0))
+                if rkeys:
+                    cache.acquire(rkeys)
+                    keys = tuple(keys) + rkeys
+                    shared = list(shared) + rpages
+                if rkeys or rinfo.get("corrupt"):
+                    st = req.stats
+                    st.restored_pages += len(rkeys)
+                    st.restored_host_pages += rinfo.get("host", 0)
+                    st.restored_disk_pages += rinfo.get("disk", 0)
+                    st.restore_corrupt += rinfo.get("corrupt", 0)
+                    st.restore_ms += rinfo.get("ms", 0.0)
+        cached_len = len(shared) * self.page_size
         need = -(-(len(req.prompt) + req.max_new_tokens) // self.page_size)
-        with self._led("admit", req.req_id):
-            pages = self.allocator.alloc(req.req_id, need)
+        private_need = need - len(shared)
+        try:
+            with self._led("admit", req.req_id):
+                pages = self.allocator.alloc(req.req_id, private_need)
+                if pages is None and cache is not None and \
+                        cache.evict_until(self.allocator, private_need):
+                    pages = self.allocator.alloc(req.req_id, private_need)
+        except InjectedFault:
+            # armed alloc.page: a transient allocation failure is a
+            # non-fit (alloc raises before it mutates anything)
+            pages = None
         if pages is None:
+            if cache is not None:
+                cache.release(keys)
             self._queue.insert(0, req)
             return False
         req.stats.admit_t = time.monotonic()
@@ -797,28 +1020,47 @@ class ContinuousBatchingEngine:
             if explain is not None:
                 exp = dict(explain(req, req.stats.admit_t))
             self._tr_end(req, bypass_count=req.bypass_count, **exp)
+        req.stats.cached_pages = len(shared)
+        req.stats.cached_tokens = cached_len
         req.stats.prompt_pages = (len(req.prompt) - 1) // self.page_size
+        req.stats.cache_enabled = cache is not None
+        req.cache_keys = keys
         req.state = "prefill"
         row = np.full((self.max_pages,), self._scratch, np.int32)
-        row[:len(pages)] = pages
+        row[:len(shared)] = shared
+        row[len(shared):len(shared) + len(pages)] = pages
         self._table[slot] = row
-        plen = len(req.prompt)
+        suffix = req.prompt[cached_len:]
+        plen = len(suffix)
         bucket = self._bucket(plen)
         ids = np.zeros((1, bucket), np.int32)
-        ids[0, :plen] = req.prompt
-        sp_pref = (tr.begin("prefill", parent=tr.anchor, bucket=bucket)
+        ids[0, :plen] = suffix
+        chained = cached_len > 0
+        sp_pref = (tr.begin("prefill", parent=tr.anchor, bucket=bucket,
+                            chained=chained, cached_pages=len(shared))
                    if tr is not None else None)
+
+        def run_prefill():
+            fault_point("serving.prefill")
+            return self._run_prefill(row, ids, plen, cached_len)
+
         t0 = time.monotonic()
         try:
-            nxt = self._run_prefill(row, ids, plen)
+            if self._prefill_retry is not None:
+                nxt = self._prefill_retry.call(run_prefill,
+                                               site="serving.prefill")
+            else:
+                nxt = run_prefill()
         except Exception:
             # unwind so the request is retryable and its pages do not
-            # leak, then surface the error
+            # leak, then surface the error. A prefill that failed
+            # partway may have written private pages; the shared ones
+            # hold positions below cached_len, which it never writes.
             if tr is not None:
                 tr.end(sp_pref, error=True)
             self._unwind_prefill_failure(slot, req)
             raise
-        self._launched("prefill")
+        self._launched("prefill_chained" if chained else "prefill")
         now = time.monotonic()
         req.stats.prefill_ms = (now - t0) * 1e3
         self._tl_ms["prefill_ms"] = (self._tl_ms.get("prefill_ms", 0.0)
@@ -836,6 +1078,7 @@ class ContinuousBatchingEngine:
                     req.req_id)
             with self._led("deadline", req.req_id):
                 self.allocator.free(req.req_id)
+                self._release_cache_keys(req)
             self._table[slot] = self._scratch
             req.state = "deadline"
             req.done = True
@@ -843,12 +1086,18 @@ class ContinuousBatchingEngine:
             self._notify_complete(req)
             return None
         req.stats.first_token_t = now
-        self._lens[slot] = plen
+        self._lens[slot] = len(req.prompt)
         self._cur[slot] = nxt
         req.slot = slot
         req.state = "decoding"
         req.generated.append(nxt)
         req.stats.tokens_out = 1
+        if cache is not None:
+            # the full prompt pages now hold valid KV: ownership moves to
+            # the cache, with this request's reference until it finishes
+            req.cache_keys = cache.insert(
+                req.prompt, row, self.allocator, req.req_id,
+                self.page_size, keys, device_hits=device_hits)
         self._slots[slot] = req
         if tr is not None:
             tr.event("first_token", parent=tr.anchor, token=nxt)
@@ -878,6 +1127,7 @@ class ContinuousBatchingEngine:
         self._account_req_pages(req)
         with self._led("done", req.req_id):
             self.allocator.free(req.req_id)
+            self._release_cache_keys(req)
         self._park(slot)
         self._notify_complete(req)
 
@@ -886,7 +1136,11 @@ class ContinuousBatchingEngine:
     def step(self) -> int:
         """Expire deadlines and stalls, admit what fits (prefilling each
         admission), run ONE decode step for every decoding slot, finish
-        what is done. Returns the number of still-active slots."""
+        what is done. Returns the number of still-active slots. The
+        ``engine.step`` fault site fires first, before admission and any
+        launch, so an injected failure leaves host and device state as
+        the previous step left them (what the server's replay needs)."""
+        fault_point("engine.step")
         self._tl_ms = {}
         if self.ledger is not None:
             self.ledger.step = self.steps
@@ -946,20 +1200,39 @@ class ContinuousBatchingEngine:
             if steps > max_steps:
                 raise RuntimeError(f"engine did not drain in {max_steps} "
                                    f"steps (state {before})")
-        self.allocator.check_no_leak()
+        if self._prefix_cache is None:
+            self.allocator.check_no_leak()
+        else:
+            # cached prefix pages outlive their requests: audit the
+            # cache's books against the allocator instead
+            self._prefix_cache.check_consistent(self.allocator)
         out = {rid: req.tokens for rid, req in self._finished.items()}
         self._finished.clear()
         return out
 
     def close(self) -> None:
         """Evict every active slot, drop every queued request, return
-        their pages and assert nothing leaked."""
+        their pages, clear the prefix cache (its pages and tier blobs)
+        and assert nothing leaked."""
         for slot, req in enumerate(self._slots):
             if req is not None:
                 self._evict_slot(slot, "evicted")
         for req in list(self._queue):
             self._terminate_queued(req, "evicted")
+        if self._prefix_cache is not None:
+            with self._led("close"):
+                self._prefix_cache.clear(self.allocator)
         self.allocator.check_no_leak()
+
+    def release_device(self) -> None:
+        """Drop the engine's device state, its KV pools, after
+        ``close()``: a rebuilt engine allocates its own, and must not
+        find the dead one's still held beside them. Detaches the prefix
+        cache's device IO too (through it the cache and the engine
+        reference each other). The engine cannot step afterwards."""
+        if getattr(self._prefix_cache, "tiers", None):
+            self._prefix_cache.attach_device_io(None, None)
+        self._pools = None
 
 
 def create_decode_engine(model, device=None,

@@ -208,6 +208,26 @@ def paged_kv_append(cache: PagedKVCache, k, v,
     return cache._replace(seq_lens=new_lens)
 
 
+def paged_page_splice(pools, page, k_blocks, v_blocks,
+                      ks_blocks=None, vs_blocks=None):
+    """Restore spilled prefix pages into the engine's per-layer pools
+    (``gpt.py:331-366``): layer i's blocks ``k_blocks[i]`` /
+    ``v_blocks[i]`` ([nl, n, page, H, D], plus [nl, n, page, H] scales
+    for int8 pools) go into every pool at the n page indices ``page``.
+    ``pools`` is the engine's ``{"k": [...], "v": [...], "ks": [...],
+    "vs": [...]}`` dict; each pool is updated in place (one
+    ``index_copy_`` a pool, :func:`NF.paged_page_splice`) and the same
+    dict is returned. The blocks arrive in the pool's layout: the blob
+    codecs decode on the host first."""
+    for kind, blocks in (("k", k_blocks), ("v", v_blocks),
+                         ("ks", ks_blocks), ("vs", vs_blocks)):
+        if blocks is None:
+            continue
+        for i, pool in enumerate(pools[kind]):
+            NF.paged_page_splice(pool, blocks[i], page)
+    return pools
+
+
 def _remat_block(block: nn.Module, x, save_attention: bool = False):
     """Run ``block`` under ``torch.utils.checkpoint`` (``gpt.py:663-686``):
     its activations are recomputed in backward instead of kept. With

@@ -214,6 +214,21 @@ def paged_attention_fused(q, k_pages, v_pages, page_table, seq_lens, w,
         k_scale=k_scale, v_scale=v_scale, scale=scale, q_offsets=q_offsets)
 
 
+def paged_page_splice(pool, block, page):
+    """Write restored page content into ``pool`` [P+1, page, ...] in
+    place at the page indices ``page`` (an int or [n] ints):
+    ``block`` is [page, ...] for one index or [n, page, ...] for n
+    (``nn_functional.py:943-953``; the JAX op returns an updated pool,
+    here ``index_copy_`` updates it, as the appends of
+    ``paged_kv_append`` do). Returns ``pool``."""
+    idx = torch.as_tensor(page, dtype=torch.long,
+                          device=pool.device).reshape(-1)
+    blk = block.to(device=pool.device, dtype=pool.dtype).reshape(
+        (idx.numel(),) + tuple(pool.shape[1:]))
+    pool.index_copy_(0, idx, blk)
+    return pool
+
+
 def fused_sample(hidden, weight, bias=None, transpose_y=False, top_k=None,
                  tile=2048):
     """Streaming lm-head sampling (``nn_functional.py:928-940``):

@@ -19,17 +19,37 @@ Typed failures are structured replies, never hangs: ``ServerOverloaded``
 (queue past the SLO scheduler's bounds), ``ServerDraining`` (a drained
 server rejects new generates), ``DeadlineExceeded`` (``deadline_ms``
 elapsed before completion), ``BadRequest`` (malformed input),
-``PrefillFailed``, ``RequestStalled``, ``ServerEvicted`` and
-``EngineFailed``.
+``TransientServerError`` (the ``serving.request`` fault site; retryable),
+``PrefillFailed``, ``RequestStalled``, ``ServerEvicted``, ``ReplayFailed``
+and ``EngineFailed``.
 
-This slice serves without a prefix cache: its behaviour is the JAX
-server's ``--no-prefix-cache``, whose greedy outputs are identical.
+The prefix cache is on by default, as in the JAX server
+(``--no-prefix-cache`` turns it off; greedy outputs are the same):
+requests sharing a prompt prefix share its full KV pages and prefill
+only the suffix. ``--spill-mb`` / ``--spill-dir`` add host-RAM and disk
+tiers that keep evicted prefix pages as crc-checked blobs and restore
+them on a later hit; ``--blob-format`` picks their codec.
+
+Engine resurrection: after ``max_engine_errors`` consecutive step
+failures the server tears the engine down (pages returned and audited),
+rebuilds it from the captured recipe (a fresh prefix cache with it) and
+replays every in-flight request as its prompt plus the tokens it already
+emitted, one prefill; greedy continuations equal the uninterrupted run
+(on the CPU bit for bit), so a client sees a pause. The reply reads as
+one generation (``stats.replayed``). Only after ``max_engine_restarts``
+resurrections does the server fail typed (``EngineFailed``).
+
+Fault sites (``distributed/fault_inject.py``): ``serving.request`` in
+the connection thread per generate, ``net.recv`` per received line (the
+connection is torn down), ``engine.step``, ``serving.prefill`` (retried
+by its site policy) and ``alloc.page`` in the engine, ``cache.spill`` in
+the prefix cache.
+
 Ops and flags not yet ported (``export``, ``slo``, ``trace``,
 ``capacity``, ``profile``, ``fetch_pages``, ``prefetch``, ``swap``;
-``--role``, ``--spill-*``, ``--speculate``, ``--mesh``, ...) are
-answered as the JAX server answers an unknown op or flag. Engine
-resurrection is not ported: after ``max_engine_errors`` consecutive
-step failures the server fails typed (``EngineFailed``).
+``--role``, ``--flight-*``, ``--weight-generation``, ``--no-dedup``,
+``--speculate``, ``--mesh``, ...) are answered as the JAX server answers
+an unknown op or flag.
 
 Threading: the ENGINE THREAD exclusively owns the engine and every CUDA
 launch (it sets the CUDA device first); connection threads parse
@@ -54,7 +74,10 @@ import numpy as np
 import torch
 
 from ..device import module_device, resolve_device
+from ..distributed.fault_inject import InjectedFault, fault_point
+from ..distributed.resilience import get_retry_policy
 from .metrics import ServingMetrics, SLOAttainment
+from .prefix_cache import PrefixCache
 from .scheduler import Priority, ServerOverloaded, SLOScheduler
 from .tracing import SpanTracer, stderr_span_sink
 
@@ -78,26 +101,30 @@ class ServingServer:
     """In-process serving front-end (tests construct it directly; the
     CLI entry below wraps it). ``engine_kwargs`` pass through to
     ``create_decode_engine`` (num_slots, page_size, num_pages, ...);
-    ``scheduler=None`` defaults to an ``SLOScheduler``. The model must
-    live on ``device`` (CUDA unless named)."""
+    ``scheduler=None`` defaults to an ``SLOScheduler``.
+    ``prefix_cache=True`` builds a ``PrefixCache`` of the engine's page
+    size (with the ``spill_*`` tiers and ``blob_format``)
+    with every engine; ``prefill_retry="site"`` resolves the
+    ``serving.prefill`` site policy. The model must live on ``device``
+    (CUDA unless named)."""
 
     def __init__(self, model, host: str = "127.0.0.1", port: int = 0,
-                 scheduler=None, prefix_cache: bool = False,
+                 scheduler=None, prefix_cache: bool = True,
                  metrics: Optional[ServingMetrics] = None,
-                 max_new_tokens_cap: int = 512,
+                 prefill_retry="site", max_new_tokens_cap: int = 512,
                  poll_interval_s: float = 0.02,
                  max_engine_errors: int = 32,
+                 max_engine_restarts: int = 2,
+                 spill_bytes: Optional[int] = None,
+                 spill_dir: Optional[str] = None,
+                 spill_disk_bytes: Optional[int] = None,
                  trace_sample: float = 0.0, trace_max: int = 64,
                  tracer: Optional[SpanTracer] = None,
                  slo_ttft_ms: Optional[float] = None,
                  slo_tpot_ms: Optional[float] = None,
                  slo_window_s: float = 120.0,
+                 blob_format: str = "raw",
                  device=None, **engine_kwargs):
-        from ..inference import create_decode_engine
-        if prefix_cache:
-            raise NotImplementedError(
-                "the prefix cache is not yet ported to paddle_tpu_torch, "
-                "see ROADMAP.md")
         self.device = resolve_device(device)
         if tracer is not None:
             self.tracer = tracer
@@ -115,15 +142,40 @@ class ServingServer:
         self.metrics = metrics if metrics is not None else ServingMetrics(
             slo=SLOAttainment(ttft_ms=slo_ttft_ms, tpot_ms=slo_tpot_ms,
                               window_s=slo_window_s))
-        self.engine = create_decode_engine(
-            model, device=self.device, scheduler=self.scheduler,
-            on_complete=self._on_complete, tracer=self.tracer,
-            **engine_kwargs)
+        # the resurrection recipe, captured once: a rebuild constructs an
+        # equivalent engine (fresh allocator, pools and prefix cache)
+        self._use_prefix_cache = bool(prefix_cache)
+        self._spill_bytes = spill_bytes
+        self._spill_dir = spill_dir
+        self._spill_disk_bytes = spill_disk_bytes
+        self._blob_format = str(blob_format)
+        self._page_size = int(engine_kwargs.get("page_size", 64))
+        if prefill_retry == "site":
+            prefill_retry = get_retry_policy("serving.prefill")
+        self._model = model
+        self._prefill_retry = prefill_retry
+        self._engine_kwargs = dict(engine_kwargs)
+        pb = self._engine_kwargs.get("prompt_buckets")
+        if pb:
+            # a replay prefills prompt + emitted tokens at once, so every
+            # length up to max_seq_len must have a bucket
+            msl = int(self._engine_kwargs.get("max_seq_len")
+                      or model.config.max_seq_len)
+            self._engine_kwargs["prompt_buckets"] = sorted(
+                set(int(x) for x in pb) | {msl})
+        self.prefix_cache: Optional[PrefixCache] = None
+        self.engine = self._build_engine()
         self.max_new_tokens_cap = int(max_new_tokens_cap)
         self.poll_interval_s = float(poll_interval_s)
         self.max_engine_errors = int(max_engine_errors)
+        self.max_engine_restarts = int(max_engine_restarts)
         self._consec_errors = 0
+        self._restarts = 0
         self._failed = False
+        # replay ledger: new req_id -> (original prompt, tokens delivered
+        # before the crash, the original request's stats); _on_complete
+        # stitches the reply and the telemetry back together
+        self._replay: Dict[int, tuple] = {}
         self.metrics.set_gauge_fn(self._gauges)
         self._inbox: "queue_mod.Queue[tuple]" = queue_mod.Queue()
         self._admission_lock = threading.Lock()
@@ -140,6 +192,27 @@ class ServingServer:
         self._conns_lock = threading.Lock()
         self._t0 = time.monotonic()
         self.port: Optional[int] = None
+
+    def _build_engine(self):
+        """(Re)build the decode engine from the captured recipe, with a
+        fresh prefix cache: a cache's books name pages of its engine's
+        allocator, so it never outlives that engine."""
+        from ..inference import create_decode_engine
+        self.prefix_cache = (
+            PrefixCache(self._page_size,
+                        spill_bytes=self._spill_bytes,
+                        spill_dir=self._spill_dir,
+                        disk_bytes=self._spill_disk_bytes,
+                        blob_format=self._blob_format)
+            if self._use_prefix_cache else None)
+        return create_decode_engine(
+            self._model, device=self.device, scheduler=self.scheduler,
+            prefix_cache=self.prefix_cache,
+            prefill_retry=self._prefill_retry,
+            on_complete=self._on_complete,
+            # the SAME tracer across resurrections: a replayed request's
+            # spans land on its original tree
+            tracer=self.tracer, **self._engine_kwargs)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -227,10 +300,12 @@ class ServingServer:
                 self._engine_done.set()
 
     def _engine_loop_inner(self) -> None:
-        eng = self.engine
         while True:
+            # re-read self.engine every turn: resurrection replaces it
+            eng = self.engine
             self._drain_inbox()
             if (eng.num_queued or eng.num_active) and not self._failed:
+                failed = resurrect = False
                 try:
                     before = eng.num_queued + eng.num_active
                     eng.step()
@@ -240,15 +315,36 @@ class ServingServer:
                         # queued but nothing admissible: don't hot-spin
                         time.sleep(self.poll_interval_s)
                 except Exception:
+                    # a failed prefill already unwound inside the engine;
+                    # a PERSISTENT step failure resurrects the engine
+                    # past max_engine_errors, and fails the server typed
+                    # once the restarts are spent too
                     self.metrics.counter("engine_errors_total").add()
+                    failed = True
                     self._consec_errors += 1
+                    # a failing step never reaches its own sweeps
                     try:
                         eng.expire_deadlines()
                         eng.evict_stalled()
                     except Exception:
                         pass
                     if self._consec_errors >= self.max_engine_errors:
+                        if self._restarts < self.max_engine_restarts:
+                            resurrect = True
+                        else:
+                            self._fail_engine()
+                # rebuild outside the handler: its traceback holds the
+                # failed step's frames, and with them the dead pools
+                if resurrect:
+                    try:
+                        self._resurrect_engine()
+                    except Exception:
+                        # the rebuild failed too (a sticky CUDA error
+                        # poisons every later launch): terminal and typed
+                        self.metrics.counter(
+                            "engine_resurrect_failures_total").add()
                         self._fail_engine()
+                if failed:
                     time.sleep(self.poll_interval_s)
                 continue
             if self._stopping and self._inbox.empty():
@@ -263,13 +359,109 @@ class ServingServer:
             self._wake.wait(timeout=self.poll_interval_s)
             self._wake.clear()
 
+    def _resurrect_engine(self) -> None:
+        """Recoverable engine death (engine thread; ``server.py:716-831``):
+        snapshot every request the dead engine owes an answer, tear it
+        down (pages returned and audited by ``close()``), rebuild it from
+        the recipe and replay each request as its prompt plus the tokens
+        it already emitted, one prefill, for its remaining tokens.
+        Requests still in the inbox go to the new engine as usual."""
+        self._restarts += 1
+        self.metrics.counter("engine_restarts_total").add()
+        old = self.engine
+        snapshot = old.dump_inflight()
+        self.tracer.annotate(
+            "resurrect",
+            rids=[(r.req_id, len(r.prompt), len(r.generated), r.state)
+                  for r in snapshot],
+            pending=sorted(self._pending), restarts=self._restarts)
+        # detach each trace before teardown: close() would finish the
+        # tree, and the replay must keep appending to it
+        saved_traces: Dict[int, Any] = {}
+        for req in snapshot:
+            tr = req.trace
+            if tr is None:
+                continue
+            if req.span is not None:
+                tr.end(req.span, state="resurrect")
+                req.span = None
+            tr.event("resurrect_replay", parent=tr.anchor,
+                     restarts=self._restarts,
+                     pre_tokens=len(req.generated))
+            saved_traces[req.req_id] = tr
+            req.trace = None
+        # teardown evictions are not replies the clients should see
+        old.set_on_complete(None)
+        try:
+            old.close()
+        except Exception:
+            self.metrics.counter("engine_teardown_leaks_total").add()
+        # the new engine's pools must not sit beside the dead one's
+        old.release_device()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.engine = self._build_engine()
+        for req in snapshot:
+            pending = self._pending.pop(req.req_id, None)
+            # compose across repeated resurrections: the snapshot's
+            # prompt may itself be a replay prompt
+            prior = self._replay.pop(req.req_id, None)
+            if prior is not None:
+                orig_prompt, pre, orig_stats = prior
+                pre = list(pre) + [int(t) for t in req.generated]
+            else:
+                orig_prompt = [int(t) for t in req.prompt]
+                pre = [int(t) for t in req.generated]
+                orig_stats = req.stats
+            replay_prompt = np.concatenate(
+                [req.prompt, np.asarray(req.generated, np.int32)])
+            remaining = req.max_new_tokens - len(req.generated)
+            on_token = None
+            if pending is not None and pending.stream:
+                def on_token(rid, tok, done, _p=pending):
+                    _p.outbox.put({"rid": rid, "token": int(tok),
+                                   "done": bool(done)})
+            try:
+                new_rid = self.engine.submit(
+                    replay_prompt, max_new_tokens=remaining,
+                    eos_token=req.eos_token, priority=req.priority,
+                    deadline_t=req.deadline_t, on_token=on_token,
+                    trace=saved_traces.get(req.req_id))
+            except Exception as e:
+                self.tracer.annotate(
+                    "replay_failed", old_rid=req.req_id,
+                    error=f"{type(e).__name__}: {e}")
+                tr = saved_traces.get(req.req_id)
+                if tr is not None:
+                    tr.event("complete", parent=tr.anchor,
+                             state="replay_failed")
+                    self.tracer.finish(tr, state="replay_failed")
+                if pending is not None:
+                    pending.outbox.put(
+                        {"error": "ReplayFailed",
+                         "reason": f"{type(e).__name__}: {e}"})
+                    pending.outbox.put(None)
+                continue
+            self.metrics.counter("replayed_requests_total").add()
+            self.tracer.annotate("replay", old_rid=req.req_id,
+                                 new_rid=new_rid,
+                                 pending=pending is not None)
+            self._replay[new_rid] = (orig_prompt, pre, orig_stats)
+            if pending is not None:
+                self._pending[new_rid] = pending
+        self._consec_errors = 0
+        self._wake.set()
+
     def _fail_engine(self) -> None:
-        """Terminal failure: answer every pending request with a typed
-        EngineFailed, return the engine's pages, stop admitting."""
+        """Terminal failure: answer every pending and inboxed request
+        with a typed EngineFailed, return the engine's pages, stop
+        admitting."""
         self._failed = True
         self._draining = True
         err = {"error": "EngineFailed",
-               "reason": "engine step failed repeatedly"}
+               "reason": f"decode engine failed {self._consec_errors} "
+                         f"consecutive steps after {self._restarts} "
+                         f"restart(s); server stopped admitting"}
         try:
             self.engine.close()
         except Exception:
@@ -278,6 +470,13 @@ class ServingServer:
             p.outbox.put(dict(err))
             p.outbox.put(None)
         self._pending.clear()
+        while True:
+            try:
+                _payload, p = self._inbox.get_nowait()
+            except queue_mod.Empty:
+                break
+            p.outbox.put(dict(err))
+            p.outbox.put(None)
 
     def _drain_inbox(self) -> None:
         while True:
@@ -320,18 +519,43 @@ class ServingServer:
             self._pending[rid] = pending
 
     def _on_complete(self, req) -> None:
-        """Engine callback: terminal state for a request (any state)."""
+        """Engine callback: terminal state for a request (any state). A
+        replayed request's reply and telemetry are stitched back into
+        one generation from the original submit."""
+        replay = self._replay.pop(req.req_id, None)
+        if replay is not None:
+            orig_prompt, pre, orig_stats = replay
+            st = req.stats
+            st.tokens_out = len(req.generated) + len(pre)
+            st.prompt_len = len(orig_prompt)
+            st.submit_t = orig_stats.submit_t
+            if orig_stats.admit_t:
+                st.admit_t = orig_stats.admit_t
+            if orig_stats.first_token_t:
+                st.first_token_t = orig_stats.first_token_t
+            if orig_stats.prefill_ms:
+                st.prefill_ms = orig_stats.prefill_ms
         self.metrics.observe_request(req)
         self.engine.result(req.req_id, pop=True)
         pending = self._pending.pop(req.req_id, None)
         if pending is None:
             return
         if req.state == "done":
+            tokens = [int(t) for t in req.tokens]
+            generated = [int(t) for t in req.generated]
+            stats = _json_stats(req.stats)
+            if replay is not None:
+                # original prompt, then the pre-crash tokens in front of
+                # the replayed continuation
+                orig_prompt, pre, _orig_stats = replay
+                generated = list(pre) + generated
+                tokens = list(orig_prompt) + generated
+                stats["tokens_out"] = len(generated)
+                stats["replayed"] = True
             msg: Dict[str, Any] = {
                 "rid": req.req_id, "done": True,
-                "tokens": [int(t) for t in req.tokens],
-                "generated": [int(t) for t in req.generated],
-                "stats": _json_stats(req.stats)}
+                "tokens": tokens, "generated": generated,
+                "stats": stats}
         elif req.state == "deadline":
             msg = {"rid": req.req_id, "error": "DeadlineExceeded",
                    "reason": "deadline_ms elapsed before completion",
@@ -388,6 +612,17 @@ class ServingServer:
 
         try:
             for line in rfile:
+                try:
+                    # chaos site: a torn receive; the connection dies
+                    # like a half-open TCP teardown
+                    fault_point("net.recv")
+                except InjectedFault:
+                    self.metrics.counter("net_recv_drops_total").add()
+                    try:
+                        conn.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
+                    break
                 line = line.strip()
                 if not line:
                     continue
@@ -424,7 +659,7 @@ class ServingServer:
         if op == "stats":
             eng = self.engine
             send({"stats": self.metrics.snapshot(),
-                  "prefix_cache": None,
+                  "prefix_cache": self._cache_stats(),
                   "step_timeline": eng.step_timeline()[-16:],
                   "programs_launched": dict(eng.programs_launched)})
             return
@@ -449,6 +684,13 @@ class ServingServer:
         if self._draining:
             send({"error": "ServerDraining",
                   "reason": "server is draining; not admitting"})
+            return
+        try:
+            # a transient front-end failure is a retryable typed reply
+            fault_point("serving.request")
+        except InjectedFault as e:
+            send({"error": "TransientServerError", "reason": str(e),
+                  "retryable": True})
             return
         prompt = msg.get("prompt")
         if not isinstance(prompt, list) or not prompt:
@@ -514,6 +756,7 @@ class ServingServer:
 
     def _health(self) -> Dict:
         eng = self.engine
+        pc = self.prefix_cache
         return {"status": ("failed" if self._failed else
                            "draining" if self._draining else "ok"),
                 "pid": os.getpid(),
@@ -522,8 +765,10 @@ class ServingServer:
                 "queued": eng.num_queued,
                 "page_size": eng.page_size,
                 "free_pages": eng.free_pages,
+                "cached_pages": pc.total_pages() if pc is not None else 0,
                 "num_pages": eng.num_pages,
                 "steps": eng.steps,
+                "engine_restarts": self._restarts,
                 "step_ema_ms": (None if eng.decode_ema_s is None
                                 else round(eng.decode_ema_s * 1e3, 3)),
                 "fused_step": eng.fused_step,
@@ -533,22 +778,44 @@ class ServingServer:
 
     def _gauges(self) -> Dict[str, float]:
         eng = self.engine
+        pc = self.prefix_cache
         occ = eng.allocator.occupancy()
         g = {"inflight_slots": eng.num_active,
              "num_slots": eng.num_slots,
              "queued_requests": eng.num_queued,
              "free_pages": eng.free_pages,
              "num_pages": eng.num_pages,
+             "prefix_cache_pages": pc.total_pages() if pc is not None
+             else 0,
              "pages_inflight": occ["inflight"],
+             "pages_prefix_device": occ["prefix_device"],
              "pages_used": eng.num_pages - occ["free"],
              "engine_steps": eng.steps}
+        # used minus what the cache would give back on demand: a warm
+        # cache fills the pool by design and is no exhaustion
+        evictable = 0
+        if pc is not None:
+            try:
+                evictable = int(pc.evictable_pages())
+            except RuntimeError:
+                pass  # racy read against the engine thread
+        g["pages_unreclaimable"] = max(
+            0, eng.num_pages - occ["free"] - evictable)
+        if pc is not None:
+            for t in pc.tiers:
+                g[f"spill_{t.name}_bytes"] = t.occupancy_bytes
+                g[f"spill_{t.name}_logical_bytes"] = t.logical_bytes
+                g[f"spill_{t.name}_blobs"] = t.blob_count
+                g[f"spill_{t.name}_capacity_bytes"] = t.capacity_bytes
         for kind, n in dict(eng.programs_launched).items():
             g[f"programs_launched_{kind}"] = n
         return g
 
     def _leak_check(self) -> Dict:
-        """Engine-thread page audit: with no in-flight work every page
-        must be free, and the page ledger must reconcile."""
+        """Engine-thread page audit: with no in-flight work the
+        allocator must balance (no cache: everything free; with one:
+        free + cache-owned == pool, ``check_consistent``), and the page
+        ledger must reconcile."""
         eng = self.engine
         led = eng.ledger
         ledger_info = ({"ok": True, "enabled": False} if led is None
@@ -556,14 +823,36 @@ class ServingServer:
         if eng.num_active or eng.num_queued:
             return {"ok": False, "busy": True,
                     "active": eng.num_active, "queued": eng.num_queued}
+        pc = self.prefix_cache
         try:
-            eng.check_no_leak()
-        except RuntimeError as e:
+            if pc is not None:
+                pc.check_consistent(eng.allocator)
+            else:
+                eng.check_no_leak()
+        except Exception as e:
             return {"ok": False, "busy": False,
                     "error": type(e).__name__, "reason": str(e),
                     "ledger": ledger_info}
         return {"ok": True, "busy": False, "free_pages": eng.free_pages,
+                "cached_pages": pc.total_pages() if pc is not None else 0,
                 "num_pages": eng.num_pages, "ledger": ledger_info}
+
+    def _cache_stats(self) -> Optional[Dict]:
+        pc = self.prefix_cache
+        if pc is None:
+            return None
+        return {"pages": pc.total_pages(), "hit_pages": pc.hit_pages,
+                "miss_pages": pc.miss_pages,
+                "inserted_pages": pc.inserted_pages,
+                "evicted_pages": pc.evicted_pages,
+                "hit_rate": pc.hit_rate(),
+                "tiers": pc.tier_stats(),
+                "spilled_pages": pc.spilled_pages,
+                "restored_pages": pc.restored_pages,
+                "restore_corrupt": pc.restore_corrupt,
+                "spill_failed": pc.spill_failed,
+                "blob_format": pc.blob_format,
+                "codec_stats": dict(pc.codec_stats)}
 
 
 def _json_stats(stats) -> Dict:
@@ -621,12 +910,35 @@ def main(argv=None) -> None:
     parser.add_argument("--kv-int8", action="store_true",
                         help="int8 KV pages with per-(token, head) scales")
     parser.add_argument("--no-prefix-cache", action="store_true",
-                        help="accepted for compatibility: this port has "
-                             "no prefix cache yet")
+                        help="serve without the prefix cache (greedy "
+                             "outputs are the same)")
+    parser.add_argument(
+        "--spill-mb", type=int, default=None, metavar="MB",
+        help="add a host-RAM spill tier of this many MB: evicted prefix "
+             "pages are kept as content-keyed blobs and restored on a "
+             "later hit instead of prefilled again (default: evictions "
+             "are dropped)")
+    parser.add_argument(
+        "--spill-dir", default=None, metavar="DIR",
+        help="add a disk spill tier under DIR behind the host tier "
+             "(blobs crc32-checked on restore, scrubbed on shutdown)")
+    parser.add_argument(
+        "--spill-disk-mb", type=int, default=1024, metavar="MB",
+        help="byte budget of the --spill-dir disk tier (default 1024)")
+    parser.add_argument(
+        "--blob-format", default="raw", choices=["raw", "int8", "int4"],
+        help="codec of the spill blobs: 'raw' (default) the pool's "
+             "bytes; 'int8' lossless on int8 pages, quantized on float "
+             "pages; 'int4' always lossy (the error is reported in the "
+             "stats op's codec_stats)")
     parser.add_argument(
         "--max-engine-errors", type=int, default=32,
-        help="consecutive engine-step failures before the server fails "
-             "typed (EngineFailed)")
+        help="consecutive engine-step failures before the engine is "
+             "resurrected (torn down, rebuilt, in-flight replayed)")
+    parser.add_argument(
+        "--max-engine-restarts", type=int, default=2,
+        help="engine resurrections before the server gives up and "
+             "fails everything with a typed EngineFailed")
     parser.add_argument(
         "--stall-timeout-s", type=float, default=None,
         help="evict a slot that emits no token for this long with a "
@@ -656,7 +968,16 @@ def main(argv=None) -> None:
     if args.max_seq_len is not None:
         engine_kwargs["max_seq_len"] = args.max_seq_len
     server = ServingServer(model, host=args.host, port=args.port,
+                           prefix_cache=not args.no_prefix_cache,
+                           spill_bytes=(None if args.spill_mb is None
+                                        else args.spill_mb << 20),
+                           spill_dir=args.spill_dir,
+                           spill_disk_bytes=(
+                               None if args.spill_dir is None
+                               else args.spill_disk_mb << 20),
+                           blob_format=args.blob_format,
                            max_engine_errors=args.max_engine_errors,
+                           max_engine_restarts=args.max_engine_restarts,
                            trace_sample=args.trace_sample,
                            slo_ttft_ms=args.slo_ttft_ms,
                            slo_tpot_ms=args.slo_tpot_ms,

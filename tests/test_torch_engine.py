@@ -148,10 +148,9 @@ def test_scheduler_admits_higher_priority_first(models):
 
 
 @pytest.mark.parametrize("kwarg,value", [
-    ("speculative", object()), ("prefix_cache", object()),
+    ("speculative", object()),
     ("prefill_chunk_tokens", 8), ("multi_step", 4), ("mesh", object()),
     ("weight_generation", 1), ("forecast_admission", True),
-    ("prefill_retry", object()),
 ])
 def test_unported_engine_arguments_raise(models, kwarg, value):
     _, tm = models

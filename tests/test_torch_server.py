@@ -112,12 +112,83 @@ def test_deadline_exceeded_is_typed(server):
     assert rep["error"] == "DeadlineExceeded"
 
 
-def test_prefix_cache_is_not_ported(model):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ServingServer(model, device="cpu", prefix_cache=True)
+def test_default_prefix_cache_answers_a_repeated_prompt(model):
+    """The server's cache is on by default: a repeated prompt reuses its
+    full pages and gets the tokens a cache-less server gives."""
+    prompt = _prompt(29, seed=3)  # 3 full pages of 8 are shareable
+    replies = {}
+    for cache in (True, False):
+        s = ServingServer(model, device="cpu", prefix_cache=cache,
+                          num_slots=2, page_size=8, max_seq_len=64,
+                          num_pages=12)
+        port = s.start()
+        try:
+            replies[cache] = [client_request(
+                "127.0.0.1", port, {"op": "generate", "prompt": prompt,
+                                    "max_new_tokens": 6}, timeout_s=60)
+                for _ in range(2)]
+            stats = client_request("127.0.0.1", port, {"op": "stats"})
+            leak = client_request("127.0.0.1", port,
+                                  {"op": "leak_check"})
+        finally:
+            s.stop()
+        assert leak["ok"], leak
+        if cache:
+            assert stats["prefix_cache"]["hit_pages"] == 3
+            assert leak["cached_pages"] == 3
+        else:
+            assert stats["prefix_cache"] is None
+    on, off = replies[True], replies[False]
+    assert on[0]["stats"]["cached_pages"] == 0
+    assert on[1]["stats"]["cached_pages"] == 3
+    assert on[1]["stats"]["cache_enabled"] is True
+    assert off[1]["stats"]["cached_pages"] == 0
+    assert [r["generated"] for r in on] == [r["generated"] for r in off]
+
+
+def test_cli_builds_the_server_from_its_flags(monkeypatch):
+    made = {}
+
+    class Stop(Exception):
+        pass
+
+    class Fake:
+        def __init__(self, model, **kw):
+            made.update(kw)
+
+        def start(self):
+            raise Stop
+
+    monkeypatch.setattr(srv, "ServingServer", Fake)
+    monkeypatch.setattr(srv, "build_model", lambda name, dev: None)
+    with pytest.raises(Stop):
+        srv.main(["--device", "cpu", "--no-prefix-cache", "--spill-mb",
+                  "2", "--spill-dir", "/x", "--spill-disk-mb", "3",
+                  "--blob-format", "int4",
+                  "--max-engine-restarts", "5"])
+    assert made["prefix_cache"] is False and "dedup" not in made
+    assert made["spill_bytes"] == 2 << 20
+    assert made["spill_dir"] == "/x" and made["spill_disk_bytes"] == 3 << 20
+    assert made["blob_format"] == "int4"
+    assert made["max_engine_restarts"] == 5
+    made.clear()
+    with pytest.raises(Stop):
+        srv.main(["--device", "cpu"])
+    assert made["prefix_cache"] is True and made["spill_bytes"] is None
+    assert made["max_engine_restarts"] == 2 and made["blob_format"] == "raw"
 
 
 def test_cli_rejects_unported_flags_like_an_unknown_flag():
     with pytest.raises(SystemExit) as e:
         srv.main(["--device", "cpu", "--speculate", "4"])
+    assert e.value.code == 2
+
+
+@pytest.mark.parametrize("flag", [["--role", "prefill"],
+                                  ["--flight-dir", "/tmp/x"],
+                                  ["--weight-generation", "1"],
+                                  ["--no-dedup"]])
+def test_cli_rejects_fleet_flags_like_an_unknown_flag(flag):
+    with pytest.raises(SystemExit) as e:
+        srv.main(["--device", "cpu"] + flag)
     assert e.value.code == 2
