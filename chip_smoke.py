@@ -27,7 +27,9 @@ failure exits non-zero at once:
    list bitwise against one call a tensor); its
    median time over 20 launches (CUDA events, L2 flushed and a device
    spin queued before each launch, so the host's work stays out of the
-   window), the plain version's, one PyTorch yardstick call's, and the
+   window; ``fused_argmax`` also at the speculative verify's 40 rows;
+   ``paged_decode`` also with every other row masked to the scratch
+   page at length 0, live rows bitwise), the plain version's, one PyTorch yardstick call's, and the
    least time the card could take: the larger of the bytes at 3.35 TB/s
    and the products on the tensor cores (fp32 as 3xTF32, three TF32
    products at 495 TFLOP/s; bf16 at 989 TFLOP/s). The dQ and dK/dV
@@ -62,6 +64,26 @@ failure exits non-zero at once:
    served; a prefill of prompt + emitted token against the decode
    step's logits there, within ``MODEL_REL_TOL``; token agreement with a
    fault-free run. The fault injector is reset after it.
+5e. engine_chunked — chunked prefill at 256 tokens a chunk: 8 requests
+   of 300-1700 tokens, 32 new tokens, 8 slots, chunked and whole: each
+   final chunk's last-row logits within ``MODEL_REL_TOL`` of a whole
+   prefill, the serving kernels launched on the chunked run (the fresh
+   first chunks through ``attention_fwd``), no leak; token agreement,
+   fresh and chained chunk ms, the decode step with chunks in flight,
+   TTFT chunked and whole, the prefill debt by step; then two identical
+   prompts with the cache on fold pages (``dedup_hits`` > 0) and equal
+   the tokens of ``dedup=False``.
+5f. engine_spec — speculative decoding, k=4, 8 requests of 130-800
+   tokens, 32 new tokens, with the n-gram draft, a ModelDraft of the
+   target itself (window 64) and an always-wrong draft: each verify
+   position's logits within ``MODEL_REL_TOL`` of the vanilla decode
+   step's, ``fused_argmax`` launched once a prefill and once a verify
+   (40 rows), the always-wrong draft accepting nothing, no leak;
+   acceptance rate, tokens a step, verify ms and agreement with vanilla;
+   and with an oracle draft (the vanilla run's own tokens) what full
+   acceptance gives.
+5g. server_chunked_spec — a server with both: 4 requests (2 streaming),
+   then ``stats`` and ``leak_check``.
 6. train   — GPT-1.3B training (fp32, dropout 0, ``AdamW(1e-4)``):
    one forward+backward at full depth, B=2, S=2048, through the kernels
    against the plain versions (loss and every parameter's gradient);
@@ -87,8 +109,8 @@ failure exits non-zero at once:
    imgs/s, peak memory, N=1 latency, and a profiled forward of the
    kernel and plain paths.
 
-Then, if no check failed, a ``kernels`` line, the nvidia-smi line, and
-last ``{"ok": true, "device": {...}}``.
+Then, if no check failed, the script's wall time, a ``kernels`` line,
+the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Run: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA GPU and ``nvcc``. It takes no arguments.
@@ -615,6 +637,20 @@ def kernel_paged(torch, timer, dev, gen, records):
                           *args[3:])
         if pool == "fp32":
             base = got
+        # the engine's decode step with half-prefilled neighbours: every
+        # other row masked to the scratch page at length 0. Live rows
+        # keep their bits, masked rows give zeros.
+        q, kp_, vp_, ksc, vsc = args
+        live = torch.arange(B, device=dev) % 2 == 1
+        mtable = torch.where(live[:, None], table,
+                             torch.full_like(table, kp_.shape[0] - 1))
+        mlens = torch.where(live, lens, torch.zeros_like(lens))
+        masked = paged_decode(q, kp_, vp_, mtable, mlens, k_scale=ksc,
+                              v_scale=vsc)
+        check_equal(f"{name} live rows beside masked rows", masked[live],
+                    got[live])
+        if masked[~live].abs().max().item() != 0.0:
+            raise AssertionError(f"{name}: masked rows must give zeros")
     kp, vp, tp = _paged_poisoned(kf, vf, table, lens)
     check_equal("paged_decode fp32 NaN past the length",
                 paged_decode(q32, kp, vp, tp, lens), base)
@@ -662,7 +698,9 @@ def kernel_paged(torch, timer, dev, gen, records):
           "split_tokens_input": tpa.PAGED_SPLIT_TOKENS, "pools": rows,
           "cases": [f"paged_decode {p}" for p in PAGED_POOLS] + cases,
           "checks": "plain version, split emulation, repeat and each row "
-                    "alone bitwise, NaN past the length bitwise"})
+                    "alone bitwise, live rows beside rows masked to the "
+                    "scratch page at length 0 bitwise, NaN past the "
+                    "length bitwise"})
 
 
 # decode_out_proj: the engine's slot counts (1, 8, 64) and one past a
@@ -749,6 +787,9 @@ def kernel_out_proj(torch, timer, dev, gen, records):
           + [f"B={B} E={wide}" for B in wide_batches]})
 
 
+ARGMAX_VERIFY_ROWS = 40  # 8 slots x (k + 1), k = 4
+
+
 def kernel_argmax(torch, timer, dev, gen, records):
     from paddle_tpu_torch.ops.kernels.fused_sample import (
         fused_argmax, fused_argmax_reference)
@@ -809,6 +850,36 @@ def kernel_argmax(torch, timer, dev, gen, records):
           "library": "torch.argmax(h @ W.T)",
           "cases": "V in (50304, 50257) x both layouts x bias x "
                    "{clean with planted tie, planted NaN}"})
+    # the speculative verify's shape: 8 slots x (k+1) = 40 rows scored in
+    # one call, a planted tie and a planted NaN among them
+    R = ARGMAX_VERIFY_ROWS
+    h = torch.randn((R, D), generator=gen, device=dev)
+    w = torch.randn((V, D), generator=gen, device=dev) * 0.02
+    w[1234] = h[3] / h[3].norm() * 5.0
+    w[40000] = w[1234]
+    wn = w.clone()
+    wn[777, 0] = float("nan")
+    for wname, wt in (("clean", w), ("nan", wn)):
+        got = fused_argmax(h, wt, None, transpose_y=True)
+        want = fused_argmax_reference(h, wt, 0)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"fused_argmax R={R} {wname}: "
+                                 f"{got.tolist()} != {want.tolist()}")
+    if int(fused_argmax(h, w, None, transpose_y=True)[3]) != 1234:
+        raise AssertionError("fused_argmax R=40 tie")
+    ms = timer(lambda: fused_argmax(h, w, None, transpose_y=True))
+    plain_ms = timer(lambda: fused_argmax_reference(h, w, 0))
+    lib_ms = timer(lambda: torch.argmax(h @ w.t(), dim=-1))
+    b, by = bound_ms((V * D + R * D) * 4 + R * 4, 2 * R * V * D)
+    records["fused_argmax"]["verify_shape"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        library_ms=lib_ms, shape=f"R={R} D={D} V={V} [V,D] fp32")
+    emit({"phase": "kernels", "kernel": "fused_argmax", "ok": True,
+          "case": "speculative verify", **records["fused_argmax"]
+          ["verify_shape"], "tol": "index-exact",
+          "library": "torch.argmax(h @ W.T)",
+          "cases": "clean with a planted tie, planted NaN"})
 
 
 # attention_fwd checks beyond the timed causal D=128 sequence lengths:
@@ -2496,6 +2567,406 @@ def phase_server_resurrect(torch, dev, model):
           "launches": launches})
 
 
+# -- phase 5e-5g: chunked prefill and speculative decoding ----------------------
+
+CHUNK_TOKENS = 256
+CHUNK_LENGTHS = (300, 500, 700, 900, 1100, 1300, 1500, 1700)
+CHUNK_NEW = 32
+CHUNK_DEDUP_LEN = 700     # two identical prompts: 10 full pages to fold
+SPEC_K = 4
+SPEC_LENGTHS = (130, 200, 300, 400, 500, 600, 700, 800)
+SPEC_NEW = 32
+SPEC_WINDOW = 64
+SERVER_CHUNKED_LENGTHS = (50, 300, 700, 1200)
+
+
+def _bucket(n):
+    """The engine's prompt bucket of ``n`` tokens at page 64."""
+    b = PREFIX_PAGE
+    while b < n:
+        b *= 2
+    return b
+
+
+def chunked_logits(torch, model, prompt, chunk):
+    """Last-row logits of ``prompt`` prefilled as the chunked engine does
+    it (a fresh dense first chunk, then chained chunks, each padded to
+    ``chunk`` ids), and of one whole prefill padded to its bucket, both
+    on the kernel path."""
+    from paddle_tpu_torch.models.gpt import paged_cache_create
+    cfg = model.config
+    dev = model.device
+    mp = -(-cfg.max_seq_len // PREFIX_PAGE)
+
+    def caches():
+        return [paged_cache_create(1, mp, PREFIX_PAGE, cfg.num_heads,
+                                   cfg.head_dim, torch.float32, mp,
+                                   device=dev)
+                for _ in range(cfg.num_layers)]
+
+    def padded(toks, width):
+        ids = torch.zeros((1, width), dtype=torch.int64, device=dev)
+        ids[0, :len(toks)] = torch.tensor(toks, dtype=torch.int64)
+        return ids
+
+    def lens(n):
+        return torch.tensor([n], dtype=torch.int32, device=dev)
+
+    with torch.no_grad():
+        cs = caches()
+        for done in range(0, len(prompt), chunk):
+            part = prompt[done:done + chunk]
+            h, cs = model.decode_hidden(padded(part, chunk), cs,
+                                        prefill_lens=lens(len(part)),
+                                        prefill_chained=done > 0,
+                                        fused=True)
+        chunked = model.logits(h[:, len(part) - 1].contiguous())
+        n = len(prompt)
+        h2, _ = model.decode_hidden(padded(prompt, _bucket(n)), caches(),
+                                    prefill_lens=lens(n), fused=True)
+        whole = model.logits(h2[:, n - 1].contiguous())
+    return chunked, whole
+
+
+def run_stepped_engine(torch, model, prompts, max_new, **engine_kw):
+    """``prompts`` through one engine (8 slots, page 64, a full pool),
+    stepped until it drains: generated tokens, per-request stats and run
+    info. Each prefill launch (a whole prefill or a chunk) and each
+    verify is timed on the host around its call, which returns only once
+    its token is on the host; ``prefill_debt_tokens`` is read after
+    every step. ``run()`` then audits the books and ``close()`` asserts
+    ``check_no_leak``."""
+    from paddle_tpu_torch.inference import create_decode_engine
+    done = {}
+    eng = create_decode_engine(model, device=model.device, num_slots=8,
+                               page_size=PREFIX_PAGE, timeline_steps=4096,
+                               on_complete=lambda r: done.__setitem__(
+                                   r.req_id, r), **engine_kw)
+    launches = {"fresh": [], "chained": [], "verify": []}
+
+    def timed(fn, key_of):
+        def run(*a):
+            t0 = time.monotonic()
+            out = fn(*a)
+            launches[key_of(*a)].append((time.monotonic() - t0) * 1e3)
+            return out
+        return run
+
+    eng._run_prefill = timed(
+        eng._run_prefill,
+        lambda row, ids, plen, cached_len=0: ("chained" if cached_len
+                                              else "fresh"))
+    eng._run_verify = timed(eng._run_verify, lambda *a: "verify")
+    rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    debt = [eng.prefill_debt_tokens]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    while eng.num_queued or eng.num_active:
+        eng.step()
+        debt.append(eng.prefill_debt_tokens)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    res = eng.run()
+    outs = [res[r][len(p):].tolist() for r, p in zip(rids, prompts)]
+    stats = [done[r].stats for r in rids]
+    tl = eng.step_timeline()
+    dec = sorted(e["decode_ms"] for e in tl if "decode_ms" in e)
+    dec_chunk = sorted(e["decode_ms"] for e in tl
+                       if "decode_ms" in e and "chunk_ms" in e)
+    ttft = [s.ttft_s * 1e3 for s in stats]
+    info = {"wall_s": wall, "steps": eng.steps,
+            "tokens_per_s": sum(len(o) for o in outs) / wall,
+            "decode_step_ms_median": dec[len(dec) // 2] if dec else None,
+            "decode_step_ms_median_chunk_in_flight":
+                dec_chunk[len(dec_chunk) // 2] if dec_chunk else None,
+            "steps_with_a_chunk_and_a_decode": len(dec_chunk),
+            "ttft_ms_p50": _pct(ttft, 0.5), "ttft_ms_p99": _pct(ttft, 0.99),
+            "prefill_debt_tokens_max": max(debt),
+            "prefill_debt_tokens_by_step": debt[:64],
+            "programs_launched": dict(eng.programs_launched)}
+    for key, ms in launches.items():
+        if ms:
+            info[f"{key}_ms_median"] = sorted(ms)[len(ms) // 2]
+            info[f"{key}_ms_max"] = max(ms)
+            info[f"{key}_launches"] = len(ms)
+    eng.close()
+    return outs, stats, info
+
+
+def _generation_ok(phase, outs, n, V):
+    for o in outs:
+        if len(o) != n or not all(0 <= t < V for t in o):
+            raise AssertionError(f"{phase}: bad generation {o[:8]}")
+
+
+def phase_engine_chunked(torch, dev, model):
+    """Chunked prefill (``prefill_chunk_tokens=256``): 8 requests of
+    300-1700 tokens, 32 new tokens, 8 slots, page 64, chunked and
+    whole. Gates: each final chunk's last-row logits within
+    ``MODEL_REL_TOL`` of a whole prefill of the prompt, the serving
+    kernels launched on the chunked run (``attention_fwd`` by the fresh
+    first chunks) and the training kernels at 0, no leak; then two
+    identical prompts with the cache on fold pages (``dedup_hits > 0``)
+    and give the tokens of ``dedup=False``. Reports token agreement,
+    fresh and chained chunk ms, the decode step with chunks in flight,
+    TTFT chunked against whole and the prefill debt over the run."""
+    import numpy as np
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.serving.prefix_cache import PrefixCache
+    V = model.config.vocab_size
+    gen = torch.Generator().manual_seed(11)
+    prompts = [torch.randint(0, V, (n,), generator=gen).numpy()
+               for n in CHUNK_LENGTHS]
+    parity = []
+    for p in (prompts[0], prompts[-1]):
+        ck, wh = chunked_logits(torch, model, p.tolist(), CHUNK_TOKENS)
+        rec = {"prompt": len(p), "chunks": -(-len(p) // CHUNK_TOKENS),
+               "final_chunk_vs_whole_rel": rel_err(ck, wh),
+               "argmax_equal": bool(torch.equal(ck.argmax(-1),
+                                                wh.argmax(-1)))}
+        parity.append(rec)
+        if not rec["final_chunk_vs_whole_rel"] <= MODEL_REL_TOL:
+            raise AssertionError(f"engine_chunked parity: {rec}")
+    _free_engine_memory(torch)
+    reset_launch_counts()
+    outs_c, stats_c, info_c = run_stepped_engine(
+        torch, model, prompts, CHUNK_NEW, prefill_chunk_tokens=CHUNK_TOKENS)
+    info_c["launches"] = serving_launch_gate("engine_chunked",
+                                             launch_counts())
+    want_chunks = [-(-n // CHUNK_TOKENS) for n in CHUNK_LENGTHS]
+    if [s.prefill_chunks for s in stats_c] != want_chunks:
+        raise AssertionError(f"engine_chunked chunks "
+                             f"{[s.prefill_chunks for s in stats_c]}")
+    _free_engine_memory(torch)
+    outs_w, _stats_w, info_w = run_stepped_engine(torch, model, prompts,
+                                                  CHUNK_NEW)
+    _free_engine_memory(torch)
+    for outs in (outs_c, outs_w):
+        _generation_ok("engine_chunked", outs, CHUNK_NEW, V)
+    same = torch.randint(0, V, (CHUNK_DEDUP_LEN,), generator=gen).numpy()
+    dedup = {}
+    for on in (True, False):
+        pc = PrefixCache(PREFIX_PAGE, dedup=on)
+        outs, _s, _i = run_stepped_engine(
+            torch, model, [same, same.copy()], 8,
+            prefill_chunk_tokens=CHUNK_TOKENS, prefix_cache=pc)
+        dedup[on] = (outs, pc.dedup_hits)
+        _free_engine_memory(torch)
+    if not dedup[True][1] > 0 or dedup[False][1] != 0:
+        raise AssertionError(f"engine_chunked dedup_hits "
+                             f"{dedup[True][1]} / {dedup[False][1]}")
+    if dedup[True][0] != dedup[False][0]:
+        raise AssertionError("engine_chunked: dedup on and off differ")
+    emit({"phase": "engine_chunked", "ok": True, "model": "gpt_1p3b",
+          "chunk_tokens": CHUNK_TOKENS, "prompt_lengths": list(CHUNK_LENGTHS),
+          "max_new_tokens": CHUNK_NEW, "tol_rel": MODEL_REL_TOL,
+          "parity": parity,
+          "token_agreement_chunked_vs_whole": _agreement(outs_c, outs_w),
+          "chunked": info_c, "whole": info_w,
+          "dedup": {"prompt": CHUNK_DEDUP_LEN,
+                    "dedup_hits": dedup[True][1],
+                    "tokens_equal_dedup_off": True}})
+
+
+def verify_vs_decode_logits(torch, model, prompt, k):
+    """Logits of one verify forward over ``[t_0 .. t_k]`` (the greedy
+    continuation of ``prompt``) against the vanilla decode step's at
+    each of those positions, both on the kernel path: the decode steps
+    run ``paged_decode`` and ``decode_out_proj``, the verify the chained
+    dense-gather path. Returns the relative error a position."""
+    from paddle_tpu_torch.models.gpt import paged_cache_create
+    cfg = model.config
+    dev = model.device
+    mp = -(-cfg.max_seq_len // PREFIX_PAGE)
+    n = len(prompt)
+
+    def prefilled():
+        cs = [paged_cache_create(1, mp, PREFIX_PAGE, cfg.num_heads,
+                                 cfg.head_dim, torch.float32, mp,
+                                 device=dev)
+              for _ in range(cfg.num_layers)]
+        ids = torch.zeros((1, _bucket(n)), dtype=torch.int64, device=dev)
+        ids[0, :n] = torch.tensor(prompt, dtype=torch.int64)
+        h, cs = model.decode_hidden(
+            ids, cs, prefill_lens=torch.tensor([n], dtype=torch.int32,
+                                               device=dev), fused=True)
+        return model.logits(h[:, n - 1].contiguous()), cs
+
+    with torch.no_grad():
+        first, cs = prefilled()
+        toks = [int(first.argmax(-1)[0])]
+        dec = []
+        for _ in range(k + 1):
+            h, cs = model.decode_hidden(
+                torch.tensor([[toks[-1]]], dtype=torch.int64, device=dev),
+                cs, fused=True)
+            dec.append(model.logits(h[:, -1].contiguous()))
+            toks.append(int(dec[-1].argmax(-1)[0]))
+        _, cs = prefilled()
+        ids = torch.tensor([toks[:k + 1]], dtype=torch.int64, device=dev)
+        h, _ = model.decode_hidden(
+            ids, cs, prefill_lens=torch.tensor([k + 1], dtype=torch.int32,
+                                               device=dev),
+            prefill_chained=True, fused=True)
+        ver = model.logits(h[0].contiguous())
+    return [rel_err(ver[j:j + 1], dec[j]) for j in range(k + 1)]
+
+
+def phase_engine_spec(torch, dev, model, records):
+    """Speculative decoding, k=4, 8 slots, 8 requests of 130-800 tokens,
+    32 new tokens, with three drafts: the n-gram draft, a ModelDraft of
+    the target itself (window 64), an always-wrong draft and an oracle
+    draft (the vanilla run's own next tokens). Gates:
+    verify position j's logits within ``MODEL_REL_TOL`` of the vanilla
+    decode step's there; on each run ``fused_argmax`` launched once a
+    prefill and once a verify (the verify's over 8 x 5 = 40 rows) and
+    the training kernels at 0; the always-wrong draft accepts nothing;
+    no leak. Reports each draft's acceptance rate, tokens a step, the
+    verify step and token agreement with the vanilla engine."""
+    from paddle_tpu_torch.inference import (CallableDraft, ModelDraft,
+                                            SpeculativeConfig)
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    V = model.config.vocab_size
+    gen = torch.Generator().manual_seed(13)
+    prompts = [torch.randint(0, V, (n,), generator=gen).numpy()
+               for n in SPEC_LENGTHS]
+    parity = []
+    for p in (prompts[0], prompts[-1]):
+        rels = verify_vs_decode_logits(torch, model, p.tolist(), SPEC_K)
+        parity.append({"prompt": len(p), "verify_vs_decode_rel": rels})
+        if not max(rels) <= MODEL_REL_TOL:
+            raise AssertionError(f"engine_spec parity {len(p)}: {rels}")
+    _free_engine_memory(torch)
+    outs_v, _s, info_v = run_stepped_engine(torch, model, prompts, SPEC_NEW)
+    _free_engine_memory(torch)
+    # the oracle proposes the vanilla run's own next tokens: every
+    # draft the verify should accept, but for near-ties between the
+    # verify's dense-gather path and the decode kernels
+    full = [p.tolist() + o for p, o in zip(prompts, outs_v)]
+
+    def oracle(h, k):
+        n = len(h)
+        for f in full:
+            if len(f) > n and f[:8] == h[:8].tolist():
+                cont = f[n:n + k]
+                return cont + [cont[-1]] * (k - len(cont))
+        return [0] * k
+
+    drafts = (("ngram", "ngram"),
+              ("model_self_window64", ModelDraft(model, window=SPEC_WINDOW)),
+              ("always_wrong", CallableDraft(
+                  lambda h, k: [(int(h[-1]) + 7) % V] * k)),
+              ("oracle_vanilla_tokens", CallableDraft(oracle)))
+    runs = {}
+    for tag, draft in drafts:
+        reset_launch_counts()
+        outs, stats, info = run_stepped_engine(
+            torch, model, prompts, SPEC_NEW,
+            speculative=SpeculativeConfig(k=SPEC_K, draft=draft))
+        counts = serving_launch_gate(f"engine_spec {tag}", launch_counts(),
+                                     need=("fused_argmax", "attention_fwd"))
+        progs = info["programs_launched"]
+        heads = progs.get("verify", 0) + progs.get("prefill", 0) + \
+            progs.get("prefill_chained", 0)
+        if progs.get("verify", 0) <= 0 or counts["fused_argmax"] != heads:
+            raise AssertionError(f"engine_spec {tag}: fused_argmax "
+                                 f"{counts['fused_argmax']} launches for "
+                                 f"{progs}")
+        if counts["paged_decode"] or counts["decode_out_proj"]:
+            raise AssertionError(f"engine_spec {tag}: a decode step ran "
+                                 f"({counts})")
+        _generation_ok(f"engine_spec {tag}", outs, SPEC_NEW, V)
+        drafted = sum(s.spec_drafted for s in stats)
+        accepted = sum(s.spec_accepted for s in stats)
+        steps = sum(s.spec_steps for s in stats)
+        if tag == "always_wrong" and accepted != 0:
+            raise AssertionError(f"engine_spec always_wrong accepted "
+                                 f"{accepted}")
+        info.update(launches=counts, drafted=drafted, accepted=accepted,
+                    acceptance_rate=accepted / max(drafted, 1),
+                    tokens_per_step=sum(s.tokens_out - 1 for s in stats)
+                    / max(steps, 1),
+                    token_agreement_vs_vanilla=_agreement(outs, outs_v))
+        runs[tag] = info
+        if tag == "ngram":
+            # one fused_argmax launch at the verify's 40 rows a verify
+            records["fused_argmax"]["verify_shape"]["launches"] = \
+                progs["verify"]
+        _free_engine_memory(torch)
+    emit({"phase": "engine_spec", "ok": True, "model": "gpt_1p3b",
+          "k": SPEC_K, "prompt_lengths": list(SPEC_LENGTHS),
+          "max_new_tokens": SPEC_NEW, "tol_rel": MODEL_REL_TOL,
+          "parity": parity, "vanilla": info_v, "drafts": runs})
+
+
+def phase_server_chunked_spec(torch, dev, model):
+    """The server with ``prefill_chunk_tokens=256`` and ``speculative=4``:
+    4 requests of 50-1200 tokens (2 streaming), 16 new tokens each, then
+    ``stats`` and ``leak_check``. Gates: each stream equals its reply,
+    every reply carries its chunk count and spec stats, the stats op's
+    histograms hold the 4 requests, the leak check passes."""
+    from paddle_tpu_torch.serving.server import ServingServer, client_request
+    V = model.config.vocab_size
+    gen = torch.Generator().manual_seed(17)
+    lengths = SERVER_CHUNKED_LENGTHS
+    prompts = [torch.randint(0, V, (n,), generator=gen).tolist()
+               for n in lengths]
+    server = ServingServer(model, device=dev, num_slots=8,
+                           page_size=PREFIX_PAGE,
+                           prefill_chunk_tokens=CHUNK_TOKENS,
+                           speculative=SPEC_K)
+    port = server.start()
+    replies = [None] * 4
+    streamed = [[] for _ in range(4)]
+
+    def one(i):
+        replies[i] = client_request(
+            "127.0.0.1", port,
+            {"op": "generate", "prompt": prompts[i], "max_new_tokens": 16,
+             "stream": i < 2}, timeout_s=300, on_token=streamed[i].append)
+
+    try:
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        for i, r in enumerate(replies):
+            if not r or not r.get("done") or len(r["generated"]) != 16:
+                raise AssertionError(f"server_chunked_spec {i}: {r}")
+            if i < 2 and streamed[i] != r["generated"]:
+                raise AssertionError(f"server_chunked_spec stream {i}")
+            st = r["stats"]
+            if st.get("prefill_chunks") != -(-lengths[i] // CHUNK_TOKENS) \
+                    or not st.get("spec_steps"):
+                raise AssertionError(f"server_chunked_spec stats {i}: {st}")
+        stats = client_request("127.0.0.1", port, {"op": "stats"})
+        leak = client_request("127.0.0.1", port, {"op": "leak_check"})
+        snap = stats["stats"]
+        if snap["spec_accept_rate"]["count"] != 4 or \
+                snap["prefill_chunks"]["count"] != 4 or not leak.get("ok"):
+            raise AssertionError(f"server_chunked_spec ops: {leak} "
+                                 f"{snap['spec_accept_rate']}")
+        emit({"phase": "server_chunked_spec", "ok": True,
+              "prompt_lengths": list(lengths),
+              "prefill_chunks": [r["stats"]["prefill_chunks"]
+                                 for r in replies],
+              "acceptance_rate": [r["stats"].get("acceptance_rate")
+                                  for r in replies],
+              "tokens_per_step": [r["stats"].get("tokens_per_step")
+                                  for r in replies],
+              "ttft_ms": [r["stats"].get("ttft_s", 0) * 1e3
+                          for r in replies],
+              "programs_launched": stats["programs_launched"],
+              "leak_check": leak.get("ok")})
+    finally:
+        server.stop()
+    _free_engine_memory(torch)
+
+
 # -- phase 6 -----------------------------------------------------------------
 
 def _train_model(torch, dev, **cfg_kw):
@@ -3163,6 +3634,7 @@ def main() -> int:
     dev = paddle_tpu_torch.resolve_device("cuda")
     records = {}
     launches = {}
+    t_start = time.monotonic()
     smi_line = phase_device(torch)
     phase_build()
     phase_kernels(torch, dev, records)
@@ -3171,6 +3643,9 @@ def main() -> int:
     phase_engine_prefix(torch, dev, model)
     phase_engine_spill(torch, dev, model)
     phase_server_resurrect(torch, dev, model)
+    phase_engine_chunked(torch, dev, model)
+    phase_engine_spec(torch, dev, model, records)
+    phase_server_chunked_spec(torch, dev, model)
     del model
     # the engine and the server leave reference cycles: collected here,
     # they free the model and its KV pool before the train phase reads
@@ -3185,6 +3660,7 @@ def main() -> int:
         print(f"chip_smoke: {len(FAILED_CHECKS)} closeness checks failed",
               file=sys.stderr)
         return 1
+    emit({"phase": "wall", "seconds": time.monotonic() - t_start})
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         r = records[name]
@@ -3198,6 +3674,8 @@ def main() -> int:
             "bound_by": ("bytes" if r["bound_by"] == "bytes"
                          else "operations"),
             "bound_route": r["bound_by"], "library_ms": r["library_ms"]})
+        if "verify_shape" in r:
+            kernels[-1]["verify_shape"] = r["verify_shape"]
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,7 @@
 
 Named sites raise (or, for the spill write, corrupt) on an armed
 schedule, so every recovery path of the serving stack is testable on the
-CPU. The port fires six of the JAX package's sites:
+CPU. The port fires seven of the JAX package's sites:
 
 ==================== =================================================
 site                 where it fires
@@ -15,6 +15,9 @@ engine.step          inference/continuous_batching engine step, FIRST
 serving.prefill      engine admission prefill (retried per the
                      serving.prefill policy; exhausted retries unwind
                      and requeue, then FAIL the request typed)
+serving.verify       the engine's speculative draft-and-verify step
+                     (retried per the serving.verify policy; fires
+                     before the verify forward writes a pool)
 alloc.page           PageAllocator alloc/reserve (before any free-list
                      mutation); admission unwinds and requeues
 cache.spill          serving/prefix_cache.py spill-tier blob write
@@ -62,6 +65,7 @@ import numpy as np
 FAULT_SITES: Dict[str, str] = {
     "serving.request": "serving front-end per-request handling",
     "serving.prefill": "decode-engine admission prefill",
+    "serving.verify": "speculative draft-and-verify step",
     "engine.step": "decode-engine step (pre-admission, pre-launch)",
     "alloc.page": "page-allocator alloc/reserve (pre-mutation)",
     "net.recv": "connection receive (server)",

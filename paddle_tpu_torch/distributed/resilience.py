@@ -6,7 +6,7 @@ optional deadline; ``get_retry_policy(site)`` resolves a fault site's
 policy (programmatic override > ``PT_RETRY_SITES`` > built-in site
 default > ``DEFAULT_RETRY``). Each site of ``fault_inject.FAULT_SITES``
 has a disposition here, as in the JAX package: a built-in policy
-(``serving.prefill``) or a ``NO_RETRY_SITES`` reason naming who owns
+(``serving.prefill``, ``serving.verify``) or a ``NO_RETRY_SITES`` reason naming who owns
 recovery.
 
 ``PT_RETRY_SITES``: ``site:attempts=5,base=0.01,max_delay=1,mult=2,
@@ -136,10 +136,15 @@ NO_RETRY = RetryPolicy(max_attempts=1)
 
 # built-in per-site policies. serving.prefill: a queued client waits on
 # its TTFT, so retry promptly and give up fast enough that the engine's
-# max_prefill_attempts can fail the request typed
+# max_prefill_attempts can fail the request typed. serving.verify: every
+# active slot's client waits on the speculative step, so the same
+# regime; a persistent failure escalates through the server's
+# engine-error cap
 _BUILTIN_SITE_POLICIES: Dict[str, RetryPolicy] = {
     "serving.prefill": RetryPolicy(max_attempts=3, base_delay_s=0.02,
                                    max_delay_s=0.25),
+    "serving.verify": RetryPolicy(max_attempts=3, base_delay_s=0.02,
+                                  max_delay_s=0.25),
 }
 
 # sites deliberately not retried in place: a higher layer owns recovery

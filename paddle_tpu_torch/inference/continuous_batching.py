@@ -26,6 +26,23 @@ unfused ops. Greedy tokens are identical either way on the CPU.
 
 Serving hooks (each off by default):
 
+- ``speculative``: draft-and-verify decoding
+  (``inference/speculative.py``): a draft proposes k tokens a slot, ONE
+  verify forward scores all k+1 positions (``models/gpt.py``
+  ``verify_step``, the chained paged path) and each slot emits its
+  longest accepted prefix plus one token. Admission reserves the whole
+  capacity and binds only the prefill pages; each step grows the page
+  set out of the reservation (``_ensure_pages``) and a rejection hands
+  wholly unused pages back to it (``_rollback_pages``). Greedy tokens
+  equal the vanilla engine's.
+- ``prefill_chunk_tokens``: chunked prefill. Admission binds the pages
+  without prefilling; each step advances at most one half-prefilled
+  (``prefill_partial``) slot by one page-aligned chunk, padded to the
+  one chunk bucket, before the decode step, which masks half-prefilled
+  rows to the scratch page at length 0. A fresh first chunk keeps the
+  dense prefill (``chained=False``); later chunks and cache hits are
+  the chained prefill. Greedy tokens equal whole prefill's.
+
 - ``prefix_cache``: refcounted full-page sharing across requests
   (``serving/prefix_cache.py``). Admission reuses the cached prefix
   pages and prefills only the suffix (the chained prefill: the slot
@@ -41,8 +58,9 @@ Serving hooks (each off by default):
   ``set_on_complete`` serve the server's resurrection replay.
 
 Not ported yet (the constructor raises ``NotImplementedError``, see
-ROADMAP.md): speculative decoding, chunked prefill, multi-step decode,
-tensor-parallel meshes, forecast admission and weight hot-swap.
+ROADMAP.md): multi-step decode (so ``inprogram`` is stored and acts on
+nothing), tensor-parallel meshes, program cost capture, forecast
+admission and weight hot-swap.
 """
 
 from __future__ import annotations
@@ -188,26 +206,30 @@ class PageAllocator:
 
     def occupancy(self) -> Dict[str, int]:
         """Pool breakdown by owner class: ``inflight`` (request-owned),
-        ``prefix_device`` (prefix-cache chains), ``reserved`` and
-        ``free``, summing to ``num_pages``; retries the benign
-        dict-iteration race with the engine thread."""
-        infl = pfx = reserved = 0
+        ``prefix_device`` (prefix-cache chains), ``dedup`` (cache pages
+        a second request's identical prompt folded onto), ``reserved``
+        (speculative capacity) and ``free``, summing to ``num_pages``;
+        retries the benign dict-iteration race with the engine
+        thread."""
+        infl = pfx = dedup = reserved = 0
         for _ in range(3):
-            infl = pfx = reserved = 0
+            infl = pfx = dedup = reserved = 0
             try:
                 for owner, pages in list(self._owned.items()):
                     kind = owner[0] if isinstance(owner, tuple) and \
                         owner else None
                     if kind == "prefix":
                         pfx += len(pages)
+                    elif kind == "dedup":
+                        dedup += len(pages)
                     else:
                         infl += len(pages)
                 reserved = self.reserved_total
                 break
             except RuntimeError:
                 continue
-        free = max(0, self.num_pages - infl - pfx - reserved)
-        return {"inflight": infl, "prefix_device": pfx,
+        free = max(0, self.num_pages - infl - pfx - dedup - reserved)
+        return {"inflight": infl, "prefix_device": pfx, "dedup": dedup,
                 "reserved": reserved, "free": free}
 
     def check_no_leak(self) -> None:
@@ -228,9 +250,8 @@ class PageAllocator:
 @dataclasses.dataclass
 class RequestStats:
     """Per-request serving telemetry (time.monotonic timestamps), the
-    record ``serving/metrics.py`` aggregates. Fields of features not yet
-    ported (handoff, chunked prefill, speculation) stay at their
-    defaults."""
+    record ``serving/metrics.py`` aggregates. The handoff fields (a
+    feature not yet ported) stay at their defaults."""
 
     submit_t: float = 0.0
     admit_t: float = 0.0
@@ -312,8 +333,17 @@ class DecodeRequest:
     generated: List[int] = dataclasses.field(default_factory=list)
     slot: Optional[int] = None
     done: bool = False
-    # queued|prefill|decoding|done|evicted|shed|failed|deadline|stalled
+    # queued|prefill|prefill_partial|decoding|done|evicted|shed|failed
+    # |deadline|stalled; prefill_partial is chunked prefill's stage: the
+    # slot holds pages and prefill_done_len tokens of prompt KV, and
+    # rides decode steps masked to the scratch page
     state: str = "queued"
+    # chunked prefill: prompt tokens whose KV is stored (cache hits and
+    # earlier chunks alike)
+    prefill_done_len: int = 0
+    # consecutive steps this request's next chunk was deferred by
+    # higher-class decode work (the scheduler's starvation bound)
+    chunk_deferrals: int = 0
     stats: RequestStats = dataclasses.field(default_factory=RequestStats)
     on_token: Optional[Callable[[int, int, bool], None]] = None
     cache_keys: Tuple[Hashable, ...] = ()   # prefix-cache chain refs held
@@ -340,31 +370,44 @@ class ContinuousBatchingEngine:
     ``num_slots * max_pages`` admission blocks on the free list and
     pages are recycled between requests. ``prefix_cache``: a
     :class:`~..serving.prefix_cache.PrefixCache` of the same page size;
-    ``prefill_retry``: a RetryPolicy for the ``serving.prefill`` site."""
+    ``prefill_retry``: a RetryPolicy for the ``serving.prefill`` site;
+    ``speculative``: a :class:`~.speculative.SpeculativeConfig`, an int
+    k or a draft source; ``verify_retry``: the ``serving.verify``
+    site's policy ("site" resolves it, None turns retries off);
+    ``prefill_chunk_tokens``: the chunk of chunked prefill, a positive
+    multiple of ``page_size``. The arguments follow the JAX engine's
+    order."""
 
     def __init__(self, model, num_slots: int = 4, page_size: int = 64,
                  max_seq_len: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  kv_int8: bool = False,
                  prompt_buckets: Sequence[int] = (),
-                 scheduler=None,
+                 scheduler=None, prefix_cache=None,
+                 prefill_retry=None,
                  on_complete: Optional[Callable[["DecodeRequest"],
                                                 None]] = None,
                  max_prefill_attempts: int = 3,
+                 speculative=None, verify_retry="site",
                  stall_timeout_s: Optional[float] = None,
+                 mesh=None,
+                 prefill_chunk_tokens: Optional[int] = None,
                  fused_step: bool = True,
+                 multi_step: int = 1,
+                 inprogram: bool = True,
                  tracer=None, timeline_steps: int = 256,
+                 capture_costs: bool = False,
                  page_ledger: bool = True,
                  ledger_events: int = 1024,
-                 prefix_cache=None, prefill_retry=None, speculative=None,
-                 mesh=None, prefill_chunk_tokens: Optional[int] = None,
-                 multi_step: int = 1, forecast_admission: bool = False,
+                 forecast_admission: bool = False,
                  weight_generation: int = 0):
+        if int(multi_step) < 1:
+            raise ValueError(f"multi_step must be >= 1 (1 = per-token "
+                             f"decode); got {multi_step}")
         for name, val, off in (
-                ("speculative", speculative, None),
                 ("mesh", mesh, None),
-                ("prefill_chunk_tokens", prefill_chunk_tokens, None),
                 ("multi_step>1", multi_step, 1),
+                ("capture_costs", capture_costs, False),
                 ("forecast_admission", forecast_admission, False),
                 ("weight hot-swap (weight_generation)", weight_generation,
                  0)):
@@ -446,7 +489,50 @@ class ContinuousBatchingEngine:
         self.max_prefill_attempts = int(max_prefill_attempts)
         self.stall_timeout_s = (None if stall_timeout_s is None
                                 else float(stall_timeout_s))
+        # chunked prefill: None admits with one whole prefill; a chunk
+        # size makes admission bind pages without prefilling and each
+        # step advance one half-prefilled slot by one chunk
+        self.prefill_chunk_tokens: Optional[int] = None
+        if prefill_chunk_tokens is not None:
+            c = int(prefill_chunk_tokens)
+            if c < self.page_size or c % self.page_size:
+                raise ValueError(
+                    f"prefill_chunk_tokens {c} must be a positive "
+                    f"multiple of page_size {self.page_size} (chunks "
+                    f"are page-aligned so every chunk boundary lands "
+                    f"on a page boundary)")
+            self.prefill_chunk_tokens = c
+        # the deadline gate's estimates: decode_ema_s times only the
+        # decode or verify call, prefill_chunk_ema_s one chunk (the
+        # fixed bucket makes its cost a constant), so a prefill-heavy
+        # step does not poison the per-token estimate
         self.decode_ema_s: Optional[float] = None
+        self.prefill_chunk_ema_s: Optional[float] = None
+        # the first chunk of each kind (fresh / chained) runs cold and
+        # is left out of the chunk EMA, as the first decode step is
+        self._chunk_warm = {False: False, True: False}
+        # engine-wide time of the last chunk: the stall watchdog's
+        # liveness signal for half-prefilled slots waiting their turn
+        self._last_chunk_t = 0.0
+        # multi-step decode is not ported: 1 here, and inprogram (its
+        # in-program speculation and chunks) is stored for it
+        self.multi_step = int(multi_step)
+        self.inprogram = bool(inprogram)
+        # speculative decoding: admission reserves the whole capacity
+        # and binds the prefill pages (the reserve-then-grow contract)
+        self._reserve_growth = speculative is not None
+        self._spec_cfg = None
+        self._spec_draft = None
+        self._spec_gen: Optional[torch.Generator] = None
+        self._verify_retry = None
+        if speculative is not None:
+            from .speculative import as_spec_config
+            self._spec_cfg = as_spec_config(speculative)
+            self._spec_draft = self._spec_cfg.build_draft()
+            if verify_retry == "site":
+                from ..distributed.resilience import get_retry_policy
+                verify_retry = get_retry_policy("serving.verify")
+            self._verify_retry = verify_retry
         self.fused_step = bool(fused_step)
         self._tracer = tracer
         self.timeline: "collections.deque" = collections.deque(
@@ -536,6 +622,28 @@ class ContinuousBatchingEngine:
     def check_no_leak(self) -> None:
         self.allocator.check_no_leak()
 
+    @property
+    def step_ema_s(self) -> Optional[float]:
+        """The decode EMA under its older name (before the split into
+        ``decode_ema_s`` and ``prefill_chunk_ema_s``)."""
+        return self.decode_ema_s
+
+    @step_ema_s.setter
+    def step_ema_s(self, value: Optional[float]) -> None:
+        self.decode_ema_s = value
+
+    @property
+    def prefill_debt_tokens(self) -> int:
+        """Outstanding prefill work in tokens: the unstored prompt of
+        every half-prefilled slot plus every queued prompt (an upper
+        bound: later cache hits may shrink it). The server exports it
+        as the ``serving_prefill_debt_tokens`` gauge."""
+        debt = sum(len(r.prompt) - r.prefill_done_len
+                   for r in self._slots
+                   if r is not None and r.state == "prefill_partial")
+        debt += sum(len(r.prompt) for r in self._queue)
+        return debt
+
     def step_timeline(self) -> List[Dict[str, Any]]:
         """Per-step records, oldest first (bounded ring)."""
         return list(self.timeline)
@@ -590,6 +698,56 @@ class ContinuousBatchingEngine:
                     prefill_chained=chained)
                 nxt = self._sample(logits[:1, plen - 1], None)
         return int(nxt[0].item())
+
+    def _run_verify(self, tokens: np.ndarray, valid: np.ndarray
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The speculative verify (``continuous_batching.py:1820-1876``):
+        append each slot's pending token and drafts ``tokens`` [slots,
+        k+1] (``valid`` real ones a row; 0 parks the row on the scratch
+        page), score all k+1 positions in one chained forward and return
+        (accept, resampled, full) on the host. With the fused head the
+        greedy targets stream from the hidden states through
+        ``fused_argmax`` over slots*(k+1) rows: no [slots, k+1, V]
+        logits."""
+        from ..nn.decode import fused_verify_tokens, \
+            speculative_verify_tokens
+        cfg = self._spec_cfg
+        temp = float(cfg.temperature)
+        if temp and self._spec_gen is None:
+            self._spec_gen = torch.Generator(
+                device=self.device).manual_seed(int(cfg.seed))
+        dev = self.device
+        table_t = torch.from_numpy(self._table).to(dev)
+        lens_t = torch.from_numpy(self._lens).to(dev)
+        toks_t = torch.from_numpy(tokens).to(dev)
+        valid_t = torch.from_numpy(valid).to(dev)
+        hp = self._fused_head()
+        with torch.no_grad():
+            caches = self._caches(table_t, lens_t)
+            if hp is not None:
+                hidden, _ = self.model.decode_hidden(
+                    toks_t, caches, prefill_lens=valid_t,
+                    prefill_chained=True, fused=True)
+                w, ty, bias = hp
+                out = fused_verify_tokens(
+                    hidden, toks_t[:, 1:], w, temp, cfg.top_k,
+                    self._spec_gen, transpose_y=ty, bias=bias)
+            else:
+                logits, _ = self.model.verify_step(toks_t, caches, valid_t)
+                out = speculative_verify_tokens(
+                    logits, toks_t[:, 1:], temp, cfg.top_k, self._spec_gen)
+        accept, resid, full = (t.cpu().numpy() for t in out)
+        return accept, resid, full
+
+    def _check_pools_live(self, what: str) -> None:
+        """Guard of every retrying launch site (prefill, chunk, verify):
+        an engine whose pools were released (``release_device``) cannot
+        launch, and a retry would only repeat the failure; raise a
+        terminal, non-transient error instead."""
+        if self._pools is None:
+            raise RuntimeError(
+                f"KV pools were released before this {what}; the engine "
+                f"cannot step. Rebuild the engine")
 
     def _host(self, shape, dtype) -> torch.Tensor:
         """A host staging buffer: page-locked when the pools are on the
@@ -735,8 +893,12 @@ class ContinuousBatchingEngine:
             "t_us": t_step * 1e6,
             "ms": round((now - t_step) * 1e3, 4),
             "slots_active": self.num_active,
+            "slots_decoding": sum(
+                1 for r in self._slots
+                if r is not None and r.state == "decoding"),
             "queued": len(self._queue),
             "free_pages": self.allocator.free_count,
+            "reserved_pages": self.allocator.reserved_total,
         }
         for k, v in self._tl_ms.items():
             entry[k] = round(v, 4)
@@ -751,10 +913,12 @@ class ContinuousBatchingEngine:
         return self.prompt_buckets[-1]
 
     def _fits(self, req: DecodeRequest) -> bool:
-        """Could ``req`` be admitted now? Free pages plus what the prefix
-        cache could evict, excluding the entries the request's own match
-        would pin (``continuous_batching.py:1956-1992``); ``match``
-        memoizes the chain hashes on the request."""
+        """Could ``req`` be admitted now? Its whole capacity (prompt +
+        max_new) against the free pages, which leave out every
+        speculative reservation, plus what the prefix cache could evict,
+        excluding the entries the request's own match would pin
+        (``continuous_batching.py:1956-1992``); ``match`` memoizes the
+        chain hashes on the request."""
         need = -(-(len(req.prompt) + req.max_new_tokens) // self.page_size)
         avail = self.allocator.free_count
         if self._prefix_cache is not None:
@@ -763,15 +927,49 @@ class ContinuousBatchingEngine:
             avail += self._prefix_cache.evictable_pages(excluding=keys)
         return need <= avail
 
+    def _partial_debt_by_class(self) -> Dict[int, int]:
+        """In-flight prefill debt (the unstored prompt of half-prefilled
+        slots) by priority class: the debt gate's input."""
+        out: Dict[int, int] = {}
+        for r in self._slots:
+            if r is not None and r.state == "prefill_partial":
+                rem = len(r.prompt) - r.prefill_done_len
+                out[r.priority] = out.get(r.priority, 0) + rem
+        return out
+
+    def _debt_allows(self, req: DecodeRequest) -> bool:
+        """The per-class prefill-debt gate (chunked mode under a
+        scheduler whose config has ``max_prefill_debt_tokens``): a class
+        is admitted while its in-flight debt plus this prompt's
+        (less its cache hit) stays under the cap; a class with no
+        in-flight debt is always admissible."""
+        if self.prefill_chunk_tokens is None:
+            return True
+        cfg = getattr(self._scheduler, "cfg", None)
+        cap = getattr(cfg, "max_prefill_debt_tokens", None)
+        if cap is None:
+            return True
+        cur = self._partial_debt_by_class().get(req.priority, 0)
+        if cur == 0:
+            return True
+        add = len(req.prompt)
+        if self._prefix_cache is not None:
+            _keys, shared = self._prefix_cache.match(req.prompt, memo=req)
+            add -= len(shared) * self.page_size
+        return cur + add <= cap
+
+    def _admissible(self, req: DecodeRequest) -> bool:
+        return self._fits(req) and self._debt_allows(req)
+
     def _select_next(self) -> Optional[DecodeRequest]:
         if not self._queue:
             return None
         if self._scheduler is not None:
-            idx = self._scheduler.select(self._queue, self._fits,
+            idx = self._scheduler.select(self._queue, self._admissible,
                                          time.monotonic())
             return self._queue.pop(idx) if idx is not None else None
         # built-in FIFO: head or nothing (don't starve the head)
-        if self._fits(self._queue[0]):
+        if self._admissible(self._queue[0]):
             return self._queue.pop(0)
         return None
 
@@ -821,6 +1019,7 @@ class ContinuousBatchingEngine:
         with self._led(state, req.req_id):
             self.allocator.free(req.req_id)
             self._release_cache_keys(req)
+        req.prefill_done_len = 0
         req.state = state
         req.done = True
         req.stats.finish_t = time.monotonic()
@@ -845,18 +1044,33 @@ class ContinuousBatchingEngine:
 
     def _deadline_hopeless(self, req: DecodeRequest, now: float) -> bool:
         """True when the request cannot finish before its deadline:
-        already expired, or its best-case remaining decode steps at the
-        observed step time overshoot it. The JAX gate charges the prefix
-        cache's hit only to the prefill chunks of chunked mode, which is
-        not ported, so no cache term applies here."""
+        already expired, or its best-case remaining work at the observed
+        step times overshoots it (``continuous_batching.py:2155-2212``).
+        Best case: one token when an EOS may end it, and a speculative
+        step emits up to k+1 tokens. Chunked mode adds the prompt's
+        remaining chunks after its prefix-cache hit at the chunk EMA.
+        With no decode EMA yet only expiry counts."""
         if req.deadline_t is None:
             return False
         if now >= req.deadline_t:
             return True
-        if self.decode_ema_s is not None:
-            need = 1 if req.eos_token is not None else req.max_new_tokens
-            return now + need * self.decode_ema_s > req.deadline_t
-        return False
+        if self.decode_ema_s is None:
+            return False
+        need = 1 if req.eos_token is not None else req.max_new_tokens
+        per_step = (self._spec_cfg.k + 1 if self._spec_cfg is not None
+                    else 1)
+        est = -(-need // per_step) * self.decode_ema_s
+        if self.prefill_chunk_tokens is not None and \
+                self.prefill_chunk_ema_s is not None:
+            cached = 0
+            if self._prefix_cache is not None:
+                _keys, shared = self._prefix_cache.match(req.prompt,
+                                                         memo=req)
+                cached = len(shared) * self.page_size
+            chunks = -(-(len(req.prompt) - cached)
+                       // self.prefill_chunk_tokens)
+            est += chunks * self.prefill_chunk_ema_s
+        return now + est > req.deadline_t
 
     def expire_deadlines(self, now: Optional[float] = None
                          ) -> List[DecodeRequest]:
@@ -886,6 +1100,11 @@ class ContinuousBatchingEngine:
             if req is None:
                 continue
             last = max(req.last_emit_t, req.stats.admit_t)
+            if req.state == "prefill_partial":
+                # a half-prefilled slot may be waiting its turn for the
+                # one chunk a step: chunk progress anywhere is its
+                # liveness, and a broken step lands no chunk at all
+                last = max(last, self._last_chunk_t)
             if now - last > self.stall_timeout_s:
                 out.append(self._evict_slot(slot, "stalled"))
         return out
@@ -894,7 +1113,9 @@ class ContinuousBatchingEngine:
         """Every request the engine still owes an answer (active slots
         and the wait queue) in submission order: the resurrection input.
         Each one's prompt plus emitted tokens rebuilds its KV on a fresh
-        engine by one prefill. Releases nothing; close() tears down."""
+        engine by one prefill; a half-prefilled request has emitted
+        nothing, so it is replayed from its prompt. Releases nothing;
+        close() tears down."""
         live = [r for r in self._slots if r is not None]
         return sorted(live + list(self._queue), key=lambda r: r.req_id)
 
@@ -925,12 +1146,16 @@ class ContinuousBatchingEngine:
 
     def _unwind_prefill_failure(self, slot: int, req: DecodeRequest
                                 ) -> None:
-        """Free a failed prefill's pages and requeue it at the head, or
-        fail it typed after ``max_prefill_attempts``."""
+        """Free a failed prefill's pages (a whole prefill's, or every
+        chunk's of a half-prefilled slot) with any speculative
+        reservation, drop its cache pins and requeue it at the head for
+        a prefill from scratch, or fail it typed after
+        ``max_prefill_attempts``."""
         with self._led("prefill_unwind", req.req_id):
             self.allocator.free(req.req_id)
             self._release_cache_keys(req)
         self._park(slot)
+        req.prefill_done_len = 0
         req.slot = None
         req.stats.prefill_attempts += 1
         if req.stats.prefill_attempts >= self.max_prefill_attempts:
@@ -994,15 +1219,31 @@ class ContinuousBatchingEngine:
                     st.restored_disk_pages += rinfo.get("disk", 0)
                     st.restore_corrupt += rinfo.get("corrupt", 0)
                     st.restore_ms += rinfo.get("ms", 0.0)
+        req._pfx_device_hits = device_hits
         cached_len = len(shared) * self.page_size
         need = -(-(len(req.prompt) + req.max_new_tokens) // self.page_size)
         private_need = need - len(shared)
+
+        def grab():
+            if not self._reserve_growth:
+                return self.allocator.alloc(req.req_id, private_need)
+            # speculation reserves the whole capacity and binds only the
+            # prefill's pages: decode grows the set out of the
+            # reservation (_ensure_pages), and a rejection hands unused
+            # pages back to it (_rollback_pages), so no decode step can
+            # fail to allocate
+            prefill_need = (-(-len(req.prompt) // self.page_size)
+                            - len(shared))
+            if not self.allocator.reserve(req.req_id, private_need):
+                return None
+            return self.allocator.alloc_reserved(req.req_id, prefill_need)
+
         try:
             with self._led("admit", req.req_id):
-                pages = self.allocator.alloc(req.req_id, private_need)
+                pages = grab()
                 if pages is None and cache is not None and \
                         cache.evict_until(self.allocator, private_need):
-                    pages = self.allocator.alloc(req.req_id, private_need)
+                    pages = grab()
         except InjectedFault:
             # armed alloc.page: a transient allocation failure is a
             # non-fit (alloc raises before it mutates anything)
@@ -1026,10 +1267,26 @@ class ContinuousBatchingEngine:
         req.stats.cache_enabled = cache is not None
         req.cache_keys = keys
         req.state = "prefill"
-        row = np.full((self.max_pages,), self._scratch, np.int32)
+        row = self._table[slot]
+        row[:] = self._scratch
         row[:len(shared)] = shared
         row[len(shared):len(shared) + len(pages)] = pages
-        self._table[slot] = row
+        if self.prefill_chunk_tokens is not None:
+            # chunked admission: bind the pages and store nothing yet.
+            # The slot's stored length is the cache hit; the matched
+            # pins stay on req.cache_keys for every exit path, and
+            # insert() runs when the last chunk lands
+            req.state = "prefill_partial"
+            req.prefill_done_len = cached_len
+            req.slot = slot
+            self._lens[slot] = cached_len
+            self._cur[slot] = 0
+            self._slots[slot] = req
+            if tr is not None:
+                req.span = tr.begin("prefill", parent=tr.anchor,
+                                    chunked=True,
+                                    remaining=len(req.prompt) - cached_len)
+            return True
         suffix = req.prompt[cached_len:]
         plen = len(suffix)
         bucket = self._bucket(plen)
@@ -1041,6 +1298,7 @@ class ContinuousBatchingEngine:
                    if tr is not None else None)
 
         def run_prefill():
+            self._check_pools_live("prefill")
             fault_point("serving.prefill")
             return self._run_prefill(row, ids, plen, cached_len)
 
@@ -1095,6 +1353,7 @@ class ContinuousBatchingEngine:
         if cache is not None:
             # the full prompt pages now hold valid KV: ownership moves to
             # the cache, with this request's reference until it finishes
+            # (row is the slot's table row: a dedup fold retargets it)
             req.cache_keys = cache.insert(
                 req.prompt, row, self.allocator, req.req_id,
                 self.page_size, keys, device_hits=device_hits)
@@ -1102,6 +1361,122 @@ class ContinuousBatchingEngine:
         if tr is not None:
             tr.event("first_token", parent=tr.anchor, token=nxt)
             req.span = tr.begin("decode", parent=tr.anchor)
+        self._emit_token(req, nxt)
+        self._maybe_finish(slot)
+        return True
+
+    # -- chunked prefill ---------------------------------------------------
+
+    def _select_chunk_slot(self, partial: List[Tuple[int, DecodeRequest]]
+                           ) -> Optional[int]:
+        """The half-prefilled slot that gets this step's chunk: the
+        scheduler's ``select_chunk`` when it has one (higher-class decode
+        may defer a lower-class chunk, a bounded number of times), else
+        the oldest admission."""
+        sel = getattr(self._scheduler, "select_chunk", None)
+        if sel is not None:
+            decoding = [r for r in self._slots
+                        if r is not None and r.state == "decoding"]
+            return sel(partial, decoding, time.monotonic())
+        return min(partial, key=lambda sr: sr[1].req_id)[0]
+
+    def _advance_prefill_chunk(self) -> bool:
+        """Spend this step's prefill budget (``continuous_batching.py:
+        2628-2765``): advance at most one half-prefilled slot by one
+        page-aligned chunk of ``prefill_chunk_tokens``, padded to that
+        one bucket. A chunk after stored tokens (earlier chunks or a
+        cache hit) is the chained prefill; a fresh first chunk keeps the
+        dense prefill, so a prompt that fits one chunk is the whole
+        prefill's launch. The last chunk's token is the first generated
+        one. Returns True when a chunk ran."""
+        partial = [(i, r) for i, r in enumerate(self._slots)
+                   if r is not None and r.state == "prefill_partial"]
+        if not partial:
+            return False
+        slot = self._select_chunk_slot(partial)
+        if slot is None:
+            return False  # the scheduler deferred it: decode first
+        req = self._slots[slot]
+        cache = self._prefix_cache
+        chunk = self.prefill_chunk_tokens
+        done = req.prefill_done_len
+        suffix = req.prompt[done:done + chunk]
+        final = done + len(suffix) == len(req.prompt)
+        ids = np.zeros((1, chunk), np.int32)
+        ids[0, :len(suffix)] = suffix
+        chained = done > 0
+        row = self._table[slot]
+
+        def run_chunk():
+            self._check_pools_live("prefill")
+            fault_point("serving.prefill")
+            return self._run_prefill(row, ids, len(suffix), done)
+
+        tr = req.trace
+        sp_chunk = (tr.begin("prefill_chunk", parent=req.span,
+                             idx=req.stats.prefill_chunks,
+                             done_tokens=done)
+                    if tr is not None else None)
+        t0 = time.monotonic()
+        try:
+            if self._prefill_retry is not None:
+                nxt = self._prefill_retry.call(run_chunk,
+                                               site="serving.prefill")
+            else:
+                nxt = run_chunk()
+        except Exception:
+            # unwind the whole half-prefilled admission, not just this
+            # chunk: the retry prefills from scratch
+            if tr is not None:
+                tr.end(sp_chunk, error=True)
+            self._unwind_prefill_failure(slot, req)
+            raise
+        self._launched("prefill_chained" if chained else "prefill")
+        now = time.monotonic()
+        dt = now - t0
+        self._tl_ms["chunk_ms"] = self._tl_ms.get("chunk_ms", 0.0) + dt * 1e3
+        if tr is not None:
+            tr.end(sp_chunk, tokens=len(suffix))
+        req.stats.prefill_ms += dt * 1e3
+        req.stats.prefill_chunks += 1
+        if self._chunk_warm[chained]:
+            self.prefill_chunk_ema_s = dt \
+                if self.prefill_chunk_ema_s is None \
+                else 0.8 * self.prefill_chunk_ema_s + 0.2 * dt
+        else:
+            self._chunk_warm[chained] = True
+        req.prefill_done_len = done + len(suffix)
+        self._lens[slot] = req.prefill_done_len
+        # chunk progress is liveness for the stall watchdog, for this
+        # slot and (engine-wide) for the ones waiting their turn
+        req.last_emit_t = now
+        self._last_chunk_t = now
+        req.chunk_deferrals = 0
+        if req.deadline_t is not None and now >= req.deadline_t:
+            # expired mid-prefill: evict typed (pages, reservation and
+            # cache pins all return) instead of a token past the deadline
+            self._evict_slot(slot, "deadline")
+            return True
+        if not final:
+            return True
+        req.stats.prefill_attempts += 1
+        req.stats.first_token_t = now
+        self._cur[slot] = nxt
+        req.state = "decoding"
+        req.generated.append(nxt)
+        req.stats.tokens_out = 1
+        if tr is not None:
+            self._tr_end(req, chunks=req.stats.prefill_chunks)
+            tr.event("first_token", parent=tr.anchor, token=nxt)
+            req.span = tr.begin("decode", parent=tr.anchor)
+        if cache is not None:
+            # the full prompt pages now hold valid KV; a sibling with the
+            # same prompt may have inserted them meanwhile, which is
+            # where the dedup fold retargets this row
+            req.cache_keys = cache.insert(
+                req.prompt, row, self.allocator, req.req_id,
+                self.page_size, req.cache_keys,
+                device_hits=getattr(req, "_pfx_device_hits", None))
         self._emit_token(req, nxt)
         self._maybe_finish(slot)
         return True
@@ -1134,12 +1509,14 @@ class ContinuousBatchingEngine:
     # -- stepping ----------------------------------------------------------
 
     def step(self) -> int:
-        """Expire deadlines and stalls, admit what fits (prefilling each
-        admission), run ONE decode step for every decoding slot, finish
-        what is done. Returns the number of still-active slots. The
-        ``engine.step`` fault site fires first, before admission and any
-        launch, so an injected failure leaves host and device state as
-        the previous step left them (what the server's replay needs)."""
+        """Expire deadlines and stalls, admit what fits, spend the
+        chunked-prefill budget (at most one slot's next chunk), run ONE
+        decode step (or one draft-and-verify step) for every slot past
+        prefill, finish what is done. Returns the number of still-active
+        slots. The ``engine.step`` fault site fires first, before
+        admission and any launch, so an injected failure leaves host and
+        device state as the previous step left them (what the server's
+        replay needs)."""
         fault_point("engine.step")
         self._tl_ms = {}
         if self.ledger is not None:
@@ -1151,28 +1528,49 @@ class ContinuousBatchingEngine:
             self._admit()
             if self.num_active == 0:
                 return 0
+            if self.prefill_chunk_tokens is not None:
+                self._advance_prefill_chunk()
+            if not any(r is not None and r.state == "decoding"
+                       for r in self._slots):
+                # every active slot is still mid-prefill: no decode step
+                # this time; num_active keeps run() looping
+                return self.num_active
             t0 = time.monotonic()
-            n = self._decode_step()
-            # the first decode step is warm-up dominated; it would
-            # poison the deadline gate's estimate
-            if self.steps > 1:
-                dt = time.monotonic() - t0
-                self.decode_ema_s = dt if self.decode_ema_s is None \
-                    else 0.8 * self.decode_ema_s + 0.2 * dt
-            return n
+            try:
+                if self._spec_cfg is not None:
+                    return self._spec_step()
+                return self._decode_step()
+            finally:
+                # only the decode or verify call is timed (chunks have
+                # their own EMA), and the first step, warm-up dominated,
+                # would poison the deadline gate's estimate
+                if self.steps > 1:
+                    dt = time.monotonic() - t0
+                    self.decode_ema_s = dt if self.decode_ema_s is None \
+                        else 0.8 * self.decode_ema_s + 0.2 * dt
         finally:
             self._tl_commit(t_step)
 
     def _decode_step(self) -> int:
+        decoding = np.array([r is not None and r.state == "decoding"
+                             for r in self._slots])
+        table, lens = self._table, self._lens
+        if any(r is not None and r.state == "prefill_partial"
+               for r in self._slots):
+            # half-prefilled slots ride the step masked to the scratch
+            # page at length 0: their next position belongs to the next
+            # chunk. The host keeps their real table and length.
+            table = np.where(decoding[:, None], table,
+                             self._scratch).astype(np.int32)
+            lens = np.where(decoding, lens, 0).astype(np.int32)
         t0 = time.monotonic()
-        nxt, lens_new = self._run_decode(self._table, self._lens)
+        nxt, lens_new = self._run_decode(table, lens)
         t1 = time.monotonic()
         self._launched("decode")
         self._tl_ms["decode_ms"] = (t1 - t0) * 1e3
         self.steps += 1
-        decoding = np.array([r is not None and r.state == "decoding"
-                             for r in self._slots])
-        # empty slots wrote to the scratch page; keep their host length
+        # slots not decoding wrote to the scratch page; keep their host
+        # length (0 when empty, prefill_done_len when half-prefilled)
         self._lens = np.where(decoding, lens_new,
                               self._lens).astype(np.int32)
         for slot, req in enumerate(self._slots):
@@ -1187,6 +1585,127 @@ class ContinuousBatchingEngine:
                               parent=req.span, step=self.steps, token=tok)
             self._emit_token(req, tok)
             self._maybe_finish(slot)
+        return self.num_active
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _ensure_pages(self, slot: int, req: DecodeRequest,
+                      need_len: int) -> None:
+        """Grow the slot's page set to cover positions [0, need_len) out
+        of the request's reservation, which admission committed, so it
+        cannot fail."""
+        row = self._table[slot]
+        want = -(-need_len // self.page_size)
+        missing = [j for j in range(want) if row[j] == self._scratch]
+        if not missing:
+            return
+        with self._led("spec_grow", req.req_id):
+            pages = self.allocator.alloc_reserved(req.req_id, len(missing))
+        for j, p in zip(missing, pages):
+            row[j] = p
+
+    def _rollback_pages(self, slot: int, req: DecodeRequest,
+                        new_len: int) -> int:
+        """Rejection rollback: a page all of whose positions lie at or
+        past the accepted length holds only rejected drafts' KV and goes
+        back into the request's reservation. The page holding position
+        ``new_len`` (the next append) stays: its stale positions are
+        never attended and the next append overwrites them. Shared
+        prefix pages lie below ``new_len`` and are never touched."""
+        row = self._table[slot]
+        keep = -(-(new_len + 1) // self.page_size)
+        victims = [int(row[j]) for j in range(keep, self.max_pages)
+                   if row[j] != self._scratch]
+        if victims:
+            with self._led("spec_rollback", req.req_id):
+                self.allocator.release_pages(req.req_id, victims,
+                                             rereserve=True)
+            row[keep:] = self._scratch
+        return len(victims)
+
+    def _spec_step(self) -> int:
+        """One draft-and-verify step over every decoding slot
+        (``continuous_batching.py:3333-3445``): propose k tokens a slot,
+        score all k+1 positions in ONE verify forward, emit each slot's
+        longest accepted prefix plus its correction or bonus token,
+        rewind the lengths past the rejections and hand wholly unused
+        pages back. Half-prefilled slots are not verified: their valid
+        count stays 0 and their writes park on the scratch page."""
+        cfg = self._spec_cfg
+        k = cfg.k
+        active = [i for i, r in enumerate(self._slots)
+                  if r is not None and r.state == "decoding"]
+        hist = [None if (r is None or r.state != "decoding")
+                else r.tokens for r in self._slots]
+        drafts = np.asarray(self._spec_draft.propose(hist, k), np.int32)
+        if drafts.shape != (self.num_slots, k):
+            raise ValueError(
+                f"draft source returned shape {drafts.shape}, expected "
+                f"{(self.num_slots, k)}")
+        # a draft over a larger vocabulary must not feed the target an
+        # out-of-range id (a wrong guess is free, an OOB one is not)
+        drafts = np.clip(drafts, 0, self.cfg.vocab_size - 1).astype(
+            np.int32)
+        tokens = np.zeros((self.num_slots, k + 1), np.int32)
+        tokens[:, 0] = self._cur
+        tokens[:, 1:] = drafts
+        valid = np.zeros((self.num_slots,), np.int32)
+        old_lens = self._lens.copy()
+        for i in active:
+            req = self._slots[i]
+            rem = req.max_new_tokens - len(req.generated)
+            valid[i] = 1 + min(k, rem - 1)  # emit at most rem tokens
+            self._ensure_pages(i, req, int(old_lens[i]) + int(valid[i]))
+
+        def run_verify():
+            self._check_pools_live("verify")
+            fault_point("serving.verify")
+            return self._run_verify(tokens, valid)
+
+        t0v = time.monotonic()
+        if self._verify_retry is not None:
+            accept, resid, full = self._verify_retry.call(
+                run_verify, site="serving.verify")
+        else:
+            accept, resid, full = run_verify()
+        t1v = time.monotonic()
+        self._launched("verify")
+        self._tl_ms["verify_ms"] = (self._tl_ms.get("verify_ms", 0.0)
+                                    + (t1v - t0v) * 1e3)
+        self.steps += 1
+        for i in active:
+            req = self._slots[i]
+            k_eff = int(valid[i]) - 1
+            n = 0
+            while n < k_eff and accept[i, n]:
+                n += 1
+            req.stats.spec_steps += 1
+            req.stats.spec_drafted += k_eff
+            req.stats.spec_accepted += n
+            if req.trace is not None:
+                req.trace.add("verify_step", t0v * 1e6, t1v * 1e6,
+                              parent=req.span, step=self.steps,
+                              drafted=k_eff, accepted=n)
+            nxt = int(resid[i, n]) if n < k_eff else int(full[i, k_eff])
+            emitted = [int(t) for t in tokens[i, 1:1 + n]] + [nxt]
+            finished = False
+            for tok in emitted:
+                req.generated.append(tok)
+                req.stats.tokens_out = len(req.generated)
+                self._cur[i] = tok
+                self._emit_token(req, tok)
+                if self._finish_due(req):
+                    finished = True
+                    break  # EOS inside the accepted run: stop emitting
+            if finished:
+                # the teardown frees pages and reservation wholesale
+                self._maybe_finish(i)
+                continue
+            # KV now covers cur and the n accepted drafts; the last
+            # emitted token's KV is written by the next step
+            new_len = int(old_lens[i]) + n + 1
+            self._lens[i] = new_len
+            self._rollback_pages(i, req, new_len)
         return self.num_active
 
     def run(self, max_steps: int = 100000) -> Dict[int, np.ndarray]:

@@ -486,6 +486,20 @@ class GPTForCausalLM(nn.Module):
         return self.gpt(input_ids, None, caches, prefill_lens=prefill_lens,
                         prefill_chained=prefill_chained, fused=fused)
 
+    def verify_step(self, input_ids, caches, valid_len):
+        """Speculative verify forward over paged slots
+        (``gpt.py:1192-1218``): ``input_ids`` [B, s] is ``[cur, d_0, ..,
+        d_{s-2}]`` a sequence, ``caches`` hold the PRE-verify lengths and
+        ``valid_len`` [B] counts the real tokens of each row (0 parks a
+        row: its writes land on the scratch page). The chunk is appended
+        and attends the stored prefix plus itself through the chained
+        path (``q_offsets`` = the old lengths), so position j's logits
+        are the vanilla decode logits after ``cur, d_0..d_{j-1}``.
+        Returns ``(logits [B, s, V], new caches)``; the caller keeps the
+        lengths and rolls back past the accepted prefix."""
+        return self.forward(input_ids, caches=caches,
+                            prefill_lens=valid_len, prefill_chained=True)
+
     def _chunked_lm_loss(self, hidden, labels, chunk: int):
         """Mean next-token CE over sequence chunks (``gpt.py:1103-1162``):
         each chunk's logits and CE run under ``torch.utils.checkpoint``,

@@ -1,6 +1,8 @@
-"""The shared autoregressive sampler (port of ``sample_token``,
-``_head_logits`` and ``fused_sample_token`` of
-``paddle_tpu/nn/decode.py:39-61, 203-262``).
+"""The shared autoregressive sampler and the speculative verify math
+(port of ``sample_token``, ``ngram_draft_tokens``, ``_head_logits``,
+``fused_sample_token``, ``fused_verify_tokens`` and
+``speculative_verify_tokens`` of ``paddle_tpu/nn/decode.py:39-61,
+145-348``).
 
 Greedy at ``temperature == 0``; temperature / top-k sampling draws from
 an explicit ``torch.Generator`` (JAX's keys and torch's generators give
@@ -64,3 +66,118 @@ def fused_sample_token(hidden, weight, temperature: float = 0.0,
         return torch.gather(idxs, 1, pick)[:, 0].to(torch.int32)
     return sample_token(_head_logits(hidden, weight, bias, transpose_y),
                         temperature, top_k, generator)
+
+
+def ngram_draft_tokens(hist, hist_len, k: int, max_ngram: int = 3,
+                       min_ngram: int = 1):
+    """Device twin of ``inference/speculative.py`` ``NGramDraft._lookup``
+    as gathers over the slots' stored histories: ``hist`` [B, H] int32
+    (right padded; entries past ``hist_len`` are ignored), ``hist_len``
+    [B]. Returns [B, k] int32 proposals with the host source's rule: the
+    longest ``max_ngram..min_ngram`` suffix that occurs earlier (the
+    most recent occurrence wins) proposes what followed it, a short
+    continuation pads with its last token, and no match repeats the last
+    token."""
+    b, hcap = hist.shape
+    dev = hist.device
+    n = hist_len.to(torch.int64)
+    pos = torch.arange(hcap, device=dev)
+    last = torch.gather(hist, 1, torch.clamp_min(n - 1, 0)[:, None])
+    out = last.expand(b, k).to(torch.int32)
+    found = torch.zeros((b,), dtype=torch.bool, device=dev)
+    kr = torch.arange(k, device=dev)
+    for g in range(max_ngram, min_ngram - 1, -1):
+        # orders above n-1 are skipped: the suffix must leave at least
+        # one earlier token to match against
+        g_ok = g <= (n - 1)
+        gr = torch.arange(g, device=dev)
+        pat_idx = torch.clamp_min(n[:, None] - g + gr[None, :], 0)
+        pat = torch.gather(hist, 1, pat_idx)                     # [B, g]
+        win_idx = torch.clamp_max(pos[:, None] + gr[None, :], hcap - 1)
+        win = hist[:, win_idx]                                   # [B,H,g]
+        match = (win == pat[:, None, :]).all(-1)                 # [B, H]
+        # windows end at s+g <= n-1: the suffix itself is excluded
+        valid_s = (pos[None, :] + g) <= (n[:, None] - 1)
+        hit = match & valid_s & g_ok[:, None]
+        any_hit = hit.any(-1)
+        s_best = torch.argmax(torch.where(hit, pos[None, :], -1), dim=-1)
+        e = s_best + g
+        cont_idx = torch.clamp_max(e[:, None] + kr[None, :], hcap - 1)
+        cont = torch.gather(hist, 1, cont_idx)                   # [B, k]
+        clen = torch.clamp(n[:, None] - e[:, None], 1, k)
+        cont_last = torch.gather(cont, 1, clen - 1)
+        cont = torch.where(kr[None, :] < clen, cont, cont_last)
+        take = any_hit & ~found
+        out = torch.where(take[:, None], cont, out).to(torch.int32)
+        found = found | any_hit
+    return out
+
+
+def fused_verify_tokens(hidden, drafts, weight, temperature: float = 0.0,
+                        top_k=None, generator=None,
+                        transpose_y: bool = False, bias=None,
+                        tile: int = 2048):
+    """:func:`speculative_verify_tokens` over the verify chunk's final
+    hidden states [B, s, D]: greedy takes each position's target token
+    from the streaming argmax over B*s rows (the ``fused_argmax``
+    kernel on the card), so no [B, s, V] logits exist; temperature and
+    top-k verification need whole distributions and take the unfused
+    logits. Same return contract."""
+    b, s, d = hidden.shape
+    if temperature == 0.0:
+        full = fused_sample(hidden.reshape(b * s, d).contiguous(), weight,
+                            bias=bias, transpose_y=transpose_y, tile=tile)
+        full = full.reshape(b, s).to(torch.int32)
+        accept = drafts.to(torch.int32) == full[:, :-1]
+        return accept, full[:, :-1], full
+    return speculative_verify_tokens(
+        _head_logits(hidden, weight, bias, transpose_y), drafts,
+        temperature, top_k, generator)
+
+
+def speculative_verify_tokens(logits, drafts, temperature: float = 0.0,
+                              top_k=None,
+                              generator: Optional[torch.Generator] = None):
+    """Per-position accept/replace decisions for speculative decoding.
+
+    ``logits``: [B, s, V] over the verify chunk ``[cur, d_0, ..,
+    d_{s-2}]`` (position j scores the token after ``cur, d_0..d_{j-1}``);
+    ``drafts``: [B, s-1]. Returns ``(accept [B, s-1] bool, resampled
+    [B, s-1] int32, full [B, s] int32)``:
+
+    - ``full[:, j]``: the target's own token at position j
+      (:func:`sample_token` semantics: argmax when greedy);
+    - ``accept[:, j]``: greedy, ``d_j == full[:, j]``; with temperature,
+      a uniform draw under the target probability of ``d_j``;
+    - ``resampled[:, j]``: the replacement if j is the first rejection:
+      greedy, ``full[:, j]``; with temperature, a draw from the target
+      distribution with ``d_j``'s mass removed, which keeps the emitted
+      stream distributed as the target's.
+
+    The caller emits ``drafts[:n]`` plus ``resampled[n]`` (n < valid) or
+    ``full[valid]``, n the accepted prefix's length."""
+    b, s, _ = logits.shape
+    if temperature == 0.0:
+        full = torch.argmax(logits, dim=-1).to(torch.int32)
+        accept = drafts.to(torch.int32) == full[:, :-1]
+        return accept, full[:, :-1], full
+    scaled = logits.to(torch.float32) / temperature
+    if top_k is not None:
+        kth = torch.topk(scaled, top_k, dim=-1).values[..., -1:]
+        scaled = torch.where(scaled < kth,
+                             torch.tensor(-1e10, device=scaled.device),
+                             scaled)
+    probs = torch.softmax(scaled, dim=-1)
+    full = torch.multinomial(probs.reshape(b * s, -1), 1,
+                             generator=generator).reshape(b, s).to(
+        torch.int32)
+    d64 = drafts.to(torch.int64)
+    p_draft = torch.gather(probs[:, :-1], -1, d64[..., None])[..., 0]
+    u = torch.rand((b, s - 1), generator=generator, device=logits.device)
+    accept = u < p_draft
+    # residual: the rejected draft's mass removed, renormalized
+    masked = scaled[:, :-1].scatter(-1, d64[..., None], -1e10)
+    resampled = torch.multinomial(
+        torch.softmax(masked, dim=-1).reshape(b * (s - 1), -1), 1,
+        generator=generator).reshape(b, s - 1).to(torch.int32)
+    return accept, resampled, full

@@ -21,8 +21,10 @@ Invariants:
   refcount 0 and no children, so a chain is torn down leaf-first and
   never under an active request.
 - Cached pages belong to ``("prefix", key)`` owners in the
-  :class:`PageAllocator` books; ``clear()`` returns everything and
-  ``check_consistent`` audits the books against the allocator.
+  :class:`PageAllocator` books, or ``("dedup", key)`` once a second
+  request's identical page folded onto them (``dedup``); ``clear()``
+  returns everything and ``check_consistent`` audits the books against
+  the allocator.
 
 Spill tiers: with ``spill_bytes`` (host RAM) and/or ``spill_dir``
 (disk), an evicted refcount-0 page is first copied to the host as a
@@ -42,16 +44,14 @@ Blob codecs: ``raw`` (the pool's bytes), ``int8`` and ``int4``
 Host-side and single-threaded, as in the JAX package: every method runs
 on the engine thread. The cache is bounded by pool pressure alone (the
 JAX constructor's ``max_pages`` soft cap has no caller in either
-package and is not ported). Neither is its ``dedup`` fold: it acts
-only when a sibling inserts the same key between a request's ``match``
-and its ``insert``, which takes the chunked or batched prefill that the
-port does not have yet. The fleet methods (``fetch_pages``,
+package and is not ported). The fleet methods (``fetch_pages``,
 ``export_blobs``/``import_blobs``, ``expand_heads``, the
 advertisement, ``set_generation``) are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -555,6 +555,9 @@ class _Entry:
     refcount: int = 0             # active requests holding this one
     children: int = 0             # child entries chaining off this one
     last_used: int = 0            # LRU tick
+    dedup: bool = False           # a second request's identical page
+                                  # folded onto this one: the allocator
+                                  # owner is ("dedup", key)
 
 
 class PrefixCache:
@@ -565,19 +568,31 @@ class PrefixCache:
     disk tier of ``disk_bytes`` (1 GiB unless given) behind it. The
     tiers need device IO, which the engine attaches
     (:meth:`attach_device_io`); without it they stay inert.
-    ``blob_format`` picks the spill codec (``raw``/``int8``/``int4``)."""
+    ``blob_format`` picks the spill codec (``raw``/``int8``/``int4``).
+
+    ``dedup`` (on by default, as in the JAX package): when a request
+    inserts a full page whose chain a sibling with the same prompt
+    inserted first (possible under chunked prefill, whose insert follows
+    the last chunk), the request's table row is retargeted at the shared
+    page and its private duplicate goes back to the free list; the
+    shared page moves to a ``("dedup", key)`` owner. The chain key and
+    the token check prove the two pages hold the same KV, so greedy
+    outputs are the same on and off."""
 
     def __init__(self, page_size: int,
                  spill_bytes: Optional[int] = None,
                  spill_dir: Optional[str] = None,
                  disk_bytes: Optional[int] = None,
                  blob_format: str = "raw",
+                 dedup: bool = True,
                  generation: int = 0):
         if blob_format not in BLOB_FORMATS:
             raise ValueError(
                 f"blob_format must be one of {BLOB_FORMATS}; "
                 f"got {blob_format!r}")
         self.blob_format = blob_format
+        self.dedup = bool(dedup)
+        self.dedup_hits = 0          # pages folded onto a resident one
         # salted into every chain root; 0 = no salt
         self.generation = int(generation)
         # lossy-codec accounting (the pack_page_blob stats sink)
@@ -862,11 +877,34 @@ class PrefixCache:
             ent = self._entries.get(key)
             if ent is not None and np.array_equal(ent.tokens, block):
                 # a sibling with the same prefix inserted it between our
-                # match() and now: take a reference; the row keeps its
-                # private copy, freed with the request
+                # match() and now: take a reference
                 ent.refcount += 1
                 ent.last_used = self._tick
                 keys.append(key)
+                if self.dedup:
+                    # the chain key and the token check prove the private
+                    # page holds the same KV (a full page is a function
+                    # of its chain): point the row at the shared page and
+                    # free the duplicate. Without dedup the row keeps its
+                    # private copy, freed with the request.
+                    page = int(row[i])
+                    owned = allocator.owners().get(owner, ())
+                    if page != ent.page and page in owned:
+                        led = getattr(allocator, "ledger", None)
+                        ctx = (led.why("dedup_hit",
+                                       owner if isinstance(owner, int)
+                                       else None)
+                               if led is not None
+                               else contextlib.nullcontext())
+                        with ctx:
+                            row[i] = ent.page
+                            allocator.release_pages(owner, [page])
+                            if not ent.dedup:
+                                allocator.transfer(
+                                    ("prefix", ent.key),
+                                    ("dedup", ent.key), [ent.page])
+                                ent.dedup = True
+                        self.dedup_hits += 1
                 continue
             if ent is not None:
                 break  # hash collision with other tokens: stop
@@ -908,6 +946,12 @@ class PrefixCache:
                     k = self._entries[k].parent
         return len(self._entries) - len(pinned)
 
+    @staticmethod
+    def _owner_of(ent: _Entry) -> Tuple[str, bytes]:
+        """The allocator owner of an entry's page: ("dedup", key) once a
+        second request folded onto it, else ("prefix", key)."""
+        return ("dedup" if ent.dedup else "prefix", ent.key)
+
     def _evict_one(self, allocator) -> bool:
         cands = self._evictable()
         if not cands:
@@ -915,7 +959,7 @@ class PrefixCache:
         victim = min(cands, key=lambda e: e.last_used)
         # spill before free: the content survives as a tier blob
         self._spill_entry(victim)
-        allocator.free(("prefix", victim.key))
+        allocator.free(self._owner_of(victim))
         if victim.parent is not None:
             self._entries[victim.parent].children -= 1
         del self._entries[victim.key]
@@ -943,7 +987,7 @@ class PrefixCache:
                 f"{[e.refcount for e in busy[:8]]}) — release requests "
                 f"before close()")
         for ent in self._entries.values():
-            allocator.free(("prefix", ent.key))
+            allocator.free(self._owner_of(ent))
         self.evicted_pages += len(self._entries)
         self._entries.clear()
         for t in self.tiers:
@@ -963,11 +1007,15 @@ class PrefixCache:
 
     def tier_stats(self) -> Dict[str, Dict[str, Any]]:
         """Per-tier counters: the device tier (resident pages, hit/miss
-        pages) and each spill tier's occupancy and hits."""
+        pages, dedup-shared pages and folds) and each spill tier's
+        occupancy and hits."""
         out: Dict[str, Dict[str, Any]] = {
             "device": {"pages": len(self._entries),
                        "hit_pages": self.hit_pages,
-                       "miss_pages": self.miss_pages}}
+                       "miss_pages": self.miss_pages,
+                       "dedup_pages": sum(
+                           1 for e in self._entries.values() if e.dedup),
+                       "dedup_hits": self.dedup_hits}}
         for t in self.tiers:
             s = t.stats()
             s["hit_pages"] = self.tier_hit_pages.get(t.name, 0)
@@ -982,7 +1030,7 @@ class PrefixCache:
         cache_owned = 0
         for owner, pages in owners.items():
             if not (isinstance(owner, tuple) and len(owner) == 2
-                    and owner[0] == "prefix"):
+                    and owner[0] in ("prefix", "dedup")):
                 raise RuntimeError(
                     f"page leak past drain: owner {owner!r} still holds "
                     f"{list(pages)}")
@@ -992,6 +1040,10 @@ class PrefixCache:
                     f"prefix-cache books diverge from allocator for "
                     f"owner {owner!r}: allocator={list(pages)}, "
                     f"entry={ent}")
+            if (owner[0] == "dedup") != ent.dedup:
+                raise RuntimeError(
+                    f"dedup books diverge for {owner!r}: allocator "
+                    f"class {owner[0]!r} but entry.dedup={ent.dedup}")
             cache_owned += len(pages)
         if allocator.free_count + cache_owned != allocator.num_pages:
             raise RuntimeError(

@@ -28,7 +28,23 @@ The prefix cache is on by default, as in the JAX server
 requests sharing a prompt prefix share its full KV pages and prefill
 only the suffix. ``--spill-mb`` / ``--spill-dir`` add host-RAM and disk
 tiers that keep evicted prefix pages as crc-checked blobs and restore
-them on a later hit; ``--blob-format`` picks their codec.
+them on a later hit; ``--blob-format`` picks their codec. With the cache
+on, a full page that a sibling with the same prompt inserted first is
+folded onto the resident copy (``dedup``, on by default; ``--no-dedup``
+keeps the private copy).
+
+Chunked prefill: ``--prefill-chunk 256`` admits long prompts without
+stalling in-flight streams: each engine step prefills at most one
+page-aligned 256-token chunk of one admitted prompt before the decode
+step (greedy outputs equal whole prefill's; ``prefill_debt_tokens`` in
+health and the gauges tracks the outstanding prefill).
+
+Speculative decoding: ``--speculate 4`` (the n-gram prompt-lookup
+draft) or ``--speculate 4 --draft-model gpt_125m`` (a model drafts over
+a ``--draft-window`` context): a draft's k guesses are verified in one
+multi-token forward, greedy outputs equal the vanilla engine's, and the
+per-request acceptance rate and tokens a step land in the replies'
+stats and the metrics.
 
 Engine resurrection: after ``max_engine_errors`` consecutive step
 failures the server tears the engine down (pages returned and audited),
@@ -41,15 +57,15 @@ resurrections does the server fail typed (``EngineFailed``).
 
 Fault sites (``distributed/fault_inject.py``): ``serving.request`` in
 the connection thread per generate, ``net.recv`` per received line (the
-connection is torn down), ``engine.step``, ``serving.prefill`` (retried
-by its site policy) and ``alloc.page`` in the engine, ``cache.spill`` in
-the prefix cache.
+connection is torn down), ``engine.step``, ``serving.prefill`` and
+``serving.verify`` (each retried by its site policy) and ``alloc.page``
+in the engine, ``cache.spill`` in the prefix cache.
 
 Ops and flags not yet ported (``export``, ``slo``, ``trace``,
 ``capacity``, ``profile``, ``fetch_pages``, ``prefetch``, ``swap``;
-``--role``, ``--flight-*``, ``--weight-generation``, ``--no-dedup``,
-``--speculate``, ``--mesh``, ...) are answered as the JAX server answers
-an unknown op or flag.
+``--role``, ``--flight-*``, ``--weight-generation``, ``--multi-step``,
+``--mesh``, ...) are answered as the JAX server answers an unknown op or
+flag.
 
 Threading: the ENGINE THREAD exclusively owns the engine and every CUDA
 launch (it sets the CUDA device first); connection threads parse
@@ -103,10 +119,12 @@ class ServingServer:
     ``create_decode_engine`` (num_slots, page_size, num_pages, ...);
     ``scheduler=None`` defaults to an ``SLOScheduler``.
     ``prefix_cache=True`` builds a ``PrefixCache`` of the engine's page
-    size (with the ``spill_*`` tiers and ``blob_format``)
+    size (with the ``spill_*`` tiers, ``blob_format`` and ``dedup``)
     with every engine; ``prefill_retry="site"`` resolves the
-    ``serving.prefill`` site policy. The model must live on ``device``
-    (CUDA unless named)."""
+    ``serving.prefill`` site policy. ``speculative`` and
+    ``prefill_chunk_tokens`` ride in ``engine_kwargs``, so a
+    resurrection rebuilds a speculative or chunked engine. The model
+    must live on ``device`` (CUDA unless named)."""
 
     def __init__(self, model, host: str = "127.0.0.1", port: int = 0,
                  scheduler=None, prefix_cache: bool = True,
@@ -124,6 +142,7 @@ class ServingServer:
                  slo_tpot_ms: Optional[float] = None,
                  slo_window_s: float = 120.0,
                  blob_format: str = "raw",
+                 dedup: bool = True,
                  device=None, **engine_kwargs):
         self.device = resolve_device(device)
         if tracer is not None:
@@ -149,6 +168,7 @@ class ServingServer:
         self._spill_dir = spill_dir
         self._spill_disk_bytes = spill_disk_bytes
         self._blob_format = str(blob_format)
+        self._dedup = bool(dedup)
         self._page_size = int(engine_kwargs.get("page_size", 64))
         if prefill_retry == "site":
             prefill_retry = get_retry_policy("serving.prefill")
@@ -203,7 +223,8 @@ class ServingServer:
                         spill_bytes=self._spill_bytes,
                         spill_dir=self._spill_dir,
                         disk_bytes=self._spill_disk_bytes,
-                        blob_format=self._blob_format)
+                        blob_format=self._blob_format,
+                        dedup=self._dedup)
             if self._use_prefix_cache else None)
         return create_decode_engine(
             self._model, device=self.device, scheduler=self.scheduler,
@@ -765,12 +786,18 @@ class ServingServer:
                 "queued": eng.num_queued,
                 "page_size": eng.page_size,
                 "free_pages": eng.free_pages,
+                "reserved_pages": eng.allocator.reserved_total,
                 "cached_pages": pc.total_pages() if pc is not None else 0,
                 "num_pages": eng.num_pages,
                 "steps": eng.steps,
                 "engine_restarts": self._restarts,
                 "step_ema_ms": (None if eng.decode_ema_s is None
                                 else round(eng.decode_ema_s * 1e3, 3)),
+                "prefill_chunk_ema_ms": (
+                    None if eng.prefill_chunk_ema_s is None
+                    else round(eng.prefill_chunk_ema_s * 1e3, 3)),
+                "prefill_debt_tokens": eng.prefill_debt_tokens,
+                "prefill_chunk_tokens": eng.prefill_chunk_tokens,
                 "fused_step": eng.fused_step,
                 "kv_int8": eng.kv_int8,
                 "trace_sample": self.tracer.sample_rate,
@@ -784,9 +811,13 @@ class ServingServer:
              "num_slots": eng.num_slots,
              "queued_requests": eng.num_queued,
              "free_pages": eng.free_pages,
+             "reserved_pages": eng.allocator.reserved_total,
              "num_pages": eng.num_pages,
              "prefix_cache_pages": pc.total_pages() if pc is not None
              else 0,
+             # un-stored prompt tokens across half-prefilled slots and
+             # the queue: the head-of-line pressure against TPOT
+             "prefill_debt_tokens": eng.prefill_debt_tokens,
              "pages_inflight": occ["inflight"],
              "pages_prefix_device": occ["prefix_device"],
              "pages_used": eng.num_pages - occ["free"],
@@ -852,6 +883,8 @@ class ServingServer:
                 "restore_corrupt": pc.restore_corrupt,
                 "spill_failed": pc.spill_failed,
                 "blob_format": pc.blob_format,
+                "dedup": pc.dedup,
+                "dedup_hits": pc.dedup_hits,
                 "codec_stats": dict(pc.codec_stats)}
 
 
@@ -881,7 +914,8 @@ def client_request(host: str, port: int, payload: Dict,
 
 
 def build_model(name: str, device=None):
-    """A seed-0 random-init model of a named config on ``device``."""
+    """A seed-0 random-init model of a named config on ``device`` (the
+    served model and a ``--draft-model`` alike)."""
     from ..models.gpt import CONFIGS, GPTForCausalLM
     if name not in CONFIGS:
         raise SystemExit(f"unknown --model {name!r}; choose from "
@@ -944,6 +978,29 @@ def main(argv=None) -> None:
         help="evict a slot that emits no token for this long with a "
              "typed RequestStalled reply (default: watchdog off)")
     parser.add_argument(
+        "--no-dedup", action="store_true",
+        help="keep a request's private copy of a full prompt page that "
+             "a sibling with the same prompt cached first (default: "
+             "fold it onto the shared page; greedy outputs are the same)")
+    parser.add_argument(
+        "--prefill-chunk", type=int, default=None, metavar="TOKENS",
+        help="chunked prefill: prefill at most this many page-aligned "
+             "tokens of one admitted prompt a decode step (a multiple "
+             "of --page-size; default: whole-prompt prefill). Greedy "
+             "outputs are the same; smaller chunks protect in-flight "
+             "TPOT, larger ones finish long prefills sooner")
+    parser.add_argument(
+        "--speculate", type=int, default=0, metavar="K",
+        help="draft K tokens a decode step and verify them in one "
+             "forward (0 = off); greedy outputs are the same")
+    parser.add_argument(
+        "--draft-model", default="ngram",
+        help="draft source for --speculate: 'ngram' (prompt lookup, "
+             "no second model) or a model name, built like --model")
+    parser.add_argument(
+        "--draft-window", type=int, default=64,
+        help="context window of a --draft-model draft")
+    parser.add_argument(
         "--no-fused-step", action="store_true",
         help="run the unfused decode ops (attention, then the "
              "out-projection, then the full logits)")
@@ -967,8 +1024,20 @@ def main(argv=None) -> None:
         engine_kwargs["num_pages"] = args.num_pages
     if args.max_seq_len is not None:
         engine_kwargs["max_seq_len"] = args.max_seq_len
+    if args.prefill_chunk is not None:
+        # rides in engine_kwargs, so a resurrection rebuilds a chunked
+        # engine too
+        engine_kwargs["prefill_chunk_tokens"] = args.prefill_chunk
+    if args.speculate > 0:
+        from ..inference import SpeculativeConfig
+        draft = args.draft_model
+        if draft != "ngram":
+            draft = build_model(draft, device)
+        engine_kwargs["speculative"] = SpeculativeConfig(
+            k=args.speculate, draft=draft, draft_window=args.draft_window)
     server = ServingServer(model, host=args.host, port=args.port,
                            prefix_cache=not args.no_prefix_cache,
+                           dedup=not args.no_dedup,
                            spill_bytes=(None if args.spill_mb is None
                                         else args.spill_mb << 20),
                            spill_dir=args.spill_dir,

@@ -593,3 +593,70 @@ def test_retry_policy_argument_is_a_policy(models):
     finally:
         eng.close()
     assert calls == ["serving.prefill"] * 2
+
+
+# -- the dedup fold at engine level (``tests/test_kv_substrate.py:363-418``) --
+
+# 19 tokens = 2 full shareable blocks at page 8
+_DEDUP_PROMPT = np.arange(3, 22, dtype=np.int32)
+_DEDUP_OTHER = np.arange(40, 61, dtype=np.int32)
+_DEDUP_STREAM = (_DEDUP_PROMPT, _DEDUP_PROMPT, _DEDUP_OTHER)
+
+
+def _dedup_run(make, model, dedup, **kw):
+    from paddle_tpu_torch.inference import SpeculativeConfig
+    if kw.pop("spec", False):
+        kw["speculative"] = SpeculativeConfig(k=2)
+    if make is _engine:
+        cache = PrefixCache(8, dedup=dedup)
+        eng = _engine(model, prefix_cache=cache, **kw)
+    else:
+        cache = JaxPrefixCache(8, dedup=dedup)
+        eng = make(model, prefix_cache=cache, **dict(ENGINE_KW, **kw))
+    rids = [eng.submit(p, max_new_tokens=6) for p in _DEDUP_STREAM]
+    out = eng.run()
+    return [np.asarray(out[r]).tolist() for r in rids], eng, cache
+
+
+def test_chunked_concurrent_prefill_folds_deterministically(models):
+    """Chunked prefill keeps both same-prompt requests in flight past
+    each other's match, so the second insert meets the first's entries:
+    2 folds, the dedup class in ``occupancy()``, the ledger reconciles,
+    and the books balance after close."""
+    _, tm = models
+    outs, eng, pc = _dedup_run(_engine, tm, True, prefill_chunk_tokens=8)
+    try:
+        assert pc.dedup_hits == 2
+        assert eng.allocator.occupancy()["dedup"] == 2
+        ts = pc.tier_stats()["device"]
+        assert ts["dedup_pages"] == 2 and ts["dedup_hits"] == 2
+        rec = eng.ledger.reconcile(eng.allocator)
+        assert rec["ok"], rec
+        assert outs[0] == outs[1]
+    finally:
+        eng.close()  # asserts check_no_leak
+
+
+@pytest.mark.parametrize("mode_kw", [
+    {}, {"prefill_chunk_tokens": 8}, {"spec": True},
+], ids=["plain", "chunked", "spec"])
+def test_dedup_on_against_off_bitwise(models, mode_kw):
+    _, tm = models
+    base, eng0, pc0 = _dedup_run(_engine, tm, False, **dict(mode_kw))
+    eng0.close()
+    outs, eng1, pc1 = _dedup_run(_engine, tm, True, **dict(mode_kw))
+    eng1.close()
+    assert outs == base
+    assert pc0.dedup_hits == 0
+    if "prefill_chunk_tokens" in mode_kw:
+        assert pc1.dedup_hits > 0  # the fold is reached at engine level
+
+
+def test_chunked_dedup_engine_matches_jax(models):
+    jm, tm = models
+    want, jeng, jpc = _dedup_run(jax_engine, jm, True,
+                                 prefill_chunk_tokens=8)
+    jeng.close()
+    got, eng, pc = _dedup_run(_engine, tm, True, prefill_chunk_tokens=8)
+    eng.close()
+    assert got == want and pc.dedup_hits == jpc.dedup_hits == 2

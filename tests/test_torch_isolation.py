@@ -61,6 +61,7 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "import paddle_tpu_torch.ops.kernels.fused_conv_block\n"
         "import paddle_tpu_torch.serving.prefix_cache\n"
         "import paddle_tpu_torch.distributed.resilience\n"
+        "import paddle_tpu_torch.inference.speculative\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

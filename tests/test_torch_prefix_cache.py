@@ -138,8 +138,9 @@ def test_kv_scale_math_bitwise_jax(shape):
 
 def test_fault_sites_and_dispositions_match_jax():
     assert set(fi.FAULT_SITES) == {"engine.step", "serving.prefill",
-                                   "alloc.page", "cache.spill",
-                                   "serving.request", "net.recv"}
+                                   "serving.verify", "alloc.page",
+                                   "cache.spill", "serving.request",
+                                   "net.recv"}
     for site in fi.FAULT_SITES:
         assert site in jfi.FAULT_SITES
         assert (site in res.NO_RETRY_SITES) == \
@@ -256,10 +257,10 @@ def test_clear_refuses_referenced_entries_and_page_size_checked():
 
 def test_concurrent_insert_takes_a_reference_on_the_resident_page():
     """A sibling inserted the same chain between this request's match
-    and its insert: the request takes a reference on the resident entry
-    and keeps its private copy, freed with the request (the JAX cache
-    with ``dedup=False``)."""
-    pc = PrefixCache(4)
+    and its insert: with ``dedup=False`` the request takes a reference on
+    the resident entry and keeps its private copy, freed with the
+    request (the JAX cache's escape hatch; the fold is the default)."""
+    pc = PrefixCache(4, dedup=False)
     alloc = PageAllocator(8)
     prompt = np.arange(9, dtype=np.int32)
     ra = np.array(alloc.alloc(1, 3), np.int32)
@@ -273,8 +274,8 @@ def test_concurrent_insert_takes_a_reference_on_the_resident_page():
     assert alloc.owners()[2] == tuple(int(p) for p in rb)
     occ = alloc.occupancy()
     assert occ["prefix_device"] == 2 and occ["inflight"] == 4
-    assert "dedup" not in occ and "dedup_hits" not in \
-        pc.tier_stats()["device"]
+    assert occ["dedup"] == 0 and pc.dedup_hits == 0
+    assert pc.tier_stats()["device"]["dedup_pages"] == 0
     pc.release(ka)
     pc.release(kb)
     alloc.free(1)
@@ -552,3 +553,104 @@ def test_tier_stats_and_disk_chain(tmp_path):
     pc.clear(alloc)
     alloc.check_no_leak()
     assert not any(f.endswith(".kvblob") for f in os.listdir(tmp_path))
+
+
+# -- the dedup fold (``tests/test_kv_substrate.py:261-360``) ---------------------
+
+def _two_requests(pc_cls, alloc_cls, dedup=True, ledger=None):
+    """Two unrelated requests with the same 2-block prompt, both
+    prefilled privately: the second insert meets the first's entries."""
+    pc = pc_cls(4, dedup=dedup)
+    alloc = alloc_cls(10, ledger=ledger)
+    prompt = np.arange(9, dtype=np.int32)  # 2 full blocks + 1
+    rows, keys = {}, {}
+    for rid in (1, 2):
+        rows[rid] = np.array(alloc.alloc(rid, 3), dtype=np.int32)
+        keys[rid] = pc.insert(prompt, rows[rid], alloc, rid, 4, ())
+    return pc, alloc, rows, keys
+
+
+def _both(dedup=True, ledger=False):
+    from paddle_tpu.inference import PageAllocator as JaxAllocator
+    from paddle_tpu.inference.page_ledger import PageLedger as JaxLedger
+    from paddle_tpu_torch.inference import PageLedger
+    port = _two_requests(PrefixCache, PageAllocator, dedup,
+                         PageLedger() if ledger else None)
+    ref = _two_requests(jpc.PrefixCache, JaxAllocator, dedup,
+                        JaxLedger() if ledger else None)
+    return port, ref
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+def test_dedup_rows_books_and_occupancy_match_jax(dedup):
+    (pc, alloc, rows, keys), (jc, ja, jrows, jkeys) = _both(dedup)
+    assert keys == jkeys
+    assert {r: v.tolist() for r, v in rows.items()} == \
+        {r: v.tolist() for r, v in jrows.items()}
+    assert alloc.owners() == ja.owners()
+    assert alloc.occupancy() == ja.occupancy()
+    assert pc.dedup_hits == jc.dedup_hits == (2 if dedup else 0)
+    assert pc.tier_stats()["device"] == jc.tier_stats()["device"]
+    assert [(e.refcount, e.dedup) for e in pc._entries.values()] == \
+        [(e.refcount, e.dedup) for e in jc._entries.values()]
+
+
+def test_dedup_fold_refcounts_and_frees_duplicates():
+    pc, alloc, rows, keys = _two_requests(PrefixCache, PageAllocator)
+    assert keys[2] == keys[1] and pc.dedup_hits == 2
+    # request 2's row now points at the shared pages
+    assert list(rows[2][:2]) == list(rows[1][:2])
+    # the duplicates went back: 2 shared + 1 tail each = 4 held of 10
+    assert alloc.free_count == 6
+    owners = alloc.owners()
+    for k in keys[1]:
+        assert ("dedup", k) in owners and ("prefix", k) not in owners
+    assert all(e.refcount == 2 and e.dedup for e in pc._entries.values())
+    pc.release(keys[1])
+    pc.release(keys[2])
+    alloc.free(1)
+    alloc.free(2)
+    pc.check_consistent(alloc)
+
+
+def test_dedup_eviction_at_refcount_zero_only():
+    pc, alloc, rows, keys = _two_requests(PrefixCache, PageAllocator)
+    alloc.free(1)
+    alloc.free(2)
+    assert not pc.evict_until(alloc, alloc.num_pages)
+    pc.release(keys[1])
+    assert not pc.evict_until(alloc, alloc.num_pages)
+    pc.release(keys[2])
+    assert all(e.refcount == 0 and e.dedup for e in pc._entries.values())
+    assert pc.evict_until(alloc, alloc.num_pages)  # dedup owners free
+    assert not pc._entries
+    alloc.check_no_leak()
+
+
+def test_dedup_ledger_reconciles_with_the_dedup_hit_reason():
+    (pc, alloc, rows, keys), (_jc, ja, _jr, _jk) = _both(ledger=True)
+    rec = alloc.ledger.reconcile(alloc)
+    assert rec["ok"], rec
+    assert rec == ja.ledger.reconcile(ja)
+    reasons = [e.get("reason") for e in alloc.ledger.tail(16)]
+    assert "dedup_hit" in reasons
+    assert reasons == [e.get("reason") for e in ja.ledger.tail(16)]
+    pc.release(keys[1])
+    pc.release(keys[2])
+    alloc.free(1)
+    alloc.free(2)
+    pc.clear(alloc)
+    alloc.check_no_leak()
+    rec = alloc.ledger.reconcile(alloc)
+    assert rec["ok"] and rec["live_owners"] == 0
+
+
+def test_check_consistent_catches_diverging_dedup_books():
+    pc, alloc, rows, keys = _two_requests(PrefixCache, PageAllocator)
+    pc.release(keys[1])
+    pc.release(keys[2])
+    alloc.free(1)
+    alloc.free(2)
+    next(iter(pc._entries.values())).dedup = False
+    with pytest.raises(RuntimeError, match="dedup books diverge"):
+        pc.check_consistent(alloc)

@@ -165,8 +165,13 @@ def test_cli_builds_the_server_from_its_flags(monkeypatch):
         srv.main(["--device", "cpu", "--no-prefix-cache", "--spill-mb",
                   "2", "--spill-dir", "/x", "--spill-disk-mb", "3",
                   "--blob-format", "int4",
-                  "--max-engine-restarts", "5"])
-    assert made["prefix_cache"] is False and "dedup" not in made
+                  "--max-engine-restarts", "5", "--no-dedup",
+                  "--prefill-chunk", "128", "--speculate", "3",
+                  "--draft-window", "32"])
+    assert made["prefix_cache"] is False and made["dedup"] is False
+    assert made["prefill_chunk_tokens"] == 128
+    spec = made["speculative"]
+    assert (spec.k, spec.draft, spec.draft_window) == (3, "ngram", 32)
     assert made["spill_bytes"] == 2 << 20
     assert made["spill_dir"] == "/x" and made["spill_disk_bytes"] == 3 << 20
     assert made["blob_format"] == "int4"
@@ -176,18 +181,20 @@ def test_cli_builds_the_server_from_its_flags(monkeypatch):
         srv.main(["--device", "cpu"])
     assert made["prefix_cache"] is True and made["spill_bytes"] is None
     assert made["max_engine_restarts"] == 2 and made["blob_format"] == "raw"
+    assert made["dedup"] is True
+    assert "prefill_chunk_tokens" not in made and "speculative" not in made
 
 
 def test_cli_rejects_unported_flags_like_an_unknown_flag():
     with pytest.raises(SystemExit) as e:
-        srv.main(["--device", "cpu", "--speculate", "4"])
+        srv.main(["--device", "cpu", "--multi-step", "4"])
     assert e.value.code == 2
 
 
 @pytest.mark.parametrize("flag", [["--role", "prefill"],
                                   ["--flight-dir", "/tmp/x"],
                                   ["--weight-generation", "1"],
-                                  ["--no-dedup"]])
+                                  ["--checkpoint", "/tmp/x"]])
 def test_cli_rejects_fleet_flags_like_an_unknown_flag(flag):
     with pytest.raises(SystemExit) as e:
         srv.main(["--device", "cpu"] + flag)
