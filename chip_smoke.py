@@ -84,6 +84,23 @@ failure exits non-zero at once:
    acceptance gives.
 5g. server_chunked_spec — a server with both: 4 requests (2 streaming),
    then ``stats`` and ``leak_check``.
+5h. engine_multi_step — multi-step decode (one CUDA graph of the decode
+   iteration, replayed N times a launch): the engine phase's 8 prompts
+   at ``multi_step`` 1, 4 and 8, and with an EOS that the N=1 run emits
+   mid-launch; chunk 256 at N=8 on the ``engine_chunked`` prompts
+   against chunked N=1 and whole prefill; n-gram speculation k=4 at N=4
+   on the ``engine_spec`` prompts against vanilla decoding; bf16 and
+   int8 pools at N=1 and N=8 (4 layers). Gates: every token list
+   bitwise its reference's, the graph path's per-replay launch counts
+   show the three decode kernels (speculation: ``fused_argmax`` and no
+   decode kernel), a profiled replay names them, the ticket buffers
+   read zero. Reports tokens/s, ms a token, launches, iterations a
+   launch, masked iterations, the graphs' kernel nodes, and over steady
+   launches the host's launch calls a token and the device idle share.
+5i. server_multi_step — the server as ``--multi-step 8`` builds it (4
+   layers): two streaming requests, two failed steps, one resurrection
+   onto the rebuilt multi-step engine; streams equal replies, the leak
+   check, the decode kernels launched.
 6. train   — GPT-1.3B training (fp32, dropout 0, ``AdamW(1e-4)``):
    one forward+backward at full depth, B=2, S=2048, through the kernels
    against the plain versions (loss and every parameter's gradient);
@@ -496,6 +513,18 @@ def check_equal(name, got, want):
                              f"{err:.3g})")
         emit({"check": name, "ok": False, "max_abs_err": err,
               "bitwise": True})
+
+
+def check_tokens(name, got, want):
+    """Greedy token lists (one a request) that must be equal; where they
+    are not, the check is printed and recorded in ``FAILED_CHECKS``."""
+    if got != want:
+        apart = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        agree = _agreement(got, want) if len(got) == len(want) else None
+        FAILED_CHECKS.append(f"{name}: requests {apart} differ (token "
+                             f"agreement {agree})")
+        emit({"check": name, "ok": False, "requests_apart": apart,
+              "token_agreement": agree})
 
 
 # the table shape: the engine's 8 slots at lengths from empty to a full
@@ -1840,6 +1869,9 @@ def profile_decode_steps(torch, model):
                 [name[:60], us / 1e3 / steps] for name, us in top]}
 
 
+ENGINE_NEW = 32  # new tokens a request on the engine phase's main path
+
+
 def phase_engine(torch, dev, records, launches):
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
     from paddle_tpu_torch.ops.kernels import (launch_counts,
@@ -1881,7 +1913,7 @@ def phase_engine(torch, dev, records, launches):
     lengths = (40, 100, 200, 400, 900, 1500, 2000, 600)
     prompts = [torch.randint(0, V, (n,), generator=gen).numpy()
                for n in lengths]
-    max_new = 32
+    max_new = ENGINE_NEW
     reset_launch_counts()
     outs, info = run_engine(torch, model, prompts, max_new, plain=False)
     counts = launch_counts()
@@ -1912,7 +1944,7 @@ def phase_engine(torch, dev, records, launches):
           "decode_profile": prof,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     engine_variants(torch, model, gen)
-    return model
+    return model, prompts
 
 
 def engine_variants(torch, model, gen):
@@ -2967,6 +2999,400 @@ def phase_server_chunked_spec(torch, dev, model):
     _free_engine_memory(torch)
 
 
+# -- phase 5h-5i: multi-step decode ------------------------------------------
+
+MULTI_STEPS = (1, 4, 8)
+MULTI_CHUNK_N = 8          # in-program chunks: chunk 256 at N=8
+MULTI_SPEC_N = 4           # in-program n-gram speculation, k=4, at N=4
+MULTI_LAYERS = 4           # the pool-dtype checks and the server
+MULTI_PROFILE_NEW = 64     # long enough for 4 steady launches at N=8
+MULTI_PROFILE_LENGTHS = (300, 500, 700, 900, 1100, 1300, 1500, 1700)
+MULTI_SERVER_LENGTHS = (300, 700)
+MULTI_SERVER_NEW = 32
+# the host's CUDA API calls that start device work: a kernel, a graph
+# replay or a copy (torch.profiler records them on the CPU side)
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+               "cudaLaunchKernelEx", "cuLaunchKernel", "cuLaunchKernelEx",
+               "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpyAsync",
+               "cuMemcpyAsync", "cuMemcpyHtoDAsync_v2",
+               "cuMemcpyDtoHAsync_v2")
+GRAPH_KERNEL_NAMES = ("paged_decode_kernel", "out_proj_kernel",
+                      "argmax_tiles_kernel")
+
+
+def _multi_model(torch, dev, dtype="float32"):
+    """GPT-1.3B's widths at ``MULTI_LAYERS`` layers, seed-0 weights."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(hidden_size=2048, num_layers=MULTI_LAYERS,
+                    num_heads=16, max_seq_len=2048, dtype=dtype)
+    model = GPTForCausalLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    model.eval()
+    return model
+
+
+def run_multi_engine(torch, model, prompts, max_new, eos=None,
+                     **engine_kw):
+    """``prompts`` through one engine (8 slots, page 64, 96 pages) run to
+    the end, ``eos`` = (request, token) an EOS on that request: the
+    generated tokens and the
+    run's wall time, tokens/s, ms a token, macro launches, iterations a
+    launch, iterations that ran masked only (every slot stopped), the
+    graphs' kernel nodes and wrapper launches a replay."""
+    from paddle_tpu_torch.inference import create_decode_engine
+    eng = create_decode_engine(model, device=model.device, num_slots=8,
+                               page_size=PREFIX_PAGE, num_pages=96,
+                               timeline_steps=4096, **engine_kw)
+    rids = [eng.submit(p, max_new_tokens=max_new,
+                       eos_token=(eos[1] if eos is not None and i == eos[0]
+                                  else None))
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    outs = [res[r][len(p):].tolist() for r, p in zip(rids, prompts)]
+    macros = [e["macro"] for e in eng.step_timeline() if "macro" in e]
+    iters = sum(m["steps"] for m in macros)
+    tokens = sum(len(o) for o in outs)
+    info = {"wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "ms_per_token": wall * 1e3 / tokens,
+            "macro_launches": eng.macro_launches,
+            "iterations_per_launch": (iters / len(macros) if macros
+                                      else None),
+            "masked_iterations": sum(m["masked_steps"] for m in macros),
+            "programs_launched": dict(eng.programs_launched),
+            "step_programs": dict(eng.step_programs)}
+    if eng._macro is not None and eng._macro["graphs"] is not None:
+        info["graphs"] = eng._macro["graphs"].kinds()
+    eng.close()
+    return outs, info
+
+
+def profile_multi_steps(torch, model, n, **engine_kw):
+    """Device time against wall time over steady launches at 8 slots
+    (torch.profiler): N=1 over 10 per-token steps, N>1 over 3 macro
+    launches, each drained inside the window; ``engine_kw`` adds chunks,
+    speculation or int8 pools. Reports ms a token, device kernel ms a
+    token, the idle share, the host's launch calls a token (kernels,
+    graph replays and copies started from the host) and the device
+    kernels' names."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference import create_decode_engine
+    eng = create_decode_engine(model, device=model.device, num_slots=8,
+                               page_size=PREFIX_PAGE, multi_step=n,
+                               **engine_kw)
+    gen = torch.Generator().manual_seed(1)
+    delivered = [0]
+
+    def count(_rid, _tok, _done):
+        delivered[0] += 1
+
+    for length in MULTI_PROFILE_LENGTHS:
+        eng.submit(torch.randint(0, model.config.vocab_size, (length,),
+                                 generator=gen).numpy(),
+                   max_new_tokens=MULTI_PROFILE_NEW, on_token=count)
+    for _ in range(6 if n == 1 else 3):  # admissions, capture, warm steps
+        eng.step()
+    eng._flush_macro()
+    torch.cuda.synchronize()
+    before = delivered[0]
+    steps = 10 if n == 1 else 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            eng.step()
+        eng._flush_macro()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    tokens = delivered[0] - before
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")]
+    calls = [e for e in prof.events()
+             if not str(getattr(e, "device_type", "")).endswith("CUDA")
+             and e.name in LAUNCH_APIS]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    names = sorted({e.name for e in kernels})
+    eng.close()
+    return {"multi_step": n, "window_steps": steps, "tokens": tokens,
+            "wall_ms_per_token": wall_ms / tokens,
+            "device_kernel_ms_per_token": dev_ms / tokens,
+            "device_kernels_per_token": len(kernels) / tokens,
+            "host_launch_calls_per_token": len(calls) / tokens,
+            "host_launch_calls_by_api": {
+                a: sum(e.name == a for e in calls) for a in LAUNCH_APIS
+                if any(e.name == a for e in calls)},
+            "idle_share": 1.0 - dev_ms / wall_ms,
+            "graph_kernels_named": {
+                k: any(k in nm for nm in names) for k in GRAPH_KERNEL_NAMES},
+            "kernel_names": [nm[:60] for nm in names][:24]}
+
+
+def _mid_launch_eos(outs):
+    """(request, token, index): the first token a request's N=1 stream
+    emits at an index i whose iteration lies inside a launch of 4 and of
+    8 ((i - 1) mod 4 is 1 or 2: index 0 is the prefill's), emitted there
+    for the first time, so as an EOS it ends that stream at i."""
+    for j in range(2, max(len(o) for o in outs)):
+        if (j - 1) % 4 not in (1, 2):
+            continue
+        for r, out in enumerate(outs):
+            if j < len(out) and out[j] not in out[:j]:
+                return r, out[j], j
+    raise AssertionError("no stream emits a fresh token mid-launch")
+
+
+def phase_engine_multi_step(torch, dev, model, prompts):
+    """Multi-step decode at full width (GPT-1.3B, 8 slots, page 64, 96
+    pages): the engine phase's 8 prompts (40-2000 tokens, 32 new) at
+    ``multi_step`` 1, 4 and 8, then an EOS that the N=1 run emits in the
+    middle of a launch; ``prefill_chunk_tokens=256`` at N=8 on the
+    ``engine_chunked`` prompts against chunked N=1 and whole prefill;
+    n-gram speculation k=4 at N=4 on the ``engine_spec`` prompts against
+    vanilla decoding; bf16 and int8 pools at N=1 and N=8 at 4 layers.
+    Gates: every token list bitwise equal to its reference; on each
+    multi-step run the graph path's launch counts (the capture's taken
+    back, each replay's added) show ``paged_decode``, ``decode_out_proj``
+    and ``fused_argmax`` (the speculative run: ``fused_argmax`` and no
+    decode kernel), no training kernel; a profiled replay lists the three
+    kernels by name; every ``paged_decode`` ticket buffer reads zero
+    after the phase. Reports, per configuration, tokens/s, ms a token,
+    launches, iterations a launch, masked iterations, the graphs' kernel
+    nodes, and from the profiler the host's launch calls a token and the
+    device's idle share over steady launches."""
+    import numpy as np
+    from paddle_tpu_torch.inference import SpeculativeConfig
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.ops.kernels.paged_attention import ticket_buffers
+    V = model.config.vocab_size
+    decode_need = ("paged_decode", "decode_out_proj", "fused_argmax")
+    runs, outs = {}, {}
+    for n in MULTI_STEPS:
+        _free_engine_memory(torch)
+        reset_launch_counts()
+        outs[n], info = run_multi_engine(torch, model, prompts, ENGINE_NEW,
+                                         multi_step=n)
+        info["launches"] = serving_launch_gate(
+            f"engine_multi_step N={n}", launch_counts(), need=decode_need)
+        _generation_ok(f"engine_multi_step N={n}", outs[n], ENGINE_NEW, V)
+        runs[f"N={n}"] = info
+    for n in MULTI_STEPS[1:]:
+        check_tokens(f"engine_multi_step tokens N={n} vs N=1", outs[n],
+                     outs[1])
+    eos_req, eos, at = _mid_launch_eos(outs[1])
+    eos_outs = {}
+    for n in MULTI_STEPS:
+        _free_engine_memory(torch)
+        eos_outs[n], _ = run_multi_engine(torch, model, prompts, ENGINE_NEW,
+                                          eos=(eos_req, eos), multi_step=n)
+        if len(eos_outs[n][eos_req]) != at + 1:
+            raise AssertionError(f"engine_multi_step EOS N={n}: "
+                                 f"{len(eos_outs[n][eos_req])} tokens, "
+                                 f"not {at + 1}")
+    for n in MULTI_STEPS[1:]:
+        check_tokens(f"engine_multi_step EOS N={n} vs N=1", eos_outs[n],
+                     eos_outs[1])
+
+    # in-program chunks against chunked N=1 and whole prefill
+    gen = torch.Generator().manual_seed(11)
+    chunk_prompts = [torch.randint(0, V, (n,), generator=gen).numpy()
+                     for n in CHUNK_LENGTHS]
+    _free_engine_memory(torch)
+    whole, _s, info_whole = run_stepped_engine(torch, model, chunk_prompts,
+                                               CHUNK_NEW)
+    _free_engine_memory(torch)
+    chunked1, _s, info_c1 = run_stepped_engine(
+        torch, model, chunk_prompts, CHUNK_NEW,
+        prefill_chunk_tokens=CHUNK_TOKENS)
+    _free_engine_memory(torch)
+    reset_launch_counts()
+    chunked8, stats8, info_c8 = run_stepped_engine(
+        torch, model, chunk_prompts, CHUNK_NEW,
+        prefill_chunk_tokens=CHUNK_TOKENS, multi_step=MULTI_CHUNK_N)
+    info_c8["launches"] = serving_launch_gate(
+        "engine_multi_step chunk", launch_counts(),
+        need=decode_need + ("attention_fwd",))
+    progs = info_c8["programs_launched"]
+    if progs.get("prefill_chained", 0) != 0:
+        raise AssertionError(f"engine_multi_step chunk: chained chunks "
+                             f"ran at the boundary ({progs})")
+    _generation_ok("engine_multi_step chunk", chunked8, CHUNK_NEW, V)
+    check_tokens("engine_multi_step chunk N=8 vs chunked N=1", chunked8,
+                 chunked1)
+    check_tokens("engine_multi_step chunk N=8 vs whole prefill", chunked8,
+                 whole)
+
+    # in-program speculation against vanilla decoding
+    gen = torch.Generator().manual_seed(13)
+    spec_prompts = [torch.randint(0, V, (n,), generator=gen).numpy()
+                    for n in SPEC_LENGTHS]
+    _free_engine_memory(torch)
+    vanilla, _s, info_v = run_stepped_engine(torch, model, spec_prompts,
+                                             SPEC_NEW)
+    _free_engine_memory(torch)
+    reset_launch_counts()
+    spec, spec_stats, info_s = run_stepped_engine(
+        torch, model, spec_prompts, SPEC_NEW, multi_step=MULTI_SPEC_N,
+        speculative=SpeculativeConfig(k=SPEC_K, draft="ngram"))
+    counts = serving_launch_gate("engine_multi_step spec", launch_counts(),
+                                 need=("fused_argmax", "attention_fwd"))
+    if counts["paged_decode"] or counts["decode_out_proj"] or \
+            info_s["programs_launched"].get("verify", 0):
+        raise AssertionError(f"engine_multi_step spec: a decode step or a "
+                             f"boundary verify ran ({counts}, "
+                             f"{info_s['programs_launched']})")
+    info_s["launches"] = counts
+    drafted = sum(s.spec_drafted for s in spec_stats)
+    info_s["acceptance_rate"] = sum(s.spec_accepted for s in spec_stats) \
+        / max(drafted, 1)
+    _generation_ok("engine_multi_step spec", spec, SPEC_NEW, V)
+    check_tokens("engine_multi_step spec N=4 vs vanilla", spec, vanilla)
+
+    # bf16 and int8 pools at 4 layers
+    pools, profiles = {}, {}
+    small = _multi_model(torch, dev)
+    for tag, m, kw in (("int8", small, dict(kv_int8=True)),
+                       ("bf16", _multi_model(torch, dev, "bfloat16"), {})):
+        got = {}
+        for n in (1, 8):
+            _free_engine_memory(torch)
+            got[n], info = run_multi_engine(torch, m, prompts, ENGINE_NEW,
+                                            multi_step=n, **kw)
+            pools[f"{tag} N={n}"] = info
+        _generation_ok(f"engine_multi_step {tag}", got[8], ENGINE_NEW, V)
+        check_tokens(f"engine_multi_step {tag} pools N=8 vs N=1", got[8],
+                     got[1])
+        for n in (1, 8):
+            profiles[f"{tag} N={n} (4 layers)"] = profile_multi_steps(
+                torch, m, n, **kw)
+            _free_engine_memory(torch)
+        del m
+    _free_engine_memory(torch)
+    configs = [(f"N={n}", n, {}) for n in MULTI_STEPS] + [
+        ("chunk N=1", 1, dict(prefill_chunk_tokens=CHUNK_TOKENS)),
+        (f"chunk N={MULTI_CHUNK_N}", MULTI_CHUNK_N,
+         dict(prefill_chunk_tokens=CHUNK_TOKENS)),
+        (f"spec N={MULTI_SPEC_N}", MULTI_SPEC_N,
+         dict(speculative=SpeculativeConfig(k=SPEC_K, draft="ngram")))]
+    for tag, n, kw in configs:
+        profiles[tag] = profile_multi_steps(torch, model, n, **kw)
+        _free_engine_memory(torch)
+    for n in MULTI_STEPS[1:]:
+        named = profiles[f"N={n}"]["graph_kernels_named"]
+        if not all(named.values()):
+            raise AssertionError(f"engine_multi_step: profiled replays at "
+                                 f"N={n} lack kernels {named}")
+    torch.cuda.synchronize()
+    tickets = [int(t.abs().sum()) for t in ticket_buffers()]
+    if any(tickets):
+        raise AssertionError(f"engine_multi_step: paged_decode ticket "
+                             f"buffers not zero: {tickets}")
+    emit({"phase": "engine_multi_step", "ok": True, "model": "gpt_1p3b",
+          "multi_steps": list(MULTI_STEPS), "max_new_tokens": ENGINE_NEW,
+          "prompt_lengths": [len(p) for p in prompts], "runs": runs,
+          "eos": {"request": eos_req, "token": int(eos), "index": at},
+          "chunk": {"multi_step": MULTI_CHUNK_N, "chunk": CHUNK_TOKENS,
+                    "prompt_lengths": list(CHUNK_LENGTHS), "whole": info_whole,
+                    "chunked_n1": info_c1, "chunked_n8": info_c8},
+          "spec": {"multi_step": MULTI_SPEC_N, "k": SPEC_K,
+                   "prompt_lengths": list(SPEC_LENGTHS), "vanilla": info_v,
+                   "inprogram": info_s},
+          "pools_4_layers": pools, "profiles": profiles,
+          "ticket_buffers": len(tickets)})
+    return small
+
+
+def phase_server_multi_step(torch, dev, model):
+    """The server as ``--multi-step 8`` builds it, at 4 layers: two
+    streaming requests of 300 and 700 tokens, 32 new tokens; two engine
+    steps fail once both hold tokens (``max_engine_errors=2``), and the
+    server resurrects onto a rebuilt multi-step engine. Gates: each
+    stream equals its reply, one restart, the rebuilt engine is
+    multi-step and ran launches, the serving kernels launched, the leak
+    check. Reports the replies' agreement with a fault-free run."""
+    from paddle_tpu_torch.distributed import fault_inject as fi
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    import numpy as np
+    from paddle_tpu_torch.serving.server import ServingServer, client_request
+    V = model.config.vocab_size
+    gen = torch.Generator().manual_seed(19)
+    prompts = [torch.randint(0, V, (n,), generator=gen).tolist()
+               for n in MULTI_SERVER_LENGTHS]
+    ref, _ = run_multi_engine(torch, model, [np.asarray(p, np.int32)
+                                             for p in prompts],
+                              MULTI_SERVER_NEW, multi_step=8)
+    _free_engine_memory(torch)
+    fi.reset()
+    reset_launch_counts()
+    server = ServingServer(model, device=dev, num_slots=8,
+                           page_size=PREFIX_PAGE, multi_step=8,
+                           max_engine_errors=2)
+    eng = server.engine
+    step = eng.step
+
+    def arming_step():
+        # reads the slots without draining the launch in flight
+        live = [r for r in eng._slots if r is not None]
+        if not fi.get_injector().armed("engine.step") and \
+                len(live) == 2 and all(r.generated for r in live):
+            fi.get_injector().arm("engine.step", at_calls=(1, 2))
+        return step()
+
+    eng.step = arming_step
+    port = server.start()
+    replies = [None, None]
+    streamed = [[], []]
+
+    def one(i):
+        replies[i] = client_request(
+            "127.0.0.1", port,
+            {"op": "generate", "prompt": prompts[i],
+             "max_new_tokens": MULTI_SERVER_NEW, "stream": True},
+            timeout_s=300, on_token=streamed[i].append)
+
+    try:
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        for i, r in enumerate(replies):
+            if not r or not r.get("done") or \
+                    len(r["generated"]) != MULTI_SERVER_NEW or \
+                    streamed[i] != r["generated"]:
+                raise AssertionError(f"server_multi_step {i}: {r} "
+                                     f"{streamed[i]}")
+        health = client_request("127.0.0.1", port, {"op": "health"})
+        leak = client_request("127.0.0.1", port, {"op": "leak_check"})
+        if health.get("engine_restarts") != 1 or \
+                health.get("multi_step") != 8 or \
+                not health.get("macro_launches") or \
+                server.engine is eng or not leak.get("ok"):
+            raise AssertionError(f"server_multi_step: {health} {leak}")
+        counts = serving_launch_gate("server_multi_step", launch_counts(),
+                                     need=("paged_decode",
+                                           "decode_out_proj",
+                                           "fused_argmax"))
+        emit({"phase": "server_multi_step", "ok": True, "layers":
+              MULTI_LAYERS, "multi_step": 8,
+              "prompt_lengths": list(MULTI_SERVER_LENGTHS),
+              "engine_restarts": health["engine_restarts"],
+              "macro_launches_after_restart": health["macro_launches"],
+              "token_agreement_vs_fault_free": _agreement(
+                  [r["generated"] for r in replies], ref),
+              "launches": counts, "leak_check": leak.get("ok")})
+    finally:
+        server.stop()
+        fi.reset()
+    _free_engine_memory(torch)
+
+
 # -- phase 6 -----------------------------------------------------------------
 
 def _train_model(torch, dev, **cfg_kw):
@@ -3638,7 +4064,7 @@ def main() -> int:
     smi_line = phase_device(torch)
     phase_build()
     phase_kernels(torch, dev, records)
-    model = phase_engine(torch, dev, records, launches)
+    model, engine_prompts = phase_engine(torch, dev, records, launches)
     phase_server(torch, dev, model)
     phase_engine_prefix(torch, dev, model)
     phase_engine_spill(torch, dev, model)
@@ -3646,7 +4072,9 @@ def main() -> int:
     phase_engine_chunked(torch, dev, model)
     phase_engine_spec(torch, dev, model, records)
     phase_server_chunked_spec(torch, dev, model)
-    del model
+    small = phase_engine_multi_step(torch, dev, model, engine_prompts)
+    phase_server_multi_step(torch, dev, small)
+    del model, small
     # the engine and the server leave reference cycles: collected here,
     # they free the model and its KV pool before the train phase reads
     # its peak memory, instead of whenever the collector next runs

@@ -57,9 +57,20 @@ Serving hooks (each off by default):
   ``alloc.page`` in the allocator; ``dump_inflight`` and
   ``set_on_complete`` serve the server's resurrection replay.
 
+- ``multi_step``: N > 1 replaces the per-token launch and readback by
+  one macro launch per N tokens (``models/gpt.py`` ``multi_step_decode``):
+  on the card a CUDA graph of one decode iteration
+  (``inference/graphs.py``), captured once per engine and program kind
+  and replayed N times with no host synchronisation between replays;
+  on the CPU the same iteration as a plain loop. Admission and the
+  boundary work run between launches; token delivery runs while the
+  next launch computes (dispatch, then drain at the next boundary).
+  With ``inprogram`` (the default) greedy speculation with an n-gram or
+  self draft and chained prefill chunks run inside the launch. Greedy
+  tokens equal ``multi_step=1``'s, which is the per-token engine.
+
 Not ported yet (the constructor raises ``NotImplementedError``, see
-ROADMAP.md): multi-step decode (so ``inprogram`` is stored and acts on
-nothing), tensor-parallel meshes, program cost capture, forecast
+ROADMAP.md): tensor-parallel meshes, program cost capture, forecast
 admission and weight hot-swap.
 """
 
@@ -406,7 +417,6 @@ class ContinuousBatchingEngine:
                              f"decode); got {multi_step}")
         for name, val, off in (
                 ("mesh", mesh, None),
-                ("multi_step>1", multi_step, 1),
                 ("capture_costs", capture_costs, False),
                 ("forecast_admission", forecast_admission, False),
                 ("weight hot-swap (weight_generation)", weight_generation,
@@ -514,13 +524,38 @@ class ContinuousBatchingEngine:
         # engine-wide time of the last chunk: the stall watchdog's
         # liveness signal for half-prefilled slots waiting their turn
         self._last_chunk_t = 0.0
-        # multi-step decode is not ported: 1 here, and inprogram (its
-        # in-program speculation and chunks) is stored for it
+        # multi-step decode: N iterations a macro launch, dispatched at
+        # one boundary and drained at the next (``_macro_multi_step``)
         self.multi_step = int(multi_step)
         self.inprogram = bool(inprogram)
-        # speculative decoding: admission reserves the whole capacity
-        # and binds the prefill pages (the reserve-then-grow contract)
-        self._reserve_growth = speculative is not None
+        # the launch's device state (carry, staged inputs, graphs),
+        # built at the first launch
+        self._macro: Optional[Dict[str, Any]] = None
+        # the launch in flight: the output handles and the slot ->
+        # request snapshot the drain folds back (None = nothing
+        # dispatched)
+        self._pending_macro: Optional[Dict[str, Any]] = None
+        # drained but undelivered (req, token, done) emissions in the
+        # per-token engine's (step, slot) order: delivered after the
+        # next dispatch, flushed per request by _notify_complete
+        self._pending_emit: List[Tuple] = []
+        self.macro_launches = 0
+        # the first launch (graph capture, cold caches) stays out of
+        # the decode EMA, as the first decode step does
+        self._macro_warm = False
+        # engine-wide time of the last drain: the stall watchdog's
+        # liveness signal for decoding slots between boundaries
+        self._last_macro_t = 0.0
+        # speculation and multi-step admission reserve the whole
+        # capacity and bind the prefill pages (reserve-then-grow):
+        # a verify step or a macro launch grows the page set out of
+        # the reservation, so it cannot fail to allocate
+        self._reserve_growth = (speculative is not None
+                                or self.multi_step > 1)
+        # per step program kind: the kernel launches of one graph
+        # replay ("decode_multi", "decode_multi_chunk"; on the CPU the
+        # operators one iteration dispatches)
+        self.step_programs: Dict[str, int] = {}
         self._spec_cfg = None
         self._spec_draft = None
         self._spec_gen: Optional[torch.Generator] = None
@@ -533,10 +568,33 @@ class ContinuousBatchingEngine:
                 from ..distributed.resilience import get_retry_policy
                 verify_retry = get_retry_policy("serving.verify")
             self._verify_retry = verify_retry
+        # in-program eligibility (``continuous_batching.py:836-857``):
+        # speculation moves inside the macro launch when it is greedy
+        # and its draft has a device twin (n-gram, self); chunks move
+        # inside when speculation is off or inside too
+        self._spec_inprogram = False
+        self._spec_device_draft = None
+        if (self.inprogram and self.multi_step > 1
+                and self._spec_cfg is not None
+                and float(self._spec_cfg.temperature) == 0.0):
+            from .speculative import device_draft_params
+            p = device_draft_params(self._spec_draft)
+            if p is not None:
+                self._spec_inprogram = True
+                self._spec_device_draft = p
+        self._chunk_inprogram = (
+            self.inprogram and self.multi_step > 1
+            and self.prefill_chunk_tokens is not None
+            and (self._spec_cfg is None or self._spec_inprogram))
+        # the steps that run as macro launches
+        self._macro_mode = self.multi_step > 1 and (
+            self._spec_cfg is None or self._spec_inprogram)
         self.fused_step = bool(fused_step)
         self._tracer = tracer
         self.timeline: "collections.deque" = collections.deque(
             maxlen=max(1, int(timeline_steps)))
+        # the drained launch's record for the next _tl_commit
+        self._tl_macro: Optional[Dict[str, Any]] = None
         # launches of each step program by kind ("prefill", "decode")
         self.programs_launched: Dict[str, int] = {}
         self._tl_ms: Dict[str, float] = {}
@@ -669,34 +727,47 @@ class ContinuousBatchingEngine:
         return fused_sample_token(hidden_or_logits.contiguous(), w, 0.0,
                                   transpose_y=ty, bias=bias)
 
+    def _prefill_body(self, trow: torch.Tensor, lens: torch.Tensor,
+                      plen: torch.Tensor, ids: torch.Tensor,
+                      chained: bool) -> torch.Tensor:
+        """The prefill on device tensors (``continuous_batching.py:
+        1750``): ``ids`` [1, bucket] holding ``plen`` [1] real tokens
+        after the ``lens`` [1] stored in the table row ``trow`` [1,
+        max_pages]; writes their KV and returns the first generated
+        token [1]. ``chained`` is the chained prefill (``gpt.py:
+        798-874``): the suffix's positions start at ``lens`` and it
+        attends the stored prefix through the paged reference. The
+        boundary prefill and the macro launch's in-program chunk share
+        it."""
+        hp = self._fused_head()
+        last = torch.clamp_min(plen.long() - 1, 0)
+        caches = self._caches(trow, lens)
+        if hp is not None:
+            hidden, _ = self.model.decode_hidden(
+                ids, caches, prefill_lens=plen, prefill_chained=chained,
+                fused=True)
+            return self._sample(hidden[0].index_select(0, last), hp)
+        logits, _ = self.model.forward(
+            ids, caches=caches, prefill_lens=plen,
+            prefill_chained=chained)
+        return self._sample(logits[0].index_select(0, last), None)
+
     def _run_prefill(self, row: np.ndarray, ids: np.ndarray, plen: int,
                      cached_len: int = 0) -> int:
         """One slot prefill of the bucket-padded ``ids`` [1, bucket]
         holding ``plen`` real tokens; writes their KV into the slot's
         pages and returns the first generated token. ``cached_len`` > 0
-        is the chained prefill (``gpt.py:798-874``): the slot already
-        holds that many tokens in shared prefix pages, the suffix's
-        positions start there and it attends the stored prefix through
-        the paged reference, writing only past ``cached_len``."""
+        is the chained prefill: the slot already holds that many tokens
+        (shared prefix pages or earlier chunks) and only past them is
+        written."""
         dev = self.device
         table = torch.from_numpy(row[None]).to(dev)
         lens = torch.tensor([cached_len], dtype=torch.int32, device=dev)
         plen_t = torch.tensor([plen], dtype=torch.int32, device=dev)
         ids_t = torch.from_numpy(ids).to(dev)
-        chained = cached_len > 0
-        hp = self._fused_head()
         with torch.no_grad():
-            caches = self._caches(table, lens)
-            if hp is not None:
-                hidden, _ = self.model.decode_hidden(
-                    ids_t, caches, prefill_lens=plen_t,
-                    prefill_chained=chained, fused=True)
-                nxt = self._sample(hidden[:1, plen - 1], hp)
-            else:
-                logits, _ = self.model.forward(
-                    ids_t, caches=caches, prefill_lens=plen_t,
-                    prefill_chained=chained)
-                nxt = self._sample(logits[:1, plen - 1], None)
+            nxt = self._prefill_body(table, lens, plen_t, ids_t,
+                                     cached_len > 0)
         return int(nxt[0].item())
 
     def _run_verify(self, tokens: np.ndarray, valid: np.ndarray
@@ -709,11 +780,8 @@ class ContinuousBatchingEngine:
         greedy targets stream from the hidden states through
         ``fused_argmax`` over slots*(k+1) rows: no [slots, k+1, V]
         logits."""
-        from ..nn.decode import fused_verify_tokens, \
-            speculative_verify_tokens
         cfg = self._spec_cfg
-        temp = float(cfg.temperature)
-        if temp and self._spec_gen is None:
+        if float(cfg.temperature) and self._spec_gen is None:
             self._spec_gen = torch.Generator(
                 device=self.device).manual_seed(int(cfg.seed))
         dev = self.device
@@ -721,23 +789,35 @@ class ContinuousBatchingEngine:
         lens_t = torch.from_numpy(self._lens).to(dev)
         toks_t = torch.from_numpy(tokens).to(dev)
         valid_t = torch.from_numpy(valid).to(dev)
-        hp = self._fused_head()
         with torch.no_grad():
-            caches = self._caches(table_t, lens_t)
-            if hp is not None:
-                hidden, _ = self.model.decode_hidden(
-                    toks_t, caches, prefill_lens=valid_t,
-                    prefill_chained=True, fused=True)
-                w, ty, bias = hp
-                out = fused_verify_tokens(
-                    hidden, toks_t[:, 1:], w, temp, cfg.top_k,
-                    self._spec_gen, transpose_y=ty, bias=bias)
-            else:
-                logits, _ = self.model.verify_step(toks_t, caches, valid_t)
-                out = speculative_verify_tokens(
-                    logits, toks_t[:, 1:], temp, cfg.top_k, self._spec_gen)
+            out = self._verify_body(table_t, lens_t, toks_t, valid_t)
         accept, resid, full = (t.cpu().numpy() for t in out)
         return accept, resid, full
+
+    def _verify_body(self, table: torch.Tensor, lens: torch.Tensor,
+                     toks: torch.Tensor, valid: torch.Tensor):
+        """The verify on device tensors (``continuous_batching.py:
+        1820``), shared by the boundary verify and the macro launch's
+        in-program verify: appends ``toks`` [slots, k+1] (``valid``
+        real ones a row), scores every position in one chained forward
+        and returns (accept, resampled, full) device tensors."""
+        from ..nn.decode import fused_verify_tokens, \
+            speculative_verify_tokens
+        cfg = self._spec_cfg
+        temp = float(cfg.temperature)
+        hp = self._fused_head()
+        caches = self._caches(table, lens)
+        if hp is not None:
+            hidden, _ = self.model.decode_hidden(
+                toks, caches, prefill_lens=valid, prefill_chained=True,
+                fused=True)
+            w, ty, bias = hp
+            return fused_verify_tokens(
+                hidden, toks[:, 1:], w, temp, cfg.top_k, self._spec_gen,
+                transpose_y=ty, bias=bias)
+        logits, _ = self.model.verify_step(toks, caches, valid)
+        return speculative_verify_tokens(logits, toks[:, 1:], temp,
+                                         cfg.top_k, self._spec_gen)
 
     def _check_pools_live(self, what: str) -> None:
         """Guard of every retrying launch site (prefill, chunk, verify):
@@ -833,6 +913,22 @@ class ContinuousBatchingEngine:
         self._tl_ms["splice_ms"] = (self._tl_ms.get("splice_ms", 0.0)
                                     + (time.monotonic() - t0) * 1e3)
 
+    def _decode_body(self, table: torch.Tensor, lens: torch.Tensor,
+                     cur: torch.Tensor):
+        """The ONE single-token decode step body on device tensors
+        (``continuous_batching.py:1588``): the per-token step and every
+        iteration of a macro launch run it, so the two give the same
+        tokens by construction. ``cur`` [slots] int32; returns (next
+        tokens, new lengths)."""
+        hp = self._fused_head()
+        caches = self._caches(table, lens)
+        if hp is not None:
+            hidden, nc = self.model.decode_hidden(cur[:, None], caches,
+                                                  fused=True)
+            return self._sample(hidden[:, -1], hp), nc[0].seq_lens
+        logits, nc = self.model.forward(cur[:, None], caches=caches)
+        return self._sample(logits[:, -1], None), nc[0].seq_lens
+
     def _run_decode(self, table: np.ndarray, lens: np.ndarray
                     ) -> Tuple[np.ndarray, np.ndarray]:
         """One single-token decode step for every slot: returns (next
@@ -840,22 +936,17 @@ class ContinuousBatchingEngine:
         dev = self.device
         table_t = torch.from_numpy(table).to(dev)
         lens_t = torch.from_numpy(lens).to(dev)
-        cur = torch.from_numpy(self._cur).to(dev)[:, None]
-        hp = self._fused_head()
+        cur = torch.from_numpy(self._cur).to(dev)
         with torch.no_grad():
-            caches = self._caches(table_t, lens_t)
-            if hp is not None:
-                hidden, nc = self.model.decode_hidden(cur, caches,
-                                                      fused=True)
-                nxt = self._sample(hidden[:, -1], hp)
-            else:
-                logits, nc = self.model.forward(cur, caches=caches)
-                nxt = self._sample(logits[:, -1], None)
-        return nxt.cpu().numpy(), nc[0].seq_lens.cpu().numpy()
+            nxt, new_lens = self._decode_body(table_t, lens_t, cur)
+        return nxt.cpu().numpy(), new_lens.cpu().numpy()
 
     def _launched(self, kind: str) -> None:
         self.programs_launched[kind] = \
             self.programs_launched.get(kind, 0) + 1
+
+    def _tl_add_ms(self, key: str, seconds: float) -> None:
+        self._tl_ms[key] = self._tl_ms.get(key, 0.0) + seconds * 1e3
 
     # -- tracing / ledger hooks -------------------------------------------
 
@@ -902,6 +993,11 @@ class ContinuousBatchingEngine:
         }
         for k, v in self._tl_ms.items():
             entry[k] = round(v, 4)
+        # the boundary that drained a macro launch carries its record
+        # (per_token_timeline() expands it into per-step rows)
+        if self._tl_macro is not None:
+            entry["macro"] = self._tl_macro
+            self._tl_macro = None
         self.timeline.append(entry)
 
     # -- scheduler ---------------------------------------------------------
@@ -988,6 +1084,10 @@ class ContinuousBatchingEngine:
         self._on_complete = fn
 
     def _notify_complete(self, req: DecodeRequest) -> None:
+        # multi-step: a request ending at a boundary may still hold
+        # undelivered ring tokens; they stream before its completion on
+        # every terminal path
+        self._flush_req_emissions(req)
         tr = req.trace
         if tr is not None:
             self._tr_end(req, state=req.state)
@@ -1000,6 +1100,14 @@ class ContinuousBatchingEngine:
     def _emit_token(self, req: DecodeRequest, tok: int) -> None:
         # fires BEFORE _maybe_finish so streamed tokens precede the
         # completion; callbacks run on the engine thread
+        if self._macro_mode:
+            # every emission of a multi-step engine rides the pending
+            # queue, a boundary prefill's first token included, so the
+            # stream keeps the per-token engine's (step, slot) order:
+            # the drained ring (earlier steps) before this boundary's
+            # admissions (``continuous_batching.py:2087-2105``)
+            self._pending_emit.append((req, tok, self._finish_due(req)))
+            return
         req.last_emit_t = time.monotonic()
         if req.on_token is not None:
             req.on_token(req.req_id, tok, self._finish_due(req))
@@ -1047,9 +1155,13 @@ class ContinuousBatchingEngine:
         already expired, or its best-case remaining work at the observed
         step times overshoots it (``continuous_batching.py:2155-2212``).
         Best case: one token when an EOS may end it, and a speculative
-        step emits up to k+1 tokens. Chunked mode adds the prompt's
-        remaining chunks after its prefix-cache hit at the chunk EMA.
-        With no decode EMA yet only expiry counts."""
+        step emits up to k+1 tokens. ``decode_ema_s`` times one launch:
+        a step of the per-token engine, a macro launch of up to N
+        iterations (N x (k+1) tokens with in-program speculation).
+        Chunked mode adds the prompt's remaining chunks after its
+        prefix-cache hit: at the chunk EMA, or with in-program chunks N
+        a launch at the launch EMA. With no decode EMA yet only expiry
+        counts."""
         if req.deadline_t is None:
             return False
         if now >= req.deadline_t:
@@ -1057,11 +1169,14 @@ class ContinuousBatchingEngine:
         if self.decode_ema_s is None:
             return False
         need = 1 if req.eos_token is not None else req.max_new_tokens
-        per_step = (self._spec_cfg.k + 1 if self._spec_cfg is not None
-                    else 1)
+        if self._spec_cfg is not None:
+            per_step = self._spec_cfg.k + 1
+            if self._spec_inprogram:
+                per_step *= self.multi_step
+        else:
+            per_step = self.multi_step
         est = -(-need // per_step) * self.decode_ema_s
-        if self.prefill_chunk_tokens is not None and \
-                self.prefill_chunk_ema_s is not None:
+        if self.prefill_chunk_tokens is not None:
             cached = 0
             if self._prefix_cache is not None:
                 _keys, shared = self._prefix_cache.match(req.prompt,
@@ -1069,13 +1184,23 @@ class ContinuousBatchingEngine:
                 cached = len(shared) * self.page_size
             chunks = -(-(len(req.prompt) - cached)
                        // self.prefill_chunk_tokens)
-            est += chunks * self.prefill_chunk_ema_s
+            if self._chunk_inprogram:
+                est += -(-chunks // self.multi_step) * self.decode_ema_s
+            elif self.prefill_chunk_ema_s is not None:
+                est += chunks * self.prefill_chunk_ema_s
         return now + est > req.deadline_t
 
     def expire_deadlines(self, now: Optional[float] = None
                          ) -> List[DecodeRequest]:
         """Terminate everything past its deadline ("deadline" state):
-        queued requests before prefill, active slots mid-flight."""
+        queued requests before prefill, active slots mid-flight. A
+        multi-step engine first drains the launch in flight and delivers
+        its tokens, so the sweep sees current slot state."""
+        self._flush_macro()
+        return self._expire_deadlines_inner(now)
+
+    def _expire_deadlines_inner(self, now: Optional[float] = None
+                                ) -> List[DecodeRequest]:
         now = time.monotonic() if now is None else now
         expired: List[DecodeRequest] = []
         for req in [r for r in self._queue
@@ -1091,7 +1216,15 @@ class ContinuousBatchingEngine:
     def evict_stalled(self, now: Optional[float] = None
                       ) -> List[DecodeRequest]:
         """Evict slots that delivered no token for ``stall_timeout_s``
-        ("stalled" state); no-op with the watchdog off."""
+        ("stalled" state); no-op with the watchdog off. A multi-step
+        engine first drains the launch in flight."""
+        if self.stall_timeout_s is None:
+            return []
+        self._flush_macro()
+        return self._evict_stalled_inner(now)
+
+    def _evict_stalled_inner(self, now: Optional[float] = None
+                             ) -> List[DecodeRequest]:
         if self.stall_timeout_s is None:
             return []
         now = time.monotonic() if now is None else now
@@ -1100,6 +1233,11 @@ class ContinuousBatchingEngine:
             if req is None:
                 continue
             last = max(req.last_emit_t, req.stats.admit_t)
+            if self.multi_step > 1 and req.state == "decoding":
+                # tokens arrive once a boundary: drain progress anywhere
+                # is a decoding slot's liveness, and a broken engine
+                # stops draining, so a real stall still fires
+                last = max(last, self._last_macro_t)
             if req.state == "prefill_partial":
                 # a half-prefilled slot may be waiting its turn for the
                 # one chunk a step: chunk progress anywhere is its
@@ -1115,7 +1253,14 @@ class ContinuousBatchingEngine:
         Each one's prompt plus emitted tokens rebuilds its KV on a fresh
         engine by one prefill; a half-prefilled request has emitted
         nothing, so it is replayed from its prompt. Releases nothing;
-        close() tears down."""
+        close() tears down. A multi-step engine first folds the launch in
+        flight into the snapshot (its tokens were never delivered); if
+        that launch failed, its tokens never existed for any client."""
+        try:
+            self._flush_macro()
+        except Exception:
+            self._pending_macro = None
+            self._deliver_pending()
         live = [r for r in self._slots if r is not None]
         return sorted(live + list(self._queue), key=lambda r: r.req_id)
 
@@ -1380,7 +1525,7 @@ class ContinuousBatchingEngine:
             return sel(partial, decoding, time.monotonic())
         return min(partial, key=lambda sr: sr[1].req_id)[0]
 
-    def _advance_prefill_chunk(self) -> bool:
+    def _advance_prefill_chunk(self, slot: Optional[int] = None) -> bool:
         """Spend this step's prefill budget (``continuous_batching.py:
         2628-2765``): advance at most one half-prefilled slot by one
         page-aligned chunk of ``prefill_chunk_tokens``, padded to that
@@ -1388,12 +1533,15 @@ class ContinuousBatchingEngine:
         cache hit) is the chained prefill; a fresh first chunk keeps the
         dense prefill, so a prompt that fits one chunk is the whole
         prefill's launch. The last chunk's token is the first generated
-        one. Returns True when a chunk ran."""
+        one. Returns True when a chunk ran. ``slot``: a slot the
+        in-program planner already picked (its fresh first chunk runs
+        here), so the scheduler is asked once a boundary."""
         partial = [(i, r) for i, r in enumerate(self._slots)
                    if r is not None and r.state == "prefill_partial"]
         if not partial:
             return False
-        slot = self._select_chunk_slot(partial)
+        if slot is None:
+            slot = self._select_chunk_slot(partial)
         if slot is None:
             return False  # the scheduler deferred it: decode first
         req = self._slots[slot]
@@ -1491,8 +1639,10 @@ class ContinuousBatchingEngine:
         if req is not None and self._finish_due(req):
             self._finish_slot(slot)
 
-    def _finish_slot(self, slot: int) -> None:
-        """Terminal "done" teardown: free pages, park on scratch."""
+    def _finish_slot(self, slot: int, notify: bool = True) -> None:
+        """Terminal "done" teardown: free pages, park on scratch.
+        ``notify=False`` (the macro drain) leaves the completion to the
+        delivery, after the request's ring tokens."""
         req = self._slots[slot]
         req.done = True
         req.state = "done"
@@ -1504,7 +1654,8 @@ class ContinuousBatchingEngine:
             self.allocator.free(req.req_id)
             self._release_cache_keys(req)
         self._park(slot)
-        self._notify_complete(req)
+        if notify:
+            self._notify_complete(req)
 
     # -- stepping ----------------------------------------------------------
 
@@ -1523,6 +1674,12 @@ class ContinuousBatchingEngine:
             self.ledger.step = self.steps
         t_step = time.monotonic()
         try:
+            if self._macro_mode:
+                # one boundary: drain launch K-1, the boundary work,
+                # dispatch launch K, deliver K-1's tokens. A speculative
+                # engine whose verify cannot move inside keeps its
+                # per-step verify
+                return self._macro_multi_step()
             self.expire_deadlines()
             self.evict_stalled()
             self._admit()
@@ -1587,6 +1744,583 @@ class ContinuousBatchingEngine:
             self._maybe_finish(slot)
         return self.num_active
 
+    # -- multi-step decode ---------------------------------------------------
+    #
+    # multi_step=N turns the per-token cadence into one macro launch per
+    # N tokens (``continuous_batching.py:2855-3265``): _dispatch_macro
+    # binds each decoding slot's growth pages out of its reservation and
+    # starts the launch without waiting for it; the boundary that drains
+    # launch K is the top of step K+1, and ring K-1's tokens are
+    # delivered (callbacks, tracing, metrics) while launch K computes.
+    # Admission and boundary chunks run between drain and dispatch: they
+    # rewrite the launch's inputs and write the pools. Every external
+    # entry point that reads or changes slot state (expire_deadlines,
+    # evict_stalled, dump_inflight, close) drains the launch in flight
+    # first, and _notify_complete streams a request's undelivered tokens
+    # before its completion.
+
+    def _plan_inprogram_chunks(self) -> Optional[Dict[str, Any]]:
+        """Schedule up to ``multi_step`` chained chunks of one
+        half-prefilled slot inside the next macro launch
+        (``continuous_batching.py:2766-2835``): iteration j runs chunk j
+        while the other slots decode. The scheduler is asked once, as at
+        the boundary. A fresh first chunk of an uncached prompt keeps
+        the dense prefill and runs here, at the boundary. Returns the
+        plan (None: nothing to schedule this launch)."""
+        partial = [(i, r) for i, r in enumerate(self._slots)
+                   if r is not None and r.state == "prefill_partial"]
+        if not partial:
+            return None
+        slot = self._select_chunk_slot(partial)
+        if slot is None:
+            return None  # the scheduler deferred it: decode first
+        req = self._slots[slot]
+        if req.prefill_done_len == 0:
+            self._advance_prefill_chunk(slot=slot)
+            return None
+        n = self.multi_step
+        chunk = self.prefill_chunk_tokens
+        done = req.prefill_done_len
+        total = len(req.prompt)
+        count = min(n, -(-(total - done) // chunk))
+        ids = np.zeros((n, chunk), np.int32)
+        valid = np.zeros((n,), np.int32)
+        start = np.zeros((n,), np.int32)
+        final = np.zeros((n,), bool)
+        pos = done
+        for j in range(count):
+            suffix = req.prompt[pos:pos + chunk]
+            ids[j, :len(suffix)] = suffix
+            valid[j] = len(suffix)
+            start[j] = pos
+            pos += len(suffix)
+            final[j] = pos == total
+        return {"slot": slot, "req": req, "count": count,
+                "done0": done, "end": pos, "tokens": pos - done,
+                "has_final": bool(final[:count].any()),
+                "final_idx": int(np.argmax(final)) if final.any() else -1,
+                "ids": ids, "valid": valid, "start": start,
+                "final": final}
+
+    def _macro_hist(self, chunk_plan: Optional[Dict[str, Any]] = None):
+        """Token histories for the in-program draft: each decoding
+        slot's prompt and generated tokens, right-padded to
+        ``[num_slots, max_seq_len]``, so the device draft sees what the
+        host draft would; the planned chunk slot's whole prompt, ready
+        when its final chunk activates it."""
+        hcap = int(self.max_seq_len)
+        hist = np.zeros((self.num_slots, hcap), np.int32)
+        hlen = np.zeros((self.num_slots,), np.int32)
+        for i, r in enumerate(self._slots):
+            if r is None:
+                continue
+            if r.state == "decoding":
+                t = np.asarray(r.tokens, np.int32)
+            elif chunk_plan is not None and i == chunk_plan["slot"]:
+                t = np.asarray(r.prompt, np.int32)
+            else:
+                continue
+            t = t[:hcap]
+            hist[i, :len(t)] = t
+            hlen[i] = len(t)
+        return hist, hlen
+
+    def _macro_state(self) -> Dict[str, Any]:
+        """The macro launch's device state, built at the first launch:
+        the loop carry, the staged inputs (page table, budgets, EOS ids,
+        histories, the chunk schedule) at fixed addresses, page-locked
+        host twins of the outputs on the card, and the graphs."""
+        if self._macro is not None:
+            return self._macro
+        from ..models.gpt import MacroCarry
+        from .graphs import Staging
+        b, n, dev = self.num_slots, self.multi_step, self.device
+        i32 = torch.int32
+        k = int(self._spec_cfg.k) if self._spec_inprogram else 0
+        carry = MacroCarry(b, n, dev, k=k,
+                           hist_cap=self.max_seq_len if k else 0)
+        specs: Dict[str, Any] = {
+            "table": ((b, self.max_pages), i32), "rem": ((b,), i32),
+            "eos": ((b,), i32), "cur": carry.cur, "lens": carry.lens,
+            "act": carry.act}
+        if k:
+            specs.update(hist=carry.hist, hist_len=carry.hist_len)
+        if self._chunk_inprogram:
+            specs.update(ids=((n, self.prefill_chunk_tokens), i32),
+                         valid=((n,), i32), start=((n,), i32),
+                         final=((n,), torch.bool), slot=((), i32))
+        out = None
+        if dev.type == "cuda":
+            out = {name: torch.empty(tuple(getattr(carry, name).shape),
+                                     dtype=i32, pin_memory=True)
+                   for name in ("ring", "steps", "cur", "lens")}
+        self._macro = {"carry": carry, "io": Staging(dev, specs),
+                       "out": out, "graphs": None,
+                       "event": (torch.cuda.Event() if out is not None
+                                 else None)}
+        return self._macro
+
+    def _macro_iterate(self, with_chunk: bool) -> None:
+        """One iteration of the launch (``models/gpt.py``
+        ``macro_iteration``) on the staged inputs: the decode body, or
+        with in-program speculation the device draft and the verify
+        body; ``with_chunk`` adds the scheduled chained chunk."""
+        from ..models.gpt import macro_iteration
+        m = self._macro
+        io = m["io"].dev
+        spec = chunk = None
+        if self._spec_inprogram:
+            spec = {"k": int(self._spec_cfg.k),
+                    "vocab": int(self.cfg.vocab_size),
+                    "draft_fn": self._device_draft,
+                    "verify_fn": self._verify_body}
+        if with_chunk:
+            chunk = {"prefill_fn": self._chained_chunk_body,
+                     "ids": io["ids"], "valid": io["valid"],
+                     "start": io["start"], "final": io["final"],
+                     "slot": io["slot"]}
+        with torch.no_grad():
+            macro_iteration(m["carry"], self._macro_step_body,
+                            io["table"], io["rem"], io["eos"],
+                            self._scratch, spec=spec, chunk=chunk)
+
+    def _macro_step_body(self, table, lens, cur) -> torch.Tensor:
+        return self._decode_body(table, lens, cur)[0]
+
+    def _chained_chunk_body(self, trow, lens, plen, ids) -> torch.Tensor:
+        return self._prefill_body(trow, lens, plen, ids, chained=True)
+
+    def _device_draft(self, hist, hist_len, cur) -> torch.Tensor:
+        """The draft as device math (``speculative.py``
+        ``device_draft_params``): the n-gram lookup over the histories,
+        or the self draft's repeat of the current token."""
+        from ..nn.decode import ngram_draft_tokens
+        d = self._spec_device_draft
+        k = int(self._spec_cfg.k)
+        if d["kind"] == "self":
+            return cur[:, None].expand(cur.shape[0], k)
+        return ngram_draft_tokens(hist, hist_len, k, d["max_ngram"],
+                                  d["min_ngram"])
+
+    def _macro_quiesce(self) -> None:
+        """Every slot inactive and no chunk token valid: an iteration
+        then writes only the scratch page (the graphs' warm-up)."""
+        m = self._macro
+        m["carry"].clear()
+        m["carry"].act.zero_()
+        io = m["io"].dev
+        for name in ("valid", "start", "final", "slot"):
+            if name in io:
+                io[name].zero_()
+
+    def _macro_capture(self, with_chunk: bool) -> None:
+        """Capture the iteration graphs this launch needs and has not
+        got yet; records each one's kernel launches in
+        ``step_programs``."""
+        from .graphs import IterationGraphs, pools_key
+        m = self._macro
+        if m["graphs"] is None:
+            m["graphs"] = IterationGraphs(self.device,
+                                          pools_key(self._pools))
+        graphs = m["graphs"]
+        kinds = (("decode", False),) + ((("chunk", True),)
+                                        if with_chunk else ())
+        for kind, chunk in kinds:
+            if graphs.captured(kind):
+                continue
+            nodes = graphs.capture(
+                kind, lambda c=chunk: self._macro_iterate(c),
+                self._macro_quiesce)
+            self.step_programs["decode_multi" + ("_chunk" if chunk
+                                                 else "")] = nodes
+
+    def _count_iteration_ops(self, with_chunk: bool) -> None:
+        """On the CPU, the operators one iteration dispatches stand in
+        for the graph's kernel launches in ``step_programs``: the
+        first iteration of each kind runs under a counting mode."""
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class _Count(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.n = 0
+
+            def __torch_dispatch__(self, func, types, args=(),
+                                   kwargs=None):
+                self.n += 1
+                return func(*args, **(kwargs or {}))
+
+        with _Count() as ops:
+            self._macro_iterate(with_chunk)
+        self.step_programs["decode_multi" + ("_chunk" if with_chunk
+                                             else "")] = ops.n
+
+    def _macro_launch(self, active: np.ndarray, rem: np.ndarray,
+                      eos: np.ndarray, hist, hlen,
+                      plan: Optional[Dict[str, Any]]):
+        """Stage the inputs and run the launch: on the card N graph
+        replays (iterations j < count with the chunk), then the outputs
+        copied into page-locked buffers behind an event, without
+        waiting; on the CPU the plain early-exit loop. Returns the
+        output handles and the event."""
+        from ..models.gpt import run_macro_loop
+        m = self._macro_state()
+        carry, io = m["carry"], m["io"]
+        n = self.multi_step
+        count = int(plan["count"]) if plan is not None else 0
+        cuda = self.device.type == "cuda"
+        if cuda:
+            self._macro_capture(count > 0)
+        io.put("table", self._table)
+        io.put("rem", rem)
+        io.put("eos", eos)
+        if plan is not None:
+            for name in ("ids", "valid", "start", "final"):
+                io.put(name, plan[name])
+            io.put("slot", np.int32(plan["slot"]))
+        carry.clear()
+        io.put("cur", self._cur)
+        io.put("lens", self._lens)
+        io.put("act", active)
+        if hist is not None:
+            io.put("hist", hist)
+            io.put("hist_len", hlen)
+        if cuda:
+            from .graphs import pools_key
+            key = pools_key(self._pools)
+            for j in range(n):
+                m["graphs"].replay("chunk" if j < count else "decode", key)
+            out = m["out"]
+            for name, host in out.items():
+                host.copy_(getattr(carry, name), non_blocking=True)
+            m["event"].record()
+            return out, m["event"]
+
+        def iterate(with_chunk: bool) -> None:
+            if "decode_multi" + ("_chunk" if with_chunk else "") in \
+                    self.step_programs:
+                self._macro_iterate(with_chunk)
+            else:
+                self._count_iteration_ops(with_chunk)
+
+        run_macro_loop(carry, iterate, n, count)
+        return ({name: getattr(carry, name)
+                 for name in ("ring", "steps", "cur", "lens")}, None)
+
+    def _dispatch_macro(self,
+                        chunk_plan: Optional[Dict[str, Any]] = None
+                        ) -> bool:
+        """Start ONE macro launch of up to ``multi_step`` iterations over
+        every decoding slot (``continuous_batching.py:2899-2990``);
+        False when nothing decodes and no chunk is scheduled. Does not
+        wait: the handles land in ``_pending_macro`` for the next
+        boundary's drain. Each decoding slot's pages are bound first to
+        cover ``lens + min(N x per_iter, rem)`` positions out of its
+        reservation (cannot fail), so the table is a constant of the
+        launch. With a chunk plan the slot enters inactive with its
+        budget and EOS, and the launch activates it at its final
+        chunk."""
+        n = self.multi_step
+        spec_on = self._spec_inprogram
+        per_iter = (int(self._spec_cfg.k) + 1) if spec_on else 1
+        reqs: Dict[int, DecodeRequest] = {}
+        active = np.zeros((self.num_slots,), bool)
+        rem = np.zeros((self.num_slots,), np.int32)
+        eos = np.full((self.num_slots,), -1, np.int32)
+        for i, r in enumerate(self._slots):
+            if r is None or r.state != "decoding":
+                continue
+            r_rem = r.max_new_tokens - len(r.generated)
+            active[i] = True
+            rem[i] = r_rem
+            if r.eos_token is not None:
+                eos[i] = int(r.eos_token)
+            self._ensure_pages(
+                i, r, int(self._lens[i]) + min(n * per_iter, r_rem))
+            reqs[i] = r
+        if chunk_plan is not None:
+            ci, cr = chunk_plan["slot"], chunk_plan["req"]
+            rem[ci] = cr.max_new_tokens
+            if cr.eos_token is not None:
+                eos[ci] = int(cr.eos_token)
+            if chunk_plan["has_final"]:
+                # the slot may activate and decode inside this launch
+                self._ensure_pages(
+                    ci, cr, len(cr.prompt)
+                    + min(n * per_iter, cr.max_new_tokens))
+        if not reqs and chunk_plan is None:
+            return False
+        self._check_pools_live("macro launch")
+        hist = hlen = None
+        if spec_on:
+            hist, hlen = self._macro_hist(chunk_plan)
+        t0 = time.monotonic()
+        out, event = self._macro_launch(active, rem, eos, hist, hlen,
+                                        chunk_plan)
+        self._launched("decode_multi")
+        self.macro_launches += 1
+        self._pending_macro = {
+            "out": out, "event": event, "reqs": reqs, "t_dispatch": t0,
+            "launch": self.macro_launches,
+            "dispatch_ms": (time.monotonic() - t0) * 1e3,
+            "rem": rem, "chunk": chunk_plan,
+        }
+        return True
+
+    def _drain_macro(self) -> List[Tuple]:
+        """Wait for the launch in flight (if any) and fold its ring into
+        host state (``continuous_batching.py:2992-3184``): the generated
+        lists, each slot's length and token, the teardown of finished
+        slots (pages and reservations back; the completion waits for
+        delivery), the per-launch decode EMA and the timeline's macro
+        record. Returns the emissions ``[(req, token, done)]`` in the
+        per-token engine's (step, slot) order, undelivered."""
+        pend = self._pending_macro
+        if pend is None:
+            return []
+        # cleared first: a failed launch raises at the wait, and the
+        # same dead handles would only raise again
+        self._pending_macro = None
+        t_wait = time.monotonic()
+        if pend["event"] is not None:
+            pend["event"].synchronize()
+        idle_s = time.monotonic() - t_wait
+        out = pend["out"]
+        ring = out["ring"].numpy().copy()
+        nsteps = int(out["steps"])
+        lens_f = out["lens"].numpy().copy()
+        cur_f = out["cur"].numpy().copy()
+        now = time.monotonic()
+        self._last_macro_t = now
+        dt = now - pend["t_dispatch"]
+        # the decode EMA times one launch (per-token estimates are
+        # ema / N, _deadline_hopeless); the first launch, with its
+        # capture, stays out
+        if self._macro_warm:
+            self.decode_ema_s = dt if self.decode_ema_s is None \
+                else 0.8 * self.decode_ema_s + 0.2 * dt
+        else:
+            self._macro_warm = True
+        reqs = dict(pend["reqs"])
+        plan = pend.get("chunk")
+        spec_mode = ring.ndim == 3
+        k = int(self._spec_cfg.k) if spec_mode else 0
+        # every planned chunk ran (the launch keeps iterating through
+        # iteration count - 1), so the chunk bookkeeping is unconditional;
+        # a final chunk's first token sits in the ring at final_idx and
+        # the slot joins the fold below
+        if plan is not None:
+            ci = plan["slot"]
+            creq = plan["req"]
+            if self._slots[ci] is creq and \
+                    creq.state == "prefill_partial":
+                creq.stats.prefill_chunks += plan["count"]
+                creq.prefill_done_len = plan["end"]
+                self._lens[ci] = plan["end"]
+                creq.last_emit_t = now
+                self._last_chunk_t = now
+                creq.chunk_deferrals = 0
+                if creq.trace is not None:
+                    creq.trace.add(
+                        "prefill_chunk_inprogram",
+                        pend["t_dispatch"] * 1e6, now * 1e6,
+                        parent=creq.span, chunks=plan["count"],
+                        tokens=plan["tokens"], launch=pend["launch"])
+                if creq.deadline_t is not None and \
+                        now >= creq.deadline_t:
+                    # expired mid-prefill: no token past the deadline
+                    self._evict_slot(ci, "deadline")
+                elif plan["has_final"]:
+                    fj = plan["final_idx"]
+                    nxt0 = int(ring[ci, fj, 0] if spec_mode
+                               else ring[ci, fj])
+                    creq.stats.prefill_attempts += 1
+                    creq.stats.first_token_t = now
+                    creq.state = "decoding"
+                    if creq.trace is not None:
+                        self._tr_end(creq,
+                                     chunks=creq.stats.prefill_chunks)
+                        creq.trace.event("first_token",
+                                         parent=creq.trace.anchor,
+                                         token=nxt0)
+                        creq.span = creq.trace.begin(
+                            "decode", parent=creq.trace.anchor)
+                    if self._prefix_cache is not None:
+                        creq.cache_keys = self._prefix_cache.insert(
+                            creq.prompt, self._table[ci],
+                            self.allocator, creq.req_id,
+                            self.page_size, creq.cache_keys,
+                            device_hits=getattr(
+                                creq, "_pfx_device_hits", None))
+                    reqs[ci] = creq
+        emissions: List[Tuple] = []
+        per_step_tokens: List[int] = []
+        emitted_ct = {i: 0 for i in reqs}
+        runs_tot = drafted_tot = accepted_tot = 0
+        rem0 = pend["rem"]
+        for j in range(nsteps):
+            count = 0
+            for i in sorted(reqs):
+                req = reqs[i]
+                if spec_mode:
+                    toks = []
+                    for t in ring[i, j]:
+                        t = int(t)
+                        if t < 0:
+                            break  # a run's entries are front-packed
+                        toks.append(t)
+                else:
+                    t = int(ring[i, j])
+                    toks = [t] if t >= 0 else []
+                if not toks:
+                    continue
+                if spec_mode and not (plan is not None
+                                      and i == plan["slot"]
+                                      and j == plan["final_idx"]):
+                    # the verify step's stats, as the boundary path
+                    # records them: drafted = the budget-clipped k_eff
+                    # the launch used, accepted = the run less its
+                    # correction or bonus token
+                    k_eff = max(
+                        min(k, int(rem0[i]) - emitted_ct[i] - 1), 0)
+                    req.stats.spec_steps += 1
+                    req.stats.spec_drafted += k_eff
+                    req.stats.spec_accepted += max(len(toks) - 1, 0)
+                    runs_tot += 1
+                    drafted_tot += k_eff
+                    accepted_tot += max(len(toks) - 1, 0)
+                emitted_ct[i] += len(toks)
+                for tok in toks:
+                    req.generated.append(tok)
+                    req.stats.tokens_out = len(req.generated)
+                    emissions.append((req, tok, self._finish_due(req)))
+                count += len(toks)
+            per_step_tokens.append(count)
+        for i in sorted(reqs):
+            req = reqs[i]
+            if self._slots[i] is not req:
+                continue  # reassigned (the flush discipline rules it out)
+            self._lens[i] = int(lens_f[i])
+            self._cur[i] = int(cur_f[i])
+            if self._finish_due(req):
+                # teardown now, so the boundary's admission sees the
+                # pages; the completion follows the request's tokens
+                self._finish_slot(i, notify=False)
+            elif spec_mode:
+                # the in-program rewind left the lengths past the
+                # rejected drafts: hand wholly unused pages back
+                self._rollback_pages(i, req, int(lens_f[i]))
+            if req.trace is not None:
+                req.trace.add("macro_step", pend["t_dispatch"] * 1e6,
+                              now * 1e6, parent=req.span,
+                              step=self.steps + nsteps,
+                              launch=pend["launch"],
+                              steps_run=nsteps,
+                              tokens=emitted_ct.get(i, 0))
+        self.steps += nsteps
+        self._tl_add_ms("decode_ms", dt)
+        self._tl_add_ms("overlap_idle_ms", idle_s)
+        self._tl_macro = {
+            "launch": pend["launch"], "steps": nsteps,
+            "masked_steps": self.multi_step - nsteps,
+            "tokens": int(sum(per_step_tokens)),
+            "per_step_tokens": per_step_tokens,
+            "ms": round(dt * 1e3, 4),
+            "overlap_idle_ms": round(idle_s * 1e3, 4),
+            "dispatch_ms": round(pend["dispatch_ms"], 4),
+        }
+        if spec_mode:
+            self._tl_macro["spec"] = {
+                "runs": runs_tot, "drafted": drafted_tot,
+                "accepted": accepted_tot}
+        if plan is not None:
+            self._tl_macro["chunks"] = int(plan["count"])
+        return emissions
+
+    def _flush_macro(self) -> None:
+        """External-entry drain: wait for the launch in flight and
+        deliver everything pending now, completions included. The
+        boundary itself (_macro_multi_step) drains without delivering,
+        and delivers after the next dispatch: that is the overlap."""
+        if self._pending_macro is not None:
+            self._pending_emit.extend(self._drain_macro())
+        self._deliver_pending()
+
+    def _flush_req_emissions(self, req: DecodeRequest) -> None:
+        """Stream ONE request's undelivered tokens (tokens before the
+        completion on a terminal path)."""
+        if not self._pending_emit:
+            return
+        mine = [e for e in self._pending_emit if e[0] is req]
+        if not mine:
+            return
+        self._pending_emit = [e for e in self._pending_emit
+                              if e[0] is not req]
+        for _req, tok, done in mine:
+            req.last_emit_t = time.monotonic()
+            if req.on_token is not None:
+                req.on_token(req.req_id, tok, done)
+
+    def _deliver_pending(self) -> None:
+        """Deliver the drained emissions in order: callbacks, liveness,
+        and the completion of a request that finished inside the
+        launch, after its last token."""
+        while self._pending_emit:
+            req, tok, done = self._pending_emit.pop(0)
+            req.last_emit_t = time.monotonic()
+            if req.on_token is not None:
+                req.on_token(req.req_id, tok, done)
+            if done and req.done:
+                self._notify_complete(req)
+
+    def _macro_multi_step(self) -> int:
+        """One multi-step boundary (``continuous_batching.py:3235``):
+        drain launch K-1, the boundary work (deadline and stall sweeps,
+        admission, chunk planning or one boundary chunk), dispatch
+        launch K, then deliver K-1's tokens while K computes."""
+        emissions = self._drain_macro()
+        if emissions:
+            self._pending_emit.extend(emissions)
+        # the inner sweeps: the public ones would flush and deliver the
+        # emissions just drained, forfeiting the overlap
+        self._expire_deadlines_inner()
+        self._evict_stalled_inner()
+        self._admit()
+        if self.num_active == 0:
+            self._deliver_pending()
+            return 0
+        chunk_plan = None
+        if self.prefill_chunk_tokens is not None:
+            if self._chunk_inprogram:
+                chunk_plan = self._plan_inprogram_chunks()
+            else:
+                self._advance_prefill_chunk()
+        self._dispatch_macro(chunk_plan)
+        self._deliver_pending()
+        return self.num_active
+
+    def per_token_timeline(self) -> List[Dict[str, Any]]:
+        """The step timeline with each macro launch's entry expanded into
+        one row an iteration (``continuous_batching.py:3265``); other
+        entries pass through."""
+        out: List[Dict[str, Any]] = []
+        for entry in self.timeline:
+            macro = entry.get("macro")
+            if not macro or not macro.get("steps"):
+                out.append(dict(entry))
+                continue
+            nsteps = macro["steps"]
+            base = entry["step"] - nsteps
+            for j, toks in enumerate(macro["per_step_tokens"]):
+                out.append({
+                    "step": base + j + 1,
+                    "ms": round(macro["ms"] / nsteps, 4),
+                    "tokens": toks,
+                    "macro_launch": macro["launch"],
+                    "macro_offset": j,
+                })
+        return out
+
     # -- speculative decoding ----------------------------------------------
 
     def _ensure_pages(self, slot: int, req: DecodeRequest,
@@ -1599,7 +2333,8 @@ class ContinuousBatchingEngine:
         missing = [j for j in range(want) if row[j] == self._scratch]
         if not missing:
             return
-        with self._led("spec_grow", req.req_id):
+        reason = "spec_grow" if self._spec_cfg is not None else "macro_grow"
+        with self._led(reason, req.req_id):
             pages = self.allocator.alloc_reserved(req.req_id, len(missing))
         for j, p in zip(missing, pages):
             row[j] = p
@@ -1732,7 +2467,14 @@ class ContinuousBatchingEngine:
     def close(self) -> None:
         """Evict every active slot, drop every queued request, return
         their pages, clear the prefix cache (its pages and tier blobs)
-        and assert nothing leaked."""
+        and assert nothing leaked. A multi-step engine first drains and
+        delivers the launch in flight (a failed one is dropped: its
+        tokens never reached a client)."""
+        try:
+            self._flush_macro()
+        except Exception:
+            self._pending_macro = None
+            self._deliver_pending()
         for slot, req in enumerate(self._slots):
             if req is not None:
                 self._evict_slot(slot, "evicted")
@@ -1748,9 +2490,15 @@ class ContinuousBatchingEngine:
         ``close()``: a rebuilt engine allocates its own, and must not
         find the dead one's still held beside them. Detaches the prefix
         cache's device IO too (through it the cache and the engine
-        reference each other). The engine cannot step afterwards."""
+        reference each other). The engine cannot step afterwards. The
+        macro launch's graphs go with the pools: a replay against freed
+        pools is impossible."""
         if getattr(self._prefix_cache, "tiers", None):
             self._prefix_cache.attach_device_io(None, None)
+        if self._macro is not None and self._macro["graphs"] is not None:
+            self._macro["graphs"].close()
+        self._macro = None
+        self._pending_macro = None
         self._pools = None
 
 

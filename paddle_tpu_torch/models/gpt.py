@@ -228,6 +228,259 @@ def paged_page_splice(pools, page, k_blocks, v_blocks,
     return pools
 
 
+
+class MacroCarry:
+    """The loop carry of :func:`multi_step_decode`, preallocated so that
+    every iteration updates it in place: a CUDA graph of one iteration
+    reads and writes these tensors at fixed addresses, and the plain
+    loop on the CPU runs the same iteration on them.
+
+    ``j`` (the iteration index) and ``steps`` (iterations that had a
+    live slot or a scheduled chunk) are device int32 scalars; per slot
+    ``cur``, ``lens``, ``act`` and ``emitted`` (tokens emitted this
+    launch); the token ring ``[B, N]`` (``[B, N, k+1]`` under in-program
+    speculation, one accepted run an iteration), -1 where nothing was
+    emitted; and under speculation the draft history ``hist`` [B, H]
+    with its lengths ``hist_len``."""
+
+    def __init__(self, batch: int, num_steps: int, device, k: int = 0,
+                 hist_cap: int = 0):
+        i32 = dict(dtype=torch.int32, device=device)
+        self.k = int(k)
+        self.j = torch.zeros((), **i32)
+        self.steps = torch.zeros((), **i32)
+        self.cur = torch.zeros((batch,), **i32)
+        self.lens = torch.zeros((batch,), **i32)
+        self.act = torch.zeros((batch,), dtype=torch.bool, device=device)
+        self.emitted = torch.zeros((batch,), **i32)
+        shape = (batch, int(num_steps)) + ((self.k + 1,) if self.k else ())
+        self.ring = torch.full(shape, -1, **i32)
+        self.hist = (torch.zeros((batch, int(hist_cap)), **i32)
+                     if self.k else None)
+        self.hist_len = torch.zeros((batch,), **i32) if self.k else None
+
+    def clear(self) -> None:
+        """Begin a launch: the index, the counts, the emissions and the
+        ring cleared (the slots' inputs are the caller's to load)."""
+        self.j.zero_()
+        self.steps.zero_()
+        self.emitted.zero_()
+        self.ring.fill_(-1)
+
+    def start(self, tokens, lens, active, hist=None, hist_len=None
+              ) -> None:
+        """:meth:`clear`, then the slots' tokens, lengths and active mask
+        (and histories) copied in from tensors on any device, in the
+        caller's stream order (a page-locked source copies
+        asynchronously)."""
+        nb = tokens.device.type == "cpu" and tokens.is_pinned()
+        self.clear()
+        self.cur.copy_(tokens, non_blocking=nb)
+        self.lens.copy_(lens, non_blocking=nb)
+        self.act.copy_(active, non_blocking=nb)
+        if self.k:
+            self.hist.copy_(hist, non_blocking=nb)
+            self.hist_len.copy_(hist_len, non_blocking=nb)
+
+
+def macro_iteration(carry: MacroCarry, step_fn, table, rem, eos,
+                    scratch: int, spec=None, chunk=None) -> None:
+    """ONE iteration of :func:`multi_step_decode`'s loop, in place on
+    ``carry``, in the JAX body's order (``gpt.py:470-656``):
+
+    - the masked table and lengths: an inactive slot (stopped, half
+      prefilled or empty) rides the step on the scratch page at length
+      0, so its KV write lands on scratch;
+    - ``step_fn(table, lens, cur) -> nxt`` [B] int32, the engine's
+      single-token decode body (the pools are its own and are written
+      in place);
+    - the ring write at column ``j``, read from the device index;
+    - the length advance under the mask from before the update, then
+      :func:`~..nn.decode.masked_carry_advance`.
+
+    ``spec`` (in-program speculation: ``k``, ``vocab``,
+    ``draft_fn(hist, hist_len, cur) -> [B, k]`` and
+    ``verify_fn(table, lens, toks, valid) -> (accept, resid, full)``)
+    replaces the decode by draft, verify of k+1 positions,
+    :func:`~..nn.decode.masked_run_advance`, the rewind of ``lens`` past
+    the rejected drafts and the history append. ``chunk`` (this
+    iteration advances a half-prefilled slot: ``prefill_fn(trow, slens,
+    plen, ids) -> nxt`` [1] and the schedule rows ``ids`` [N, bucket],
+    ``valid`` / ``start`` / ``final`` [N] and ``slot`` []) runs that
+    slot's chained chunk ``j`` after the decode; the final chunk's token
+    is the slot's first, written into the ring, and the slot joins the
+    decode from the next iteration.
+
+    Once every slot has stopped and no chunk is scheduled, an iteration
+    changes nothing the caller reads: writes land on the scratch page,
+    the ring column stays -1, the carry keeps its values and ``steps``
+    does not count it. A graph that replays all N iterations therefore
+    ends where the early-exit loop ends."""
+    from ..nn.decode import masked_carry_advance, masked_run_advance
+    b = carry.cur.shape[0]
+    dev = carry.cur.device
+    jl = carry.j.long().view(1)
+    act = carry.act
+    live = act.any() if chunk is None else torch.ones(
+        (), dtype=torch.bool, device=dev)
+    table_eff = torch.where(act[:, None], table, scratch).to(torch.int32)
+    lens_eff = torch.where(act, carry.lens, 0).to(torch.int32)
+    hist_len = carry.hist_len
+    if spec is None:
+        nxt = step_fn(table_eff, lens_eff, carry.cur).to(torch.int32)
+        col = torch.where(act, nxt, -1).to(torch.int32)
+        carry.ring.index_copy_(1, jl, col[:, None])
+        lens = torch.where(act, carry.lens + 1, carry.lens)
+        cur, new_act, emitted = masked_carry_advance(
+            nxt, carry.cur, act, carry.emitted, rem, eos)
+    else:
+        k = int(spec["k"])
+        width = k + 1
+        # draft clip: emit at most the remaining budget (the host's
+        # k_eff = min(k, rem - 1), rem counted from this launch's
+        # emissions)
+        k_eff = torch.clamp(rem - carry.emitted - 1, 0, k)
+        valid = torch.where(act, 1 + k_eff, 0).to(torch.int32)
+        drafts = spec["draft_fn"](carry.hist, hist_len, carry.cur)
+        drafts = torch.clamp(drafts.to(torch.int32), 0,
+                             int(spec["vocab"]) - 1)
+        toks = torch.cat([carry.cur[:, None], drafts], dim=1)
+        accept, _resid, full = spec["verify_fn"](table_eff, lens_eff,
+                                                 toks, valid)
+        kr = torch.arange(k, device=dev, dtype=torch.int32)
+        acc = accept & (kr[None, :] < k_eff[:, None])
+        nacc = torch.cumprod(acc.to(torch.int32), dim=1).sum(dim=1).to(
+            torch.int32)
+        # greedy verify: the correction or bonus token is full[:, nacc],
+        # the target's own token after the accepted prefix
+        nxt = torch.gather(full.to(torch.int32), 1,
+                           nacc.long()[:, None])[:, 0]
+        wr = torch.arange(width, device=dev, dtype=torch.int32)
+        padded = torch.cat([drafts, torch.zeros_like(drafts[:, :1])],
+                           dim=1)
+        run = torch.where(wr[None, :] < nacc[:, None], padded,
+                          nxt[:, None])
+        run_masked, emit_len, cur, new_act, emitted = masked_run_advance(
+            run, nacc + 1, carry.cur, act, carry.emitted, rem, eos)
+        carry.ring.index_copy_(1, jl, run_masked[:, None, :])
+        # the in-program rewind: the lengths advance past cur and the
+        # accepted drafts only; the next verify appends over the
+        # rejected positions
+        lens = torch.where(act, carry.lens + nacc + 1, carry.lens)
+        hist = carry.hist
+        hcap = hist.shape[1]
+        for r in range(width):
+            idx = torch.clamp_max(hist_len + r, hcap - 1).long()[:, None]
+            put = act & (r < emit_len)
+            old = torch.gather(hist, 1, idx)[:, 0]
+            hist.scatter_(1, idx, torch.where(put, run[:, r], old)[:, None])
+        hist_len = torch.where(
+            act, torch.clamp_max(hist_len + emit_len, hcap), hist_len)
+    if chunk is not None:
+        ids_j = chunk["ids"].index_select(0, jl)
+        valid_j = chunk["valid"].index_select(0, jl)
+        start_j = chunk["start"].index_select(0, jl)
+        final_j = chunk["final"].index_select(0, jl)
+        slot = chunk["slot"].long().view(1)
+        trow = table.index_select(0, slot).to(torch.int32)
+        nxt_c = chunk["prefill_fn"](trow, start_j, valid_j, ids_j).to(
+            torch.int32)
+        plen = start_j + valid_j
+        upd = final_j & (torch.arange(b, device=dev) == slot)
+        # the first-token stop rule (the host's _maybe_finish after a
+        # final chunk's emission)
+        stop = (nxt_c == eos.index_select(0, slot)) | \
+            (rem.index_select(0, slot) <= 1)
+        cur = torch.where(upd, nxt_c, cur)
+        lens = torch.where(upd, plen, lens)
+        emitted = torch.where(upd, 1, emitted)
+        # the promoted slot joins the decode from the NEXT iteration
+        new_act = torch.where(upd, ~stop, new_act)
+        col = carry.ring.index_select(1, jl)
+        if spec is not None:
+            col[:, 0, 0] = torch.where(upd, nxt_c, col[:, 0, 0])
+            hidx = torch.clamp_max(plen, carry.hist.shape[1] - 1).long()
+            idx = hidx.expand(b)[:, None]
+            old = torch.gather(carry.hist, 1, idx)[:, 0]
+            carry.hist.scatter_(1, idx,
+                                torch.where(upd, nxt_c, old)[:, None])
+            hist_len = torch.where(upd, plen + 1, hist_len)
+        else:
+            col[:, 0] = torch.where(upd, nxt_c, col[:, 0])
+        carry.ring.index_copy_(1, jl, col)
+    carry.cur.copy_(cur)
+    carry.lens.copy_(lens)
+    carry.act.copy_(new_act)
+    carry.emitted.copy_(emitted)
+    if spec is not None:
+        carry.hist_len.copy_(hist_len)
+    carry.steps.add_(live.to(torch.int32))
+    carry.j.add_(1)
+
+
+def run_macro_loop(carry: MacroCarry, iterate, num_steps: int,
+                   chunk_count: int = 0, full: bool = False) -> None:
+    """The plain loop around :func:`macro_iteration`: ``iterate(with_chunk)``
+    for iterations ``j < num_steps`` (``with_chunk`` for ``j <
+    chunk_count``), stopping once no slot is active and no chunk is
+    left, as JAX's ``while_loop`` condition does; ``full`` runs all N,
+    as a CUDA graph replayed N times does."""
+    for j in range(int(num_steps)):
+        with_chunk = j < chunk_count
+        if not (full or with_chunk or bool(carry.act.any())):
+            break
+        iterate(with_chunk)
+
+
+def multi_step_decode(step_fn, pools, table, lens, tokens, active, rem,
+                      eos, num_steps: int, scratch: int, spec=None,
+                      chunk=None, full: bool = False):
+    """Up to ``num_steps`` single-token decode iterations over every slot
+    in one call (port of ``gpt.py:368-660``): the engine's macro step.
+    ``step_fn(table, lens, cur) -> nxt`` is the engine's single-token
+    decode body, exactly what a ``multi_step=1`` step runs, so each
+    iteration equals one host-driven step; the loop carries the host's
+    bookkeeping between steps (masking, the stop rules, the token ring).
+    The page table is a constant of the call: the engine binds each
+    slot's growth pages before it.
+
+    ``spec`` adds ``hist`` / ``hist_len`` to :func:`macro_iteration`'s
+    spec keys; ``chunk`` adds ``count`` (host int: iterations ``j <
+    count`` each run chunk ``j``) to its chunk keys. ``full`` runs all
+    iterations instead of stopping early; the results are the same.
+
+    Returns ``(ring, steps_done, cur, lens, active, pools)``: the ring
+    ``[B, N]`` int32 (``[B, N, k+1]`` with ``spec``), ``steps_done`` a
+    device int32 count of the iterations that had a live slot or a
+    scheduled chunk, and the final carry. The pools are updated in place
+    and returned as given."""
+    i32 = torch.int32
+    k = int(spec["k"]) if spec is not None else 0
+    carry = MacroCarry(tokens.shape[0], num_steps, tokens.device, k=k,
+                       hist_cap=(spec["hist"].shape[1] if k else 0))
+    carry.start(tokens.to(i32), lens.to(i32), active.to(torch.bool),
+                spec["hist"].to(i32) if k else None,
+                spec["hist_len"].to(i32) if k else None)
+    rem = rem.to(i32)
+    eos = eos.to(i32)
+    plan = count = None
+    if chunk is not None:
+        count = int(chunk["count"])
+        plan = {"prefill_fn": chunk["prefill_fn"],
+                "ids": chunk["ids"].to(i32), "valid": chunk["valid"].to(i32),
+                "start": chunk["start"].to(i32),
+                "final": chunk["final"].to(torch.bool),
+                "slot": torch.as_tensor(chunk["slot"], dtype=i32,
+                                        device=tokens.device)}
+
+    def iterate(with_chunk: bool) -> None:
+        macro_iteration(carry, step_fn, table, rem, eos, scratch,
+                        spec=spec, chunk=plan if with_chunk else None)
+
+    run_macro_loop(carry, iterate, num_steps, count or 0, full)
+    return carry.ring, carry.steps, carry.cur, carry.lens, carry.act, pools
+
+
 def _remat_block(block: nn.Module, x, save_attention: bool = False):
     """Run ``block`` under ``torch.utils.checkpoint`` (``gpt.py:663-686``):
     its activations are recomputed in backward instead of kept. With

@@ -1,8 +1,9 @@
-"""The shared autoregressive sampler and the speculative verify math
-(port of ``sample_token``, ``ngram_draft_tokens``, ``_head_logits``,
-``fused_sample_token``, ``fused_verify_tokens`` and
-``speculative_verify_tokens`` of ``paddle_tpu/nn/decode.py:39-61,
-145-348``).
+"""The shared autoregressive sampler, the speculative verify math and
+the carry-form stop rules of multi-step decode (port of
+``sample_token``, ``masked_carry_advance``, ``masked_run_advance``,
+``ngram_draft_tokens``, ``_head_logits``, ``fused_sample_token``,
+``fused_verify_tokens`` and ``speculative_verify_tokens`` of
+``paddle_tpu/nn/decode.py:39-348``).
 
 Greedy at ``temperature == 0``; temperature / top-k sampling draws from
 an explicit ``torch.Generator`` (JAX's keys and torch's generators give
@@ -66,6 +67,59 @@ def fused_sample_token(hidden, weight, temperature: float = 0.0,
         return torch.gather(idxs, 1, pick)[:, 0].to(torch.int32)
     return sample_token(_head_logits(hidden, weight, bias, transpose_y),
                         temperature, top_k, generator)
+
+
+def masked_carry_advance(nxt, cur, active, emitted, rem, eos):
+    """Fold one sampled token batch into the ``(cur, active, emitted)``
+    carry of multi-step decode (``nn/decode.py:64-91``): ``nxt`` [B]
+    this iteration's tokens, ``active`` [B] bool, ``emitted`` [B] int32
+    tokens emitted this launch, ``rem`` [B] each slot's remaining
+    budget at the launch, ``eos`` [B] EOS ids (-1 for none). A slot
+    stops after emitting EOS or its budget's last token (the host's
+    ``_finish_due``); a stopped slot keeps its last token in ``cur``.
+    Returns ``(cur', active', emitted')``: pure tensor math, no host
+    read."""
+    emitted = emitted + active.to(torch.int32)
+    stop = (nxt == eos) | (emitted >= rem)
+    new_active = active & ~stop
+    return torch.where(active, nxt, cur), new_active, emitted
+
+
+def masked_run_advance(run, run_len, cur, active, emitted, rem, eos):
+    """The accept-and-rewind twin of :func:`masked_carry_advance` for
+    in-program speculation (``nn/decode.py:93-142``): fold a ``[B, W]``
+    run (each slot's accepted drafts plus its correction or bonus token,
+    ``run_len`` [B] of them) into the carry, truncated as the host would
+    emit it token by token: an EOS inside the run ends the emission at
+    that token, and the budget caps the total. Returns ``(run_masked
+    [B, W] int32 with -1 past each slot's emitted share, emit_len [B],
+    cur', active', emitted')``; ``run_masked`` is the token ring's row
+    for the iteration."""
+    b, w = run.shape
+    dev = run.device
+    run = run.to(torch.int32)
+    jpos = torch.arange(w, device=dev, dtype=torch.int32)[None, :]
+    in_run = jpos < run_len[:, None]
+    budget = torch.clamp_min(rem - emitted, 0)
+    # first EOS position within the run (w when none): emitting stops
+    # after that token, like the host's append-then-check loop
+    is_eos = (run == eos[:, None]) & in_run
+    ends = torch.cat([is_eos, torch.ones((b, 1), dtype=torch.bool,
+                                         device=dev)], dim=1)
+    eos_idx = torch.argmax(ends.to(torch.int32), dim=1).to(torch.int32)
+    emit_len = torch.minimum(run_len, torch.minimum(eos_idx + 1, budget))
+    emit_len = torch.where(active, torch.clamp_min(emit_len, 0),
+                           torch.zeros_like(emit_len)).to(torch.int32)
+    last = torch.gather(run, 1, torch.clamp_min(emit_len - 1, 0)
+                        .long()[:, None])[:, 0]
+    hit_eos = (eos_idx + 1) <= emit_len
+    new_emitted = emitted + emit_len
+    stop = hit_eos | (new_emitted >= rem)
+    new_active = active & ~stop
+    run_masked = torch.where((jpos < emit_len[:, None]) & active[:, None],
+                             run, torch.full_like(run, -1))
+    new_cur = torch.where(active & (emit_len > 0), last, cur)
+    return run_masked, emit_len, new_cur, new_active, new_emitted
 
 
 def ngram_draft_tokens(hist, hist_len, k: int, max_ngram: int = 3,

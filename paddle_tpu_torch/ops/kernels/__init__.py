@@ -2,7 +2,11 @@
 
 Each wrapper adds one to its ``launches`` attribute where it launches
 its kernel (never when a CPU tensor sends it to the plain version), so
-a run can show that the main path went through the kernels.
+a run can show that the main path went through the kernels. Under CUDA
+graph capture a wrapper records its launch and the device runs it at
+every replay: the graph runner (``inference/graphs.py``) takes the
+capture's counts back and adds them once a replay
+(:func:`add_launches`).
 """
 
 from __future__ import annotations
@@ -38,3 +42,10 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {name: int(fn.launches) for name, fn in KERNELS.items()}
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``counts[name]`` to each named kernel's count (a
+    negative ``times`` takes them back)."""
+    for name, n in counts.items():
+        KERNELS[name].launches += int(n) * int(times)

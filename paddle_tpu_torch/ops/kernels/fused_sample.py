@@ -50,7 +50,7 @@ def _scan_tiles(hidden, weight, vdim, bias, tile, carry, step):
         if bias is not None:
             lg = lg + bias[start:start + tile]
         lg = torch.where(idx[None, :] >= front, lg.to(torch.float32),
-                         torch.tensor(_NEG_INF, device=dev))
+                         torch.full((), _NEG_INF, device=dev))
         carry = step(carry, lg, idx)
     return carry
 

@@ -71,8 +71,9 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, seq_lens,
     qpos = (q_offsets.to(device=dev, dtype=torch.int32)[:, None]
             + torch.arange(sq, device=dev, dtype=torch.int32)[None])
     mask = kpos[None, None, :] <= qpos[:, :, None]  # [B, Sq, T]
+    # a fill, not a host copy: the reference runs inside CUDA graphs
     logits = torch.where(mask[:, None], logits,
-                         torch.tensor(_NEG_INF, device=dev))
+                         torch.full((), _NEG_INF, device=dev))
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     l = p.sum(dim=-1, keepdim=True)  # noqa: E741
@@ -214,13 +215,30 @@ _TICKETS_LOCK = threading.Lock()
 
 
 def _tickets(dev: torch.device, n: int) -> torch.Tensor:
+    """The ticket buffer of the current stream. A CUDA graph captures
+    the buffer's address, so it is allocated and zeroed outside any
+    capture (the graph runner warms up on its capture stream first): a
+    capture that would allocate it raises instead of putting the zero
+    fill into the graph's private pool."""
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     with _TICKETS_LOCK:
         t = _TICKETS.get(key)
         if t is None or t.numel() < n:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "paged_decode: the ticket buffer of the capturing "
+                    "stream must be allocated before capture (warm the "
+                    "step up on that stream first)")
             t = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
             _TICKETS[key] = t
         return t
+
+
+def ticket_buffers():
+    """Every ticket buffer allocated so far (the chip check reads them
+    back: each must be all zero between launches)."""
+    with _TICKETS_LOCK:
+        return list(_TICKETS.values())
 
 
 def paged_decode(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,

@@ -46,6 +46,15 @@ multi-token forward, greedy outputs equal the vanilla engine's, and the
 per-request acceptance rate and tokens a step land in the replies'
 stats and the metrics.
 
+Multi-step decode: ``--multi-step 8`` runs 8 decode iterations a
+launch (on the card one CUDA graph of the decode iteration, replayed 8
+times) and reads the tokens back once a launch; greedy outputs are the
+same. Chunked prefill and n-gram speculation then run inside the
+launch. Health and stats report ``multi_step`` and ``macro_launches``;
+the metrics count ``serving_macro_steps_total`` and observe iterations
+a launch (``serving_steps_per_launch``) and the host's wait at each
+drain (``serving_host_overlap_idle_ms``).
+
 Engine resurrection: after ``max_engine_errors`` consecutive step
 failures the server tears the engine down (pages returned and audited),
 rebuilds it from the captured recipe (a fresh prefix cache with it) and
@@ -63,9 +72,9 @@ in the engine, ``cache.spill`` in the prefix cache.
 
 Ops and flags not yet ported (``export``, ``slo``, ``trace``,
 ``capacity``, ``profile``, ``fetch_pages``, ``prefetch``, ``swap``;
-``--role``, ``--flight-*``, ``--weight-generation``, ``--multi-step``,
-``--mesh``, ...) are answered as the JAX server answers an unknown op or
-flag.
+``--role``, ``--flight-*``, ``--weight-generation``, ``--mesh``,
+``--forecast-admission``, ...) are answered as the JAX server answers an
+unknown op or flag.
 
 Threading: the ENGINE THREAD exclusively owns the engine and every CUDA
 launch (it sets the CUDA device first); connection threads parse
@@ -122,9 +131,10 @@ class ServingServer:
     size (with the ``spill_*`` tiers, ``blob_format`` and ``dedup``)
     with every engine; ``prefill_retry="site"`` resolves the
     ``serving.prefill`` site policy. ``speculative`` and
-    ``prefill_chunk_tokens`` ride in ``engine_kwargs``, so a
-    resurrection rebuilds a speculative or chunked engine. The model
-    must live on ``device`` (CUDA unless named)."""
+    ``prefill_chunk_tokens`` and ``multi_step`` ride in
+    ``engine_kwargs``, so a resurrection rebuilds a speculative,
+    chunked or multi-step engine. The model must live on ``device``
+    (CUDA unless named)."""
 
     def __init__(self, model, host: str = "127.0.0.1", port: int = 0,
                  scheduler=None, prefix_cache: bool = True,
@@ -211,6 +221,12 @@ class ServingServer:
         self._conns = []
         self._conns_lock = threading.Lock()
         self._t0 = time.monotonic()
+        # scrape markers (``server.py:449-457``): (restart count, last
+        # timeline step observed) and (restart count, engine macro
+        # launches already counted); a resurrected engine starts both
+        # afresh, so neither histogram nor counter winds back
+        self._tl_seen: tuple = (None, -1)
+        self._macro_seen: tuple = (None, 0)
         self.port: Optional[int] = None
 
     def _build_engine(self):
@@ -682,7 +698,10 @@ class ServingServer:
             send({"stats": self.metrics.snapshot(),
                   "prefix_cache": self._cache_stats(),
                   "step_timeline": eng.step_timeline()[-16:],
-                  "programs_launched": dict(eng.programs_launched)})
+                  "programs_launched": dict(eng.programs_launched),
+                  "multi_step": eng.multi_step,
+                  "macro_launches": eng.macro_launches,
+                  "step_programs": dict(eng.step_programs)})
             return
         if op == "metrics":
             send({"text": self.metrics.prometheus_text()})
@@ -800,6 +819,10 @@ class ServingServer:
                 "prefill_chunk_tokens": eng.prefill_chunk_tokens,
                 "fused_step": eng.fused_step,
                 "kv_int8": eng.kv_int8,
+                # decode iterations a launch (1 = per token) and the
+                # launches this engine ran
+                "multi_step": eng.multi_step,
+                "macro_launches": eng.macro_launches,
                 "trace_sample": self.tracer.sample_rate,
                 "uptime_s": round(time.monotonic() - self._t0, 3)}
 
@@ -840,7 +863,44 @@ class ServingServer:
                 g[f"spill_{t.name}_capacity_bytes"] = t.capacity_bytes
         for kind, n in dict(eng.programs_launched).items():
             g[f"programs_launched_{kind}"] = n
+        tl = eng.step_timeline()
+        if tl:
+            g["step_last_ms"] = tl[-1].get("ms", 0.0)
+            g["step_last_decode_ms"] = tl[-1].get("decode_ms", 0.0)
+            self._feed_step_histogram(eng, tl)
         return g
+
+    def _feed_step_histogram(self, eng, tl) -> None:
+        """Observe the timeline entries newer than the last scrape into
+        ``serving_step_ms``, and a drained macro launch's iterations and
+        host wait into ``serving_steps_per_launch`` /
+        ``serving_host_overlap_idle_ms``; add the engine's new macro
+        launches to ``serving_macro_steps_total``
+        (``server.py:1960-1993``). Both markers key on the restart
+        count, which only grows."""
+        key, seen = self._tl_seen
+        if key != self._restarts:
+            key, seen = self._restarts, -1
+        for entry in tl:
+            s = entry.get("step", 0)
+            if s > seen:
+                self.metrics.step_ms.observe(entry.get("ms", 0.0))
+                macro = entry.get("macro")
+                if macro:
+                    self.metrics.steps_per_launch.observe(
+                        float(macro.get("steps", 0)))
+                    self.metrics.host_overlap_idle_ms.observe(
+                        float(macro.get("overlap_idle_ms", 0.0)))
+                seen = s
+        self._tl_seen = (key, seen)
+        ml = int(eng.macro_launches)
+        mkey, mseen = self._macro_seen
+        if mkey != self._restarts:
+            mkey, mseen = self._restarts, 0
+        if ml > mseen:
+            self.metrics.counter("macro_steps_total").add(ml - mseen)
+            mseen = ml
+        self._macro_seen = (mkey, mseen)
 
     def _leak_check(self) -> Dict:
         """Engine-thread page audit: with no in-flight work the
@@ -1001,6 +1061,13 @@ def main(argv=None) -> None:
         "--draft-window", type=int, default=64,
         help="context window of a --draft-model draft")
     parser.add_argument(
+        "--multi-step", type=int, default=1, metavar="N",
+        help="run N decode iterations a launch (on the card one CUDA "
+             "graph of the decode iteration replayed N times, the tokens "
+             "read back once a launch; 1 = per-token decode). Greedy "
+             "outputs are the same; with --prefill-chunk or --speculate "
+             "the chunks and the verify run inside the launch")
+    parser.add_argument(
         "--no-fused-step", action="store_true",
         help="run the unfused decode ops (attention, then the "
              "out-projection, then the full logits)")
@@ -1028,6 +1095,10 @@ def main(argv=None) -> None:
         # rides in engine_kwargs, so a resurrection rebuilds a chunked
         # engine too
         engine_kwargs["prefill_chunk_tokens"] = args.prefill_chunk
+    if args.multi_step != 1:
+        # rides in engine_kwargs: a resurrection rebuilds a multi-step
+        # engine and replays onto it
+        engine_kwargs["multi_step"] = args.multi_step
     if args.speculate > 0:
         from ..inference import SpeculativeConfig
         draft = args.draft_model

@@ -148,7 +148,7 @@ def test_scheduler_admits_higher_priority_first(models):
 
 
 @pytest.mark.parametrize("kwarg,value", [
-    ("multi_step", 4), ("mesh", object()), ("capture_costs", True),
+    ("mesh", object()), ("capture_costs", True),
     ("weight_generation", 1), ("forecast_admission", True),
 ])
 def test_unported_engine_arguments_raise(models, kwarg, value):

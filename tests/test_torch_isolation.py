@@ -62,6 +62,9 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "import paddle_tpu_torch.serving.prefix_cache\n"
         "import paddle_tpu_torch.distributed.resilience\n"
         "import paddle_tpu_torch.inference.speculative\n"
+        "import paddle_tpu_torch.inference.graphs\n"
+        "from paddle_tpu_torch.models.gpt import multi_step_decode\n"
+        "from paddle_tpu_torch.nn.decode import masked_run_advance\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

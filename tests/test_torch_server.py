@@ -187,7 +187,7 @@ def test_cli_builds_the_server_from_its_flags(monkeypatch):
 
 def test_cli_rejects_unported_flags_like_an_unknown_flag():
     with pytest.raises(SystemExit) as e:
-        srv.main(["--device", "cpu", "--multi-step", "4"])
+        srv.main(["--device", "cpu", "--forecast-admission"])
     assert e.value.code == 2
 
 
