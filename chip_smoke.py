@@ -101,6 +101,19 @@ failure exits non-zero at once:
    layers): two streaming requests, two failed steps, one resurrection
    onto the rebuilt multi-step engine; streams equal replies, the leak
    check, the decode kernels launched.
+5j. server_observe_swap — the server's observability ops and weight
+   hot-swap at full width (``multi_step=8``, the prefix cache on): seed-1
+   weights B written by ``ResilientCheckpointManager`` and restored
+   (save and load seconds); B's tokens at ``multi_step`` 1 and 8 bitwise
+   equal; a server on seed-0 weights A answers ``profile`` (a 300 ms
+   capture during a decoding wave: the decode kernels named in the
+   chrome trace, the card's memory stats), ``capacity``, ``trace``
+   (per-token rows, ``program_costs``), ``export`` and ``slo``; the
+   ``swap`` op to B: bitwise B's tokens from the same captured graphs,
+   the serving kernels launched after it, 0 hit pages for prompts cached
+   under A; a truncated shard refused typed with B still serving; an
+   eager engine's ``swap_weights`` A -> B bitwise B's tokens, and its
+   decode ``program_costs`` beside one profiled step's device ms.
 6. train   — GPT-1.3B training (fp32, dropout 0, ``AdamW(1e-4)``):
    one forward+backward at full depth, B=2, S=2048, through the kernels
    against the plain versions (loss and every parameter's gradient);
@@ -148,15 +161,15 @@ import time
 import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
-TF32_FLOPS = 495e12         # dense TF32 on the tensor cores
-BF16_FLOPS = 989e12         # dense bf16 on the tensor cores
-# route of a function's products -> (flops each costs, peak, bound_by):
-# an fp32 product to fp32 accuracy on the tensor cores is three TF32
-# products (3xTF32: hi*hi + hi*lo + lo*hi)
-PRODUCT_ROUTES = {"fp32": (3.0, TF32_FLOPS, "3xtf32"),
-                  "bf16": (1.0, BF16_FLOPS, "bf16")}
+sys.path.insert(0, HERE)
+try:
+    # the cost counts the engine's program_costs reads too, so the
+    # kernel table and the engine count the same work
+    from paddle_tpu_torch.inference.costs import (
+        BF16_FLOPS, PAGED_POOLS, attention_fwd_cost, bound_ms,
+        out_proj_cost, paged_bytes)
+except ImportError:
+    pass  # the script without the package beside it: main() says so
 
 # tolerances, stated: fp32 sums run in another order in the kernel than
 # in the plain version (atol/rtol 1e-4); argmax must be index-exact;
@@ -234,48 +247,6 @@ TRAINING_KERNELS = ("attention_bwd_fused", "attention_bwd_dq",
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def bound_ms(nbytes: float, flops: float, dtype: str = "fp32"):
-    """The least time the card could take: ``(ms, bound_by)``, the larger
-    of ``nbytes`` at the memory rate and ``flops`` of ``dtype`` products
-    on the tensor cores (``PRODUCT_ROUTES``)."""
-    cost, peak, route = PRODUCT_ROUTES[dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = cost * flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, route)
-
-
-def attention_fwd_cost(B, S, H, D, causal, itemsize=4):
-    """(bytes, flops) of one attention forward at [B, S, H, D]: q, k, v
-    read and out written once, the f32 lse written; 2 flops per
-    multiply-add of QK^T and PV over the visible (query, key) pairs."""
-    pairs = S * (S + 1) // 2 if causal else S * S
-    return (4 * B * S * H * D * itemsize + B * S * H * 4,
-            4 * B * H * D * pairs)
-
-
-# bytes of one pool value and of the query / context element, by pool
-PAGED_POOLS = {"fp32": (4, 4), "bf16": (2, 2), "int8": (1, 4)}
-
-
-def paged_bytes(tokens, B, H, D, max_pages, pool):
-    """Bytes of one paged_decode call: K and V read once per (position,
-    head), D values of the pool's width plus a 4-byte scale for int8
-    pools; q read and the context written once in the query's dtype
-    (bf16 with bf16 pools, fp32 otherwise); the page table and the
-    lengths read once."""
-    kv, qo = PAGED_POOLS[pool]
-    per_row = D * kv + (4 if pool == "int8" else 0)
-    return (2 * tokens * H * per_row + 2 * B * H * D * qo
-            + B * max_pages * 4 + B * 4)
-
-
-def out_proj_cost(B, K, N, act_size=4, w_size=4):
-    """(bytes, flops) of ``ctx [B, K] @ W [K, N] + bias``: ctx, W and
-    bias read once, out written once."""
-    return ((B * K + B * N) * act_size + (K * N + N) * w_size,
-            2 * B * K * N)
 
 
 SPIN_CAP_MS = 50.0
@@ -3393,6 +3364,350 @@ def phase_server_multi_step(torch, dev, model):
     _free_engine_memory(torch)
 
 
+# -- phase 5j: observability ops and weight hot-swap -------------------------
+
+SWAP_PROFILE_MS = 300      # the profile op's capture window
+SWAP_PROFILE_LEN = 200     # the profile wave: 8 prompts of 200 tokens,
+SWAP_PROFILE_NEW = 256     # decoding long enough to outlast the window
+SWAP_MULTI_N = 8
+SWAP_DECODE_STEPS = 3      # profiled eager decode steps
+
+
+def _seeded_state(torch, dev, config, seed):
+    """Weights of ``config`` from ``seed`` as host numpy arrays
+    (``checkpoint_state``), the model itself freed."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, checkpoint_state
+    m = GPTForCausalLM(config, device=dev,
+                       generator=torch.Generator(device=dev)
+                       .manual_seed(seed))
+    state = checkpoint_state(m)
+    del m
+    _free_engine_memory(torch)
+    return state
+
+
+def _server_wave(port, prompts, max_new, streamed=None):
+    """The prompts as concurrent streaming generates; the generated
+    tokens of each, in order (each stream must equal its reply)."""
+    from paddle_tpu_torch.serving.server import client_request
+    replies = [None] * len(prompts)
+    streamed = streamed if streamed is not None else \
+        [[] for _ in prompts]
+
+    def one(i):
+        replies[i] = client_request(
+            "127.0.0.1", port,
+            {"op": "generate", "prompt": [int(t) for t in prompts[i]],
+             "max_new_tokens": max_new, "stream": True},
+            timeout_s=600, on_token=streamed[i].append)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    return threads, replies, streamed
+
+
+def _wave_tokens(phase, threads, replies, streamed, max_new):
+    for t in threads:
+        t.join(timeout=600)
+    out = []
+    for i, r in enumerate(replies):
+        if not r or not r.get("done") or \
+                len(r["generated"]) != max_new or \
+                streamed[i] != r["generated"]:
+            raise AssertionError(f"{phase} request {i}: {r}")
+        out.append(r["generated"])
+    return out
+
+
+def _graph_capture_s(graphs):
+    """Each captured iteration graph's capture seconds, by kind: a
+    recapture would change them."""
+    return {k: v["capture_s"] for k, v in graphs.kinds().items()}
+
+
+def _profile_trace(path):
+    """(bytes, kernel events, kernel names) of a chrome trace file."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return (os.path.getsize(path), len(kernels),
+            sorted({e.get("name", "") for e in kernels}))
+
+
+def _eager_decode_profile(torch, eng, steps):
+    """Device kernel ms of one decode step of ``eng`` over ``steps``
+    steady steps (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+
+
+def phase_server_observe_swap(torch, dev, model, prompts, card):
+    """The server's observability ops and weight hot-swap at GPT-1.3B's
+    full width (8 slots, page 64, 96 pages, the prefix cache on).
+    Weights A are the engine phase's seed-0 model, weights B come from
+    seed 1, both held as host numpy; B is written with the port's
+    ``ResilientCheckpointManager`` into a temporary directory (removed
+    at the end). Steps: (1) B loaded from the checkpoint into the model
+    in place, the engine phase's 8 prompts (32 new tokens) at
+    ``multi_step`` 1 and 8: ``tok_B``, bitwise equal; A loaded back.
+    (2) A server at ``multi_step=8`` serves the prompts (``tok_A``);
+    during a wave of 8 x 200-token prompts decoding 256 tokens each a
+    ``profile`` op of 300 ms, whose chrome trace must name the decode
+    kernels and whose ``memory_stats`` must be the card's; ``capacity``
+    (the occupancy classes sum to the pool), ``trace`` (a per-token
+    timeline with macro rows, ``program_costs`` with ``prefill`` and
+    ``decode_multi`` flops and bytes), ``export``, ``slo`` set and read.
+    (3) ``swap`` to B at generation 1, the prompts again: bitwise
+    ``tok_B``, the same captured graphs (no recapture, the same
+    ``step_programs``), the serving kernels launched after the swap, 0
+    hit pages for prompts cached under A. (4) A truncated shard: the
+    ``swap`` op answers ``SwapFailed`` and B still serves. (5) An eager
+    engine (``multi_step=1``) on A takes ``swap_weights(B)``: bitwise
+    ``tok_B``; before it, on A, its ``program_costs`` decode count beside
+    the device ms of a profiled decode step (and its tokens equal the
+    server's ``tok_A``)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch.distributed.resilience import (
+        ResilientCheckpointManager)
+    from paddle_tpu_torch.inference import create_decode_engine
+    from paddle_tpu_torch.models.gpt import checkpoint_state, load_jax_state
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.serving.server import ServingServer, client_request
+    V = model.config.vocab_size
+    phase = "server_observe_swap"
+    out = {"phase": phase, "card": card, "layers": model.config.num_layers,
+           "prompt_lengths": [len(p) for p in prompts],
+           "max_new_tokens": ENGINE_NEW}
+    _free_engine_memory(torch)
+    state_a = checkpoint_state(model)
+    state_b = _seeded_state(torch, dev, model.config, 1)
+    nbytes = sum(a.nbytes for a in state_b.values())
+    ckdir = tempfile.mkdtemp(prefix="pt-swap-ckpt-")
+    try:
+        free = shutil.disk_usage(ckdir).free
+        if free < nbytes + (1 << 30):
+            raise AssertionError(f"{phase}: {free} bytes free under "
+                                 f"{ckdir}, the checkpoint needs {nbytes}")
+        t0 = time.monotonic()
+        ResilientCheckpointManager(ckdir).save(1, state_b)
+        out["checkpoint_bytes"] = nbytes
+        out["checkpoint_save_s"] = time.monotonic() - t0
+        del state_b
+        t0 = time.monotonic()
+        got = ResilientCheckpointManager(ckdir).restore_latest_valid()
+        out["checkpoint_load_s"] = time.monotonic() - t0
+        if got is None or got[0] != 1:
+            raise AssertionError(f"{phase}: the checkpoint did not restore")
+        state_b = got[1]
+
+        # (1) the reference tokens on B
+        load_jax_state(model, state_b)
+        tok_b, _ = run_multi_engine(torch, model, prompts, ENGINE_NEW,
+                                    multi_step=1)
+        _free_engine_memory(torch)
+        tok_b8, _ = run_multi_engine(torch, model, prompts, ENGINE_NEW,
+                                     multi_step=SWAP_MULTI_N)
+        _free_engine_memory(torch)
+        _generation_ok(phase, tok_b, ENGINE_NEW, V)
+        check_tokens(f"{phase} tok_B N=8 vs N=1", tok_b8, tok_b)
+        load_jax_state(model, state_a)
+
+        # (2) serve A and read every observability op
+        server = ServingServer(model, device=dev, num_slots=8,
+                               page_size=PREFIX_PAGE, num_pages=96,
+                               multi_step=SWAP_MULTI_N)
+        port = server.start()
+        try:
+            tok_a = _wave_tokens(phase, *_server_wave(port, prompts,
+                                                      ENGINE_NEW),
+                                 ENGINE_NEW)
+            out["tokens_agree_a_vs_b"] = _agreement(tok_a, tok_b)
+            if tok_a == tok_b:
+                # the swap would be unobservable
+                raise AssertionError(f"{phase}: weights A and B give the "
+                                     f"same tokens")
+            gen = torch.Generator().manual_seed(23)
+            wave = [torch.randint(0, V, (SWAP_PROFILE_LEN,),
+                                  generator=gen).numpy()
+                    for _ in range(8)]
+            threads, replies, streamed = _server_wave(port, wave,
+                                                      SWAP_PROFILE_NEW)
+            # two launches drained: every slot is decoding
+            t_wait = time.monotonic() + 300
+            while not all(len(s) >= 2 * SWAP_MULTI_N for s in streamed):
+                if time.monotonic() > t_wait:
+                    raise AssertionError(f"{phase}: the profile wave did "
+                                         f"not start decoding")
+                time.sleep(0.005)
+            prof_dir = tempfile.mkdtemp(prefix="pt-swap-profile-")
+            try:
+                prof = client_request("127.0.0.1", port,
+                                      {"op": "profile",
+                                       "ms": SWAP_PROFILE_MS,
+                                       "dir": prof_dir}, timeout_s=600)
+                left = min(len(s) for s in streamed)
+                _wave_tokens(phase, threads, replies, streamed,
+                             SWAP_PROFILE_NEW)
+                if "error" in prof:
+                    raise AssertionError(f"{phase} profile: {prof}")
+                size, n_kernels, names = _profile_trace(prof["trace_file"])
+            finally:
+                shutil.rmtree(prof_dir, ignore_errors=True)
+            mem = prof["devices"][0]["memory_stats"]
+            named = {k: any(k in nm for nm in names)
+                     for k in GRAPH_KERNEL_NAMES}
+            if prof.get("chip_pending") is not False or not mem or \
+                    not all(named.values()):
+                raise AssertionError(f"{phase} profile: chip_pending "
+                                     f"{prof.get('chip_pending')}, "
+                                     f"kernels named {named} of "
+                                     f"{n_kernels} events {names[:12]}")
+            out["profile"] = {
+                "ms": SWAP_PROFILE_MS, "trace_bytes": size,
+                "kernel_events": n_kernels, "kernels_named": named,
+                "tokens_streamed_at_start": left,
+                "allocated_bytes": mem.get("allocated_bytes.all.current"),
+                "device_free_bytes": mem.get("device_free_bytes")}
+            cap = client_request("127.0.0.1", port,
+                                 {"op": "capacity", "ledger_tail": 8})
+            occ = cap["occupancy"]
+            if sum(occ.values()) != cap["num_pages"] or \
+                    not cap.get("ledger_tail"):
+                raise AssertionError(f"{phase} capacity: {cap}")
+            tr = client_request("127.0.0.1", port, {"op": "trace", "n": 4})
+            macro_rows = sum("macro_launch" in r
+                             for r in tr["per_token_timeline"])
+            costs = tr["program_costs"]
+            if not macro_rows or any(
+                    not (costs.get(k, {}).get("flops", 0) > 0
+                         and costs[k].get("bytes_accessed", 0) > 0)
+                    for k in ("prefill", "decode_multi")):
+                raise AssertionError(f"{phase} trace: {macro_rows} macro "
+                                     f"rows, program_costs {costs}")
+            exp = client_request("127.0.0.1", port, {"op": "export"})
+            slo_set = client_request("127.0.0.1", port,
+                                     {"op": "slo", "ttft_ms": 5000,
+                                      "tpot_ms": 200})
+            slo = client_request("127.0.0.1", port, {"op": "slo"})
+            if "export" not in exp or slo["slo"]["ttft_ms"] != 5000 or \
+                    slo["slo"]["tpot_ms"] != 200 or "error" in slo_set:
+                raise AssertionError(f"{phase} export/slo: {slo}")
+            out.update(capacity={"occupancy": occ,
+                                 "forecast": cap["forecast"]},
+                       per_token_rows=len(tr["per_token_timeline"]),
+                       macro_rows=macro_rows, program_costs=costs)
+
+            # (3) swap to B: the same graphs replay the new weights
+            eng = server.engine
+            graphs = eng._macro["graphs"]
+            kinds = _graph_capture_s(graphs)
+            step_programs = dict(eng.step_programs)
+            pc = server.prefix_cache
+            cached_before = pc.total_pages()
+            t0 = time.monotonic()
+            rep = client_request("127.0.0.1", port,
+                                 {"op": "swap", "checkpoint": ckdir,
+                                  "generation": 1}, timeout_s=900)
+            out["swap_op_s"] = time.monotonic() - t0
+            if rep.get("generation") != 1:
+                raise AssertionError(f"{phase} swap: {rep}")
+            out["swap_ms"] = rep["swap_ms"]
+            hits = pc.hit_pages
+            reset_launch_counts()
+            tok_s = _wave_tokens(phase, *_server_wave(port, prompts,
+                                                      ENGINE_NEW),
+                                 ENGINE_NEW)
+            out["launches_after_swap"] = serving_launch_gate(
+                f"{phase} after swap", launch_counts())
+            check_tokens(f"{phase} swapped server N=8 vs tok_B", tok_s,
+                         tok_b)
+            now = _graph_capture_s(graphs)
+            if server.engine is not eng or eng._macro["graphs"] is not \
+                    graphs or now != kinds or \
+                    dict(eng.step_programs) != step_programs:
+                raise AssertionError(f"{phase}: graphs recaptured "
+                                     f"({kinds} -> {now})")
+            if pc.hit_pages != hits or not cached_before:
+                raise AssertionError(f"{phase}: {pc.hit_pages - hits} hit "
+                                     f"pages after the swap "
+                                     f"({cached_before} cached under A)")
+            out.update(cached_pages_under_a=cached_before,
+                       hit_pages_after_swap=pc.hit_pages - hits,
+                       graphs_kept=kinds)
+
+            # (4) a torn shard is refused typed; B keeps serving
+            step_dir = os.path.join(ckdir, "step_00000001")
+            shard = os.path.join(step_dir, sorted(
+                f for f in os.listdir(step_dir) if f.endswith(".npy"))[0])
+            with open(shard, "r+b") as f:
+                f.truncate(os.path.getsize(shard) // 2)
+            bad = client_request("127.0.0.1", port,
+                                 {"op": "swap", "checkpoint": ckdir,
+                                  "generation": 2}, timeout_s=900)
+            health = client_request("127.0.0.1", port, {"op": "health"})
+            after = _wave_tokens(phase, *_server_wave(port, prompts[:1],
+                                                      ENGINE_NEW),
+                                 ENGINE_NEW)
+            if bad.get("error") != "SwapFailed" or \
+                    health["weight_generation"] != 1:
+                raise AssertionError(f"{phase} corrupt swap: {bad} "
+                                     f"{health}")
+            check_tokens(f"{phase} after the refused swap", after,
+                         tok_b[:1])
+            out["corrupt_swap"] = bad
+            leak = client_request("127.0.0.1", port, {"op": "leak_check"})
+            if not leak.get("ok"):
+                raise AssertionError(f"{phase} leak_check: {leak}")
+        finally:
+            server.stop()
+        _free_engine_memory(torch)
+
+        # (5) the eager engine swaps A -> B; its decode count beside a
+        # profiled step of the A run (the count is the first decode's)
+        load_jax_state(model, state_a)
+        eng = create_decode_engine(model, device=dev, num_slots=8,
+                                   page_size=PREFIX_PAGE, num_pages=96,
+                                   capture_costs=True)
+        rids = [eng.submit(p, max_new_tokens=ENGINE_NEW) for p in prompts]
+        for _ in range(2):
+            eng.step()
+        decode_ms = _eager_decode_profile(torch, eng, SWAP_DECODE_STEPS)
+        res = eng.run()
+        check_tokens(f"{phase} eager engine on A vs the server",
+                     [res[r][len(p):].tolist()
+                      for r, p in zip(rids, prompts)], tok_a)
+        cost = eng.program_costs()["decode"]
+        info = eng.swap_weights(state_b, generation=1)
+        rids = [eng.submit(p, max_new_tokens=ENGINE_NEW) for p in prompts]
+        res = eng.run()
+        tok_e = [res[r][len(p):].tolist() for r, p in zip(rids, prompts)]
+        check_tokens(f"{phase} eager swap_weights vs tok_B", tok_e, tok_b)
+        eng.close()
+        bound, by = bound_ms(cost["bytes_accessed"], cost["flops"])
+        out["eager"] = {"swap_ms": info["swap_ms"],
+                        "decode_cost": cost,
+                        "decode_device_ms": decode_ms,
+                        "decode_bound_ms": bound, "bound_by": by,
+                        "bound_share": bound / decode_ms}
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    emit(dict(out, ok=True))
+    _free_engine_memory(torch)
+
+
 # -- phase 6 -----------------------------------------------------------------
 
 def _train_model(torch, dev, **cfg_kw):
@@ -4049,7 +4364,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script runs only on a CUDA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
     try:
         import paddle_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -4074,6 +4388,7 @@ def main() -> int:
     phase_server_chunked_spec(torch, dev, model)
     small = phase_engine_multi_step(torch, dev, model, engine_prompts)
     phase_server_multi_step(torch, dev, small)
+    phase_server_observe_swap(torch, dev, model, engine_prompts, smi_line)
     del model, small
     # the engine and the server leave reference cycles: collected here,
     # they free the model and its KV pool before the train phase reads

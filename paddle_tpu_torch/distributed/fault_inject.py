@@ -3,7 +3,7 @@
 
 Named sites raise (or, for the spill write, corrupt) on an armed
 schedule, so every recovery path of the serving stack is testable on the
-CPU. The port fires seven of the JAX package's sites:
+CPU. The port fires eleven of the JAX package's sites:
 
 ==================== =================================================
 site                 where it fires
@@ -26,6 +26,13 @@ cache.spill          serving/prefix_cache.py spill-tier blob write
                      it — either way the page degrades to a cache miss
 serving.request      serving/server.py per-request front-end handling
 net.recv             serving/server.py connection reader
+checkpoint.write     resilience.ResilientCheckpointManager.save; "torn"
+                     truncates a shard after its crc32 was recorded
+checkpoint.read      ResilientCheckpointManager.restore
+checkpoint.load      the server's swap op and --checkpoint boot (load +
+                     validate on the calling thread, retried)
+swap.apply           engine swap_weights, after validation and before
+                     the first tensor write
 ==================== =================================================
 
 Default-OFF: with no site armed, ``fault_point`` is one module-bool
@@ -74,6 +81,16 @@ FAULT_SITES: Dict[str, str] = {
                    "'torn' — a corrupted blob the restore-side crc32 "
                    "must catch; either side degrades to a cache miss "
                    "and the chained-prefill fallback recomputes)",
+    "checkpoint.write": "durable checkpoint save (the manager)",
+    "checkpoint.read": "checkpoint restore (the manager)",
+    "checkpoint.load": "hot-swap checkpoint load+validate (serving "
+                       "swap op, conn thread; transient IO faults "
+                       "retry via the builtin policy, a persistent/"
+                       "corrupt load fails as a typed SwapFailed "
+                       "with the old weights still serving)",
+    "swap.apply": "engine weight-swap apply (fires after validation, "
+                  "before the first tensor write — an abort here "
+                  "proves the all-or-nothing swap contract)",
 }
 
 # False whenever no injector exists or no site is armed, so an unarmed

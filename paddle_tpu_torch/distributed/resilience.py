@@ -1,5 +1,6 @@
-"""Retry policies for the serving path (port of the retry half of
-``paddle_tpu/distributed/resilience.py``, ``:60-287``).
+"""Retry policies and durable checkpoints for the serving path (port of
+``paddle_tpu/distributed/resilience.py`` ``:60-479``: the retry half and
+``ResilientCheckpointManager``).
 
 ``RetryPolicy`` is exponential backoff with seeded jitter and an
 optional deadline; ``get_retry_policy(site)`` resolves a fault site's
@@ -11,18 +12,39 @@ recovery.
 
 ``PT_RETRY_SITES``: ``site:attempts=5,base=0.01,max_delay=1,mult=2,
 jitter=0,timeout=3;site2:...``.
+
+``ResilientCheckpointManager`` writes step-indexed checkpoints in the
+JAX package's on-disk layout, so a directory written by either package
+restores in the other::
+
+    dir/step_00000020/
+        manifest.json        # {"format": 1, "step", "shards":
+                             #  {f: {crc32, size}}, "structure"}
+        arr_0000.npy ...     # one np.save shard per leaf
+
+A step is written under a ``.tmp-*`` sibling and renamed into place once
+every shard and the manifest are on disk; restore checks each shard's
+size and crc32 and ``restore_latest_valid`` skips a torn or partial
+step. The ``HeartbeatMonitor`` and ``ResilientTrainer`` of the JAX
+module belong to multi-device training and are not ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
+import shutil
 import threading
 import time
+import zlib
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from .fault_inject import MODE_TORN, fault_point
 
 log = logging.getLogger("paddle_tpu_torch.resilience")
 
@@ -145,6 +167,12 @@ _BUILTIN_SITE_POLICIES: Dict[str, RetryPolicy] = {
                                    max_delay_s=0.25),
     "serving.verify": RetryPolicy(max_attempts=3, base_delay_s=0.02,
                                   max_delay_s=0.25),
+    # the checkpoint IO sites ride the stock policy; a persistent or
+    # corrupt hot-swap load exhausts it and surfaces as a typed
+    # SwapFailed with the old weights still serving
+    "checkpoint.write": DEFAULT_RETRY,
+    "checkpoint.read": DEFAULT_RETRY,
+    "checkpoint.load": DEFAULT_RETRY,
 }
 
 # sites deliberately not retried in place: a higher layer owns recovery
@@ -161,6 +189,10 @@ NO_RETRY_SITES: Dict[str, str] = {
                    "prefix-cache miss and the chained-prefill "
                    "fallback recomputes the pages "
                    "(serving/prefix_cache.py)",
+    "swap.apply": "the swap caller owns recovery: an abort here "
+                  "surfaces as a typed SwapFailed with the old "
+                  "generation still serving; a blind in-place retry "
+                  "could double-apply against a live engine",
 }
 
 _site_policies: Dict[str, RetryPolicy] = {}
@@ -209,3 +241,213 @@ def get_retry_policy(site: str) -> RetryPolicy:
 
 def call_with_retry(site: str, fn: Callable, *args, **kwargs):
     return get_retry_policy(site).call(fn, *args, site=site, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Durable checkpoints
+# ---------------------------------------------------------------------------
+
+class CheckpointCorruptError(RuntimeError):
+    pass
+
+
+def _flatten_tree(obj, path: str, leaves: Dict[str, np.ndarray]):
+    """Encode a dict/list/tuple/array tree as a JSON structure whose
+    leaves name ``.npy`` shards (``resilience.py:293-310``)."""
+    if isinstance(obj, dict):
+        return {"kind": "dict",
+                "items": {str(k): _flatten_tree(v, f"{path}.{k}", leaves)
+                          for k, v in obj.items()}}
+    if isinstance(obj, (list, tuple)):
+        kind = "list" if isinstance(obj, list) else "tuple"
+        return {"kind": kind,
+                "items": [_flatten_tree(v, f"{path}[{i}]", leaves)
+                          for i, v in enumerate(obj)]}
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return {"kind": "scalar", "value": obj}
+    name = f"arr_{len(leaves):04d}.npy"
+    leaves[name] = np.asarray(obj)
+    return {"kind": "leaf", "shard": name}
+
+
+def _unflatten_tree(node, arrays: Dict[str, np.ndarray]):
+    kind = node["kind"]
+    if kind == "dict":
+        return {k: _unflatten_tree(v, arrays)
+                for k, v in node["items"].items()}
+    if kind == "list":
+        return [_unflatten_tree(v, arrays) for v in node["items"]]
+    if kind == "tuple":
+        return tuple(_unflatten_tree(v, arrays) for v in node["items"])
+    if kind == "scalar":
+        return node["value"]
+    return arrays[node["shard"]]
+
+
+def _crc32_file(path: str) -> int:
+    crc = 0
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            crc = zlib.crc32(chunk, crc)
+    return crc
+
+
+class ResilientCheckpointManager:
+    """Step-indexed checkpoints with atomic writes, per-shard checksums
+    and keep-N rotation; restore skips anything that fails validation
+    (``resilience.py:334-479``).
+
+    A write lands in a ``.tmp-*`` sibling renamed into place once every
+    shard and the manifest are on disk, so a crash mid-write never
+    leaves a step directory that looks complete. A torn write that was
+    renamed (the ``checkpoint.write`` site's "torn" mode, or bitrot) is
+    caught at read time by the crc32 manifest and skipped by
+    ``restore_latest_valid``."""
+
+    MANIFEST = "manifest.json"
+
+    def __init__(self, directory: str, keep_n: int = 3,
+                 retry: Optional[RetryPolicy] = None):
+        self.directory = os.path.abspath(directory)
+        self.keep_n = max(1, int(keep_n))
+        self.retry = retry
+        self.last_skipped: List[int] = []
+        self._seq = 0
+        # steps this manager wrote cleanly: rotation skips re-reading
+        # them; restore always validates from disk
+        self._written_ok: set = set()
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:08d}")
+
+    def all_steps(self) -> List[int]:
+        out = []
+        for fn in os.listdir(self.directory):
+            if fn.startswith("step_"):
+                try:
+                    out.append(int(fn[5:]))
+                except ValueError:
+                    continue
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: Any) -> str:
+        """Write ``state`` (nested dict/list/tuple of arrays and
+        scalars) as checkpoint ``step``, retried per the
+        ``checkpoint.write`` site policy; returns the step directory."""
+        policy = self.retry or get_retry_policy("checkpoint.write")
+        path = policy.call(self._write_once, step, state,
+                           site="checkpoint.write")
+        self._gc()
+        return path
+
+    def _write_once(self, step: int, state: Any) -> str:
+        self._seq += 1
+        tmp = os.path.join(
+            self.directory,
+            f".tmp-step_{step:08d}-{os.getpid()}-{self._seq}")
+        final = self._step_dir(step)
+        os.makedirs(tmp)
+        try:
+            leaves: Dict[str, np.ndarray] = {}
+            structure = _flatten_tree(state, "", leaves)
+            shards = {}
+            for name, arr in leaves.items():
+                p = os.path.join(tmp, name)
+                with open(p, "wb") as f:
+                    np.save(f, arr, allow_pickle=False)
+                shards[name] = {"crc32": _crc32_file(p),
+                                "size": os.path.getsize(p)}
+            manifest = {"format": 1, "step": int(step),
+                        "shards": shards, "structure": structure}
+            with open(os.path.join(tmp, self.MANIFEST), "w") as f:
+                json.dump(manifest, f)
+            mode = fault_point("checkpoint.write", modes=(MODE_TORN,))
+            if mode == MODE_TORN and shards:
+                # a write acknowledged but landed corrupt: truncate one
+                # shard after its checksum was recorded, then publish
+                victim = os.path.join(tmp, sorted(shards)[0])
+                with open(victim, "r+b") as f:
+                    f.truncate(max(0, os.path.getsize(victim) // 2))
+                self._written_ok.discard(step)
+            if os.path.exists(final):
+                shutil.rmtree(final)  # a retry overwriting a torn step
+            os.rename(tmp, final)
+            if mode != MODE_TORN:
+                self._written_ok.add(step)
+            return final
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+
+    def _gc(self) -> None:
+        steps = self.all_steps()
+        doomed = steps[:-self.keep_n]
+        if doomed:
+            # rotation never strands the run on corrupt steps only: the
+            # newest valid step survives even outside the window
+            newest_valid = next(
+                (s for s in reversed(steps)
+                 if s in self._written_ok or self.validate(s)), None)
+            for step in doomed:
+                if step == newest_valid:
+                    continue
+                self._written_ok.discard(step)
+                shutil.rmtree(self._step_dir(step), ignore_errors=True)
+        for fn in os.listdir(self.directory):
+            # a stale tmp of a crashed writer; this process's own carry
+            # its pid and sequence number
+            if fn.startswith(".tmp-") and f"-{os.getpid()}-" not in fn:
+                shutil.rmtree(os.path.join(self.directory, fn),
+                              ignore_errors=True)
+
+    def validate(self, step: int) -> bool:
+        """True iff the step's manifest parses and every shard matches
+        its recorded size and crc32."""
+        d = self._step_dir(step)
+        try:
+            with open(os.path.join(d, self.MANIFEST)) as f:
+                manifest = json.load(f)
+            for name, meta in manifest["shards"].items():
+                p = os.path.join(d, name)
+                if os.path.getsize(p) != meta["size"] or \
+                        _crc32_file(p) != meta["crc32"]:
+                    return False
+            return True
+        except (OSError, ValueError, KeyError):
+            return False
+
+    def restore(self, step: int) -> Any:
+        """Load checkpoint ``step``; raises CheckpointCorruptError when
+        validation fails."""
+        fault_point("checkpoint.read")
+        if not self.validate(step):
+            raise CheckpointCorruptError(
+                f"checkpoint step {step} at {self._step_dir(step)} is "
+                "missing, partial, or fails its checksum manifest")
+        d = self._step_dir(step)
+        with open(os.path.join(d, self.MANIFEST)) as f:
+            manifest = json.load(f)
+        arrays = {name: np.load(os.path.join(d, name), allow_pickle=False)
+                  for name in manifest["shards"]}
+        return _unflatten_tree(manifest["structure"], arrays)
+
+    def restore_latest_valid(self) -> Optional[Tuple[int, Any]]:
+        """Walk the steps newest first, skipping corrupt or partial
+        ones; returns (step, state) or None. The skipped steps are
+        recorded in ``last_skipped``."""
+        self.last_skipped = []
+        policy = self.retry or get_retry_policy("checkpoint.read")
+        for step in reversed(self.all_steps()):
+            try:
+                state = policy.call(self.restore, step,
+                                    site="checkpoint.read")
+                return step, state
+            except (CheckpointCorruptError, RetryExhausted) as e:
+                self.last_skipped.append(step)
+                log.warning("skipping checkpoint step %d: %s", step, e)
+        return None

@@ -69,9 +69,27 @@ Serving hooks (each off by default):
   self draft and chained prefill chunks run inside the launch. Greedy
   tokens equal ``multi_step=1``'s, which is the per-token engine.
 
+Observability (``continuous_batching.py:1227-1431``):
+``step_timeline()`` records each step's program launches and the pool's
+occupancy by owner class; ``ledger_tail(n)`` and
+``capacity_snapshot()`` read the page ledger and the pool;
+``capture_costs`` records each program kind's flops and bytes at its
+first launch (``inference/costs.py``, counted from shapes: PyTorch has
+no ``cost_analysis``), read by ``program_costs()``;
+``forecast_admission`` also charges the pool's forecast page burn
+(``page_ledger.forecast_exhaustion``) over a request's expected
+lifetime before admitting it.
+
+Weight hot-swap: ``swap_weights(state, generation=)`` validates the
+whole state against the model (key set, shapes, dtypes) before any
+tensor is touched, copies it into the model's tensors in place (so the
+CUDA graphs captured before replay the new weights), bumps
+``weight_generation`` and moves the prefix cache to the new generation.
+A mismatch, a busy engine or the serving generation is a typed
+:class:`SwapFailed` with the old weights serving.
+
 Not ported yet (the constructor raises ``NotImplementedError``, see
-ROADMAP.md): tensor-parallel meshes, program cost capture, forecast
-admission and weight hot-swap.
+ROADMAP.md): tensor-parallel meshes.
 """
 
 from __future__ import annotations
@@ -90,7 +108,16 @@ from ..device import module_device, resolve_device
 from ..distributed.fault_inject import InjectedFault, fault_point
 
 __all__ = ["PageAllocator", "DecodeRequest", "RequestStats",
-           "ContinuousBatchingEngine", "create_decode_engine"]
+           "ContinuousBatchingEngine", "create_decode_engine",
+           "SwapFailed"]
+
+
+class SwapFailed(RuntimeError):
+    """A weight hot-swap was refused or could not be applied
+    (``continuous_batching.py:94``). Raised before any live tensor is
+    touched: a mismatched state or an engine that is not at a swappable
+    boundary leaves the old weights serving and the old generation
+    pinned."""
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -415,16 +442,28 @@ class ContinuousBatchingEngine:
         if int(multi_step) < 1:
             raise ValueError(f"multi_step must be >= 1 (1 = per-token "
                              f"decode); got {multi_step}")
-        for name, val, off in (
-                ("mesh", mesh, None),
-                ("capture_costs", capture_costs, False),
-                ("forecast_admission", forecast_admission, False),
-                ("weight hot-swap (weight_generation)", weight_generation,
-                 0)):
-            if val != off:
-                raise _not_ported(name)
+        if mesh is not None:
+            raise _not_ported("mesh")
         self.model = model
         model.eval()
+        # the generation of the weights this engine serves: swap_weights
+        # bumps it, and the prefix cache salts its chain roots with it
+        self.weight_generation = int(weight_generation)
+        self.weight_swaps = 0
+        # the swap drain gate, owned by the server: while True _admit
+        # admits nothing, so the active slots drain and a pending swap
+        # reaches num_active == 0 under continuous traffic
+        self.pause_admission = False
+        # byte-planning admission: _fits also charges the forecast page
+        # burn of the admitted load over the request's lifetime
+        self.forecast_admission = bool(forecast_admission)
+        self.forecast_denials = 0
+        # per program kind, its flops and bytes at its first launch
+        self._capture_costs = bool(capture_costs)
+        self._program_costs: Dict[str, Dict] = {}
+        # the weights' addresses when the iteration graphs were
+        # captured: a graph reads each weight there
+        self._graph_weight_ptrs: Optional[Dict[str, int]] = None
         cfg = model.config
         self.cfg = cfg
         self.device = module_device(model)
@@ -595,9 +634,100 @@ class ContinuousBatchingEngine:
             maxlen=max(1, int(timeline_steps)))
         # the drained launch's record for the next _tl_commit
         self._tl_macro: Optional[Dict[str, Any]] = None
-        # launches of each step program by kind ("prefill", "decode")
+        # launches of each step program by kind ("prefill", "decode"),
+        # in the engine's life and in the current step
         self.programs_launched: Dict[str, int] = {}
+        self._tl_programs: Dict[str, int] = {}
         self._tl_ms: Dict[str, float] = {}
+        self._weight_bytes = sum(t.numel() * t.element_size()
+                                 for t in model.state_dict().values())
+
+    # -- weight hot-swap ---------------------------------------------------
+
+    def swap_weights(self, state_dict,
+                     generation: Optional[int] = None) -> Dict[str, Any]:
+        """Replace the model's weights between steps with a validated
+        state (``continuous_batching.py:1051-1131``), bump the weight
+        generation and move the prefix cache to it, so KV computed by
+        the old weights misses by construction.
+
+        The state (name -> host array, ``nn/layer.py``
+        ``checkpoint_state``'s form; bf16 as ``BF16`` bit patterns) is
+        checked against the model's own state dict (exact key set,
+        shapes and dtypes, through ``nn.layer.numpy_dtype``) before any
+        tensor is touched. It is then copied into the model's tensors in
+        place, so the CUDA graphs captured before replay the new
+        weights; a weight that moved since the capture (a reassigned
+        ``Parameter``) is refused, since the graphs would read the old
+        storage. Any refusal, and any in-flight work, is a typed
+        :class:`SwapFailed` with the old weights serving and the old
+        generation pinned. Queued requests survive: their memoized chain
+        keys are dropped so they hash under the new generation.
+
+        Returns ``{"generation", "leaves", "swap_ms"}``."""
+        from ..nn.layer import load_jax_state, numpy_dtype
+        t0 = time.monotonic()
+        gen = int(generation) if generation is not None \
+            else self.weight_generation + 1
+        if gen == self.weight_generation:
+            raise SwapFailed(
+                f"generation {gen} is already serving; a swap must "
+                f"move to a new weight generation")
+        # a launch in flight still reads the old weights: drain it so
+        # the swap lands between launches, never under one
+        self._flush_macro()
+        if self.num_active:
+            raise SwapFailed(
+                f"engine busy: {self.num_active} active slot(s) — "
+                f"drain in-flight requests before swapping (old "
+                f"requests finish on old weights)")
+        own = self.model.state_dict()
+        got = dict(state_dict)
+        missing = [k for k in own if k not in got]
+        extra = [k for k in got if k not in own]
+        if missing or extra:
+            raise SwapFailed(
+                f"state-dict structure mismatch: missing "
+                f"{sorted(missing)[:8]}, unexpected "
+                f"{sorted(extra)[:8]} — a partial apply would serve "
+                f"mixed tensors")
+        bad = []
+        for name, target in own.items():
+            arr = np.asarray(got[name])
+            if tuple(arr.shape) != tuple(target.shape):
+                bad.append(f"{name}: shape {tuple(arr.shape)} vs "
+                           f"{tuple(target.shape)}")
+            elif arr.dtype != numpy_dtype(target.dtype):
+                bad.append(f"{name}: dtype {arr.dtype} vs "
+                           f"{target.dtype}")
+        if bad:
+            raise SwapFailed(
+                f"state-dict tree mismatch ({len(bad)} leaves): "
+                f"{bad[:4]}")
+        if self._graph_weight_ptrs is not None:
+            moved = [n for n, t in own.items()
+                     if self._graph_weight_ptrs.get(n) != t.data_ptr()]
+            if moved:
+                raise SwapFailed(
+                    f"{len(moved)} weight(s) moved since the iteration "
+                    f"graphs were captured (e.g. {moved[0]!r}); the "
+                    f"graphs would read the old storage")
+        # fires after validation and before the first tensor write: an
+        # abort here proves the all-or-nothing contract
+        fault_point("swap.apply")
+        load_jax_state(self.model, got)
+        self.weight_generation = gen
+        self.weight_swaps += 1
+        if self._prefix_cache is not None:
+            with self._led("swap"):
+                self._prefix_cache.set_generation(gen, self.allocator)
+        # queued requests memoized their chain keys under the old salt
+        for req in self._queue:
+            if hasattr(req, "_pfx_chain"):
+                del req._pfx_chain
+        return {"generation": gen,
+                "leaves": len(own),
+                "swap_ms": round((time.monotonic() - t0) * 1e3, 3)}
 
     # -- request lifecycle -------------------------------------------------
 
@@ -884,6 +1014,7 @@ class ContinuousBatchingEngine:
         ``paged_page_splice``)."""
         from ..models.gpt import paged_page_splice
         from ..serving.prefix_cache import BF16
+        from .costs import restore_cost
 
         def stack(idx):
             first = layers_list[0][0][idx]
@@ -910,6 +1041,8 @@ class ContinuousBatchingEngine:
         with torch.no_grad():
             paged_page_splice(self._pools, idx, k, v, ks, vs)
         self._launched("restore")
+        self._capture_cost("restore", lambda: restore_cost(
+            self.cfg, len(pages), self.page_size, self._kv_pos_bytes()))
         self._tl_ms["splice_ms"] = (self._tl_ms.get("splice_ms", 0.0)
                                     + (time.monotonic() - t0) * 1e3)
 
@@ -944,6 +1077,70 @@ class ContinuousBatchingEngine:
     def _launched(self, kind: str) -> None:
         self.programs_launched[kind] = \
             self.programs_launched.get(kind, 0) + 1
+        self._tl_programs[kind] = self._tl_programs.get(kind, 0) + 1
+
+    # -- program costs -----------------------------------------------------
+
+    def _kv_pos_bytes(self) -> int:
+        from .costs import kv_position_bytes
+        item = self._pools["k"][0].element_size()
+        return kv_position_bytes(self.cfg, item, self.kv_int8)
+
+    def _capture_cost(self, kind: str, fn: Callable[[], Dict]) -> None:
+        """Record ``kind``'s flops and bytes (``fn()``, counted from the
+        launch's shapes by ``inference/costs.py``) at its first launch,
+        on the engine thread (``continuous_batching.py:1376``). A
+        failed count is recorded as its error and never fails a
+        step."""
+        if not self._capture_costs or kind in self._program_costs:
+            return
+        try:
+            self._program_costs[kind] = fn()
+        except Exception as e:  # cost capture must never break a step
+            self._program_costs[kind] = {
+                "error": f"{type(e).__name__}: {e}"}
+
+    def _prefill_cost(self, bucket: int, cached: int) -> Dict:
+        from .costs import prefill_cost
+        head_rows = 1 if self.fused_step else bucket
+        return prefill_cost(self.cfg, bucket, cached, head_rows,
+                            self._weight_bytes, self._kv_pos_bytes())
+
+    def _decode_cost(self, lens, emits=None, per_iter: int = 1) -> Dict:
+        """A decode launch at the live slots' stored ``lens``: one
+        iteration, or ``multi_step`` iterations in which slot ``i``
+        emits ``emits[i]`` tokens. An in-program speculative iteration
+        verifies ``per_iter`` = k+1 positions a slot, counted at the
+        launch's lengths (how many it accepts is the data's)."""
+        from .costs import decode_cost
+        n = self.multi_step if emits is not None else 1
+        if per_iter > 1:
+            return self._verify_cost(lens, np.full(len(lens), per_iter),
+                                     iterations=n)
+        stops = () if emits is None else [int(e) for e in emits]
+        return decode_cost(self.cfg, self.num_slots, lens,
+                           self._weight_bytes, self._kv_pos_bytes(),
+                           iterations=n, stops=stops)
+
+    def _verify_cost(self, lens, valid, iterations: int = 1) -> Dict:
+        """A verify forward: every slot's k+1 rows run the GEMMs and the
+        head; a live slot at stored length ``lens[i]`` appends
+        ``valid[i]`` positions, row ``j`` attending ``lens[i] + j + 1``."""
+        from .costs import step_cost
+        k1 = int(self._spec_cfg.k) + 1
+        pairs = sum(int(v) * int(n) + int(v) * (int(v) + 1) // 2
+                    for n, v in zip(lens, valid))
+        rows = self.num_slots * k1 * iterations
+        return step_cost(self.cfg, rows, pairs * iterations, rows,
+                         int(np.sum(lens)) * iterations,
+                         int(np.sum(valid)) * iterations,
+                         self._weight_bytes * iterations,
+                         self._kv_pos_bytes())
+
+    def program_costs(self) -> Dict[str, Dict]:
+        """Per program kind, the flops and bytes counted at its first
+        launch (empty with capture off or before any launch)."""
+        return dict(self._program_costs)
 
     def _tl_add_ms(self, key: str, seconds: float) -> None:
         self._tl_ms[key] = self._tl_ms.get(key, 0.0) + seconds * 1e3
@@ -960,6 +1157,54 @@ class ContinuousBatchingEngine:
         if self.ledger is None:
             return contextlib.nullcontext()
         return self.ledger.why(reason, req_id)
+
+    def ledger_tail(self, n: int = 256) -> List[Dict[str, Any]]:
+        """The ledger ring's most recent events (the server's
+        ``capacity`` op); [] with the ledger off."""
+        return [] if self.ledger is None else self.ledger.tail(n)
+
+    def capacity_snapshot(self) -> Dict[str, Any]:
+        """Point-in-time capacity card (``continuous_batching.py:
+        1248-1292``): pool occupancy by owner class (sums to num_pages),
+        what the prefix cache could give back on demand, spill-tier
+        residency and the ledger's stats. Host-side ints only, safe
+        from any thread."""
+        occ = self.allocator.occupancy()
+        out: Dict[str, Any] = {
+            "num_pages": int(self.num_pages),
+            "page_size": int(self.page_size),
+            "occupancy": occ,
+            "used_fraction": round(
+                1.0 - occ["free"] / self.num_pages, 4)
+            if self.num_pages else 0.0,
+            "steps": int(self.steps),
+            "forecast_admission": bool(self.forecast_admission),
+            "forecast_denials": int(self.forecast_denials),
+        }
+        pc = self._prefix_cache
+        evictable = 0
+        if pc is not None:
+            # refcount-0 cache pages are reclaimed at every admission,
+            # so the pressure figure is the unreclaimable remainder
+            for _ in range(3):  # a read racing the engine thread
+                try:
+                    evictable = int(pc.evictable_pages())
+                    break
+                except RuntimeError:
+                    continue
+        out["evictable_pages"] = evictable
+        out["unreclaimable_pages"] = max(
+            0, self.num_pages - occ["free"] - evictable)
+        out["unreclaimable_fraction"] = round(
+            out["unreclaimable_pages"] / self.num_pages, 4) \
+            if self.num_pages else 0.0
+        if pc is not None and getattr(pc, "tiers", None):
+            for t in pc.tiers:
+                out[f"{t.name}_tier_pages"] = int(t.blob_count)
+                out[f"{t.name}_tier_bytes"] = int(t.occupancy_bytes)
+        if self.ledger is not None:
+            out["ledger"] = self.ledger.stats()
+        return out
 
     def _account_req_pages(self, req: DecodeRequest,
                            now: Optional[float] = None) -> None:
@@ -983,6 +1228,7 @@ class ContinuousBatchingEngine:
             "step": self.steps,
             "t_us": t_step * 1e6,
             "ms": round((now - t_step) * 1e3, 4),
+            "programs": self._tl_programs,
             "slots_active": self.num_active,
             "slots_decoding": sum(
                 1 for r in self._slots
@@ -990,7 +1236,14 @@ class ContinuousBatchingEngine:
             "queued": len(self._queue),
             "free_pages": self.allocator.free_count,
             "reserved_pages": self.allocator.reserved_total,
+            # the pool by owner class (sums to num_pages); the capacity
+            # op's forecast reads the free deltas
+            "occupancy": self.allocator.occupancy(),
         }
+        pc = self._prefix_cache
+        if pc is not None and getattr(pc, "tiers", None):
+            for t in pc.tiers:
+                entry[f"{t.name}_tier_pages"] = int(t.blob_count)
         for k, v in self._tl_ms.items():
             entry[k] = round(v, 4)
         # the boundary that drained a macro launch carries its record
@@ -1021,6 +1274,23 @@ class ContinuousBatchingEngine:
             keys, shared = self._prefix_cache.match(req.prompt, memo=req)
             need -= len(shared)
             avail += self._prefix_cache.evictable_pages(excluding=keys)
+        if need <= avail and self.forecast_admission:
+            # byte planning (``continuous_batching.py:1972-1990``): the
+            # admitted load's forecast page burn (an EWMA over the
+            # timeline's free-page deltas) over this request's horizon,
+            # max_new_tokens at the decode EMA, shrinks what is free.
+            # Under multi_step > 1 decode_ema_s times a whole launch, so
+            # the horizon is N times longer, as in the reference
+            from .page_ledger import forecast_exhaustion
+            fc = forecast_exhaustion(self.step_timeline())
+            rate = fc.get("rate_pages_per_s")
+            if rate is not None and rate > 0 and \
+                    self.decode_ema_s is not None:
+                horizon_s = req.max_new_tokens * self.decode_ema_s
+                burn = int(rate * horizon_s)
+                if need > avail - burn:
+                    self.forecast_denials += 1
+                    return False
         return need <= avail
 
     def _partial_debt_by_class(self) -> Dict[int, int]:
@@ -1265,6 +1535,10 @@ class ContinuousBatchingEngine:
         return sorted(live + list(self._queue), key=lambda r: r.req_id)
 
     def _admit(self) -> None:
+        if self.pause_admission:
+            # the swap drain gate: a request admitted now would pin a
+            # slot against the pending weight swap
+            return
         self._shed_overloaded()
         for slot in range(self.num_slots):
             if self._slots[slot] is not None:
@@ -1463,7 +1737,10 @@ class ContinuousBatchingEngine:
                 tr.end(sp_pref, error=True)
             self._unwind_prefill_failure(slot, req)
             raise
-        self._launched("prefill_chained" if chained else "prefill")
+        kind = "prefill_chained" if chained else "prefill"
+        self._launched(kind)
+        self._capture_cost(kind, lambda: self._prefill_cost(bucket,
+                                                            cached_len))
         now = time.monotonic()
         req.stats.prefill_ms = (now - t0) * 1e3
         self._tl_ms["prefill_ms"] = (self._tl_ms.get("prefill_ms", 0.0)
@@ -1579,7 +1856,9 @@ class ContinuousBatchingEngine:
                 tr.end(sp_chunk, error=True)
             self._unwind_prefill_failure(slot, req)
             raise
-        self._launched("prefill_chained" if chained else "prefill")
+        kind = "prefill_chained" if chained else "prefill"
+        self._launched(kind)
+        self._capture_cost(kind, lambda: self._prefill_cost(chunk, done))
         now = time.monotonic()
         dt = now - t0
         self._tl_ms["chunk_ms"] = self._tl_ms.get("chunk_ms", 0.0) + dt * 1e3
@@ -1669,6 +1948,7 @@ class ContinuousBatchingEngine:
         device state as the previous step left them (what the server's
         replay needs)."""
         fault_point("engine.step")
+        self._tl_programs = {}
         self._tl_ms = {}
         if self.ledger is not None:
             self.ledger.step = self.steps
@@ -1724,6 +2004,8 @@ class ContinuousBatchingEngine:
         nxt, lens_new = self._run_decode(table, lens)
         t1 = time.monotonic()
         self._launched("decode")
+        self._capture_cost("decode", lambda: self._decode_cost(
+            lens[decoding]))
         self._tl_ms["decode_ms"] = (t1 - t0) * 1e3
         self.steps += 1
         # slots not decoding wrote to the scratch page; keep their host
@@ -1922,6 +2204,11 @@ class ContinuousBatchingEngine:
         if m["graphs"] is None:
             m["graphs"] = IterationGraphs(self.device,
                                           pools_key(self._pools))
+            # a graph reads every weight at its address now: a swap must
+            # copy into these tensors, never replace them
+            self._graph_weight_ptrs = {
+                name: t.data_ptr()
+                for name, t in self.model.state_dict().items()}
         graphs = m["graphs"]
         kinds = (("decode", False),) + ((("chunk", True),)
                                         if with_chunk else ())
@@ -2058,6 +2345,9 @@ class ContinuousBatchingEngine:
         out, event = self._macro_launch(active, rem, eos, hist, hlen,
                                         chunk_plan)
         self._launched("decode_multi")
+        self._capture_cost("decode_multi", lambda: self._decode_cost(
+            self._lens[active], np.minimum(rem[active], n * per_iter),
+            per_iter))
         self.macro_launches += 1
         self._pending_macro = {
             "out": out, "event": event, "reqs": reqs, "t_dispatch": t0,
@@ -2405,6 +2695,8 @@ class ContinuousBatchingEngine:
             accept, resid, full = run_verify()
         t1v = time.monotonic()
         self._launched("verify")
+        self._capture_cost("verify", lambda: self._verify_cost(
+            old_lens[active], valid[active]))
         self._tl_ms["verify_ms"] = (self._tl_ms.get("verify_ms", 0.0)
                                     + (t1v - t0v) * 1e3)
         self.steps += 1

@@ -46,7 +46,12 @@ on the engine thread. The cache is bounded by pool pressure alone (the
 JAX constructor's ``max_pages`` soft cap has no caller in either
 package and is not ported). The fleet methods (``fetch_pages``,
 ``export_blobs``/``import_blobs``, ``expand_heads``, the
-advertisement, ``set_generation``) are not ported yet (ROADMAP.md).
+advertisement) are not ported yet (ROADMAP.md).
+
+Weight generations: ``generation`` salts every chain root, so pages
+computed by other weights miss by construction; ``set_generation``
+(the engine's ``swap_weights``) clears the cache and moves it to a new
+generation.
 """
 
 from __future__ import annotations
@@ -992,6 +997,20 @@ class PrefixCache:
         self._entries.clear()
         for t in self.tiers:
             t.clear()
+
+    def set_generation(self, generation: int, allocator) -> None:
+        """Move the cache to a new weight generation
+        (``prefix_cache.py:1303-1317``): every resident page and spill
+        blob was computed by the old weights, so the cache is cleared
+        (pages back to the allocator, tier blobs scrubbed) and later
+        chain roots are salted with the new generation. The engine
+        swaps weights only with no active request, so a referenced
+        entry here is a lifecycle bug and ``clear`` raises."""
+        generation = int(generation)
+        if generation == self.generation:
+            return
+        self.clear(allocator)
+        self.generation = generation
 
     # -- audits ------------------------------------------------------------
 

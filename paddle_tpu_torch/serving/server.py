@@ -14,6 +14,13 @@ Newline-JSON protocol (one JSON object per line, both directions):
     -> {"op": "metrics"}     # Prometheus text page (in "text")
     -> {"op": "drain"}       # stop admitting, finish in-flight
     -> {"op": "leak_check"}  # engine-thread page-accounting audit
+    -> {"op": "export"}      # structured metrics (counters, buckets)
+    -> {"op": "slo", "ttft_ms": 50, "tpot_ms": 10}   # retarget / read
+    -> {"op": "trace", "n": 8}    # span trees, events, step timeline,
+                                  # per-token timeline, program costs
+    -> {"op": "capacity", "ledger_tail": 32}  # occupancy + forecast
+    -> {"op": "profile", "ms": 300, "dir": "/path"}  # memory + capture
+    -> {"op": "swap", "checkpoint": "/ckpt/dir", "generation": 1}
 
 Typed failures are structured replies, never hangs: ``ServerOverloaded``
 (queue past the SLO scheduler's bounds), ``ServerDraining`` (a drained
@@ -70,11 +77,41 @@ connection is torn down), ``engine.step``, ``serving.prefill`` and
 ``serving.verify`` (each retried by its site policy) and ``alloc.page``
 in the engine, ``cache.spill`` in the prefix cache.
 
-Ops and flags not yet ported (``export``, ``slo``, ``trace``,
-``capacity``, ``profile``, ``fetch_pages``, ``prefetch``, ``swap``;
-``--role``, ``--flight-*``, ``--weight-generation``, ``--mesh``,
-``--forecast-admission``, ...) are answered as the JAX server answers an
-unknown op or flag.
+Observability (``server.py:1312-1397``): ``export`` is the metrics'
+structured export; ``slo`` sets the TTFT / TPOT targets (an absent key
+keeps its target, an explicit null clears it) and reads them back with
+the attainment; ``trace`` returns the finished span trees (``n``, or
+``drain`` to consume them; ``format: "chrome"`` for a chrome trace), the
+tracer's events, the step timeline, the per-token timeline and each
+program kind's flops and bytes (``program_costs``); ``capacity`` is the
+engine's occupancy card with an exhaustion forecast over the timeline
+and, on request, the page ledger's tail; ``profile`` reports each
+card's ``torch.cuda.memory_stats`` (on the CPU ``memory_stats: null``
+and ``chip_pending: true``) and with ``{"ms": N}`` runs a
+``torch.profiler`` capture window of CPU and CUDA activity, opened and
+closed on the engine thread between its steps while it keeps serving,
+written as a chrome trace ``<dir>/profile-<pid>-<n>.trace.json`` that
+``tools/merge_traces.py`` merges with span dumps (one capture at a
+time: ``ProfileBusy``).
+
+Weight hot-swap: ``swap`` loads and crc-validates the newest valid
+checkpoint under ``checkpoint`` (a ``ResilientCheckpointManager``
+directory) on the connection thread, then the engine thread pauses
+admission, waits for the active slots to drain (``timeout_s``, default
+120) and applies it between steps (``swap_weights``); queued requests
+wait, none is dropped. A torn or corrupt checkpoint, a mismatched state
+or an undrained engine is a typed ``SwapFailed`` with the old weights
+serving. ``--checkpoint DIR`` boots from the newest valid checkpoint
+(a missing or corrupt one fails startup) and ``--weight-generation N``
+names the generation served; the generation salts the prefix cache's
+chain keys and rides the resurrection recipe.
+
+``--forecast-admission`` charges the forecast page burn at admission;
+``--no-page-ledger`` turns the page ledger off.
+
+Ops and flags not yet ported (``fetch_pages``, ``prefetch``;
+``--role``, ``--flight-*``, ``--mesh``, ...) are answered as the JAX
+server answers an unknown op or flag.
 
 Threading: the ENGINE THREAD exclusively owns the engine and every CUDA
 launch (it sets the CUDA device first); connection threads parse
@@ -100,7 +137,9 @@ import torch
 
 from ..device import module_device, resolve_device
 from ..distributed.fault_inject import InjectedFault, fault_point
-from ..distributed.resilience import get_retry_policy
+from ..distributed.resilience import (ResilientCheckpointManager,
+                                      RetryExhausted, get_retry_policy)
+from ..inference.continuous_batching import SwapFailed
 from .metrics import ServingMetrics, SLOAttainment
 from .prefix_cache import PrefixCache
 from .scheduler import Priority, ServerOverloaded, SLOScheduler
@@ -133,8 +172,10 @@ class ServingServer:
     ``serving.prefill`` site policy. ``speculative`` and
     ``prefill_chunk_tokens`` and ``multi_step`` ride in
     ``engine_kwargs``, so a resurrection rebuilds a speculative,
-    chunked or multi-step engine. The model must live on ``device``
-    (CUDA unless named)."""
+    chunked or multi-step engine. ``checkpoint``: boot from the newest
+    valid checkpoint under that directory; ``weight_generation``: the
+    generation served (the current one rides the resurrection recipe).
+    The model must live on ``device`` (CUDA unless named)."""
 
     def __init__(self, model, host: str = "127.0.0.1", port: int = 0,
                  scheduler=None, prefix_cache: bool = True,
@@ -153,6 +194,8 @@ class ServingServer:
                  slo_window_s: float = 120.0,
                  blob_format: str = "raw",
                  dedup: bool = True,
+                 checkpoint: Optional[str] = None,
+                 weight_generation: int = 0,
                  device=None, **engine_kwargs):
         self.device = resolve_device(device)
         if tracer is not None:
@@ -168,9 +211,22 @@ class ServingServer:
         self._requested_port = port
         self.scheduler = scheduler if scheduler is not None \
             else SLOScheduler()
-        self.metrics = metrics if metrics is not None else ServingMetrics(
-            slo=SLOAttainment(ttft_ms=slo_ttft_ms, tpot_ms=slo_tpot_ms,
-                              window_s=slo_window_s))
+        if metrics is not None:
+            # the caller owns the SLO monitor (its window included); the
+            # targets given here overlay it one by one, keeping a target
+            # already set there (``server.py:334-345``)
+            self.metrics = metrics
+            if slo_ttft_ms is not None or slo_tpot_ms is not None:
+                slo = metrics.slo
+                slo.set_targets(
+                    slo_ttft_ms if slo_ttft_ms is not None
+                    else slo.ttft_ms,
+                    slo_tpot_ms if slo_tpot_ms is not None
+                    else slo.tpot_ms)
+        else:
+            self.metrics = ServingMetrics(
+                slo=SLOAttainment(ttft_ms=slo_ttft_ms, tpot_ms=slo_tpot_ms,
+                                  window_s=slo_window_s))
         # the resurrection recipe, captured once: a rebuild constructs an
         # equivalent engine (fresh allocator, pools and prefix cache)
         self._use_prefix_cache = bool(prefix_cache)
@@ -193,6 +249,19 @@ class ServingServer:
                       or model.config.max_seq_len)
             self._engine_kwargs["prompt_buckets"] = sorted(
                 set(int(x) for x in pb) | {msl})
+        # the generation served is part of the resurrection recipe: a
+        # rebuilt engine and its cache come back salted to it. A boot
+        # checkpoint is copied into the model before the engine is
+        # built; a missing or corrupt one fails construction
+        self._weight_generation = int(weight_generation)
+        if checkpoint:
+            _step, state = self._load_checkpoint_state(checkpoint)
+            from ..nn.layer import load_jax_state
+            try:
+                load_jax_state(model, state)
+            except KeyError as e:
+                raise ValueError(f"boot checkpoint {checkpoint!r} does "
+                                 f"not match the model: {e}") from None
         self.prefix_cache: Optional[PrefixCache] = None
         self.engine = self._build_engine()
         self.max_new_tokens_cap = int(max_new_tokens_cap)
@@ -207,6 +276,13 @@ class ServingServer:
         # stitches the reply and the telemetry back together
         self._replay: Dict[int, tuple] = {}
         self.metrics.set_gauge_fn(self._gauges)
+        # a parked weight swap (engine thread): (payload, _Pending, drain
+        # deadline); while set the engine admits nothing
+        self._swap_pending: Optional[tuple] = None
+        # one profiler capture at a time; the open window (engine thread)
+        self._profile_lock = threading.Lock()
+        self._profiles = 0
+        self._capture: Optional[tuple] = None
         self._inbox: "queue_mod.Queue[tuple]" = queue_mod.Queue()
         self._admission_lock = threading.Lock()
         self._pending: Dict[int, _Pending] = {}  # engine thread only
@@ -240,16 +316,19 @@ class ServingServer:
                         spill_dir=self._spill_dir,
                         disk_bytes=self._spill_disk_bytes,
                         blob_format=self._blob_format,
-                        dedup=self._dedup)
+                        dedup=self._dedup,
+                        generation=self._weight_generation)
             if self._use_prefix_cache else None)
         return create_decode_engine(
             self._model, device=self.device, scheduler=self.scheduler,
             prefix_cache=self.prefix_cache,
             prefill_retry=self._prefill_retry,
+            weight_generation=self._weight_generation,
             on_complete=self._on_complete,
             # the SAME tracer across resurrections: a replayed request's
-            # spans land on its original tree
-            tracer=self.tracer, **self._engine_kwargs)
+            # spans land on its original tree. A served engine counts
+            # its program costs: the gauges and the trace op read them
+            tracer=self.tracer, capture_costs=True, **self._engine_kwargs)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -335,12 +414,17 @@ class ServingServer:
                 self._fail_engine()
             finally:
                 self._engine_done.set()
+        finally:
+            # a capture window left open would keep tracing
+            self._maybe_stop_capture(force=True)
 
     def _engine_loop_inner(self) -> None:
         while True:
             # re-read self.engine every turn: resurrection replaces it
             eng = self.engine
             self._drain_inbox()
+            self._maybe_stop_capture()
+            self._maybe_apply_swap(eng)
             if (eng.num_queued or eng.num_active) and not self._failed:
                 failed = resurrect = False
                 try:
@@ -385,6 +469,10 @@ class ServingServer:
                     time.sleep(self.poll_interval_s)
                 continue
             if self._stopping and self._inbox.empty():
+                self._maybe_stop_capture(force=True)
+                self._resolve_swap_pending(
+                    {"error": "ServerEvicted",
+                     "reason": "server shutting down"})
                 try:
                     eng.close()
                 finally:
@@ -438,6 +526,10 @@ class ServingServer:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         self.engine = self._build_engine()
+        if self._swap_pending is not None:
+            # a swap was draining when the engine died: keep the gate
+            # down, or the replays pin slots against it
+            self.engine.pause_admission = True
         for req in snapshot:
             pending = self._pending.pop(req.req_id, None)
             # compose across repeated resurrections: the snapshot's
@@ -495,6 +587,10 @@ class ServingServer:
         admitting."""
         self._failed = True
         self._draining = True
+        self._resolve_swap_pending(
+            {"error": "SwapFailed",
+             "reason": "engine failed terminally before the swap "
+                       "could apply"})
         err = {"error": "EngineFailed",
                "reason": f"decode engine failed {self._consec_errors} "
                          f"consecutive steps after {self._restarts} "
@@ -525,6 +621,25 @@ class ServingServer:
                 pending.outbox.put(self._leak_check())
                 pending.outbox.put(None)
                 continue
+            if payload.get("ctl") == "profile":
+                self._start_capture(payload, pending)
+                continue
+            if payload.get("ctl") == "swap":
+                # the connection thread loaded and validated the
+                # checkpoint; park the apply until the active slots
+                # drain (_maybe_apply_swap), admitting nothing meanwhile
+                if self._swap_pending is not None:
+                    pending.outbox.put(
+                        {"error": "SwapFailed",
+                         "reason": "another weight swap is already "
+                                   "pending on this replica"})
+                    pending.outbox.put(None)
+                    continue
+                self.engine.pause_admission = True
+                deadline = time.monotonic() + float(
+                    payload.get("timeout_s") or 120.0)
+                self._swap_pending = (payload, pending, deadline)
+                continue
             if self._failed:
                 pending.outbox.put({"error": "EngineFailed",
                                     "reason": "engine step failed "
@@ -554,6 +669,142 @@ class ServingServer:
                 pending.outbox.put(None)
                 continue
             self._pending[rid] = pending
+
+    # -- weight hot-swap ---------------------------------------------------
+
+    def _resolve_swap_pending(self, reply: Dict) -> None:
+        """Answer and clear a parked swap with ``reply`` (shutdown or
+        terminal failure), so the swapping client never hangs."""
+        if self._swap_pending is None:
+            return
+        _payload, pending, _deadline = self._swap_pending
+        self._swap_pending = None
+        self.metrics.counter("weight_swaps_failed_total").add()
+        pending.outbox.put(dict(reply))
+        pending.outbox.put(None)
+
+    def _maybe_apply_swap(self, eng) -> None:
+        """Engine-thread gate of a parked swap (``server.py:979-994``):
+        once the active slots drain (admission is paused, so they only
+        shrink) apply it between steps; past the drain deadline, fail
+        it typed with the old weights serving."""
+        if self._swap_pending is None:
+            return
+        payload, pending, deadline = self._swap_pending
+        if eng.num_active and time.monotonic() < deadline:
+            return  # active slots still finishing on the old weights
+        self._swap_pending = None
+        reply = self._apply_swap(eng, payload)
+        eng.pause_admission = False
+        self._wake.set()
+        pending.outbox.put(reply)
+        pending.outbox.put(None)
+
+    def _apply_swap(self, eng, payload: Dict) -> Dict:
+        """Apply a drained, validated swap (engine thread). Any failure
+        is a typed SwapFailed reply: the engine refused before touching
+        a tensor, so the old generation keeps serving."""
+        outcome = ("rolled_back" if payload.get("rollback")
+                   else "committed")
+        if eng.num_active:
+            self.metrics.counter("weight_swaps_failed_total").add()
+            return {"error": "SwapFailed",
+                    "reason": f"engine did not drain its "
+                              f"{eng.num_active} active slot(s) "
+                              f"within the swap timeout"}
+        try:
+            info = eng.swap_weights(payload["state"],
+                                    generation=payload.get("generation"))
+        except SwapFailed as e:
+            self.metrics.counter("weight_swaps_failed_total").add()
+            return {"error": "SwapFailed", "reason": str(e)}
+        except Exception as e:
+            self.metrics.counter("weight_swaps_failed_total").add()
+            return {"error": "SwapFailed",
+                    "reason": f"{type(e).__name__}: {e}"}
+        self._weight_generation = int(info["generation"])
+        self.metrics.counter(f"weight_swaps_{outcome}_total").add()
+        self.metrics.swap_ms.observe(float(info["swap_ms"]))
+        self.tracer.annotate("weight_swap", outcome=outcome,
+                             generation=info["generation"],
+                             swap_ms=info["swap_ms"],
+                             checkpoint_step=payload.get("step"))
+        return {"ok": True, "outcome": outcome, **info}
+
+    @staticmethod
+    def _load_checkpoint_state(directory: str):
+        """Load and crc-validate the newest valid checkpoint under
+        ``directory`` on the calling thread (``server.py:1034-1058``):
+        the live engine is never touched. The ``checkpoint.load`` site
+        fires per attempt and transient faults retry per its policy; a
+        directory with no valid checkpoint raises a typed SwapFailed.
+        Returns (step, state)."""
+
+        def load_once():
+            fault_point("checkpoint.load")
+            mgr = ResilientCheckpointManager(directory)
+            got = mgr.restore_latest_valid()
+            if got is None:
+                raise SwapFailed(
+                    f"no valid checkpoint under {directory!r} "
+                    f"(skipped corrupt/partial steps: "
+                    f"{mgr.last_skipped})")
+            return got
+
+        policy = get_retry_policy("checkpoint.load")
+        return policy.call(load_once, site="checkpoint.load")
+
+    def _swap(self, msg: Dict, send) -> None:
+        """The ``swap`` op (connection thread, ``server.py:1060-1114``):
+        load and validate the checkpoint before the engine hears of it,
+        then hand the host state to the engine thread, which drains the
+        active slots and applies it between steps. The reply carries the
+        new generation and swap_ms."""
+        ckpt = msg.get("checkpoint")
+        if not isinstance(ckpt, str) or not ckpt:
+            send({"error": "BadRequest",
+                  "reason": "swap needs 'checkpoint': a checkpoint-"
+                            "manager directory path"})
+            return
+        gen = msg.get("generation")
+        if gen is not None and (isinstance(gen, bool)
+                                or not isinstance(gen, int)
+                                or gen < 0):
+            send({"error": "BadRequest",
+                  "reason": "generation must be a non-negative int"})
+            return
+        timeout_s = msg.get("timeout_s")
+        if timeout_s is not None and (
+                isinstance(timeout_s, bool)
+                or not isinstance(timeout_s, (int, float))
+                or timeout_s <= 0):
+            send({"error": "BadRequest",
+                  "reason": "timeout_s must be a positive number of "
+                            "seconds"})
+            return
+        try:
+            step, state = self._load_checkpoint_state(ckpt)
+        except (SwapFailed, RetryExhausted) as e:
+            self.metrics.counter("weight_swaps_failed_total").add()
+            send({"error": "SwapFailed", "reason": str(e)})
+            return
+        except Exception as e:
+            self.metrics.counter("weight_swaps_failed_total").add()
+            send({"error": "SwapFailed",
+                  "reason": f"{type(e).__name__}: {e}"})
+            return
+        payload: Dict[str, Any] = {"ctl": "swap", "state": state,
+                                   "step": step}
+        if gen is not None:
+            payload["generation"] = gen
+        if msg.get("rollback"):
+            payload["rollback"] = True
+        if timeout_s is not None:
+            payload["timeout_s"] = float(timeout_s)
+        pending = _Pending(stream=False)
+        self._inbox.put((payload, pending))
+        self._wake.set()
+        self._await_outbox(pending, send)
 
     def _on_complete(self, req) -> None:
         """Engine callback: terminal state for a request (any state). A
@@ -701,10 +952,31 @@ class ServingServer:
                   "programs_launched": dict(eng.programs_launched),
                   "multi_step": eng.multi_step,
                   "macro_launches": eng.macro_launches,
-                  "step_programs": dict(eng.step_programs)})
+                  "step_programs": dict(eng.step_programs),
+                  "weight_generation": self._weight_generation,
+                  "weight_swaps": eng.weight_swaps})
             return
         if op == "metrics":
             send({"text": self.metrics.prometheus_text()})
+            return
+        if op == "export":
+            send({"export": self.metrics.export()})
+            return
+        if op == "slo":
+            self._slo(msg, send)
+            return
+        if op == "trace":
+            self._trace(msg, send)
+            return
+        if op == "capacity":
+            send(self._capacity(ledger_tail=msg.get("ledger_tail")))
+            return
+        if op == "profile":
+            send(self._profile(msg))
+            return
+        if op == "swap":
+            # allowed while draining: a drained replica is swapped
+            self._swap(msg, send)
             return
         if op == "drain":
             self.drain()
@@ -777,6 +1049,174 @@ class ServingServer:
         self._wake.set()
         self._await_outbox(pending, send)
 
+    def _slo(self, msg: Dict, send) -> None:
+        """The ``slo`` op (``server.py:1320-1352``): retarget (resetting
+        the window) when ``ttft_ms`` or ``tpot_ms`` is present, then read
+        the targets and attainment back. An absent key keeps its target;
+        an explicit null clears it."""
+        slo = self.metrics.slo
+        if "ttft_ms" in msg or "tpot_ms" in msg:
+            for k in ("ttft_ms", "tpot_ms"):
+                v = msg.get(k)
+                if v is not None and (isinstance(v, bool)
+                                      or not isinstance(v, (int, float))
+                                      or v <= 0):
+                    send({"error": "BadRequest",
+                          "reason": f"{k} must be a positive number of "
+                                    f"ms or null"})
+                    return
+            slo.set_targets(
+                msg["ttft_ms"] if "ttft_ms" in msg else slo.ttft_ms,
+                msg["tpot_ms"] if "tpot_ms" in msg else slo.tpot_ms)
+        send({"slo": {"ttft_ms": slo.ttft_ms, "tpot_ms": slo.tpot_ms,
+                      "window_s": slo.window_s,
+                      "attainment": slo.attainment()}})
+
+    def _trace(self, msg: Dict, send) -> None:
+        """The ``trace`` op (``server.py:1353-1386``): the finished span
+        trees (the last ``n``, or all of them consumed with ``drain``),
+        the tracer's events, the step and per-token timelines and the
+        program costs; ``format: "chrome"`` returns a chrome trace of
+        the finished trees instead."""
+        eng = self.engine
+        if msg.get("format") == "chrome":
+            send({"chrome": self.tracer.to_chrome()})
+            return
+        n = msg.get("n")
+        if msg.get("drain") is True:
+            traces = self.tracer.drain()
+        else:
+            traces = self.tracer.finished(
+                n if isinstance(n, int) and not isinstance(n, bool)
+                else None)
+        send({"traces": traces,
+              "events": self.tracer.events(),
+              "step_timeline": eng.step_timeline(),
+              "multi_step": eng.multi_step,
+              "per_token_timeline": eng.per_token_timeline(),
+              "program_costs": eng.program_costs(),
+              "sample_rate": self.tracer.sample_rate})
+
+    def _capacity(self, ledger_tail=None) -> Dict:
+        """The ``capacity`` op (``server.py:2092-2107``): the engine's
+        occupancy card, an EWMA exhaustion forecast over the step
+        timeline and, on request, the ledger's tail. Connection-thread
+        reads of host ints, as health's."""
+        from ..inference.page_ledger import forecast_exhaustion
+        eng = self.engine
+        snap = eng.capacity_snapshot()
+        snap["forecast"] = forecast_exhaustion(eng.step_timeline())
+        n = ledger_tail
+        if isinstance(n, int) and not isinstance(n, bool) and n > 0:
+            snap["ledger_tail"] = eng.ledger_tail(n)
+        snap["engine_restarts"] = self._restarts
+        return snap
+
+    def _profile(self, msg: Dict) -> Dict:
+        """The ``profile`` op (``server.py:2109-2167``): each card's
+        memory accounting (``torch.cuda.memory_stats`` and
+        ``mem_get_info``; a CPU server reports ``memory_stats: null``
+        and ``chip_pending: true``), and with ``{"ms": N, "dir": PATH}``
+        a ``torch.profiler`` window of CPU and CUDA activity over N ms
+        while the engine keeps stepping, written as
+        ``PATH/profile-<pid>-<n>.trace.json``. The window runs on the
+        engine thread (started and stopped between its steps), the
+        thread that launches every kernel: a capture started on a
+        connection thread records none of them on the card. One capture
+        at a time: a concurrent one gets ProfileBusy."""
+        out: Dict[str, Any] = {"devices": [], "chip_pending": True}
+        if self.device.type == "cuda":
+            for i in range(torch.cuda.device_count()):
+                raw = torch.cuda.memory_stats(i)
+                stats = {str(k): int(v) for k, v in raw.items()
+                         if isinstance(v, (int, float))}
+                free, total = torch.cuda.mem_get_info(i)
+                stats["device_free_bytes"] = int(free)
+                stats["device_total_bytes"] = int(total)
+                out["chip_pending"] = False
+                out["devices"].append(
+                    {"id": i, "platform": "gpu",
+                     "kind": torch.cuda.get_device_name(i),
+                     "memory_stats": stats})
+        else:
+            out["devices"].append({"id": 0, "platform": "cpu",
+                                   "memory_stats": None})
+        ms = msg.get("ms")
+        if ms is None:
+            return out
+        if isinstance(ms, bool) or not isinstance(ms, (int, float)) \
+                or ms <= 0 or ms > 30_000:
+            return {"error": "BadRequest",
+                    "reason": "ms must be a capture window in "
+                              "(0, 30000] milliseconds"}
+        if not self._profile_lock.acquire(blocking=False):
+            return {"error": "ProfileBusy",
+                    "reason": "a profiler capture is already running; "
+                              "retry after it finishes"}
+        try:
+            import tempfile
+            trace_dir = msg.get("dir") or tempfile.mkdtemp(
+                prefix="pt-profile-")
+            os.makedirs(trace_dir, exist_ok=True)
+            self._profiles += 1
+            path = os.path.join(
+                trace_dir,
+                f"profile-{os.getpid()}-{self._profiles}.trace.json")
+            pending = _Pending(stream=False)
+            self._inbox.put(({"ctl": "profile", "ms": float(ms),
+                              "path": path}, pending))
+            self._wake.set()
+            replies = []
+            self._await_outbox(pending, replies.append)
+        except OSError as e:
+            return {"error": "ProfileFailed",
+                    "reason": f"{type(e).__name__}: {e}"}
+        finally:
+            self._profile_lock.release()
+        rep = replies[-1] if replies else {}
+        if "error" in rep:
+            return rep
+        out.update(trace_dir=trace_dir, ms=float(ms), **rep)
+        return out
+
+    def _start_capture(self, payload: Dict, pending: _Pending) -> None:
+        """Engine thread: open a profile op's capture window; the loop
+        closes it once its time is up (``_maybe_stop_capture``)."""
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        try:
+            prof = profile(activities=acts)
+            prof.start()
+        except Exception as e:
+            pending.outbox.put({"error": "ProfileFailed",
+                                "reason": f"{type(e).__name__}: {e}"})
+            pending.outbox.put(None)
+            return
+        self._capture = (prof, time.monotonic() + payload["ms"] / 1e3,
+                         payload["path"], pending)
+
+    def _maybe_stop_capture(self, force: bool = False) -> None:
+        """Engine thread: close the capture window once its time is up
+        (or now, ``force``: the loop is exiting) and answer the op."""
+        if self._capture is None:
+            return
+        prof, deadline, path, pending = self._capture
+        if not force and time.monotonic() < deadline:
+            return
+        self._capture = None
+        try:
+            prof.stop()
+            prof.export_chrome_trace(path)
+            reply = {"trace_file": path,
+                     "trace_bytes": os.path.getsize(path)}
+        except Exception as e:
+            reply = {"error": "ProfileFailed",
+                     "reason": f"{type(e).__name__}: {e}"}
+        pending.outbox.put(reply)
+        pending.outbox.put(None)
+
     def _await_outbox(self, pending: _Pending, send) -> None:
         """Relay one request's outbox to the client until the None
         sentinel; a fully exited engine thread answers ServerEvicted
@@ -823,7 +1263,12 @@ class ServingServer:
                 # launches this engine ran
                 "multi_step": eng.multi_step,
                 "macro_launches": eng.macro_launches,
+                "step_programs": dict(eng.step_programs),
+                # the generation served and the swaps this engine took
+                "weight_generation": self._weight_generation,
+                "weight_swaps": eng.weight_swaps,
                 "trace_sample": self.tracer.sample_rate,
+                "traces_finished": self.tracer.finished_total,
                 "uptime_s": round(time.monotonic() - self._t0, 3)}
 
     def _gauges(self) -> Dict[str, float]:
@@ -831,6 +1276,7 @@ class ServingServer:
         pc = self.prefix_cache
         occ = eng.allocator.occupancy()
         g = {"inflight_slots": eng.num_active,
+             "weight_generation": float(self._weight_generation),
              "num_slots": eng.num_slots,
              "queued_requests": eng.num_queued,
              "free_pages": eng.free_pages,
@@ -855,12 +1301,17 @@ class ServingServer:
                 pass  # racy read against the engine thread
         g["pages_unreclaimable"] = max(
             0, eng.num_pages - occ["free"] - evictable)
+        led = eng.ledger
+        if led is not None:
+            g["ledger_events"] = led.seq
+            g["ledger_dropped"] = led.dropped_total
         if pc is not None:
             for t in pc.tiers:
                 g[f"spill_{t.name}_bytes"] = t.occupancy_bytes
                 g[f"spill_{t.name}_logical_bytes"] = t.logical_bytes
                 g[f"spill_{t.name}_blobs"] = t.blob_count
                 g[f"spill_{t.name}_capacity_bytes"] = t.capacity_bytes
+        g["step_programs"] = dict(eng.step_programs).get("decode", 0)
         for kind, n in dict(eng.programs_launched).items():
             g[f"programs_launched_{kind}"] = n
         tl = eng.step_timeline()
@@ -868,6 +1319,20 @@ class ServingServer:
             g["step_last_ms"] = tl[-1].get("ms", 0.0)
             g["step_last_decode_ms"] = tl[-1].get("decode_ms", 0.0)
             self._feed_step_histogram(eng, tl)
+        # each program kind's flops and bytes, counted at its first
+        # launch (inference/costs.py)
+        for kind, cost in eng.program_costs().items():
+            if "flops" in cost:
+                g[f"program_{kind}_flops"] = cost["flops"]
+                g[f"program_{kind}_bytes_accessed"] = \
+                    cost["bytes_accessed"]
+        # the tracer's lifetime totals, synced at scrape (monotonic)
+        for cname, val in (
+                ("traces_sampled_total", self.tracer.sampled_total),
+                ("traces_finished_total", self.tracer.finished_total),
+                ("trace_spans_dropped_total",
+                 self.tracer.spans_dropped_total)):
+            self.metrics.counter(cname).set(val)
         return g
 
     def _feed_step_histogram(self, eng, tl) -> None:
@@ -1078,6 +1543,28 @@ def main(argv=None) -> None:
     parser.add_argument("--slo-ttft-ms", type=float, default=None)
     parser.add_argument("--slo-tpot-ms", type=float, default=None)
     parser.add_argument("--slo-window-s", type=float, default=120.0)
+    parser.add_argument(
+        "--no-page-ledger", action="store_true",
+        help="turn the page ledger off (every page event in a bounded "
+             "ring with owner, step and reason: leak forensics, ledger "
+             "reconciliation, the capacity op's event tail); greedy "
+             "outputs are the same either way")
+    parser.add_argument(
+        "--checkpoint", default=None, metavar="DIR",
+        help="boot from the newest valid checkpoint under DIR "
+             "(ResilientCheckpointManager layout, crc-validated) instead "
+             "of the seeded weights; a missing or corrupt checkpoint "
+             "fails startup. Swap a live server with the 'swap' op")
+    parser.add_argument(
+        "--weight-generation", type=int, default=0, metavar="N",
+        help="the weight generation served (salts the prefix cache's "
+             "chain keys, so pages of other generations miss)")
+    parser.add_argument(
+        "--forecast-admission", action="store_true",
+        help="admission also charges the forecast page burn of the "
+             "admitted load (an EWMA over the step timeline) over the "
+             "request's expected lifetime (default: the free pages "
+             "alone)")
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -1099,6 +1586,11 @@ def main(argv=None) -> None:
         # rides in engine_kwargs: a resurrection rebuilds a multi-step
         # engine and replays onto it
         engine_kwargs["multi_step"] = args.multi_step
+    if args.no_page_ledger:
+        engine_kwargs["page_ledger"] = False
+    if args.forecast_admission:
+        # rides in engine_kwargs, so a rebuilt engine keeps the gate
+        engine_kwargs["forecast_admission"] = True
     if args.speculate > 0:
         from ..inference import SpeculativeConfig
         draft = args.draft_model
@@ -1122,6 +1614,8 @@ def main(argv=None) -> None:
                            slo_ttft_ms=args.slo_ttft_ms,
                            slo_tpot_ms=args.slo_tpot_ms,
                            slo_window_s=args.slo_window_s,
+                           checkpoint=args.checkpoint,
+                           weight_generation=args.weight_generation,
                            device=device, **engine_kwargs)
     port = server.start()
     print(f"[paddle_tpu_torch.serving] listening on {args.host}:{port} "

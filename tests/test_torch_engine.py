@@ -148,8 +148,7 @@ def test_scheduler_admits_higher_priority_first(models):
 
 
 @pytest.mark.parametrize("kwarg,value", [
-    ("mesh", object()), ("capture_costs", True),
-    ("weight_generation", 1), ("forecast_admission", True),
+    ("mesh", object()),
 ])
 def test_unported_engine_arguments_raise(models, kwarg, value):
     _, tm = models

@@ -61,6 +61,9 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "import paddle_tpu_torch.ops.kernels.fused_conv_block\n"
         "import paddle_tpu_torch.serving.prefix_cache\n"
         "import paddle_tpu_torch.distributed.resilience\n"
+        "from paddle_tpu_torch.distributed.resilience import "
+        "ResilientCheckpointManager\n"
+        "import paddle_tpu_torch.inference.costs\n"
         "import paddle_tpu_torch.inference.speculative\n"
         "import paddle_tpu_torch.inference.graphs\n"
         "from paddle_tpu_torch.models.gpt import multi_step_decode\n"

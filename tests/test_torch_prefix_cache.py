@@ -140,7 +140,9 @@ def test_fault_sites_and_dispositions_match_jax():
     assert set(fi.FAULT_SITES) == {"engine.step", "serving.prefill",
                                    "serving.verify", "alloc.page",
                                    "cache.spill", "serving.request",
-                                   "net.recv"}
+                                   "net.recv", "checkpoint.write",
+                                   "checkpoint.read", "checkpoint.load",
+                                   "swap.apply"}
     for site in fi.FAULT_SITES:
         assert site in jfi.FAULT_SITES
         assert (site in res.NO_RETRY_SITES) == \

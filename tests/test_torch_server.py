@@ -94,8 +94,8 @@ def test_health_stats_metrics_drain_leak_check(server):
     ({"op": "generate", "prompt": [1], "priority": "urgent"}, "BadRequest"),
     ({"op": "generate", "prompt": [1], "deadline_ms": -1}, "BadRequest"),
     ({"op": "generate", "prompt": [1] * 70}, "BadRequest"),
-    ({"op": "swap"}, "BadRequest"),       # not ported: an unknown op
-    ({"op": "capacity"}, "BadRequest"),
+    ({"op": "swap"}, "BadRequest"),       # no checkpoint named
+    ({"op": "fetch_pages"}, "BadRequest"),  # not ported: an unknown op
 ])
 def test_typed_errors(server, payload, error):
     s, port = server
@@ -187,14 +187,14 @@ def test_cli_builds_the_server_from_its_flags(monkeypatch):
 
 def test_cli_rejects_unported_flags_like_an_unknown_flag():
     with pytest.raises(SystemExit) as e:
-        srv.main(["--device", "cpu", "--forecast-admission"])
+        srv.main(["--device", "cpu", "--mesh", "2"])
     assert e.value.code == 2
 
 
 @pytest.mark.parametrize("flag", [["--role", "prefill"],
                                   ["--flight-dir", "/tmp/x"],
-                                  ["--weight-generation", "1"],
-                                  ["--checkpoint", "/tmp/x"]])
+                                  ["--flight-budget-mb", "8"],
+                                  ["--handoff-timeout-s", "5"]])
 def test_cli_rejects_fleet_flags_like_an_unknown_flag(flag):
     with pytest.raises(SystemExit) as e:
         srv.main(["--device", "cpu"] + flag)
