@@ -27,7 +27,10 @@ failure exits non-zero at once:
    list bitwise against one call a tensor); its
    median time over 20 launches (CUDA events, L2 flushed and a device
    spin queued before each launch, so the host's work stays out of the
-   window; ``fused_argmax`` also at the speculative verify's 40 rows;
+   window; ``fused_argmax`` index-exact at 1-257 rows, both layouts,
+   with and without bias, fp32 / mixed / bf16 operands, an odd vocab and
+   planted ties, NaNs and infinities, and timed at 1, 8, 40 (the
+   speculative verify) and 128 rows and in bf16 at 8;
    ``paged_decode`` also with every other row masked to the scratch
    page at length 0, live rows bitwise), the plain version's, one PyTorch yardstick call's, and the
    least time the card could take: the larger of the bytes at 3.35 TB/s
@@ -39,7 +42,11 @@ failure exits non-zero at once:
    on prefill and decode, then 8 requests whose prompts span every
    prefill bucket, with the serving kernels' launch counts read from
    that run; then the engine's other two kernel paths
-   (``fused_step=False`` and ``kv_int8``), each against its plain run.
+   (``fused_step=False`` and ``kv_int8``), each against its plain run;
+   then 32 slots (``engine_wide``: 32 prompts of 64-512 tokens, all
+   decoding at once) with the fused head against the unfused head,
+   tokens bitwise, ``fused_argmax`` at 32 rows, and a profile of the
+   head's device ms a decode step.
 5. server  — the newline-JSON server on localhost with the same model
    (its prefix cache on, the default): 4 generate requests (2
    streaming), health, stats, drain, leak_check.
@@ -788,98 +795,208 @@ def kernel_out_proj(torch, timer, dev, gen, records):
 
 
 ARGMAX_VERIFY_ROWS = 40  # 8 slots x (k + 1), k = 4
+# rows held index-exact: each side of every configuration's row limit
+# (csrc/fused_argmax.cu: 8, 64, 128, 256 rows a pass)
+ARGMAX_ROWS = (1, 7, 8, 9, 16, 40, 65, 128, 257)
+# rows of the other dtype pairs and of the odd vocab: one a configuration
+ARGMAX_CONFIG_ROWS = (7, 40, 128, 257)
+ARGMAX_TIMED_ROWS = (1, 8, 40, 128)
+# the planted cases: a tie across a vocab-tile boundary of every
+# configuration (64- and 128-entry tiles) in the 9th row, a first and a
+# later NaN, a -inf weight, a +inf weight ahead of a NaN
+ARGMAX_TIE = (12799, 12800)
+ARGMAX_TIE_ROW = 8
+ARGMAX_NAN = (777, 30000)
+ARGMAX_NEG_INF = 4321
+ARGMAX_INF_THEN_NAN = (2000, 2100)
+ARGMAX_PLANTED_ROWS = (8, 9, 128, 257)  # one a configuration
+ARGMAX_D = 2048                  # GPT-1.3B's width
+ARGMAX_VOCABS = (50304, 50257)   # the served vocab, and a partial tile
+ARGMAX_ODD_SHAPES = ((200, 1000), (202, 999))  # (D, V)
+
+
+def _argmax_weights(torch, gen, dev, V, D, wdt, vocab_major):
+    """A seeded [V, D] weight (or its [D, V] copy) in ``wdt``."""
+    w = (torch.randn((V, D), generator=gen, device=dev) * 0.02).to(wdt)
+    return w if vocab_major else w.t().contiguous()
+
+
+def _argmax_plant(torch, w, vocab_major, case, h):
+    """A copy of ``w`` with one planted case (``ARGMAX_*``)."""
+    w = w.clone()
+    row = (lambda v: w[v]) if vocab_major else (lambda v: w[:, v])
+
+    def put(v, d, x):
+        if vocab_major:
+            w[v, d] = x
+        else:
+            w[d, v] = x
+    if case == "tie":
+        t1, t2 = ARGMAX_TIE
+        hr = h[ARGMAX_TIE_ROW].float()
+        row(t1).copy_((hr / hr.norm() * 5.0).to(w.dtype))
+        row(t2).copy_(row(t1))
+    elif case == "nan":
+        for v in ARGMAX_NAN:
+            put(v, 0, float("nan"))
+    elif case == "-inf":
+        put(ARGMAX_NEG_INF, 0, float("-inf"))
+    elif case == "inf_then_nan":
+        put(ARGMAX_INF_THEN_NAN[0], 0, float("inf"))
+        put(ARGMAX_INF_THEN_NAN[1], 0, float("nan"))
+    return w
+
+
+def _argmax_expect(case, h, has_bias):
+    """The planted case's known winners, where the inputs fix them."""
+    if case == "tie" and not has_bias:
+        return [(ARGMAX_TIE_ROW, ARGMAX_TIE[0])]
+    if case == "nan":
+        return [(r, ARGMAX_NAN[0]) for r in range(h.shape[0])]
+    if case == "inf_then_nan":
+        return [(r, ARGMAX_INF_THEN_NAN[1]) for r in range(h.shape[0])]
+    if case == "-inf":
+        # h[r, 0] < 0 makes the logit +inf: that row's winner
+        return [(r, ARGMAX_NEG_INF) for r in range(h.shape[0])
+                if float(h[r, 0]) < 0]
+    return []
 
 
 def kernel_argmax(torch, timer, dev, gen, records):
+    """``fused_argmax`` index-exact against its plain version (run on the
+    fp32 upcasts of bf16 operands: the kernel accumulates exact products
+    in f32) at every row count of ``ARGMAX_ROWS`` in fp32 (both layouts,
+    with and without bias), at one row count a configuration for the
+    bf16 pairs and the odd vocab (a partial last tile), at widths off
+    the stage slices (``ARGMAX_ODD_SHAPES``), and on the planted cases;
+    then timed at ``ARGMAX_TIMED_ROWS`` and bf16 at 8
+    rows, each beside its bound, its plain version and
+    ``torch.argmax(h @ W.T)``."""
     from paddle_tpu_torch.ops.kernels.fused_sample import (
         fused_argmax, fused_argmax_reference)
-    B, D = 8, 2048
-    for V in (50304, 50257):  # the served vocab, and a partial last tile
-        h = torch.randn((B, D), generator=gen, device=dev)
-        w = torch.randn((V, D), generator=gen, device=dev) * 0.02
-        bias = torch.randn((V,), generator=gen, device=dev) * 0.1
-        # planted tie on row 0: two identical winning vocab rows
-        t1, t2 = 1234, 40000
-        w[t1] = h[0] / h[0].norm() * 5.0
-        w[t2] = w[t1]
-        # planted NaN on row 1: the first NaN index must win over a
-        # later NaN and over any number
-        n1, n2 = 777, 30000
-        for tag, ww, bb, ty in (
-                ("vocab_major", w, None, True),
-                ("vocab_major+bias", w, bias, True),
-                ("feature_major", w.t().contiguous(), None, False),
-                ("feature_major+bias", w.t().contiguous(), bias, False)):
-            vd = 0 if ty else 1
-            ww_nan = ww.clone()
-            if ty:
-                ww_nan[n1, 0] = float("nan")
-                ww_nan[n2, 0] = float("nan")
-            else:
-                ww_nan[0, n1] = float("nan")
-                ww_nan[0, n2] = float("nan")
-            for wname, wt in (("clean", ww), ("nan", ww_nan)):
-                got = fused_argmax(h, wt, bb, transpose_y=ty)
-                want = fused_argmax_reference(h, wt, vd, bias=bb)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"fused_argmax V={V} {tag} {wname}: "
-                        f"{got.tolist()} != {want.tolist()}")
-                if wname == "clean" and bb is None and \
-                        int(got[0]) != t1:
-                    raise AssertionError(
-                        f"fused_argmax tie: {int(got[0])} != {t1}")
-                if wname == "nan" and int(got[0]) != n1:
-                    raise AssertionError(
-                        f"fused_argmax NaN: {int(got[0])} != {n1}")
-    V = 50304
-    h = torch.randn((B, D), generator=gen, device=dev)
+    t0 = time.monotonic()
+    D = ARGMAX_D
+    f32, bf = torch.float32, torch.bfloat16
+    n_checked = 0
+    rows_max = max(ARGMAX_ROWS)
+    for V in ARGMAX_VOCABS:
+        for hdt, wdt in ((f32, f32), (f32, bf), (bf, bf)):
+            tag_dt = f"{str(hdt)[6:]}/{str(wdt)[6:]}"
+            h_all = torch.randn((rows_max, D), generator=gen,
+                                device=dev).to(hdt)
+            bias = (torch.randn((V,), generator=gen, device=dev)
+                    * 0.1).to(wdt)
+            for vm in (True, False):
+                w = _argmax_weights(torch, gen, dev, V, D, wdt, vm)
+                wf = w.float()
+                rows = ARGMAX_ROWS if (V == ARGMAX_VOCABS[0]
+                                       and wdt == f32) \
+                    else ARGMAX_CONFIG_ROWS
+                for R in rows:
+                    h = h_all[:R].contiguous()
+                    for bb in (None, bias):
+                        got = fused_argmax(h, w, bb, transpose_y=vm)
+                        want = fused_argmax_reference(
+                            h.float(), wf, 0 if vm else 1,
+                            bias=None if bb is None else bb.float())
+                        n_checked += 1
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"fused_argmax V={V} {tag_dt} vm={vm} "
+                                f"R={R} bias={bb is not None}: "
+                                f"{got.tolist()} != {want.tolist()}")
+                if V == ARGMAX_VOCABS[1]:
+                    for case in ("tie", "nan", "-inf", "inf_then_nan"):
+                        for R in ARGMAX_PLANTED_ROWS:
+                            if case == "tie" and R <= ARGMAX_TIE_ROW:
+                                continue
+                            h = h_all[:R].contiguous()
+                            wp = _argmax_plant(torch, w, vm, case, h)
+                            wpf = wp.float()
+                            for bb in (None, bias):
+                                got = fused_argmax(h, wp, bb,
+                                                   transpose_y=vm)
+                                want = fused_argmax_reference(
+                                    h.float(), wpf, 0 if vm else 1,
+                                    bias=None if bb is None
+                                    else bb.float())
+                                n_checked += 1
+                                if not torch.equal(got, want):
+                                    raise AssertionError(
+                                        f"fused_argmax {case} {tag_dt} "
+                                        f"vm={vm} R={R} bias="
+                                        f"{bb is not None}: "
+                                        f"{got.tolist()} != "
+                                        f"{want.tolist()}")
+                                for r, v in _argmax_expect(
+                                        case, h, bb is not None):
+                                    if int(got[r]) != v:
+                                        raise AssertionError(
+                                            f"fused_argmax {case} "
+                                            f"{tag_dt} vm={vm} R={R} "
+                                            f"row {r}: {int(got[r])} "
+                                            f"!= {v}")
+                            del wp, wpf
+                del w, wf
+    # widths off the stage slices: D=200 ends in a partial slice, D=202
+    # leaves the rows 16-byte unaligned (element-wise loads)
+    for D_, V_ in ARGMAX_ODD_SHAPES:
+        for hdt, wdt in ((f32, f32), (bf, bf)):
+            h_all = torch.randn((max(ARGMAX_CONFIG_ROWS), D_), generator=gen,
+                                device=dev).to(hdt)
+            w = (torch.randn((V_, D_), generator=gen, device=dev)
+                 * 0.05).to(wdt)
+            for vm in (True, False):
+                wl = w if vm else w.t().contiguous()
+                for R in ARGMAX_CONFIG_ROWS:
+                    h = h_all[:R].contiguous()
+                    got = fused_argmax(h, wl, None, transpose_y=vm)
+                    want = fused_argmax_reference(h.float(), wl.float(),
+                                                  0 if vm else 1)
+                    n_checked += 1
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"fused_argmax D={D_} V={V_} {hdt} vm={vm} "
+                            f"R={R}: {got.tolist()} != {want.tolist()}")
+    torch.cuda.synchronize()
+    check_s = time.monotonic() - t0
+    V = ARGMAX_VOCABS[0]
+    per_shape = {}
     w = torch.randn((V, D), generator=gen, device=dev) * 0.02
-    ms = timer(lambda: fused_argmax(h, w, None, transpose_y=True))
-    plain_ms = timer(lambda: fused_argmax_reference(h, w, 0))
-    lib_ms = timer(lambda: torch.argmax(h @ w.t(), dim=-1))
-    nbytes = (V * D + B * D) * 4 + B * 4
-    b, by = bound_ms(nbytes, 2 * B * V * D)
+    for R, dt in [(R, f32) for R in ARGMAX_TIMED_ROWS] + [(8, bf)]:
+        h = torch.randn((R, D), generator=gen, device=dev).to(dt)
+        ww = w.to(dt)
+        ms = timer(lambda: fused_argmax(h, ww, None, transpose_y=True))
+        plain_ms = timer(lambda: fused_argmax_reference(h, ww, 0))
+        lib_ms = timer(lambda: torch.argmax(h @ ww.t(), dim=-1))
+        size = ww.element_size()
+        b, by = bound_ms((V * D + R * D) * size + R * 4, 2 * R * V * D,
+                         "bf16" if dt == bf else "fp32")
+        key = f"R={R}" + (" bf16" if dt == bf else "")
+        per_shape[key] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+            library_ms=lib_ms, share_of_bound=b / ms,
+            shape=f"R={R} D={D} V={V} [V,D] "
+                  + ("bf16/bf16" if dt == bf else "fp32"))
+        del ww
+    main = per_shape["R=8"]
     records["fused_argmax"] = dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b,
-        bound_by=by, library_ms=lib_ms,
-        shape=f"B={B} D={D} V={V} [V,D] fp32")
-    emit({"phase": "kernels", "kernel": "fused_argmax", "ok": True,
-          **records["fused_argmax"], "tol": "index-exact",
-          "library": "torch.argmax(h @ W.T)",
-          "cases": "V in (50304, 50257) x both layouts x bias x "
-                   "{clean with planted tie, planted NaN}"})
-    # the speculative verify's shape: 8 slots x (k+1) = 40 rows scored in
-    # one call, a planted tie and a planted NaN among them
-    R = ARGMAX_VERIFY_ROWS
-    h = torch.randn((R, D), generator=gen, device=dev)
-    w = torch.randn((V, D), generator=gen, device=dev) * 0.02
-    w[1234] = h[3] / h[3].norm() * 5.0
-    w[40000] = w[1234]
-    wn = w.clone()
-    wn[777, 0] = float("nan")
-    for wname, wt in (("clean", w), ("nan", wn)):
-        got = fused_argmax(h, wt, None, transpose_y=True)
-        want = fused_argmax_reference(h, wt, 0)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"fused_argmax R={R} {wname}: "
-                                 f"{got.tolist()} != {want.tolist()}")
-    if int(fused_argmax(h, w, None, transpose_y=True)[3]) != 1234:
-        raise AssertionError("fused_argmax R=40 tie")
-    ms = timer(lambda: fused_argmax(h, w, None, transpose_y=True))
-    plain_ms = timer(lambda: fused_argmax_reference(h, w, 0))
-    lib_ms = timer(lambda: torch.argmax(h @ w.t(), dim=-1))
-    b, by = bound_ms((V * D + R * D) * 4 + R * 4, 2 * R * V * D)
+        max_abs_err=0.0, **{k: main[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "shape")}, per_shape=per_shape)
     records["fused_argmax"]["verify_shape"] = dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-        library_ms=lib_ms, shape=f"R={R} D={D} V={V} [V,D] fp32")
+        max_abs_err=0.0, **{k: per_shape[f"R={ARGMAX_VERIFY_ROWS}"][k]
+                            for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "shape")})
     emit({"phase": "kernels", "kernel": "fused_argmax", "ok": True,
-          "case": "speculative verify", **records["fused_argmax"]
-          ["verify_shape"], "tol": "index-exact",
-          "library": "torch.argmax(h @ W.T)",
-          "cases": "clean with a planted tie, planted NaN"})
+          "tol": "index-exact", "library": "torch.argmax(h @ W.T)",
+          "calls_checked": n_checked, "check_s": check_s,
+          "rows": list(ARGMAX_ROWS), "config_rows": list(ARGMAX_CONFIG_ROWS),
+          "odd_shapes": [list(x) for x in ARGMAX_ODD_SHAPES],
+          "planted": ["tie in row %d across %d|%d" % ((ARGMAX_TIE_ROW,)
+                                                      + ARGMAX_TIE), "nan",
+                      "-inf", "inf_then_nan"],
+          "per_shape": per_shape, "wall_s": time.monotonic() - t0})
 
 
 # attention_fwd checks beyond the timed causal D=128 sequence lengths:
@@ -1915,7 +2032,140 @@ def phase_engine(torch, dev, records, launches):
           "decode_profile": prof,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     engine_variants(torch, model, gen)
+    engine_wide(torch, model, gen)
     return model, prompts
+
+
+# the engine above 8 slots: 32 slots, 32 prompts of 64-512 tokens, 32
+# new tokens each, on a pool that admits all 32 at once (page 64: at most
+# 9 pages a request, 7.6 GB of fp32 KV at GPT-1.3B)
+WIDE_SLOTS = 32
+WIDE_NEW = 32
+WIDE_LENGTHS = (64, 512)
+WIDE_PAGES = 300
+WIDE_PROFILE_STEPS = 8
+
+
+def _unfused_head(hidden_or_logits, hp):
+    """The engine's ``_sample`` with the lm head unfused: the logits
+    matmul, then argmax over them."""
+    from paddle_tpu_torch.nn.decode import _head_logits, sample_token
+    if hp is None:
+        return sample_token(hidden_or_logits, 0.0)
+    w, ty, bias = hp
+    return sample_token(_head_logits(hidden_or_logits, w, bias, ty), 0.0)
+
+
+def engine_wide(torch, model, gen):
+    """The engine at ``WIDE_SLOTS`` slots with the fused head, against the
+    same run with the head unfused (``_unfused_head``): every greedy
+    token bitwise equal; all requests decoding at once; ``fused_argmax``
+    launched at 32 rows. Then a profile of ``WIDE_PROFILE_STEPS`` steady
+    decode steps: the head kernel's device ms a step beside the step's."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference import create_decode_engine
+    from paddle_tpu_torch.ops import nn_functional
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    V = model.config.vocab_size
+    lengths = torch.randint(WIDE_LENGTHS[0], WIDE_LENGTHS[1] + 1,
+                            (WIDE_SLOTS,), generator=gen).tolist()
+    prompts = [torch.randint(0, V, (n,), generator=gen).numpy()
+               for n in lengths]
+
+    def engine():
+        return create_decode_engine(model, device=model.device,
+                                    num_slots=WIDE_SLOTS, page_size=64,
+                                    num_pages=WIDE_PAGES)
+
+    def run(unfused):
+        eng = engine()
+        if unfused:
+            eng._sample = _unfused_head
+        rids = [eng.submit(p, max_new_tokens=WIDE_NEW) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        eng.check_no_leak()
+        outs = [res[r][len(p):].tolist() for r, p in zip(rids, prompts)]
+        decoding = max(e["slots_decoding"] for e in eng.step_timeline())
+        info = {"wall_s": wall, "steps": eng.steps,
+                "max_slots_decoding": decoding,
+                "tokens_per_s": sum(len(o) for o in outs) / wall}
+        eng.close()
+        _free_engine_memory(torch)
+        return outs, info
+
+    rows = []
+    kernel = nn_functional.fused_argmax
+
+    def counted(hidden, *args, **kw):
+        rows.append(int(hidden.shape[0]))
+        return kernel(hidden, *args, **kw)
+
+    reset_launch_counts()
+    nn_functional.fused_argmax = counted
+    try:
+        outs, info = run(False)
+    finally:
+        nn_functional.fused_argmax = kernel
+    counts = launch_counts()
+    _generation_ok("engine_wide", outs, WIDE_NEW, V)
+    if info["max_slots_decoding"] != WIDE_SLOTS:
+        raise AssertionError(f"engine_wide: {info['max_slots_decoding']} "
+                             f"slots decoding at most, not {WIDE_SLOTS}")
+    if WIDE_SLOTS not in rows or counts["fused_argmax"] != len(rows):
+        raise AssertionError(f"engine_wide: fused_argmax rows {rows}, "
+                             f"{counts['fused_argmax']} launches")
+    outs_u, info_u = run(True)
+    if outs != outs_u:
+        bad = [i for i, (a, b) in enumerate(zip(outs, outs_u)) if a != b]
+        raise AssertionError(f"engine_wide: fused head tokens differ from "
+                             f"the unfused head's in requests {bad}")
+
+    # steady decode steps, every slot decoding
+    eng = engine()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=WIDE_NEW)
+    for _ in range(3):  # the admissions + warm decode steps
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(WIDE_PROFILE_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3 / WIDE_PROFILE_STEPS
+    live = eng.step_timeline()[-1]["slots_decoding"]
+    eng.close()
+    _free_engine_memory(torch)
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")]
+    dev_us = sum(e.time_range.elapsed_us() for e in kernels)
+    head_us = sum(e.time_range.elapsed_us() for e in kernels
+                  if "argmax_tiles_kernel" in e.name
+                  or "argmax_reduce_kernel" in e.name)
+    if head_us <= 0:
+        raise AssertionError("engine_wide: the profile shows no "
+                             "fused_argmax kernel")
+    emit({"phase": "engine_wide", "ok": True, "model": "gpt_1p3b",
+          "slots": WIDE_SLOTS, "prompt_lengths": lengths,
+          "max_new_tokens": WIDE_NEW, "num_pages": WIDE_PAGES,
+          "fused": info, "unfused_head": info_u,
+          "tokens_bitwise_unfused_head": True,
+          "fused_argmax_launches": counts["fused_argmax"],
+          "fused_argmax_rows": sorted(set(rows)),
+          "profile": {"steps": WIDE_PROFILE_STEPS,
+                      "slots_decoding": live,
+                      "step_wall_ms": wall_ms,
+                      "device_ms_per_step": dev_us / 1e3
+                      / WIDE_PROFILE_STEPS,
+                      "head_ms_per_step": head_us / 1e3
+                      / WIDE_PROFILE_STEPS}})
 
 
 def engine_variants(torch, model, gen):
@@ -4417,8 +4667,9 @@ def main() -> int:
             "bound_by": ("bytes" if r["bound_by"] == "bytes"
                          else "operations"),
             "bound_route": r["bound_by"], "library_ms": r["library_ms"]})
-        if "verify_shape" in r:
-            kernels[-1]["verify_shape"] = r["verify_shape"]
+        for key in ("verify_shape", "per_shape"):
+            if key in r:
+                kernels[-1][key] = r[key]
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -57,6 +57,8 @@ SIGNATURES: Dict[str, List] = {
     # B, D, V, vocab_major, h_dtype, w_dtype, has_bias, n_tiles, stream
     "pt_fused_argmax": [_P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # V, B: vocab tiles of a call with B rows (the records' first axis)
+    "pt_argmax_tile_count": [_I, _I],
     # q, k, v, out, lse, B, Sq, Sk, H, D,
     # q strides (b, s, h), k strides, v strides, causal, dtype, scale,
     # write_lse, stream

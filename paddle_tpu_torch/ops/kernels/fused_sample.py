@@ -23,8 +23,6 @@ from . import _build
 
 _NEG_INF = -1e30
 DEFAULT_TILE = 2048
-# vocab entries per block of the CUDA kernel (csrc/fused_argmax.cu kTile)
-KERNEL_TILE = 32
 
 
 def _vocab_dim(transpose_y: bool) -> int:
@@ -107,7 +105,10 @@ def fused_sample_supported(hidden_shape, w_shape,
 def fused_argmax(hidden, weight, bias=None, transpose_y: bool = True):
     """Greedy tokens [B] int32 = argmax of ``hidden @ W.T`` (``[V, D]``,
     ``transpose_y=True``) or ``hidden @ W`` (``[D, V]``), plus ``bias``.
-    CPU tensors take the plain version."""
+    CPU tensors take the plain version. On the card one call reads W
+    once for up to 256 rows: the kernel writes a (max, first index, first
+    NaN) record a vocab tile and row into ``[n_tiles, B]`` buffers, and
+    its second launch merges them in tile order."""
     _build.refuse_grad("fused_argmax", hidden, weight, bias)
     vdim = _vocab_dim(transpose_y)
     if hidden.device.type == "cpu":
@@ -119,20 +120,23 @@ def fused_argmax(hidden, weight, bias=None, transpose_y: bool = True):
                                        bias.shape != (vocab,)):
         raise ValueError(f"fused_argmax: hidden {tuple(hidden.shape)}, "
                          f"weight {tuple(weight.shape)}")
+    if not all(x.is_contiguous() for x in (hidden, weight, bias)
+               if x is not None):
+        raise ValueError("fused_argmax: operands must be contiguous")
     if bias is not None and bias.dtype != weight.dtype:
         raise TypeError("fused_argmax: bias must have the weight's dtype")
     hc = _build.dtype_code(hidden, "fused_argmax hidden")
     wc = _build.dtype_code(weight, "fused_argmax weight")
-    n_tiles = -(-vocab // KERNEL_TILE)
-    tile_max = torch.empty((n_tiles, b), device=dev, dtype=torch.float32)
-    tile_arg = torch.empty((n_tiles, b), device=dev, dtype=torch.int32)
-    tile_nan = torch.empty((n_tiles, b), device=dev, dtype=torch.int32)
+    lib = _build.lib()
+    n_tiles = lib.pt_argmax_tile_count(vocab, b)
+    # (max as f32 bits, first index, first NaN) a vocab tile and row
+    records = torch.empty((3, n_tiles, b), device=dev, dtype=torch.int32)
     out = torch.empty((b,), device=dev, dtype=torch.int32)
-    err = _build.lib().pt_fused_argmax(
+    err = lib.pt_fused_argmax(
         hidden.data_ptr(), weight.data_ptr(), _build.ptr(bias),
-        tile_max.data_ptr(), tile_arg.data_ptr(), tile_nan.data_ptr(),
-        out.data_ptr(), b, d, vocab, int(vdim == 0), hc, wc,
-        int(bias is not None), n_tiles, _build.stream(dev))
+        records[0].data_ptr(), records[1].data_ptr(),
+        records[2].data_ptr(), out.data_ptr(), b, d, vocab, int(vdim == 0),
+        hc, wc, int(bias is not None), n_tiles, _build.stream(dev))
     _build.check(err, "fused_argmax")
     # the tile pass and the ordered reduction are one kernel's launches
     fused_argmax.launches += 1

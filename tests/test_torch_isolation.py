@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                           "compare_argmax.py")]
     for root, _dirs, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

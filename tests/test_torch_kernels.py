@@ -10,6 +10,7 @@ compute in fp32 on the CPU, with sums in different orders.
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -168,7 +169,16 @@ def test_paged_gate_matches_jax(q_shape, kp_shape):
 
 # -- streaming argmax ---------------------------------------------------------
 
+# the TPU kernel (run under the ``_interpret`` fixture), compiled once a
+# shape: the cases of one shape share the compilation
+_argmax_pallas = jax.jit(jfs._fused_argmax_pallas, static_argnums=(2, 4))
+
+# the row counts on each side of the CUDA kernel's configurations
+_ARGMAX_ROWS = {"rows1": 1, "rows9": 9, "rows40": 40, "rows65": 65}
+
+
 def _argmax_case(rng, case, vocab, d=128, b=3):
+    b = _ARGMAX_ROWS.get(case, b)
     h = rng.standard_normal((b, d)).astype(np.float32)
     w = (rng.standard_normal((vocab, d)) * 0.1).astype(np.float32)
     if case == "tie":
@@ -176,13 +186,20 @@ def _argmax_case(rng, case, vocab, d=128, b=3):
     if case == "nan":
         w[vocab // 2, 0] = np.nan
         w[vocab - 3, 0] = np.nan
+    if case == "-inf":
+        w[vocab // 4, 0] = -np.inf  # a +inf logit where h[:, 0] < 0
+    if case == "inf_then_nan":
+        w[vocab // 4, 0] = np.inf   # +-inf logits ahead of the NaN
+        w[vocab // 2, 0] = np.nan
     return h, w
 
 
 @pytest.mark.parametrize("layout", ["vocab_major", "feature_major"])
 @pytest.mark.parametrize("bias", [False, True])
-@pytest.mark.parametrize("case", ["plain", "tie", "nan"])
-def test_fused_argmax_reference_matches_jax(layout, bias, case):
+@pytest.mark.parametrize("case", ["plain", "tie", "nan", "rows1", "rows9",
+                                  "rows40", "rows65", "-inf",
+                                  "inf_then_nan"])
+def test_fused_argmax_reference_matches_jax(_interpret, layout, bias, case):
     rng = np.random.default_rng(4)
     vocab, tile = 1000, 256  # partial last tile (1000 % 256 != 0)
     h, w = _argmax_case(rng, case, vocab)
@@ -190,18 +207,27 @@ def test_fused_argmax_reference_matches_jax(layout, bias, case):
     if vdim == 1:
         w = np.ascontiguousarray(w.T)
     bb = rng.standard_normal((vocab,)).astype(np.float32) if bias else None
+    jb = None if bb is None else jnp.asarray(bb)
     want = jfs.fused_argmax_reference(
-        jnp.asarray(h), jnp.asarray(w), vdim,
-        bias=None if bb is None else jnp.asarray(bb), tile=tile)
+        jnp.asarray(h), jnp.asarray(w), vdim, bias=jb, tile=tile)
     got = tfs.fused_argmax_reference(
         _t(h), _t(w), vdim, bias=None if bb is None else _t(bb), tile=tile)
     assert got.tolist() == np.asarray(want).tolist()
-    logits = h @ (w.T if vdim == 0 else w) + (0 if bb is None else bb)
+    # the TPU kernel itself, through the Pallas interpreter
+    kernel = _argmax_pallas(jnp.asarray(h), jnp.asarray(w), vdim, jb, tile)
+    assert got.tolist() == np.asarray(kernel).tolist()
+    with np.errstate(invalid="ignore"):
+        logits = h @ (w.T if vdim == 0 else w) + (0 if bb is None else bb)
     assert got.tolist() == np.argmax(logits, axis=1).tolist()
     if case == "tie" and not bias:
         assert int(got[0]) == vocab // 3   # first index of the tie
     if case == "nan":
         assert got.tolist() == [vocab // 2] * 3  # first NaN wins
+    if case == "-inf":
+        assert all(int(got[r]) == vocab // 4
+                   for r in range(len(h)) if h[r, 0] < 0)
+    if case == "inf_then_nan":
+        assert got.tolist() == [vocab // 2] * len(h)  # the NaN, not +inf
 
 
 def test_fused_topk_reference_matches_jax():
