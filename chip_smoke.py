@@ -121,6 +121,21 @@ failure exits non-zero at once:
    under A; a truncated shard refused typed with B still serving; an
    eager engine's ``swap_weights`` A -> B bitwise B's tokens, and its
    decode ``program_costs`` beside one profiled step's device ms.
+5k. generate — ``GPTForCausalLM.generate`` on the same model, 4 prompts
+   of 1024 tokens: the one-launch mode over static, paged and int8-paged
+   caches (one CUDA graph of the decode step, replayed a token), the
+   chunked mode and the eager loop, each through the kernels and the
+   plain versions (prefill logits within ``MODEL_REL_TOL``, first tokens
+   equal, launch gates with the replays counted); chunked bitwise the
+   static mode, the fused head bitwise the unfused one; B=1 paged runs
+   at 512 and 128 tokens; seeded top-k sampling (one stream a seed,
+   every token in its step's top 40, ``top_k=1`` greedy); then
+   ``convert_to_weight_only_int8`` (96 layers; logits within 0.05 of
+   the float model's; chunked bitwise whole; a ``multi_step=4`` engine
+   captured before the conversion recaptures; an 8-slot engine without
+   ``decode_out_proj``). Reports ms a decode step per mode and peak
+   memory. The model is converted in place: it is this script's last
+   use of it.
 6. train   — GPT-1.3B training (fp32, dropout 0, ``AdamW(1e-4)``):
    one forward+backward at full depth, B=2, S=2048, through the kernels
    against the plain versions (loss and every parameter's gradient);
@@ -3725,7 +3740,7 @@ def phase_server_observe_swap(torch, dev, model, prompts, card):
     engine (``multi_step=1``) on A takes ``swap_weights(B)``: bitwise
     ``tok_B``; before it, on A, its ``program_costs`` decode count beside
     the device ms of a profiled decode step (and its tokens equal the
-    server's ``tok_A``)."""
+    server's ``tok_A``). The model leaves with A loaded back."""
     import shutil
     import tempfile
     import numpy as np
@@ -3946,6 +3961,9 @@ def phase_server_observe_swap(torch, dev, model, prompts, card):
         tok_e = [res[r][len(p):].tolist() for r, p in zip(rids, prompts)]
         check_tokens(f"{phase} eager swap_weights vs tok_B", tok_e, tok_b)
         eng.close()
+        # the model leaves with the engine phase's weights A, which the
+        # generate phase reads
+        load_jax_state(model, state_a)
         bound, by = bound_ms(cost["bytes_accessed"], cost["flops"])
         out["eager"] = {"swap_ms": info["swap_ms"],
                         "decode_cost": cost,
@@ -3956,6 +3974,345 @@ def phase_server_observe_swap(torch, dev, model, prompts, card):
         shutil.rmtree(ckdir, ignore_errors=True)
     emit(dict(out, ok=True))
     _free_engine_memory(torch)
+
+
+# -- phase 5k ----------------------------------------------------------------
+
+GEN_B = 4                 # prompts a generate call
+GEN_PROMPT = 1024         # their length: attention_fwd's streaming shape
+GEN_NEW = 64              # new tokens of the one-launch and chunked modes
+GEN_EAGER_NEW = 16        # the eager loop's: its cache grows by concat
+GEN_PAGE = 64
+GEN_SMALL = (512, 128)    # B=1 paged prefills: the single-block and
+#                           folded attention_fwd shapes
+GEN_TEMP = 0.8
+GEN_TOP_K = 40
+GEN_INT8_REL = 0.05       # converted logits against float, relative
+#                           (tests/test_quant_sparsity_text.py:183)
+GEN_LAYERS = 96           # 4 linears a block x 24, the tied head stays
+GEN_ENGINE_LENGTHS = (100, 200, 300, 400, 500, 600, 700, 800)
+GEN_ENGINE_NEW = 16
+GEN_MODES = (
+    ("static", dict(use_jit=True)),
+    ("paged", dict(use_jit=True, kv_cache="paged", page_size=GEN_PAGE)),
+    ("paged_int8", dict(use_jit=True, kv_cache="paged_int8",
+                        page_size=GEN_PAGE)),
+    ("chunked", dict(use_jit=True, compile_mode="chunked")),
+    ("eager", {}),
+)
+
+
+def _gen_new(mode):
+    return GEN_EAGER_NEW if mode == "eager" else GEN_NEW
+
+
+def _generate(torch, model, ids, n, plain=False, **kw):
+    """One ``generate`` call, synchronised: (tokens [B, S+n] on the host
+    as lists, wall seconds)."""
+    from paddle_tpu_torch.ops.nn_functional import plain_kernels
+    ctx = plain_kernels() if plain else contextlib.nullcontext()
+    with ctx:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = model.generate(ids, max_new_tokens=n, **kw)
+        torch.cuda.synchronize()
+    return out.tolist(), time.monotonic() - t0
+
+
+def gen_prefill_logits(torch, model, ids, kind, plain):
+    """The last row's logits of a prefill of ``ids`` into a fresh cache
+    of ``kind`` (the eager pair, a static buffer or paged pools), through
+    the kernels or the plain versions: what each generate mode's first
+    step computes."""
+    from paddle_tpu_torch.models.gpt import (paged_cache_create,
+                                             static_cache_create)
+    from paddle_tpu_torch.ops.nn_functional import plain_kernels
+    cfg = model.config
+    b, s = ids.shape
+    dev = model.device
+    kw = {}
+    if kind == "eager":
+        caches = [None] * cfg.num_layers
+    elif kind in ("static", "chunked"):
+        caches = [static_cache_create(b, s, cfg.num_heads, cfg.head_dim,
+                                      torch.float32, device=dev)
+                  for _ in range(cfg.num_layers)]
+    else:
+        mp = -(-s // GEN_PAGE)
+        caches = [paged_cache_create(b, b * mp, GEN_PAGE, cfg.num_heads,
+                                     cfg.head_dim, torch.float32, mp,
+                                     quantized=(kind == "paged_int8"),
+                                     device=dev)
+                  for _ in range(cfg.num_layers)]
+        kw["prefill_lens"] = torch.full((b,), s, dtype=torch.int32,
+                                        device=dev)
+    ctx = plain_kernels() if plain else contextlib.nullcontext()
+    with ctx, torch.no_grad():
+        logits, _ = model(ids, caches=caches, **kw)
+    return logits[:, -1].clone()
+
+
+def gen_launch_gate(mode, counts):
+    """A generate run's launch counts (graph replays included): the
+    paged modes launch the four serving kernels, the static one-launch
+    mode the fused head and no paged decode; no training or ResNet
+    kernel ran."""
+    if mode in ("paged", "paged_int8"):
+        serving_launch_gate(f"generate {mode}", counts)
+    else:
+        serving_launch_gate(f"generate {mode}", counts, need=())
+    if mode == "static" and (counts["fused_argmax"] <= 0
+                             or counts["paged_decode"] != 0):
+        raise AssertionError(f"generate static: launches {counts}")
+
+
+def _sampled_in_top_k(torch, model, out, s, k):
+    """Whether each sampled token of ``out`` [B, S+N] lies in the top
+    ``k`` of its step's logits, from one forward over the whole sequence
+    (kernel path; a near-tie at the k-th value is allowed the model
+    tolerance, since the forward and the decode step sum in other
+    orders). Returns (all in, tokens checked)."""
+    ids = torch.tensor(out, device=model.device)
+    with torch.no_grad():
+        logits = model(ids)[:, s - 1:-1]
+    kth = torch.topk(logits, k, dim=-1).values[..., -1]
+    picked = torch.gather(logits, -1, ids[:, s:, None])[..., 0]
+    slack = MODEL_REL_TOL * logits.abs().amax(dim=-1)
+    return bool((picked >= kth - slack).all()), int(picked.numel())
+
+
+def _macro_graphs(eng):
+    """The engine's captured iteration graphs (``inference/graphs.py``
+    ``IterationGraphs``), None before its first macro launch."""
+    return eng._macro["graphs"]
+
+
+def phase_generate(torch, dev, model, card):
+    """``GPTForCausalLM.generate`` at GPT-1.3B's full width (the engine
+    phase's seed-0 model, fp32), ``GEN_B`` prompts of ``GEN_PROMPT``
+    tokens:
+
+    - each mode (one-launch static, paged and paged_int8 at page 64,
+      chunked, each ``GEN_NEW`` tokens; the eager loop ``GEN_EAGER_NEW``)
+      through the kernels and under ``plain_kernels()``: the prefill's
+      last-row logits within ``MODEL_REL_TOL``, first tokens equal, token
+      agreement; the kernel run's launches (graph replays included) gated
+      by ``gen_launch_gate``; ms a decode step from a run of N tokens
+      less a run of one, and each call's first (capture) and steady wall;
+    - pins: chunked bitwise the static one-launch mode, the fused head
+      bitwise the unfused head; static against paged agreement printed
+      (the two attend through the plain math and ``paged_decode``);
+    - B=1 paged runs at ``GEN_SMALL`` prompts (attention_fwd's other
+      shapes), first token equal to the plain run's;
+    - sampling (``GEN_TEMP``, top-k ``GEN_TOP_K``, the static one-launch
+      mode): one seed twice gives one stream, another seed another,
+      every token in its step's top k, ``top_k=1`` at temperature 1
+      equals greedy;
+    - weight-only int8: a ``multi_step=4`` engine serves 8 prompts
+      (graphs captured), ``convert_to_weight_only_int8`` converts
+      ``GEN_LAYERS`` layers, the static prefill's logits within
+      ``GEN_INT8_REL`` of the float model's, chunked bitwise whole; the
+      ``multi_step=4`` engine serves again on recaptured graphs (no
+      ``decode_out_proj`` in them) with the tokens of a fresh per-token
+      engine; an 8-slot engine through the kernels (``decode_out_proj``
+      at 0, ``paged_decode`` and ``fused_argmax`` launched) with the
+      first tokens of its plain run.
+
+    The model is converted in place: no later phase uses it."""
+    from paddle_tpu_torch.inference import create_decode_engine
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.quantization.quant import (
+        convert_to_weight_only_int8)
+    V = model.config.vocab_size
+    _free_engine_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator().manual_seed(15)
+    ids = torch.randint(0, V, (GEN_B, GEN_PROMPT), generator=gen).to(dev)
+    s = GEN_PROMPT
+    out = {"phase": "generate", "card": card, "model": "gpt_1p3b",
+           "batch": GEN_B,
+           "prompt": GEN_PROMPT, "page_size": GEN_PAGE,
+           "tol_rel": MODEL_REL_TOL}
+    modes, toks = {}, {}
+    for mode, kw in GEN_MODES:
+        n = _gen_new(mode)
+        rec = {"new_tokens": n}
+        lk = gen_prefill_logits(torch, model, ids, mode, False)
+        lp = gen_prefill_logits(torch, model, ids, mode, True)
+        rec["prefill_logits_rel"] = rel_err(lk, lp)
+        if mode == "static":
+            float_logits = lk
+        del lk, lp
+        reset_launch_counts()
+        kern, t_first = _generate(torch, model, ids, n, temperature=0.0,
+                                  **kw)
+        counts = launch_counts()
+        gen_launch_gate(mode, counts)
+        rec["launches"] = {k: v for k, v in counts.items() if v}
+        again, t_steady = _generate(torch, model, ids, n, temperature=0.0,
+                                    **kw)
+        _, t_one = _generate(torch, model, ids, 1, temperature=0.0, **kw)
+        _, t_one = _generate(torch, model, ids, 1, temperature=0.0, **kw)
+        plain, t_plain = _generate(torch, model, ids, n, plain=True,
+                                   temperature=0.0, **kw)
+        new_k = [r[s:] for r in kern]
+        new_p = [r[s:] for r in plain]
+        _generation_ok(f"generate {mode}", new_k, n, V)
+        rec.update(
+            first_token_agreement=sum(a[0] == b[0] for a, b in
+                                      zip(new_k, new_p)) / GEN_B,
+            token_agreement=_agreement(new_k, new_p),
+            repeat_bitwise=again == kern, first_call_s=t_first,
+            steady_call_s=t_steady, prefill_only_call_s=t_one,
+            plain_call_s=t_plain,
+            ms_per_decode_step=(t_steady - t_one) * 1e3 / (n - 1),
+            ms_per_token=(t_steady - t_one) * 1e3 / ((n - 1) * GEN_B))
+        if not rec["prefill_logits_rel"] <= MODEL_REL_TOL:
+            raise AssertionError(f"generate {mode}: prefill logits "
+                                 f"{rec['prefill_logits_rel']:.3g}")
+        if rec["first_token_agreement"] != 1.0 or not rec["repeat_bitwise"]:
+            raise AssertionError(f"generate {mode}: {rec}")
+        modes[mode], toks[mode] = rec, kern
+        model.clear_generate_cache()
+        _free_engine_memory(torch)
+    out["modes"] = modes
+    if toks["chunked"] != toks["static"]:
+        raise AssertionError("generate: chunked is not bitwise the static "
+                             "one-launch mode")
+    # the unfused head: the static one-launch mode with head_params None
+    # (another program: the signature holds whether the head is fused)
+    model.head_params = lambda: None
+    try:
+        unfused, _ = _generate(torch, model, ids, GEN_NEW, temperature=0.0,
+                               use_jit=True)
+    finally:
+        del model.head_params
+    model.clear_generate_cache()
+    if unfused != toks["static"]:
+        raise AssertionError("generate: the unfused head's tokens differ")
+    out["pins"] = {"chunked_bitwise_static": True,
+                   "unfused_head_bitwise_fused": True,
+                   "static_vs_paged_agreement": _agreement(
+                       [r[s:] for r in toks["static"]],
+                       [r[s:] for r in toks["paged"]]),
+                   "paged_int8_vs_paged_agreement": _agreement(
+                       [r[s:] for r in toks["paged_int8"]],
+                       [r[s:] for r in toks["paged"]])}
+    small = {}
+    for n_small in GEN_SMALL:
+        one = ids[:1, :n_small]
+        reset_launch_counts()
+        k1, _ = _generate(torch, model, one, GEN_NEW, temperature=0.0,
+                          **dict(GEN_MODES)["paged"])
+        counts = serving_launch_gate(f"generate paged B=1 S={n_small}",
+                                     launch_counts())
+        p1, _ = _generate(torch, model, one, GEN_NEW, plain=True,
+                          temperature=0.0, **dict(GEN_MODES)["paged"])
+        if k1[0][n_small] != p1[0][n_small]:
+            raise AssertionError(f"generate B=1 S={n_small}: first token")
+        small[n_small] = {"attention_fwd": counts["attention_fwd"],
+                          "token_agreement": _agreement(
+                              [k1[0][n_small:]], [p1[0][n_small:]])}
+    out["paged_b1"] = small
+    model.clear_generate_cache()
+
+    # sampling on the static one-launch mode (a graph with a registered
+    # generator)
+    def sampled(seed, temperature, top_k):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return _generate(torch, model, ids, GEN_NEW, use_jit=True,
+                         temperature=temperature, top_k=top_k,
+                         generator=g)[0]
+
+    a, b = sampled(5, GEN_TEMP, GEN_TOP_K), sampled(5, GEN_TEMP, GEN_TOP_K)
+    c = sampled(6, GEN_TEMP, GEN_TOP_K)
+    in_top, checked = _sampled_in_top_k(torch, model, a, s, GEN_TOP_K)
+    k1 = sampled(7, 1.0, 1)
+    out["sampling"] = {"temperature": GEN_TEMP, "top_k": GEN_TOP_K,
+                       "same_seed_equal": a == b, "other_seed_differs":
+                       a != c, "in_top_k": in_top, "tokens_checked": checked,
+                       "top_k_1_equals_greedy": k1 == toks["static"]}
+    if not (a == b and a != c and in_top and k1 == toks["static"]):
+        raise AssertionError(f"generate sampling: {out['sampling']}")
+    model.clear_generate_cache()
+    _free_engine_memory(torch)
+
+    # weight-only int8: an engine whose graphs predate the conversion
+    prompts = [torch.randint(0, V, (n,), generator=gen).numpy()
+               for n in GEN_ENGINE_LENGTHS]
+    eng4 = create_decode_engine(model, device=dev, num_slots=8,
+                                page_size=GEN_PAGE, num_pages=96,
+                                multi_step=4)
+
+    def serve(eng):
+        rids = [eng.submit(p, max_new_tokens=GEN_ENGINE_NEW)
+                for p in prompts]
+        res = eng.run()
+        eng.check_no_leak()
+        return [res[r][len(p):].tolist() for r, p in zip(rids, prompts)]
+
+    serve(eng4)
+    graphs_before = _macro_graphs(eng4)
+    t0 = time.monotonic()
+    n_conv = convert_to_weight_only_int8(model)
+    torch.cuda.synchronize()
+    conv_s = time.monotonic() - t0
+    if n_conv != GEN_LAYERS:
+        raise AssertionError(f"generate: {n_conv} layers converted, not "
+                             f"{GEN_LAYERS}")
+    _free_engine_memory(torch)
+    int8_logits = gen_prefill_logits(torch, model, ids, "static", False)
+    int8_rel = rel_err(int8_logits, float_logits)
+    del int8_logits, float_logits
+    whole, t_whole = _generate(torch, model, ids, GEN_NEW, temperature=0.0,
+                               use_jit=True)
+    _, t_whole = _generate(torch, model, ids, GEN_NEW, temperature=0.0,
+                           use_jit=True)
+    _, t_one = _generate(torch, model, ids, 1, temperature=0.0,
+                         use_jit=True)
+    chunked, _ = _generate(torch, model, ids, GEN_NEW, temperature=0.0,
+                           use_jit=True, compile_mode="chunked")
+    model.clear_generate_cache()
+    _free_engine_memory(torch)
+    if not int8_rel <= GEN_INT8_REL or chunked != whole:
+        raise AssertionError(f"generate int8: logits rel {int8_rel:.3g}, "
+                             f"chunked == whole {chunked == whole}")
+    reset_launch_counts()
+    got4 = serve(eng4)
+    regraphed = _macro_graphs(eng4) is not graphs_before
+    per_replay = _macro_graphs(eng4).kinds()["decode"]["launches"]
+    eng4.close()
+    _free_engine_memory(torch)
+    eager1, _ = run_engine(torch, model, prompts, GEN_ENGINE_NEW, False)
+    if not regraphed or "decode_out_proj" in per_replay or got4 != eager1:
+        raise AssertionError(f"generate int8 multi_step=4: recaptured "
+                             f"{regraphed}, per replay {per_replay}, "
+                             f"tokens equal N=1 {got4 == eager1}")
+    reset_launch_counts()
+    kern8, info8 = run_engine(torch, model, prompts, GEN_ENGINE_NEW, False)
+    counts = serving_launch_gate(
+        "generate int8 engine", launch_counts(),
+        need=("paged_decode", "fused_argmax", "attention_fwd"))
+    plain8, _ = run_engine(torch, model, prompts, GEN_ENGINE_NEW, True)
+    if counts["decode_out_proj"] != 0 or \
+            [o[0] for o in kern8] != [o[0] for o in plain8]:
+        raise AssertionError(f"generate int8 engine: {counts}")
+    out["int8"] = {
+        "layers_converted": n_conv, "convert_s": conv_s,
+        "logits_rel_vs_float": int8_rel, "limit": GEN_INT8_REL,
+        "chunked_bitwise_whole": True,
+        "static_ms_per_decode_step": (t_whole - t_one) * 1e3 /
+        (GEN_NEW - 1),
+        "static_ms_per_token": (t_whole - t_one) * 1e3 /
+        ((GEN_NEW - 1) * GEN_B),
+        "multi_step4_recaptured": regraphed,
+        "multi_step4_per_replay_launches": per_replay,
+        "engine_launches": {k: v for k, v in counts.items() if v},
+        "engine_token_agreement_vs_plain": _agreement(kern8, plain8),
+        "engine_decode_step_ms_median": info8["decode_step_ms_median"]}
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(dict(out, ok=True))
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -4639,6 +4996,7 @@ def main() -> int:
     small = phase_engine_multi_step(torch, dev, model, engine_prompts)
     phase_server_multi_step(torch, dev, small)
     phase_server_observe_swap(torch, dev, model, engine_prompts, smi_line)
+    phase_generate(torch, dev, model, smi_line)
     del model, small
     # the engine and the server leave reference cycles: collected here,
     # they free the model and its KV pool before the train phase reads

@@ -846,7 +846,8 @@ class ContinuousBatchingEngine:
 
     def _fused_head(self):
         """``(weight, transpose_y, bias)`` of the streamed lm head, or
-        None when fusion is off."""
+        None when fusion is off or the head is no floating matmul (an
+        int8-converted head: the model's ``head_params`` gate)."""
         return self.model.head_params() if self.fused_step else None
 
     def _sample(self, hidden_or_logits, hp) -> torch.Tensor:
@@ -2198,12 +2199,19 @@ class ContinuousBatchingEngine:
     def _macro_capture(self, with_chunk: bool) -> None:
         """Capture the iteration graphs this launch needs and has not
         got yet; records each one's kernel launches in
-        ``step_programs``."""
-        from .graphs import IterationGraphs, pools_key
+        ``step_programs``. Graphs whose weights were replaced or moved
+        since their capture (``convert_to_weight_only_int8`` swaps the
+        layers; ``WeightWatch``) would read the old, freed storage: they
+        are dropped and captured again on the model as it is."""
+        from .graphs import IterationGraphs, WeightWatch, pools_key
         m = self._macro
+        if m["graphs"] is not None and m["watch"].moved():
+            m["graphs"].close()
+            m["graphs"] = None
         if m["graphs"] is None:
             m["graphs"] = IterationGraphs(self.device,
                                           pools_key(self._pools))
+            m["watch"] = WeightWatch(self.model)
             # a graph reads every weight at its address now: a swap must
             # copy into these tensors, never replace them
             self._graph_weight_ptrs = {

@@ -38,7 +38,7 @@ from typing import Callable, Dict, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["IterationGraphs", "Staging", "pools_key"]
+__all__ = ["IterationGraphs", "Staging", "WeightWatch", "pools_key"]
 
 # CU_GRAPH_NODE_TYPE_KERNEL of libcuda (cuda.h)
 _KERNEL_NODE = 0
@@ -78,6 +78,29 @@ def kernel_nodes(graph: "torch.cuda.CUDAGraph") -> int:
                                f"{err}")
         count += kind.value == _KERNEL_NODE
     return count
+
+
+class WeightWatch:
+    """A model's modules, parameters and buffers as registered now, and
+    each tensor's address: what a graph captured now reads.
+    :meth:`moved` tells whether any was replaced since (a layer swapped
+    by ``convert_to_weight_only_int8``, a reassigned weight) or its
+    storage moved; a copy in place (``load_jax_state``) moves nothing.
+    One identity and address check an entry, cheap enough for every
+    launch."""
+
+    def __init__(self, model: torch.nn.Module):
+        self._entries = [
+            (table, name, obj,
+             obj.data_ptr() if isinstance(obj, torch.Tensor) else None)
+            for mod in model.modules()
+            for table in (mod._modules, mod._parameters, mod._buffers)
+            for name, obj in table.items() if obj is not None]
+
+    def moved(self) -> bool:
+        return not all(table.get(name) is obj and
+                       (ptr is None or obj.data_ptr() == ptr)
+                       for table, name, obj, ptr in self._entries)
 
 
 class Staging:
@@ -142,10 +165,14 @@ class IterationGraphs:
         return kind in self._graphs
 
     def capture(self, kind: str, fn: Callable[[], None],
-                quiesce: Callable[[], None]) -> int:
+                quiesce: Callable[[], None],
+                generators: Sequence[torch.Generator] = ()) -> int:
         """Warm ``fn`` (one iteration) up on the capture stream after
         ``quiesce()`` (which makes an iteration write only the scratch
-        page), then capture it. Returns the graph's kernel nodes."""
+        page), then capture it. ``generators``: the CUDA generators
+        ``fn`` draws from, registered with the graph so that each replay
+        draws anew from their state and advances it. Returns the graph's
+        kernel nodes."""
         from ..ops.kernels import add_launches, launch_counts
         if kind in self._graphs:
             raise RuntimeError(f"iteration graph {kind!r} is already "
@@ -159,6 +186,8 @@ class IterationGraphs:
                 fn()
         cur.wait_stream(self.stream)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for gen in generators:
+            graph.register_generator_state(gen)
         before = launch_counts()
         with torch.no_grad(), torch.cuda.graph(
                 graph, pool=self._pool, stream=self.stream,

@@ -22,8 +22,15 @@ sequence chunks whose logits are recomputed in backward, and ``remat``
 recomputes blocks in backward (``torch.utils.checkpoint``), with
 ``remat_save_attention`` all but the attention kernel's forward.
 
-Not ported yet (see ROADMAP.md): MoE, sequence parallelism, the static
-KV cache and ``generate``.
+Generation (``generate``) runs the eager loop over a growing ``(k, v)``
+cache, or the one-launch mode over a ``StaticKVCache`` (dense buffers
+written at a device-side position) or paged pools, whose decode step is
+one CUDA graph replayed a token on the card, or the per-block chunked
+mode. A layer converted by ``quantization.quant.
+convert_to_weight_only_int8`` has no floating ``weight``: the fused
+lm head and the fused out-projection decline it.
+
+Not ported yet (see ROADMAP.md): MoE, sequence parallelism.
 """
 
 from __future__ import annotations
@@ -131,6 +138,28 @@ class PagedKVCache(NamedTuple):
     @property
     def page_size(self) -> int:
         return self.k_pages.shape[1]
+
+
+class StaticKVCache(NamedTuple):
+    """Preallocated per-layer KV buffer for fixed-shape decode
+    (``gpt.py:174-185``): ``k`` / ``v`` ``[B, max_len, H, D]`` and
+    ``pos``, the positions already written, a 0-d int32 tensor on the
+    buffers' device. A step writes its keys and values at ``pos`` and
+    advances ``pos`` IN PLACE, so a CUDA graph of the step reads and
+    writes all three at fixed addresses."""
+
+    k: Any
+    v: Any
+    pos: Any
+
+
+def static_cache_create(batch: int, max_len: int, num_heads: int,
+                        head_dim: int, dtype, device=None) -> StaticKVCache:
+    """Zero-filled buffers at position 0."""
+    shape = (batch, max_len, num_heads, head_dim)
+    return StaticKVCache(torch.zeros(shape, dtype=dtype, device=device),
+                         torch.zeros(shape, dtype=dtype, device=device),
+                         torch.zeros((), dtype=torch.int32, device=device))
 
 
 def paged_cache_create(batch: int, num_pages: int, page_size: int,
@@ -534,20 +563,53 @@ class GPTAttention(nn.Module):
         self.attn_dropout_p = c.attn_dropout
         self.use_flash = c.use_flash_attention
 
-    def forward(self, x, cache: Optional[PagedKVCache] = None,
-                prefill_len=None, prefill_chained: bool = False,
-                fused: bool = False):
+    def forward(self, x, cache=None, prefill_len=None,
+                prefill_chained: bool = False, fused: bool = False,
+                use_cache: bool = False):
+        """``cache``: a ``PagedKVCache`` (ragged paged decode), a
+        ``StaticKVCache`` (fixed-shape decode), or with ``use_cache`` a
+        ``(k, v)`` pair or None (the eager cache: the new keys and
+        values are concatenated to it). A cached call returns ``(out,
+        new cache)``."""
         b, s, _ = x.shape
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        if cache is not None:
+        if isinstance(cache, PagedKVCache):
             return self._decode_paged(q, k, v, cache, b, s, prefill_len,
                                       prefill_chained, fused)
+        if isinstance(cache, StaticKVCache):
+            return self._decode_static(q, k, v, cache, b, s)
+        if use_cache and cache is not None:
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
         out = NF.scaled_dot_product_attention(
             q, k, v, is_causal=True, dropout_p=self.attn_dropout_p,
             training=self.training, use_flash=bool(self.use_flash))
-        return self.out_proj(out.reshape(b, s, -1))
+        out = self.out_proj(out.reshape(b, s, -1))
+        return (out, (k, v)) if use_cache else out
+
+    def _decode_static(self, q, k, v, cache: StaticKVCache, b, s):
+        """Decode against a preallocated buffer (``gpt.py:752-782``): the
+        new keys and values go in at ``pos`` by a device-side index (the
+        start clamped so the chunk fits, as ``dynamic_update_slice``
+        does), attention runs over the whole buffer under ``kpos <= pos +
+        i`` (the plain math, ``use_flash=False``, as in JAX), and ``pos``
+        advances in place."""
+        total = cache.k.shape[1]
+        dev = q.device
+        ar = torch.arange(s, device=dev)
+        pos = cache.pos.long()
+        idx = torch.clamp(pos, 0, total - s) + ar
+        cache.k.index_copy_(1, idx, k.to(cache.k.dtype))
+        cache.v.index_copy_(1, idx, v.to(cache.v.dtype))
+        kpos = torch.arange(total, device=dev)
+        mask = (kpos[None, :] <= (pos + ar)[:, None])[None, None]
+        out = NF.scaled_dot_product_attention(q, cache.k, cache.v,
+                                              attn_mask=mask,
+                                              use_flash=False)
+        cache.pos.add_(s)
+        return self.out_proj(out.reshape(b, s, -1)), cache
 
     def _decode_paged(self, q, k, v, cache, b, s, prefill_len,
                       prefill_chained, fused):
@@ -587,12 +649,15 @@ class GPTAttention(nn.Module):
 
     def _fused_epilogue_params(self):
         """(weight, bias) of the out-projection when the fused epilogue
-        can fold it: a floating ``[H*D, E]`` weight."""
-        w = self.out_proj.weight
-        if not torch.is_floating_point(w) or \
+        can fold it (``gpt.py:875-892``): a floating ``[H*D, E]``
+        weight. A converted projection (``WeightOnlyInt8Linear``, whose
+        weight lives in int8 buffers) has no ``weight`` and keeps the
+        unfused composition."""
+        w = getattr(self.out_proj, "weight", None)
+        if w is None or not torch.is_floating_point(w) or \
                 w.shape[0] != self.num_heads * self.head_dim:
             return None
-        return w, self.out_proj.bias
+        return w, getattr(self.out_proj, "bias", None)
 
 
 class GPTMLP(nn.Module):
@@ -627,12 +692,12 @@ class GPTBlock(nn.Module):
         self.dropout = Dropout(config.dropout)
 
     def forward(self, x, cache=None, prefill_len=None,
-                prefill_chained=False, fused=False):
-        if cache is not None:
+                prefill_chained=False, fused=False, use_cache=False):
+        if cache is not None or use_cache:
             a, new_cache = self.attn(self.ln_1(x), cache,
                                      prefill_len=prefill_len,
                                      prefill_chained=prefill_chained,
-                                     fused=fused)
+                                     fused=fused, use_cache=True)
             x = x + self.dropout(a)
             x = x + self.dropout(self.mlp(self.ln_2(x)))
             return x, new_cache
@@ -659,16 +724,25 @@ class GPTModel(nn.Module):
                               device=device, dtype=dtype)
 
     def forward(self, input_ids, position_ids=None,
-                caches: Optional[List[PagedKVCache]] = None,
+                caches: Optional[List[Any]] = None,
                 prefill_lens=None, prefill_chained: bool = False,
                 fused: bool = False):
+        """``caches``: one cache a layer, all of one kind: a
+        ``PagedKVCache``, a ``StaticKVCache`` or an eager ``(k, v)``
+        pair (None before the first call). Positions continue from the
+        cache: each sequence's length, ``pos``, or the pair's length
+        (``gpt.py:985-1000``)."""
         b, s = input_ids.shape
         if position_ids is None:
             position_ids = torch.arange(s, device=input_ids.device)[None]
-            if caches is not None:
+            c0 = caches[0] if caches is not None else None
+            if isinstance(c0, PagedKVCache):
                 # ragged: each sequence continues from ITS length
-                position_ids = (position_ids
-                                + caches[0].seq_lens[:, None].long())
+                position_ids = position_ids + c0.seq_lens[:, None].long()
+            elif isinstance(c0, StaticKVCache):
+                position_ids = position_ids + c0.pos.long()
+            elif c0 is not None:
+                position_ids = position_ids + c0[0].shape[1]
             position_ids = position_ids.expand(b, s)
         x = self.wte(input_ids) + self.wpe(position_ids)
         x = self.drop(x)
@@ -684,7 +758,8 @@ class GPTModel(nn.Module):
         new_caches = []
         for block, cache in zip(self.h, caches):
             x, nc = block(x, cache, prefill_len=prefill_lens,
-                          prefill_chained=prefill_chained, fused=fused)
+                          prefill_chained=prefill_chained, fused=fused,
+                          use_cache=True)
             new_caches.append(nc)
         return self.ln_f(x), new_caches
 
@@ -725,11 +800,16 @@ class GPTForCausalLM(nn.Module):
 
     def head_params(self):
         """``(weight, transpose_y, bias)`` of the lm head for the fused
-        streaming sampler: the tied ``[V, E]`` wte with
-        ``transpose_y=True``, or the untied ``[E, V]`` head."""
+        streaming sampler (``gpt.py:1073-1089``): the tied ``[V, E]`` wte
+        with ``transpose_y=True``, or the untied ``[E, V]`` head; None
+        when the head is not a floating matmul (an int8-converted head),
+        and callers then take :meth:`logits`."""
         if self.lm_head is None:
             return self.gpt.wte.weight, True, None
-        return self.lm_head.weight, False, self.lm_head.bias
+        w = getattr(self.lm_head, "weight", None)
+        if w is None or not torch.is_floating_point(w):
+            return None
+        return w, False, getattr(self.lm_head, "bias", None)
 
     def decode_hidden(self, input_ids, caches, prefill_lens=None,
                       prefill_chained: bool = False, fused: bool = False):
@@ -752,6 +832,188 @@ class GPTForCausalLM(nn.Module):
         lengths and rolls back past the accepted prefix."""
         return self.forward(input_ids, caches=caches,
                             prefill_lens=valid_len, prefill_chained=True)
+
+    def _prompt_ids(self, input_ids) -> torch.Tensor:
+        """The prompt [B, S] as int64 on the model's device."""
+        return torch.as_tensor(input_ids, device=self.device).to(
+            torch.int64)
+
+    def generate(self, input_ids, max_new_tokens: int = 20,
+                 temperature: float = 1.0, top_k: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 use_jit: bool = False, kv_cache: str = "static",
+                 page_size: int = 64, compile_mode: str = "whole"):
+        """Greedy (``temperature=0``) or temperature / top-k sampling of
+        ``max_new_tokens`` tokens after the prompt ``input_ids`` [B, S]
+        (``gpt.py:1220-1292``); returns ``[B, S + N]`` int64, prompt
+        first, on the model's device. Draws come from ``generator`` (a
+        ``torch.Generator`` on that device; None: its default
+        generator), the port's counterpart of JAX's ``key``.
+
+        - The default is the eager loop over a ``(k, v)`` cache that
+          grows a token a step, the debuggable reference.
+        - ``use_jit=True`` is the one-launch mode: prefill into fresh
+          preallocated caches (``kv_cache``: "static" dense buffers,
+          "paged" pools with ``page_size`` pages, or "paged_int8" int8
+          pools), then one decode step replayed as a CUDA graph N - 1
+          times into a device token ring (:class:`_GenerateProgram`).
+        - ``compile_mode="chunked"`` (with ``use_jit``, static cache
+          only) runs the embedding, one block function over every
+          layer's own parameters and buffers, and the head as separate
+          calls, each through a ``RetryPolicy``. Its greedy tokens are
+          bitwise the whole mode's."""
+        if kv_cache not in ("static", "paged", "paged_int8"):
+            raise ValueError(f"unknown kv_cache mode {kv_cache!r}")
+        if compile_mode not in ("whole", "chunked"):
+            raise ValueError(f"unknown compile_mode {compile_mode!r}")
+        if kv_cache != "static" and not use_jit:
+            raise ValueError("paged kv_cache requires use_jit=True")
+        if compile_mode == "chunked" and not use_jit:
+            raise ValueError("compile_mode='chunked' requires "
+                             "use_jit=True (it IS a compile strategy)")
+        if kv_cache != "static" and compile_mode == "chunked":
+            raise ValueError(
+                "compile_mode='chunked' decodes over the dense "
+                "StaticKVCache only (its per-block programs exist to "
+                "shrink compiles, not to change the cache layout)")
+        if use_jit and compile_mode == "chunked" and max_new_tokens > 0:
+            return self._generate_chunked(input_ids, max_new_tokens,
+                                          temperature, top_k, generator)
+        if use_jit and max_new_tokens > 0:
+            return self._generate_jit(input_ids, max_new_tokens,
+                                      temperature, top_k, generator,
+                                      kv_cache=kv_cache,
+                                      page_size=page_size)
+        if max_new_tokens <= 0:
+            return input_ids
+        from ..nn.decode import sample_token
+        self.eval()
+        ids = self._prompt_ids(input_ids)
+        temp = float(temperature)
+        out = [ids]
+        with torch.no_grad():
+            logits, caches = self.forward(
+                ids, caches=[None] * self.config.num_layers)
+            for i in range(max_new_tokens):
+                tok = sample_token(logits[:, -1], temp, top_k, generator)
+                out.append(tok[:, None].to(torch.int64))
+                if i + 1 < max_new_tokens:  # the last token feeds nothing
+                    logits, caches = self.forward(out[-1], caches=caches)
+        return torch.cat(out, dim=1)
+
+    def _generate_jit(self, input_ids, max_new_tokens, temperature, top_k,
+                      generator, kv_cache: str = "static",
+                      page_size: int = 64):
+        """The one-launch mode (``gpt.py:1294-1417``) through a
+        :class:`_GenerateProgram`, cached on the model by JAX's signature
+        ``(b, s, N, temperature, top_k, kv_cache, page_size)``, the
+        kernel selection and whether the head is fused. A program whose
+        weights were replaced or moved since it was built
+        (``WeightWatch``: an in-place conversion) is dropped and built
+        again, so no graph replays stale weights."""
+        from ..ops.nn_functional import plain_mode
+        self.eval()
+        ids = self._prompt_ids(input_ids)
+        b, s = ids.shape
+        sig = (b, s, int(max_new_tokens), float(temperature), top_k,
+               kv_cache, int(page_size), plain_mode(),
+               self.head_params() is not None)
+        progs = self.__dict__.setdefault("_gen_programs", {})
+        prog = progs.get(sig)
+        if prog is not None and prog.watch.moved():
+            prog.close()
+            prog = None
+        if prog is None:
+            for old in [k for k, p in progs.items() if p.watch.moved()]:
+                progs.pop(old).close()
+            prog = progs[sig] = _GenerateProgram(
+                self, b, s, int(max_new_tokens), float(temperature), top_k,
+                kv_cache, int(page_size))
+        return prog.run(ids, generator)
+
+    def clear_generate_cache(self) -> None:
+        """Drop the one-launch mode's cached programs: their caches and
+        CUDA graphs free their device memory."""
+        for prog in self.__dict__.pop("_gen_programs", {}).values():
+            prog.close()
+
+    def _generate_chunked(self, input_ids, max_new_tokens, temperature,
+                          top_k, generator):
+        """The per-block mode (``gpt.py:1419-1559``): the embedding, ONE
+        block function applied to every layer's own parameters AND
+        buffers (a converted layer keeps its int8 weights in buffers;
+        binding the parameters alone would run every layer on block 0's),
+        and the head, each call through a ``RetryPolicy`` at the sites
+        ``jit.compile.embed`` / ``jit.compile.block`` /
+        ``jit.compile.head``; then :func:`~..nn.decode.sample_token`. The
+        callables are cached on the model (``_chunked_jit_cache``) by
+        ``(temperature, top_k, parameter names, buffer names)``, so a
+        conversion, which renames the state, adds an entry."""
+        from ..distributed.resilience import RetryPolicy
+        from ..nn.decode import sample_token
+        self.eval()
+        cfg = self.config
+        if cfg.moe_experts > 0:
+            raise ValueError("chunked compile supports dense blocks only")
+        ids = self._prompt_ids(input_ids)
+        b, s = ids.shape
+        total = s + max_new_tokens
+        dt = self.gpt.wte.weight.dtype
+        temp, tk = float(temperature), top_k
+        # transport errors only, as in JAX: a deterministic failure
+        # propagates at once
+        retry = RetryPolicy(max_attempts=3, base_delay_s=0.5,
+                            retry_on=(ConnectionError, OSError))
+        blk0 = self.gpt.h[0]
+        pnames = [n for n, _ in blk0.named_parameters()]
+        bnames = [n for n, _ in blk0.named_buffers()]
+
+        def layer_state(blk):
+            ps, bs = dict(blk.named_parameters()), dict(blk.named_buffers())
+            return {**{n: ps[n] for n in pnames},
+                    **{n: bs[n] for n in bnames}}
+
+        states = [layer_state(blk) for blk in self.gpt.h]
+        cache = self.__dict__.setdefault("_chunked_jit_cache", {})
+        sig = (temp, tk, tuple(pnames), tuple(bnames))
+        if sig not in cache:
+            def embed_fn(ids_, pos0):
+                pos = pos0.long() + torch.arange(ids_.shape[1],
+                                                 device=ids_.device)
+                return self.gpt.wte(ids_) + self.gpt.wpe(
+                    pos[None].expand(ids_.shape))
+
+            def block_fn(x, kv, state):
+                return torch.func.functional_call(blk0, state, (x, kv))
+
+            def head_fn(x):
+                return self.logits(self.gpt.ln_f(x))[:, -1]
+
+            def sample_fn(last, gen):
+                return sample_token(last, temp, tk, gen)
+
+            cache[sig] = (embed_fn, block_fn, head_fn, sample_fn)
+        embed_fn, block_fn, head_fn, sample_fn = cache[sig]
+        kvs = [static_cache_create(b, total, cfg.num_heads, cfg.head_dim,
+                                   dt, device=ids.device)
+               for _ in range(cfg.num_layers)]
+
+        def run_stack(tokens):
+            x = retry.call(embed_fn, tokens, kvs[0].pos,
+                           site="jit.compile.embed")
+            for i in range(cfg.num_layers):
+                x, kvs[i] = retry.call(block_fn, x, kvs[i], states[i],
+                                       site="jit.compile.block")
+            return retry.call(head_fn, x, site="jit.compile.head")
+
+        out = [ids]
+        with torch.no_grad():
+            nxt = sample_fn(run_stack(ids), generator)
+            out.append(nxt[:, None].to(torch.int64))
+            for _ in range(max_new_tokens - 1):
+                nxt = sample_fn(run_stack(out[-1]), generator)
+                out.append(nxt[:, None].to(torch.int64))
+        return torch.cat(out, dim=1)
 
     def _chunked_lm_loss(self, hidden, labels, chunk: int):
         """Mean next-token CE over sequence chunks (``gpt.py:1103-1162``):
@@ -795,3 +1057,148 @@ class GPTForCausalLM(nn.Module):
                                          self.config.loss_chunk_size)
         logits = self.logits(hidden)
         return self.loss_fn(logits[:, :-1], labels[:, 1:]).mean()
+
+
+class _GenerateProgram:
+    """One signature of :meth:`GPTForCausalLM.generate`'s one-launch mode:
+    the port's counterpart of JAX's ``jax.jit`` over prefill plus a
+    ``lax.scan`` of decode steps (``gpt.py:1294-1417``).
+
+    It owns fresh caches of its kind (static buffers ``[B, S + N, H,
+    D]``, or paged pools of ``B * ceil((S + N) / page)`` pages with one
+    shared page table and lengths), the fed token ``cur`` [B], the token
+    ring ``[N, B]`` and its device index, all at fixed addresses. A run
+    clears the caches, prefills the prompt eagerly, then runs the decode
+    step N - 1 times: each samples from the last hidden row, writes the
+    ring at the index and feeds the token back. The step samples through
+    ``fused_sample_token`` when ``head_params()`` is not None, else
+    through the logits and ``sample_token``; the paged modes fold the
+    attention epilogue (``fused=True``, JAX's ``fused_decode()``).
+
+    On the card the step is ONE CUDA graph (``inference/graphs.py``
+    ``IterationGraphs``: warmed up and captured on cleared caches, which
+    the next run clears again; the wrappers' launches added once a
+    replay) and the ring is read back once. Sampling draws from a
+    private generator registered with the graph; each run seeds it
+    from one draw of the caller's generator, which that draw advances,
+    so a seed gives one stream whatever the program. On the CPU the same
+    step runs as a plain loop. A failed capture or replay raises."""
+
+    def __init__(self, model: "GPTForCausalLM", b: int, s: int, n: int,
+                 temperature: float, top_k, kv_cache: str,
+                 page_size: int):
+        from ..inference.graphs import WeightWatch
+        cfg = model.config
+        dev = model.device
+        self.model = model
+        self.n = n
+        self.temperature = temperature
+        self.top_k = top_k
+        self.kv_cache = kv_cache
+        self.watch = WeightWatch(model)
+        total = s + n
+        dt = model.gpt.wte.weight.dtype
+        nh, hd, nl = cfg.num_heads, cfg.head_dim, cfg.num_layers
+        i32 = dict(dtype=torch.int32, device=dev)
+        if kv_cache == "static":
+            self.caches = [static_cache_create(b, total, nh, hd, dt,
+                                               device=dev)
+                           for _ in range(nl)]
+            self.lens = None
+        else:
+            mp = -(-total // page_size)
+            self.lens = torch.zeros((b,), **i32)
+            table = torch.arange(b * mp, **i32).reshape(b, mp)
+            self.caches = [paged_cache_create(
+                b, b * mp, page_size, nh, hd, dt, mp,
+                quantized=(kv_cache == "paged_int8"), page_table=table,
+                seq_lens=self.lens, device=dev) for _ in range(nl)]
+        self.plens = torch.full((b,), s, **i32)
+        self.cur = torch.zeros((b,), **i32)
+        self.ring = torch.zeros((n, b), **i32)
+        self.j = torch.zeros((), **i32)
+        self.gen = (torch.Generator(device=dev) if temperature != 0.0
+                    else None)
+        self.graphs = None
+        if dev.type == "cuda" and n > 1:
+            from ..inference.graphs import IterationGraphs
+            if self.gen is not None and not hasattr(
+                    torch.cuda.CUDAGraph, "register_generator_state"):
+                raise NotImplementedError(
+                    "sampled generate(use_jit=True) on CUDA needs "
+                    "CUDAGraph.register_generator_state, which this torch "
+                    "lacks: not yet ported, see ROADMAP.md")
+            self.graphs = IterationGraphs(dev, ())
+            self.graphs.capture("decode", self._iterate, self._clear,
+                                generators=(self.gen,) if self.gen else ())
+
+    def _clear(self) -> None:
+        """Empty caches at position 0, the ring's index at 1."""
+        for c in self.caches:
+            for t in c[:2] if self.lens is None else c[:4]:
+                if t is not None:
+                    t.zero_()
+            if self.lens is None:
+                c.pos.zero_()
+        if self.lens is not None:
+            self.lens.zero_()
+        self.j.fill_(1)
+
+    def _step(self, ids, prefill: bool) -> torch.Tensor:
+        """One forward of ``ids`` [B, s] into the caches and the next
+        token [B] int32."""
+        from ..nn.decode import fused_sample_token, sample_token
+        m = self.model
+        paged = self.lens is not None
+        plens = self.plens if paged and prefill else None
+        hp = m.head_params()
+        if hp is not None:
+            hidden, nc = m.decode_hidden(ids, self.caches,
+                                         prefill_lens=plens, fused=paged)
+            w, ty, bias = hp
+            nxt = fused_sample_token(hidden[:, -1].contiguous(), w,
+                                     self.temperature, self.top_k,
+                                     self.gen, transpose_y=ty, bias=bias)
+        else:
+            logits, nc = m.forward(ids, caches=self.caches,
+                                   prefill_lens=plens)
+            nxt = sample_token(logits[:, -1], self.temperature, self.top_k,
+                               self.gen)
+        if paged:
+            self.lens.copy_(nc[0].seq_lens)
+        return nxt.to(torch.int32)
+
+    def _iterate(self) -> None:
+        """One decode step: feed ``cur``, write the ring at ``j``."""
+        nxt = self._step(self.cur[:, None].long(), prefill=False)
+        self.ring.index_copy_(0, self.j.long().view(1), nxt[None])
+        self.cur.copy_(nxt)
+        self.j.add_(1)
+
+    def run(self, ids: torch.Tensor, generator) -> torch.Tensor:
+        if self.gen is not None:
+            # one draw of the caller's generator seeds this run's stream
+            dev = (generator.device if generator is not None
+                   else self.cur.device)
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                     device=dev).item())
+            self.gen.manual_seed(seed)
+        with torch.no_grad():
+            self._clear()
+            first = self._step(ids, prefill=True)
+            self.ring[0].copy_(first)
+            self.cur.copy_(first)
+            for _ in range(self.n - 1):
+                if self.graphs is not None:
+                    self.graphs.replay("decode", ())
+                else:
+                    self._iterate()
+            toks = self.ring.t().to(torch.int64)
+        return torch.cat([ids, toks], dim=1)
+
+    def close(self) -> None:
+        """Drop the graph and the caches."""
+        if self.graphs is not None:
+            self.graphs.close()
+            self.graphs = None
+        self.caches = []

@@ -30,9 +30,9 @@ def sample_token(last, temperature: float = 0.0, top_k=None,
     scaled = last.to(torch.float32) / temperature
     if top_k is not None:
         kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
-        scaled = torch.where(scaled < kth,
-                             torch.tensor(-1e10, device=scaled.device),
-                             scaled)
+        # a scalar fill, not a host tensor: no copy, so a CUDA graph can
+        # capture the draw
+        scaled = scaled.masked_fill(scaled < kth, -1e10)
     probs = torch.softmax(scaled, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32)

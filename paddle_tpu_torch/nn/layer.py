@@ -70,13 +70,33 @@ def checkpoint_state(model: nn.Module) -> Dict[str, np.ndarray]:
     return {name: _to_host(t) for name, t in model.state_dict().items()}
 
 
+def _convert_for_state(model: nn.Module, state: Dict[str, Any]) -> None:
+    """Where ``state`` holds a weight-only int8 layer (``X.weight_int8``
+    and ``X.weight_scale``, no ``X.weight``) and the model a float
+    linear at ``X``, convert that layer in place first, so the state of
+    a converted JAX model loads into a float port model."""
+    from ..quantization.quant import WeightOnlyInt8Linear, _linear_types
+    types = _linear_types()
+    for name, sub in list(model.named_modules()):
+        pre = f"{name}." if name else ""
+        if (type(sub) in types and f"{pre}weight_int8" in state
+                and f"{pre}weight" not in state):
+            parent_name, _, attr = name.rpartition(".")
+            setattr(model.get_submodule(parent_name), attr,
+                    WeightOnlyInt8Linear(sub))
+
+
 def load_jax_state(model: nn.Module, state: Dict[str, Any]) -> None:
     """Copy ``state`` (name -> array) into the model's parameters and
     buffers in place (``copy_``: every tensor keeps its storage, so a
     CUDA graph captured before reads the new values). Missing or
     unexpected keys and shape mismatches raise. The copies bump each
     tensor's version counter, which is what a cache keyed on
-    ``(data_ptr(), _version)`` sees."""
+    ``(data_ptr(), _version)`` sees. The state of a model converted by
+    ``convert_to_weight_only_int8`` converts the matching float layers
+    first (new tensors, so graphs captured before are rebuilt), then
+    loads its int8 weights and scales byte for byte."""
+    _convert_for_state(model, state)
     own = model.state_dict()
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))

@@ -237,7 +237,8 @@ _PAGE, _MP = 8, 8
 
 def _prefilled(tm, jm, prompts):
     """Both packages' paged caches with ``prompts`` prefilled, one slot
-    each (a table of ``_MP`` pages a slot)."""
+    each (a table of ``_MP`` pages a slot); ``jm=None`` prefills the
+    port's alone (the JAX caches are then None)."""
     cfg = tm.config
     b = len(prompts)
     bucket = max(len(p) for p in prompts)
@@ -249,12 +250,14 @@ def _prefilled(tm, jm, prompts):
     tcs = [tgpt.paged_cache_create(b, n_pages, _PAGE, cfg.num_heads,
                                    cfg.head_dim, torch.float32, _MP)
            for _ in range(cfg.num_layers)]
-    jcs = [jgpt.paged_cache_create(b, n_pages, _PAGE, cfg.num_heads,
-                                   cfg.head_dim, jnp.float32, _MP)
-           for _ in range(cfg.num_layers)]
     with torch.no_grad():
         _, tcs = tm(torch.from_numpy(ids), caches=tcs,
                     prefill_lens=torch.from_numpy(plen))
+    if jm is None:
+        return tcs, None
+    jcs = [jgpt.paged_cache_create(b, n_pages, _PAGE, cfg.num_heads,
+                                   cfg.head_dim, jnp.float32, _MP)
+           for _ in range(cfg.num_layers)]
     _, jcs = jm.forward(Tensor(ids), caches=jcs,
                         prefill_lens=jnp.asarray(plen))
     return tcs, jcs
@@ -287,11 +290,11 @@ def test_verify_step_logits_match_jax(models):
 def test_verify_positions_are_the_vanilla_decode_logits(models):
     """Position j of one verify forward scores what the vanilla decode
     step scores after the same j tokens (same package, CPU)."""
-    jm, tm = models
+    _, tm = models
     rng = np.random.default_rng(22)
     prompt = rng.integers(0, VOCAB, 11).astype(np.int32)
     toks = rng.integers(0, VOCAB, (1, 4)).astype(np.int32)
-    tcs, _ = _prefilled(tm, jm, [prompt])
+    tcs, _ = _prefilled(tm, None, [prompt])
     lens0 = np.array([len(prompt)], np.int32)
     with torch.no_grad():
         ver, _ = tm.verify_step(torch.from_numpy(toks),
@@ -316,7 +319,7 @@ def test_verify_row_with_no_valid_token_changes_nothing_else(models):
     toks = rng.integers(0, VOCAB, (2, 4)).astype(np.int32)
     outs = {}
     for v1 in (4, 0):
-        tcs, _ = _prefilled(tm, jm, prompts)
+        tcs, _ = _prefilled(tm, None, prompts)
         before = [c.k_pages[8:16].clone() for c in tcs]
         with torch.no_grad():
             lg, new = tm.verify_step(torch.from_numpy(toks), tcs,
@@ -377,9 +380,9 @@ def test_model_draft_proposals_match_jax(models):
 
 def test_int8_pools_bit_identical(models):
     _, tm = models
-    ref, _ = _run(tm, kv_int8=True)
-    out, _ = _run(tm, kv_int8=True, speculative=SpeculativeConfig(k=4))
-    adv, _ = _run(tm, kv_int8=True, speculative=SpeculativeConfig(
+    ref, _ = _run(tm, 8, kv_int8=True)
+    out, _ = _run(tm, 8, kv_int8=True, speculative=SpeculativeConfig(k=4))
+    adv, _ = _run(tm, 8, kv_int8=True, speculative=SpeculativeConfig(
         k=8, draft=_wrong_draft()))
     assert out == ref and adv == ref
 
