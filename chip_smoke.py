@@ -16,7 +16,8 @@ failure exits non-zero at once:
    kernels and of the fused bottleneck, whose served instantiations must
    not spill.
 3. kernels — each kernel against its plain PyTorch version on the card
-   at the serving, training and ResNet paths' shapes, in fp32 and bf16,
+   at the serving, training and ResNet paths' shapes, in fp32 and bf16
+   (and the attention kernels and ``adam_update`` in fp16),
    with its tolerance, each check on inputs from its own generator
    (paged_decode also against its split emulation, and bit for bit
    alone against batched and against NaN where it must not read; the
@@ -36,7 +37,13 @@ failure exits non-zero at once:
    least time the card could take: the larger of the bytes at 3.35 TB/s
    and the products on the tensor cores (fp32 as 3xTF32, three TF32
    products at 495 TFLOP/s; bf16 at 989 TFLOP/s). The dQ and dK/dV
-   passes are timed in bf16 too at the headline step's shape.
+   passes are timed in bf16 too at the headline step's shape. fp16
+   (``kernels_fp16``): the forward, the dQ and dK/dV passes, the single
+   pass and the folded backward at train_amp's shapes against their
+   plain versions within ``FP16_ATOL`` (the ``BF16_ATOL`` limits scaled
+   by fp16's unit roundoff, 2^-11 over 2^-8) before the rounding, timed
+   beside SDPA in fp16 and their fp16 bounds (989 TFLOP/s);
+   ``adam_update``'s fp16 variant bitwise against its plain version.
 4. engine  — GPT-1.3B (seed-0 random weights, fp32) through the paged
    continuous-batching engine: the kernel path against the plain path
    on prefill and decode, then 8 requests whose prompts span every
@@ -134,8 +141,10 @@ failure exits non-zero at once:
    the float model's; chunked bitwise whole; a ``multi_step=4`` engine
    captured before the conversion recaptures; an 8-slot engine without
    ``decode_out_proj``). Reports ms a decode step per mode and peak
-   memory. The model is converted in place: it is this script's last
-   use of it.
+   memory. The one-launch mode's program cache keeps one program a
+   cache kind: a sweep of four signatures of each kind leaves one live
+   program a kind and the memory of one (``gen_cache_sweep``). The
+   model is converted in place: it is this script's last use of it.
 6. train   — GPT-1.3B training (fp32, dropout 0, ``AdamW(1e-4)``):
    one forward+backward at full depth, B=2, S=2048, through the kernels
    against the plain versions (loss and every parameter's gradient);
@@ -154,6 +163,30 @@ failure exits non-zero at once:
    derived from bf16's unit roundoff, ``multi_step`` over 6 steps (ms,
    tokens/s, peak memory, MFU against 989 TFLOP/s), a bitwise repeat, a
    ``fuse_optimizer`` step and a profiled step.
+6c. train_amp — the rest of the training surface at GPT-1.3B's widths
+   (V=32768, 24 layers, fp32 master weights, B=2, S=2048,
+   ``AdamW(1e-4)``): (a) ``auto_cast(dtype="bfloat16")`` O1 under
+   ``TrainStep``: one forward+backward through the kernels against the
+   plain path within the ``BF16_*`` limits (gradients fp32), then
+   ``multi_step`` over 6 steps (losses fall, ms, tokens/s, peak memory,
+   MFU, the attention kernels in bf16 and ``adam_update`` in fp32
+   launched, the casts of one forward); (d) ``Lookahead(k=2)`` around
+   its AdamW and an EMA over 3 more steps: the fast weights are the slow
+   ones after a sync, EMA ``apply`` + ``restore`` is bitwise the
+   identity, an evaluation inside ``apply_guard`` runs on the shadow;
+   (b) ``auto_cast(dtype="float16")`` with ``GradScaler()`` at its
+   defaults as an eager loop of 8 steps, an inf planted in one step's
+   gradient (that step leaves every parameter bitwise unchanged and the
+   optimizer's step count unmoved): the scale's path, the skipped steps,
+   the fp16 attention launches; one fp16 step at 4 layers at S=512 and
+   S=256 (the single pass and the folded backward); (c)
+   ``decorate(level="O2", dtype="float16")`` with ``GradScaler()`` for 2
+   steps: ``adam_update`` in (fp16, fp16); (e) ``DGCMomentum`` at 4
+   layers for 6 steps after a ``rampup_begin_step=2`` warm-up, the DGC
+   paper's sparsity ramp: each tensor's strided sample at its threshold
+   holds 1 - sparsity within two sample elements; the applied share of
+   the whole tensor reported beside it; ms a step beside
+   ``Momentum``'s.
 7. resnet  — ResNet-50 eval inference (NHWC, 224x224, N=128, fp32,
    seed-0 weights, seeded BN statistics) on the fused-bottleneck kernel
    path, the plain path and the ``fuse_conv_bn`` path: logits against
@@ -234,6 +267,15 @@ BF16_ATOL = {"paged_decode": 2e-5, "decode_out_proj": 1e-2,
 BF16_BEFORE_ROUNDING = ("attention_fwd", "attention_bwd_fused",
                         "folded_attention_bwd", "attention_bwd_dq",
                         "attention_bwd_dkv")
+# fp16 storage (``auto_cast(dtype="float16")``): the attention kernels'
+# limits, taken before the rounding as in bf16, are their BF16_ATOL
+# scaled by fp16's unit roundoff over bf16's, 2^-11 / 2^-8: what a
+# kernel adds before the output's rounding comes from its sum order and
+# from the two-term split of P and dS, each relative to the storage
+# type's precision (fp16 keeps 11 significant bits, bf16 8)
+FP16_U = 2.0 ** -11
+FP16_ATOL = {k: BF16_ATOL[k] * FP16_U / 2.0 ** -8
+             for k in BF16_BEFORE_ROUNDING}
 
 # (kernel, source, TPU kernel it replaces)
 KERNEL_META = {
@@ -260,6 +302,11 @@ KERNEL_META = {
     "adam_update": ("paddle_tpu_torch/csrc/adam_update.cu",
                     "paddle_tpu/optimizer/optimizer.py:420"),
 }
+# the fp16 instantiations (train_amp's fp16 paths), each a record of its
+# own beside the kernel's: "<kernel>_fp16"
+FP16_KERNELS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
+                "attention_bwd_fused", "folded_attention_bwd", "adam_update")
+KERNEL_META.update({f"{k}_fp16": KERNEL_META[k] for k in FP16_KERNELS})
 # the kernels each main path launches; their counts are read from it
 SERVING_KERNELS = ("paged_decode", "decode_out_proj", "fused_argmax",
                    "attention_fwd")
@@ -410,10 +457,18 @@ def phase_device(torch):
 
 # the backward's tensor-core kernels (csrc/attention_bwd.cu: the single
 # pass and the statistics launch of modes 2, 3, the dQ pass of mode 0,
-# the dK/dV pass of mode 1): each served instantiation, {fp32, bf16} x
-# {D=64, 128}, must not spill
+# the dK/dV pass of mode 1): each served instantiation, {fp32, bf16,
+# fp16} x {D=64, 128}, must not spill
 BWD_TC_KERNELS = ("attention_bwd_fused_kernel", "attention_bwd_stats_kernel",
                   "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")
+BWD_DTYPES = ("fp32", "bf16", "fp16")
+
+
+def _mangled_dtype(mangled: str) -> str:
+    """The storage type of a kernel instantiation from its mangled name."""
+    if "bfloat16" in mangled:
+        return "bf16"
+    return "fp16" if "__half" in mangled else "fp32"
 
 
 def ptxas_usage(text: str):
@@ -449,11 +504,10 @@ def bwd_ptxas(usage):
         kernel = next((k for k in BWD_TC_KERNELS if k in mangled), None)
         if kernel is None:
             continue
-        dtype = "bf16" if "bfloat16" in mangled else "fp32"
         d = re.search(r"Li(\d+)E", mangled).group(1)
-        rows[f"{kernel} {dtype} D={d}"] = u
+        rows[f"{kernel} {_mangled_dtype(mangled)} D={d}"] = u
     want = [f"{k} {dt} D={d}" for k in BWD_TC_KERNELS
-            for dt in ("fp32", "bf16") for d in (64, 128)]
+            for dt in BWD_DTYPES for d in (64, 128)]
     missing = [w for w in want if w not in rows]
     if missing:
         raise AssertionError(f"ptxas -v shows no lines for {missing}")
@@ -1048,12 +1102,14 @@ def _qkv(torch, gen, dev, B, Sq, Sk, H, D, dtype=None):
 def _attn_check(torch, tag, q, k, v, causal, tol, rtol=None):
     """The kernel against its plain version (out and lse), twice with
     the same bits, and without the lse; returns the largest error. A
-    bf16 ``out`` takes ``tol`` before its rounding (``check_rounded_from``
-    against the plain version's f32 result, ``BF16_BEFORE_ROUNDING``)."""
+    bf16 or fp16 ``out`` takes ``tol`` before its rounding
+    (``check_rounded_from`` against the plain version's f32 result,
+    ``BF16_BEFORE_ROUNDING``)."""
     from paddle_tpu_torch.ops.kernels.attention import (
         attention_fwd, attention_reference)
+    half = q.dtype in (torch.bfloat16, torch.float16)
     want_o, want_l = attention_reference(q, k, v, causal=causal)
-    if q.dtype == torch.bfloat16:
+    if half:
         want_o, _ = attention_reference(q.float(), k.float(), v.float(),
                                         causal=causal)
     got_o, got_l = attention_fwd(q, k, v, causal=causal)
@@ -1066,7 +1122,7 @@ def _attn_check(torch, tag, q, k, v, causal, tol, rtol=None):
             and torch.equal(got_o, bare_o)):
         raise AssertionError(f"attention_fwd {tag}: two runs differ")
     name = f"attention_fwd {tag} out"
-    if q.dtype == torch.bfloat16:
+    if half:
         out_err = check_rounded_from(name, got_o, want_o, tol)
     else:
         out_err = check_close(name, got_o, want_o, tol, rtol)
@@ -1148,19 +1204,20 @@ BF16_FWD_CASES = (("S=512", 512, 128, True, 1.0),
                   ("S=512 v x4", 512, 128, True, 4.0))
 
 
-def bf16_terms_fwd(torch, terms, q, k, v, causal):
-    """The plain forward with P carried as ``terms`` bf16 terms into
-    P.V, f32 otherwise (scores, max, row sum and the division by it):
-    what a kernel with one- or two-term bf16 P computes. Returns ``out``
-    rounded to the inputs' dtype."""
+def bf16_terms_fwd(torch, terms, q, k, v, causal, dtype=None):
+    """The plain forward with P carried as ``terms`` terms of ``dtype``
+    (bf16 unless given) into P.V, f32 otherwise (scores, max, row sum
+    and the division by it): what a kernel with one- or two-term P
+    computes. Returns ``out`` rounded to the inputs' dtype."""
     from paddle_tpu_torch.ops.kernels import attention as A
+    dtype = torch.bfloat16 if dtype is None else dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = A._scores(q, k, causal, scale)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     den = p.sum(dim=-1, keepdim=True)
-    hi = p.to(torch.bfloat16).float()
+    hi = p.to(dtype).float()
     if terms == 2:
-        hi = hi + (p - hi).to(torch.bfloat16).float()
+        hi = hi + (p - hi).to(dtype).float()
     out = torch.einsum("bhqk,bkhd->bqhd", hi / den, v.float())
     return out.to(q.dtype)
 
@@ -1320,13 +1377,16 @@ def _bwd_call(name, q, k, v, do, lse, delta, causal):
     return dict(zip(keys, got)), dict(zip(keys, want))
 
 
-def bf16_terms_bwd(torch, name, terms, q, k, v, do, lse, delta, causal):
-    """The plain version of ``name`` with P carried as ``terms`` bf16
-    terms into the products (dS = P (dP - delta) scale inherits its
-    error), f32 otherwise: what a kernel with one- or two-term bf16 P/dS
-    computes. Returns the gradients ``name`` returns (``BWD_OUTPUTS``),
-    {"dq"/"dk"/"dv": tensor}, in the inputs' dtype."""
+def bf16_terms_bwd(torch, name, terms, q, k, v, do, lse, delta, causal,
+                   dtype=None):
+    """The plain version of ``name`` with P carried as ``terms`` terms
+    of ``dtype`` (bf16 unless given) into the products (dS = P (dP -
+    delta) scale inherits its error), f32 otherwise: what a kernel with
+    one- or two-term P/dS computes. Returns the gradients ``name``
+    returns (``BWD_OUTPUTS``), {"dq"/"dk"/"dv": tensor}, in the inputs'
+    dtype."""
     from paddle_tpu_torch.ops.kernels import attention as A
+    dtype = torch.bfloat16 if dtype is None else dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = A._scores(q, k, causal, scale)
     if name == "folded_attention_bwd":
@@ -1336,9 +1396,9 @@ def bf16_terms_bwd(torch, name, terms, q, k, v, do, lse, delta, causal):
     else:
         p = torch.exp(s - lse.transpose(1, 2)[..., None])
         d = delta.transpose(1, 2)[..., None]
-    hi = p.to(torch.bfloat16).float()
+    hi = p.to(dtype).float()
     if terms == 2:
-        hi = hi + (p - hi).to(torch.bfloat16).float()
+        hi = hi + (p - hi).to(dtype).float()
     grads = dict(zip(("dq", "dk", "dv"),
                      A._grads_from_p(q, k, v, do, hi, d, scale)))
     return {key: grads[key] for key in BWD_OUTPUTS[name]}
@@ -1479,6 +1539,115 @@ def kernel_attention_bwd(torch, timer, dev, records):
               "bf16_apart": apart[name],
               "library": f"SDPA backward ({backend}), dQ+dK+dV",
               "cases": [c[0] for c in BWD_CASES if name in c[1]]})
+
+
+# fp16 cases of the backward: (label, kernels, B, S), H=16, D=128,
+# causal. The first three are train_amp's shapes (GPT-1.3B at B=2: the
+# flash passes at S=2048, the single pass at S=512, the folded kernel at
+# S=256) and are timed; S=200 is ragged.
+FP16_BWD_CASES = (
+    ("S=2048 causal", ("attention_bwd_dq", "attention_bwd_dkv"), 2, 2048),
+    ("S=512 causal", ("attention_bwd_fused",), 2, 512),
+    ("S=256 causal", ("folded_attention_bwd",), 2, 256),
+    ("S=200 causal", TRAINING_KERNELS, 2, 200))
+# fp16 forward cases: (label, B, S, D, causal), H=16; the first is the
+# headline step's shape and is timed
+FP16_FWD_CASES = (("S=2048", 2, 2048, 128, True),
+                  ("S=512 non-causal", 1, 512, 128, False),
+                  ("D=64 S=200", 1, 200, 64, True))
+
+
+def kernels_fp16(torch, timer, dev, records):
+    """fp16 storage through the attention kernels (fp16 operands, f32
+    accumulators) against their plain versions on the same fp16 inputs:
+    the outputs within ``FP16_ATOL`` before the rounding, each call twice
+    with the same bits; whether one-term fp16 P/dS would pass the same
+    check is reported (``one_term_refused``). The forward, the dQ and
+    dK/dV passes, the single pass and the folded backward are timed at
+    train_amp's shapes beside SDPA in fp16 and beside their fp16 bounds
+    (989 TFLOP/s). ``adam_update``'s fp16 variant is held in
+    ``kernel_adam``."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import attention as A
+    h = torch.float16
+    H = 16
+    errs, one_term = {}, {}
+    for label, B, S, D, causal in FP16_FWD_CASES:
+        gen = check_gen(torch, dev, f"fp16 attention_fwd {label}")
+        q, k, v = _qkv(torch, gen, dev, B, S, S, H, D, h)
+        tol = FP16_ATOL["attention_fwd"]
+        errs["attention_fwd"] = max(errs.get("attention_fwd", 0.0),
+                                    _attn_check(torch, f"fp16 {label}", q, k,
+                                                v, causal, tol, 0.0))
+        want32, _ = A.attention_reference(q.float(), k.float(), v.float(),
+                                          causal=causal)
+        if not rounded_from(bf16_terms_fwd(torch, 1, q, k, v, causal, h),
+                            want32, tol):
+            one_term.setdefault("attention_fwd", []).append(label)
+        if label != FP16_FWD_CASES[0][0]:
+            continue
+        ms = timer(lambda: A.attention_fwd(q, k, v, causal=causal))
+        plain_ms = timer(lambda: A.attention_reference(q, k, v,
+                                                       causal=causal))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        b, by = bound_ms(*attention_fwd_cost(B, S, H, D, causal, 2), "fp16")
+        records["attention_fwd_fp16"] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
+            bound_by=by, shape=f"B={B} S={S} H={H} D={D} causal fp16")
+    records["attention_fwd_fp16"]["max_abs_err"] = errs["attention_fwd"]
+    for label, names, B, S in FP16_BWD_CASES:
+        gen = check_gen(torch, dev, f"fp16 attention_bwd {label}")
+        ins = _bwd_inputs(torch, gen, dev, B, S, h, True, False)
+        for name in names:
+            got, _ = _bwd_call(name, *ins, True)
+            again, _ = _bwd_call(name, *ins, True)
+            _, want32 = _bwd_call(name, *(t.float() for t in ins), True)
+            torch.cuda.synchronize()
+            tol = FP16_ATOL[name]
+            for key, g in got.items():
+                tag = f"{name} {label} fp16 {key}"
+                if g.dtype != h or not torch.isfinite(g).all():
+                    raise AssertionError(f"{tag}: {g.dtype}, or non-finite")
+                if not torch.equal(g, again[key]):
+                    raise AssertionError(f"{tag}: two runs differ")
+                errs[name] = max(errs.get(name, 0.0), check_rounded_from(
+                    tag, g, want32[key], tol))
+            one = bf16_terms_bwd(torch, name, 1, *ins, True, h)
+            if not all(rounded_from(one[key], want32[key], tol)
+                       for key in one):
+                one_term.setdefault(name, []).append(label)
+            if label == FP16_BWD_CASES[-1][0]:
+                continue
+            q, k, v, do, lse, delta = ins
+            fn = getattr(A, name)
+            if name == "folded_attention_bwd":
+                call = lambda: fn(q, k, v, do, True)  # noqa: E731
+                plain_ms = timer(lambda: A.folded_bwd_reference(
+                    q, k, v, do, True))
+            else:
+                call = lambda: fn(q, k, v, do, lse, delta, True)  # noqa
+                plain_ms = timer(lambda: A.attention_bwd_reference(
+                    q, k, v, do, lse, delta, True))
+            ms = timer(call)
+            lib_ms, backend = _sdpa_bwd_ms(torch, timer, q, k, v, do, True)
+            D = q.shape[3]
+            rd, wr, st = BWD_ROWS[name]
+            nbytes = (rd + wr) * B * S * H * D * 2 + st * B * S * H * 4
+            b, by = bound_ms(nbytes, BWD_FLOPS[name] * B * H *
+                             (S * (S + 1) // 2) * D, "fp16")
+            records[f"{name}_fp16"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
+                bound_by=by, library=f"SDPA backward ({backend})",
+                shape=f"B={B} S={S} H={H} D={D} causal fp16")
+    for name in TRAINING_KERNELS:
+        records[f"{name}_fp16"]["max_abs_err"] = errs[name]
+    emit({"phase": "kernels_fp16", "ok": True, "atol": FP16_ATOL,
+          "before_rounding": True, "max_abs_err": errs,
+          "one_term_refused": one_term,
+          "records": {n: records[f"{n}_fp16"] for n in
+                      ("attention_fwd",) + TRAINING_KERNELS}})
 
 
 # (label, N, H, W, C, M): the two shapes ResNet-50's main path gives the
@@ -1654,10 +1823,11 @@ ADAM_BLOCK_SHAPES = ((2048,), (2048,), (2048, 6144), (6144,), (2048, 2048),
                      (2048,), (2048,), (2048,), (2048, 8192), (8192,),
                      (8192, 2048), (2048,))
 ADAM_RAGGED_SHAPES = ((2048,), (1001,), (0,), (3, 5))
-# (label, param dtype, slot dtype): the kernel's three storage variants
+# (label, param dtype, slot dtype): the kernel's four storage variants
 ADAM_VARIANTS = (("fp32", "float32", "float32"),
                  ("bf16", "bfloat16", "bfloat16"),
-                 ("bf16 params fp32 slots", "bfloat16", "float32"))
+                 ("bf16 params fp32 slots", "bfloat16", "float32"),
+                 ("fp16", "float16", "float16"))
 ADAM_STEPS = 3
 ADAM_LR, ADAM_WD = 1e-4, 0.01
 
@@ -1830,6 +2000,11 @@ def kernel_adam(torch, timer, dev, records):
         max_abs_err=0.0, ms=first["ms"], plain_ms=first["plain_ms"],
         bound_ms=first["bound_ms"], bound_by=first["bound_by"],
         library_ms=first["library_ms"], per_variant=per_variant)
+    fp16 = next(r for r in per_variant if r["variant"] == "fp16")
+    records["adam_update_fp16"] = dict(
+        max_abs_err=0.0, **{k: fp16[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        shape=f"GPT-1.3B block, {n} elements, fp16 params and slots")
     emit({"phase": "kernels", "kernel": "adam_update", "ok": True,
           "checks": checks, "steps": ADAM_STEPS, "bitwise": True,
           "max_tensors_a_launch": OU.MAX_TENSORS,
@@ -1848,6 +2023,7 @@ def phase_kernels(torch, dev, records):
         fn(torch, timer, dev, check_gen(torch, dev, fn.__name__), records)
     kernels_bf16(torch, dev)
     kernel_attention_bwd(torch, timer, dev, records)
+    kernels_fp16(torch, timer, dev, records)
     kernel_fused_bottleneck(torch, timer, dev, records)
     kernel_adam(torch, timer, dev, records)
     torch.cuda.synchronize()
@@ -4087,6 +4263,48 @@ def _macro_graphs(eng):
     return eng._macro["graphs"]
 
 
+# the program cache's sweep: four signatures of each cache kind (batch
+# and new tokens vary; the largest first), on the phase's prompts
+GEN_SWEEP = ((GEN_B, 6), (GEN_B, 4), (GEN_B // 2, 6), (GEN_B // 2, 4))
+# memory after a kind's sweep against after its first (largest)
+# signature: one program's caches and graph, not four
+GEN_SWEEP_SLACK = 1.05
+
+
+def gen_cache_sweep(torch, model, ids):
+    """Each cache kind's ``GEN_SWEEP`` in turn through the one-launch
+    mode: after a kind's four signatures one program of that kind is
+    live (one more a kind swept before), and the memory allocated beyond
+    the kind's start is at most ``GEN_SWEEP_SLACK`` times that after its
+    first signature. Returns per kind the live programs and the memory
+    (GB) after the first call, after the sweep and at its peak."""
+    model.clear_generate_cache()
+    _free_engine_memory(torch)
+    rec = {}
+    for i, mode in enumerate(("static", "paged", "paged_int8")):
+        kw = dict(GEN_MODES)[mode]
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        after = []
+        for b, n in GEN_SWEEP:
+            _generate(torch, model, ids[:b], n, temperature=0.0, **kw)
+            torch.cuda.synchronize()
+            after.append((torch.cuda.memory_allocated() - start) / 1e9)
+        kinds = sorted(p.kv_cache for p in model._gen_programs.values())
+        rec[mode] = {"live_programs": kinds,
+                     "first_gb": after[0], "after_sweep_gb": after[-1],
+                     "peak_gb": (torch.cuda.max_memory_allocated()
+                                 - start) / 1e9}
+        if kinds.count(mode) != 1 or len(kinds) != i + 1 or \
+                not after[-1] <= GEN_SWEEP_SLACK * after[0]:
+            raise AssertionError(f"generate program cache {mode}: "
+                                 f"{rec[mode]}")
+    model.clear_generate_cache()
+    _free_engine_memory(torch)
+    return rec
+
+
 def phase_generate(torch, dev, model, card):
     """``GPTForCausalLM.generate`` at GPT-1.3B's full width (the engine
     phase's seed-0 model, fp32), ``GEN_B`` prompts of ``GEN_PROMPT``
@@ -4199,6 +4417,7 @@ def phase_generate(torch, dev, model, card):
                    "paged_int8_vs_paged_agreement": _agreement(
                        [r[s:] for r in toks["paged_int8"]],
                        [r[s:] for r in toks["paged"]])}
+    out["program_cache"] = gen_cache_sweep(torch, model, ids)
     small = {}
     for n_small in GEN_SMALL:
         one = ids[:1, :n_small]
@@ -4842,6 +5061,452 @@ def phase_train_bf16(torch, dev, launches):
     torch.cuda.empty_cache()
 
 
+# -- phase 6c ----------------------------------------------------------------
+
+# train_amp: GPT-1.3B at published widths (V=32768 as in train_bf16),
+# fp32 master weights, B=2, S=2048, AdamW(1e-4)
+AMP_STEPS = 6            # (a): multi_step under auto_cast bf16
+AMP_SCALER_STEPS = 8     # (b): the fp16 + GradScaler eager loop
+AMP_INF_STEP = 3         # (b): the step whose gradient gets an inf
+AMP_O2_STEPS = 2         # (c): decorate(level="O2", dtype="float16")
+# (c): an eps fp16 holds. 1e-8 rounds to 0 in an fp16 slot, and where v
+# underflows the step is lr * m / eps: at 1e-8 a weight of size 0.02
+# moves by ~1 (the kernel, the plain version and the JAX rule alike)
+AMP_O2_EPS = 1e-4
+AMP_LOOK_STEPS = 3       # (d): Lookahead(k=2) and EMA over (a)'s step
+AMP_LOOK_K = 2
+AMP_DGC_LAYERS = 4       # (e): DGCMomentum at 4 layers
+AMP_DGC_STEPS = 6
+AMP_DGC_TIMED = 3        # (e): more steps, timed without the watch
+AMP_DGC_BEGIN = 2
+AMP_DGC_RAMP = 4
+# the DGC paper's warm-up sparsities (Lin et al., 2018: 75%, 93.75%,
+# 98.4375%, 99.6%, 99.9%)
+AMP_DGC_SPARSITY = (0.75, 0.9375, 0.984375, 0.996, 0.999)
+AMP_DGC_LR = 1e-3
+# the share of a tensor's sample at or above its threshold is 1 -
+# sparsity up to the quantile's resolution (the interpolation and ties
+# at it): held within 2 sample elements. The share of the whole tensor
+# is reported against what a random sample of that size would give
+# (4 sigmas of sqrt(p (1 - p) / n_s), plus one element): the
+# reference's sample is strided, not random
+AMP_DGC_SAMPLE_SLACK = 2.0
+AMP_DGC_SIGMAS = 4.0
+# fp16 single pass and folded backward: one 4-layer step each at the
+# shapes their gates admit
+AMP_FP16_VARIANTS = (("S=512", 512, "attention_bwd_fused"),
+                     ("S=256", 256, "folded_attention_bwd"))
+
+
+def _amp_fn(dtype, level="O1"):
+    """A ``train_fn`` whose forward runs under ``auto_cast``."""
+    from paddle_tpu_torch.amp import auto_cast
+
+    def fn(m, x):
+        with auto_cast(dtype=dtype, level=level):
+            return m(x, labels=x)
+    return fn
+
+
+def _amp_loss_and_grads(torch, model, ids, dtype, plain: bool):
+    """``_loss_and_grads`` with the forward under ``auto_cast``."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.ops.nn_functional import plain_kernels
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with plain_kernels(plain):
+        with auto_cast(dtype=dtype):
+            loss = model(ids, labels=ids)
+        loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def _cast_counts(torch, model, ids, dtype, level="O1"):
+    """(op, target dtype) -> count of one forward's ``amp_cast`` calls."""
+    from paddle_tpu_torch.amp import auto_cast, record_casts
+    with torch.no_grad(), record_casts() as seen, \
+            auto_cast(dtype=dtype, level=level):
+        model(ids[:, :256], labels=ids[:, :256])
+    counts = {}
+    for name, target in seen:
+        key = f"{name}->{str(target).replace('torch.', '')}"
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def _params_equal(torch, model, snap) -> bool:
+    return all(torch.equal(p.detach(), snap[n])
+               for n, p in model.named_parameters())
+
+
+def _eval_loss(torch, model, ids, dtype):
+    from paddle_tpu_torch.amp import auto_cast
+    model.eval()
+    with torch.no_grad(), auto_cast(dtype=dtype):
+        return float(model(ids, labels=ids))
+
+
+def amp_bf16_and_wrappers(torch, dev, ids):
+    """(a) and (d): the bf16 O1 step (kernels against plain, then
+    ``multi_step``), then Lookahead and EMA over more of its steps."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.optimizer import (AdamW, ExponentialMovingAverage,
+                                            Lookahead)
+    B, S = ids.shape
+    model = _train_model(torch, dev, vocab_size=BF16_VOCAB)
+    cfg = model.config
+    casts = _cast_counts(torch, model, ids, "bfloat16")
+    loss_k, grads_k = _amp_loss_and_grads(torch, model, ids, "bfloat16",
+                                          False)
+    loss_p, grads_p = _amp_loss_and_grads(torch, model, ids, "bfloat16",
+                                          True)
+    grad_dtypes = sorted({str(g.dtype) for g in grads_k.values()})
+    rec = _check_bf16_parity(loss_k, loss_p, grads_k, grads_p)
+    del grads_k, grads_p
+    if grad_dtypes != ["torch.float32"] or loss_k.dtype != torch.float32:
+        raise AssertionError(f"train_amp bf16: gradients {grad_dtypes}, "
+                             f"loss {loss_k.dtype}")
+    step = TrainStep(model, AdamW(learning_rate=TRAIN_LR),
+                     _amp_fn("bfloat16"), seed=0, device=dev)
+    first = float(step(ids))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    losses = step.multi_step(ids[None].expand(AMP_STEPS, B, S))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = losses.tolist()
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_amp bf16 losses do not fall: {first} "
+                             f"{losses}")
+    for name in TRAIN_STEP_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"train_amp bf16: {name} not launched")
+    ms = wall * 1e3 / AMP_STEPS
+    flops = train_flops(B, S, cfg.num_layers, cfg.hidden_size, BF16_VOCAB)
+    out_a = {"phase": "train_amp_bf16", "ok": True, "model": "gpt_1p3b",
+             "layers": cfg.num_layers, "vocab": BF16_VOCAB, "B": B, "S": S,
+             "recipe": "auto_cast(dtype='bfloat16') O1, fp32 master "
+                       "weights", "optimizer": f"AdamW({TRAIN_LR})",
+             "casts_per_forward": casts, "tol": {
+                 "loss_rel": BF16_LOSS_REL_TOL,
+                 "grad_rel_all": BF16_GRAD_REL_TOL,
+                 "grad_rel_param": BF16_PARAM_GRAD_REL_TOL},
+             "parity": rec, "grad_dtypes": grad_dtypes,
+             "warmup_loss": first, "losses": losses, "ms_per_step": ms,
+             "tokens_per_s": B * S * AMP_STEPS / wall,
+             "peak_mem_gb": peak / 1e9, "flops_per_step": flops,
+             "mfu": flops / (ms * 1e-3) / BF16_FLOPS,
+             "launches": {k: v for k, v in counts.items() if v}}
+    emit(out_a)
+
+    # (d) Lookahead around the step's AdamW and an EMA of the weights
+    look = Lookahead(step.optimizer, alpha=0.5, k=AMP_LOOK_K)
+    step.optimizer = look
+    ema = ExponentialMovingAverage(model, decay=0.999)
+    synced = []
+    for i in range(AMP_LOOK_STEPS):
+        step(ids)
+        ema.update()
+        if (i + 1) % AMP_LOOK_K == 0:
+            synced.append(all(torch.equal(p.detach(), look._slow[id(p)])
+                              for p in model.parameters()))
+    torch.cuda.synchronize()
+    if not synced or not all(synced):
+        raise AssertionError(f"Lookahead: fast weights not the slow ones "
+                             f"after a sync step: {synced}")
+    snap = {n: p.detach().clone() for n, p in model.named_parameters()}
+    outside = _eval_loss(torch, model, ids, "bfloat16")
+    ema.apply()
+    on_shadow = all(torch.equal(p.detach(), ema._shadow[id(p)])
+                    for p in model.parameters())
+    ema.restore()
+    identity = _params_equal(torch, model, snap)
+    with ema.apply_guard():
+        guarded = all(torch.equal(p.detach(), ema._shadow[id(p)])
+                      for p in model.parameters())
+        inside = _eval_loss(torch, model, ids, "bfloat16")
+    identity = identity and _params_equal(torch, model, snap)
+    del snap
+    if not (on_shadow and guarded and identity and inside != outside):
+        raise AssertionError(f"EMA: apply on the shadow {on_shadow}, "
+                             f"guard {guarded}, apply+restore identity "
+                             f"{identity}, eval {inside} vs {outside}")
+    emit({"phase": "train_amp_wrappers", "ok": True,
+          "lookahead": {"alpha": 0.5, "k": AMP_LOOK_K,
+                        "steps": AMP_LOOK_STEPS,
+                        "fast_equals_slow_after_sync": synced},
+          "ema": {"decay": 0.999, "updates": ema._step,
+                  "apply_restore_bitwise_identity": identity,
+                  "params_equal_shadow_in_guard": guarded,
+                  "eval_loss_on_shadow": inside,
+                  "eval_loss_on_weights": outside}})
+    del step, look, ema, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def amp_fp16_scaler(torch, dev, ids, launches):
+    """(b) the fp16 O1 recipe with ``GradScaler()`` as an eager loop
+    (``tests/test_end_to_end.py:174-187``), an inf planted at
+    ``AMP_INF_STEP``; then one 4-layer step at each of
+    ``AMP_FP16_VARIANTS``; (c) the (b) model under ``decorate(level="O2",
+    dtype="float16")`` with a fresh ``GradScaler``. Returns the (b)
+    launch counts."""
+    from paddle_tpu_torch.amp import GradScaler, auto_cast, decorate
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.optimizer import AdamW
+    B, S = ids.shape
+    model = _train_model(torch, dev, vocab_size=BF16_VOCAB)
+    casts = _cast_counts(torch, model, ids, "float16")
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.named_parameters())
+    scaler = GradScaler()
+    path, skipped, losses, step_ms = [], [], [], []
+    planted = {}
+    reset_launch_counts()
+    for i in range(AMP_SCALER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        model.train()
+        opt.clear_grad()
+        with auto_cast(dtype="float16"):
+            loss = model(ids, labels=ids)
+        scaler.scale(loss).backward()
+        if i == AMP_INF_STEP:
+            w = model.gpt.h[0].mlp.fc_in.weight
+            w.grad.view(-1)[0] = float("inf")
+            snap = {n: p.detach().clone()
+                    for n, p in model.named_parameters()}
+            planted["step_count_before"] = opt._global_step
+        before = opt._global_step
+        scaler.step(opt)
+        scaler.update()
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        if opt._global_step == before:
+            skipped.append(i)
+        if i == AMP_INF_STEP:
+            planted.update(step_count_after=opt._global_step,
+                           params_bitwise_unchanged=_params_equal(
+                               torch, model, snap))
+            del snap
+        path.append(scaler.get_loss_scaling())
+        losses.append(float(loss.detach()))
+    counts = launch_counts()
+    if not (planted["params_bitwise_unchanged"] and
+            planted["step_count_after"] == planted["step_count_before"]
+            and AMP_INF_STEP in skipped):
+        raise AssertionError(f"GradScaler: the planted inf step {planted}, "
+                             f"skipped {skipped}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train_amp fp16 losses: {losses}")
+    for name in TRAIN_STEP_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"train_amp fp16: {name} not launched")
+    for name in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv"):
+        launches[f"{name}_fp16"] = counts[name]
+    steady = sorted(step_ms[1:])
+    emit({"phase": "train_amp_fp16", "ok": True, "model": "gpt_1p3b",
+          "layers": model.config.num_layers, "vocab": BF16_VOCAB, "B": B,
+          "S": S, "recipe": "auto_cast(dtype='float16') O1, fp32 master "
+                            "weights, GradScaler() at its defaults",
+          "casts_per_forward": casts, "losses": losses,
+          "scale_path": path, "skipped_steps": skipped,
+          "planted_inf_step": AMP_INF_STEP, "planted": planted,
+          "ms_per_step_median": steady[len(steady) // 2],
+          "tokens_per_s": B * S / steady[len(steady) // 2] * 1e3,
+          "launches": {k: v for k, v in counts.items() if v},
+          "state_dict": scaler.state_dict()})
+
+    # (c) O2: the model in fp16, fp16 Adam slots, a fresh GradScaler
+    decorate(model, level="O2", dtype="float16")
+    opt = AdamW(learning_rate=TRAIN_LR, epsilon=AMP_O2_EPS,
+                parameters=model.named_parameters())
+    scaler = GradScaler()
+    reset_launch_counts()
+    o2_losses = []
+    for _ in range(AMP_O2_STEPS):
+        model.train()
+        opt.clear_grad()
+        with auto_cast(dtype="float16", level="O2"):
+            loss = model(ids, labels=ids)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        o2_losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    o2 = launch_counts()
+    dtypes = sorted({str(p.dtype) for p in model.parameters()} |
+                    {str(t.dtype) for t in opt.state_dict().values()
+                     if torch.is_tensor(t)})
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    if o2["adam_update"] <= 0 or dtypes != ["torch.float16"] or \
+            not finite or not all(map(math.isfinite, o2_losses)):
+        raise AssertionError(f"train_amp O2: adam launches "
+                             f"{o2['adam_update']}, dtypes {dtypes}, "
+                             f"finite {finite}, losses {o2_losses}")
+    launches["adam_update_fp16"] = o2["adam_update"]
+    emit({"phase": "train_amp_o2", "ok": True,
+          "recipe": "decorate(level='O2', dtype='float16'), "
+                    "auto_cast(level='O2'), GradScaler()",
+          "steps_applied": opt._global_step,
+          "optimizer": f"AdamW({TRAIN_LR}, epsilon={AMP_O2_EPS})",
+          "losses": o2_losses, "param_and_slot_dtypes": dtypes,
+          "launches": {k: v for k, v in o2.items() if v}})
+    del model, opt, scaler
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for tag, s, kernel in AMP_FP16_VARIANTS:
+        model = _train_model(torch, dev, num_layers=4, vocab_size=BF16_VOCAB)
+        opt = AdamW(learning_rate=TRAIN_LR,
+                    parameters=model.named_parameters())
+        scaler = GradScaler()
+        reset_launch_counts()
+        with auto_cast(dtype="float16"):
+            loss = model(ids[:, :s], labels=ids[:, :s])
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        torch.cuda.synchronize()
+        n = launch_counts()[kernel]
+        if n <= 0 or not math.isfinite(float(loss)):
+            raise AssertionError(f"train_amp fp16 {tag}: {kernel} "
+                                 f"launched {n}, loss {float(loss)}")
+        launches[f"{kernel}_fp16"] = n
+        emit({"phase": "train_amp_fp16_variant", "ok": True, "variant": tag,
+              "layers": 4, "B": B, "S": s, "loss": float(loss),
+              "kernel": kernel, "launches": n})
+        del model, opt, scaler
+        torch.cuda.empty_cache()
+    return counts
+
+
+def amp_dgc(torch, dev, ids):
+    """(e) ``DGCMomentum`` at 4 layers: ``AMP_DGC_STEPS`` train steps,
+    plain momentum through ``AMP_DGC_BEGIN``, then the sparsity ramp.
+    Each compressed tensor's threshold is read where the optimizer takes
+    it (``dgc._threshold``, wrapped): the share of its strided sample at
+    or above it must be 1 - sparsity within ``AMP_DGC_SAMPLE_SLACK``
+    sample elements (the quantile's own resolution), and the share of
+    the whole tensor, the entries the step applies, is reported beside
+    1 - sparsity and the error a random sample of that size would have
+    (``AMP_DGC_SIGMAS`` sigmas). Then ``AMP_DGC_TIMED`` steps without the
+    watch: ms a step beside ``Momentum``'s on the same model."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import DGCMomentum, Momentum
+    from paddle_tpu_torch.optimizer import dgc as dgc_mod
+    B, S = ids.shape
+    rec = {}
+    seen = []
+    real = dgc_mod._threshold
+
+    def watched(v_abs, sparsity):
+        thr = real(v_abs, sparsity)
+        flat = v_abs.reshape(-1).to(torch.float32)
+        sample = flat[::max(1, flat.numel() // dgc_mod._SAMPLE_CAP)]
+        seen.append((sparsity, sample.numel(),
+                     float((sample >= thr).float().mean()),
+                     float((flat >= thr).float().mean())))
+        return thr
+
+    worst_sample, over_random = [], []
+    for label in ("Momentum", "DGCMomentum"):
+        model = _train_model(torch, dev, num_layers=AMP_DGC_LAYERS,
+                             vocab_size=BF16_VOCAB)
+        if label == "Momentum":
+            opt = Momentum(learning_rate=AMP_DGC_LR, momentum=0.9)
+        else:
+            opt = DGCMomentum(learning_rate=AMP_DGC_LR, momentum=0.9,
+                              rampup_begin_step=AMP_DGC_BEGIN,
+                              rampup_step=AMP_DGC_RAMP,
+                              sparsity=AMP_DGC_SPARSITY)
+        step = TrainStep(model, opt, lambda m, x: m(x, labels=x), seed=0,
+                         device=dev)
+        names = [n for n, p in model.named_parameters() if p.numel() > 1]
+        losses, shares = [], []
+        dgc_mod._threshold = watched
+        try:
+            for i in range(1, AMP_DGC_STEPS + 1):
+                seen.clear()
+                losses.append(float(step(ids)))
+                if label == "Momentum" or i <= AMP_DGC_BEGIN:
+                    if seen:
+                        raise AssertionError(f"DGC step {i}: compressed "
+                                             f"before its warm-up ended")
+                    continue
+                if len(seen) != len(names):
+                    raise AssertionError(f"DGC step {i}: {len(seen)} "
+                                         f"thresholds for {len(names)} "
+                                         f"tensors")
+                want = 1.0 - float(opt.sparsity_at(i))
+                per = {}
+                for n, (sp, n_s, s_share, applied) in zip(names, seen):
+                    random_err = AMP_DGC_SIGMAS * math.sqrt(
+                        want * (1 - want) / n_s) + 1.0 / n_s
+                    per[n] = [round(applied, 6), round(s_share, 6), n_s]
+                    worst_sample.append((abs(s_share - want) * n_s, i, n))
+                    if abs(applied - want) > random_err:
+                        over_random.append(n)
+                shares.append({"step": i, "want": want, "per_tensor":
+                               per})
+        finally:
+            dgc_mod._threshold = real
+        # timed unwatched, past the ramp
+        ms = []
+        for _ in range(AMP_DGC_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            losses.append(float(step(ids)))
+            torch.cuda.synchronize()
+            ms.append((time.monotonic() - t0) * 1e3)
+        rec[label] = {"losses": losses, "ms_per_step": ms,
+                      "ms_per_step_median": sorted(ms)[len(ms) // 2]}
+        if shares:
+            rec[label]["applied_sample_n"] = shares
+        del step, opt, model
+        torch.cuda.empty_cache()
+    worst_sample.sort(reverse=True)
+    if worst_sample[0][0] > AMP_DGC_SAMPLE_SLACK:
+        raise AssertionError(f"DGC: a sample's share off 1 - sparsity by "
+                             f"more than {AMP_DGC_SAMPLE_SLACK} elements: "
+                             f"{worst_sample[:4]}")
+    if not all(map(math.isfinite, rec["DGCMomentum"]["losses"])):
+        raise AssertionError(f"DGC losses: {rec['DGCMomentum']['losses']}")
+    emit({"phase": "train_amp_dgc", "ok": True, "layers": AMP_DGC_LAYERS,
+          "B": B, "S": S, "rampup_begin_step": AMP_DGC_BEGIN,
+          "rampup_step": AMP_DGC_RAMP, "sparsity": AMP_DGC_SPARSITY,
+          "sample_elements_off_max": worst_sample[0],
+          "sample_slack": AMP_DGC_SAMPLE_SLACK,
+          "applied_outside_random_sample_error": sorted(set(over_random)),
+          "sigmas": AMP_DGC_SIGMAS, **rec})
+
+
+def phase_train_amp(torch, dev, launches):
+    """The rest of the training surface at GPT-1.3B's widths: (a) the
+    bf16 O1 step under ``TrainStep`` (kernels against plain within the
+    ``BF16_*`` limits, then ``multi_step``), (d) Lookahead and EMA over
+    its steps, (b) the fp16 O1 recipe with ``GradScaler``, an inf planted
+    in one step, then the fp16 single pass and folded backward at 4
+    layers, (c) ``decorate(level="O2", dtype="float16")``, (e)
+    ``DGCMomentum`` at 4 layers. Fills ``launches`` for the fp16
+    records."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ids = torch.randint(0, BF16_VOCAB, (2, 2048), generator=gen, device=dev)
+    amp_bf16_and_wrappers(torch, dev, ids)
+    amp_fp16_scaler(torch, dev, ids, launches)
+    amp_dgc(torch, dev, ids)
+
+
 # -- phase 7 -----------------------------------------------------------------
 
 RESNET_BATCH = 128      # tools/fused_eval_bench.py's batch
@@ -5005,6 +5670,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train(torch, dev, launches)
     phase_train_bf16(torch, dev, launches)
+    phase_train_amp(torch, dev, launches)
     phase_resnet(torch, dev, launches)
     if FAILED_CHECKS:
         emit({"phase": "checks", "ok": False, "failed": FAILED_CHECKS})

@@ -29,12 +29,17 @@
 // corrections are products with 1/bc, which the wrapper computes on the
 // host in f32 as PyTorch does.
 //
-// Storage: (param, slots) in {(f32, f32), (bf16, bf16), (bf16, f32)};
-// the gradient has the parameter's dtype.
+// Storage: (param, slots) in {(f32, f32), (bf16, bf16), (bf16, f32),
+// (fp16, fp16)}; the gradient has the parameter's dtype. With fp16 slots
+// the moments round to fp16 after every op, as above, and the step from
+// them runs in f32 with one rounding at the parameter (and one more
+// after a decoupled decay): the JAX rule divides fp16 moments by float32
+// bias corrections, which promotes, and an fp16 step would lose eps
+// (1e-8 rounds to 0) and divide by a flushed v.
 //
 // What bounds it on the H100: bytes. Each element reads p, g, m, v once
-// and writes p, m, v once (28 bytes in f32, 14 in bf16, 22 for bf16
-// parameters with f32 slots), for about 20 flops.
+// and writes p, m, v once (28 bytes in f32, 14 in bf16 and fp16, 22 for
+// bf16 parameters with f32 slots), for about 20 flops.
 //
 // Design: the tensor table (pointers and lengths of up to kMaxTensors
 // tensors) is a kernel argument (__grid_constant__, read in place), so a
@@ -45,6 +50,8 @@
 // tensor's four pointers are 16-byte aligned and the 8 elements are
 // inside it, element by element otherwise (the ragged end).
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -81,6 +88,10 @@ template <>
 __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+template <>
+__device__ __forceinline__ float rnd<__half>(float x) {
+  return __half2float(__float2half_rn(x));
+}
 
 // one element: p, g in the parameter's dtype (PT), m, v in the slots'
 // (ST), all held as floats
@@ -93,6 +104,17 @@ __device__ __forceinline__ void update(float& p, float g, float& m, float& v,
                         rnd<ST>(__fmul_rn(g, s.c1))));
   const float g2 = rnd<ST>(__fmul_rn(rnd<ST>(__fmul_rn(g, s.c2)), g));
   v = rnd<ST>(__fadd_rn(rnd<ST>(__fmul_rn(v, s.b2)), g2));
+  if constexpr (std::is_same<ST, __half>::value) {
+    // fp16 slots: the step from the stored moments in f32 (the plain
+    // version's m.float() / bc1 ...), one rounding at the parameter
+    const float a = __fmul_rn(__fmul_rn(m, s.inv_bc1), s.lr);
+    const float d = __fadd_rn(__fsqrt_rn(__fmul_rn(v, s.inv_bc2)), s.eps);
+    float np_ = rnd<PT>(__fsub_rn(p, __fdiv_rn(a, d)));
+    if (s.decay == 2)
+      np_ = rnd<PT>(__fsub_rn(np_, __fmul_rn(p_old, s.lr_wd)));
+    p = np_;
+    return;
+  }
   const float a = rnd<ST>(__fmul_rn(rnd<ST>(__fmul_rn(m, s.inv_bc1)), s.lr));
   float d = rnd<ST>(__fsqrt_rn(rnd<ST>(__fmul_rn(v, s.inv_bc2))));
   d = rnd<ST>(__fadd_rn(d, s.eps));
@@ -119,6 +141,16 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* src, float* x) {
     x[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void load8(const __half* src, float* x) {
+  const uint4 a = *reinterpret_cast<const uint4*>(src);
+  const __half2* h = reinterpret_cast<const __half2*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
 __device__ __forceinline__ void store8(float* dst, const float* x) {
   reinterpret_cast<float4*>(dst)[0] = make_float4(x[0], x[1], x[2], x[3]);
   reinterpret_cast<float4*>(dst)[1] = make_float4(x[4], x[5], x[6], x[7]);
@@ -130,6 +162,14 @@ __device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* x) {
   for (int i = 0; i < 4; ++i)
     h[i] = __halves2bfloat162(__float2bfloat16_rn(x[2 * i]),
                               __float2bfloat16_rn(x[2 * i + 1]));
+  *reinterpret_cast<uint4*>(dst) = a;
+}
+
+__device__ __forceinline__ void store8(__half* dst, const float* x) {
+  uint4 a;
+  __half2* h = reinterpret_cast<__half2*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(x[2 * i], x[2 * i + 1]);
   *reinterpret_cast<uint4*>(dst) = a;
 }
 
@@ -225,5 +265,7 @@ extern "C" int pt_adam_update(const long long* table, int n_tensors,
     return launch<__nv_bfloat16, __nv_bfloat16>(t, s, st);
   if (p_dtype == pt::kBF16 && s_dtype == pt::kF32)
     return launch<__nv_bfloat16, float>(t, s, st);
+  if (p_dtype == pt::kF16 && s_dtype == pt::kF16)
+    return launch<__half, __half>(t, s, st);
   return cudaErrorInvalidValue;
 }

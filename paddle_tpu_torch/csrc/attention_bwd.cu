@@ -35,8 +35,9 @@
 // All four run on the tensor cores with the forward's building blocks
 // (mma.cuh): mma.sync m16n8k8 in 3xTF32 for fp32 (hi and lo TF32 parts
 // rounded to nearest, three products, as exact as fp32 FMA) and
-// m16n8k16 bf16 for bf16, with P and dS carried as two bf16 terms
-// (hi + lo) into their products; f32 accumulation throughout. Rows are
+// m16n8k16 bf16 / fp16 for the 16-bit types, with P and dS carried as
+// two terms of the storage type (hi + lo) into their products; f32
+// accumulation throughout. Rows are
 // staged with 16-byte cp.async copies into shared memory padded by 16
 // bytes, so every fragment load is conflict-free.
 // - Key-major (modes 1-3): one block of 8 warps per (h, b, K tile of 64
@@ -802,5 +803,6 @@ extern "C" int pt_attention_bwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == pt::kF32) return dispatch_d<float>(a, D, mode, s);
   if (dtype == pt::kBF16) return dispatch_d<__nv_bfloat16>(a, D, mode, s);
+  if (dtype == pt::kF16) return dispatch_d<__half>(a, D, mode, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

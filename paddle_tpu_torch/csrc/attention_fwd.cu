@@ -25,13 +25,15 @@
 //   and each product is lo*hi + hi*lo + hi*hi accumulated in f32. That
 //   keeps fp32 accuracy (single-pass TF32 keeps about 3 digits) at three
 //   TF32 products: the bound is 3 * flops / 495 TFLOP/s.
-// - bf16 inputs run bf16 products with f32 accumulation. P is split into
-//   two bf16 terms (hi + lo) before P.V, so the probabilities keep f32
-//   accuracy and only the bf16 inputs and output round: the bound is
-//   flops / 989 TFLOP/s (the split P.V is extra work on top of it).
+// - bf16 and fp16 inputs run 16-bit products with f32 accumulation (the
+//   dtype-generic TPU kernel's operands and accumulator). P is split
+//   into two terms of the storage type (hi + lo) before P.V, so the
+//   probabilities keep about twice its precision and only the inputs and
+//   the output round: the bound is flops / 989 TFLOP/s (the split P.V is
+//   extra work on top of it).
 //
 // Design:
-// - Products: mma.sync (m16n8k8 TF32 for fp32, m16n8k16 bf16). The
+// - Products: mma.sync (m16n8k8 TF32 for fp32, m16n8k16 bf16 / fp16). The
 //   block's 8 warps form 4 row groups of 16 query rows; the two warps of
 //   a group take the two halves of every K tile. wgmma would need V
 //   transposed in shared memory for the TF32 P.V (wgmma takes a TF32 B
@@ -324,5 +326,8 @@ extern "C" int pt_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == pt::kBF16)
     return dispatch_d<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, H, D, st,
                                      causal, scale, write_lse, s);
+  if (dtype == pt::kF16)
+    return dispatch_d<__half>(q, k, v, out, lse, B, Sq, Sk, H, D, st, causal,
+                              scale, write_lse, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,17 @@
 // Tensor-core building blocks of the attention kernels (attention_fwd.cu,
 // attention_bwd.cu): 16-byte cp.async staging, TF32 rounding and the
-// 3xTF32 split, mma.sync in TF32 and bf16, and the two warp-level
+// 3xTF32 split, mma.sync in TF32, bf16 and fp16, and the two warp-level
 // products of an attention tile (a score tile Q K^T, and P V with P in
 // the accumulator layout).
+//
+// The two 16-bit storage types share one code path (Half16 below): bf16
+// (8-bit significand) and fp16 (11-bit significand, 5-bit exponent)
+// operands on m16n8k16 with f32 accumulators, the dtype-generic TPU
+// kernels' arithmetic. P (and the backward's dS), which the kernels
+// hold in f32, enters its product as two terms of the storage type (hi
+// + lo): the probabilities keep about twice the type's precision, and
+// only the inputs and the output round. In fp16 a lo term below 2^-14
+// is subnormal and keeps an absolute error under 2^-25.
 //
 // Fragment coordinates: lane = 4 g + t. An m16n8 accumulator c holds
 // (row g, cols 2t, 2t+1) in c[0..1] and (row g+8, same cols) in c[2..3].
@@ -106,23 +115,68 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+__device__ __forceinline__ void mma_f16(float* c, const uint32_t* a,
+                                        const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+// a 16-bit storage type's bits, rounding from f32 and m16n8k16 product
+template <typename T>
+struct Half16;
+template <>
+struct Half16<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t bits(__nv_bfloat16 x) {
+    return __bfloat16_as_ushort(x);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 round(float x) {
+    return __float2bfloat16(x);
+  }
+  static __device__ __forceinline__ float wide(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                             const uint32_t* b) {
+    mma_bf16(c, a, b);
+  }
+};
+template <>
+struct Half16<__half> {
+  static __device__ __forceinline__ uint32_t bits(__half x) {
+    return __half_as_ushort(x);
+  }
+  static __device__ __forceinline__ __half round(float x) {
+    return __float2half_rn(x);
+  }
+  static __device__ __forceinline__ float wide(__half x) {
+    return __half2float(x);
+  }
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                             const uint32_t* b) {
+    mma_f16(c, a, b);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(T lo, T hi) {
+  return Half16<T>::bits(lo) | (Half16<T>::bits(hi) << 16);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// (x, y) ~ hi + lo, both bf16 pairs
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat16 hx = __float2bfloat16(x), hy = __float2bfloat16(y);
-  hi = pack_bf16(hx, hy);
-  lo = pack_bf16(__float2bfloat16(x - __bfloat162float(hx)),
-                 __float2bfloat16(y - __bfloat162float(hy)));
+// (x, y) ~ hi + lo, both pairs of T
+template <typename T>
+__device__ __forceinline__ void split16(float x, float y, uint32_t& hi,
+                                        uint32_t& lo) {
+  const T hx = Half16<T>::round(x), hy = Half16<T>::round(y);
+  hi = pack16(hx, hy);
+  lo = pack16(Half16<T>::round(x - Half16<T>::wide(hx)),
+              Half16<T>::round(y - Half16<T>::wide(hy)));
 }
 
 // s[j] += A[16 rows] . B[8j .. 8j+7]^T over D, fp32 by 3xTF32. A: the
@@ -151,25 +205,37 @@ __device__ __forceinline__ void scores(float (&s)[N / 8][4], const float* A,
   }
 }
 
-// the same in bf16 (m16n8k16)
-template <int D, int N, int LD>
-__device__ __forceinline__ void scores(float (&s)[N / 8][4],
-                                       const __nv_bfloat16* A,
-                                       const __nv_bfloat16* B, int g, int t) {
+// the same in bf16 or fp16 (m16n8k16)
+template <int D, int N, int LD, typename T>
+__device__ __forceinline__ void scores16(float (&s)[N / 8][4], const T* A,
+                                         const T* B, int g, int t) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     // A (16x16): (g, 2t..2t+1) (g+8, 2t..) (g, 2t+8..) (g+8, 2t+8..)
-    const __nv_bfloat16* a = A + g * LD + kk * 16 + 2 * t;
+    const T* a = A + g * LD + kk * 16 + 2 * t;
     const uint32_t af[4] = {ld32(a), ld32(a + 8 * LD), ld32(a + 8),
                             ld32(a + 8 * LD + 8)};
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       // B (16x8) = B^T: (k = 2t..2t+1, n = g) (k = 2t+8.., n = g)
-      const __nv_bfloat16* bp = B + (j * 8 + g) * LD + kk * 16 + 2 * t;
+      const T* bp = B + (j * 8 + g) * LD + kk * 16 + 2 * t;
       const uint32_t bf[2] = {ld32(bp), ld32(bp + 8)};
-      mma_bf16(s[j], af, bf);
+      Half16<T>::mma(s[j], af, bf);
     }
   }
+}
+
+template <int D, int N, int LD>
+__device__ __forceinline__ void scores(float (&s)[N / 8][4],
+                                       const __nv_bfloat16* A,
+                                       const __nv_bfloat16* B, int g, int t) {
+  scores16<D, N, LD>(s, A, B, g, t);
+}
+
+template <int D, int N, int LD>
+__device__ __forceinline__ void scores(float (&s)[N / 8][4], const __half* A,
+                                       const __half* B, int g, int t) {
+  scores16<D, N, LD>(s, A, B, g, t);
 }
 
 // o[n] += P[16 rows, BK] . V[BK, 8n .. 8n+7] for N columns, fp32 by
@@ -199,27 +265,40 @@ __device__ __forceinline__ void pv_at(float (&o)[N / 8][4], At at,
   }
 }
 
-// the same in bf16: P split into hi + lo bf16 terms, two products
-template <int N, int BK, int LD, typename At>
-__device__ __forceinline__ void pv_at(float (&o)[N / 8][4], At at,
-                                      const __nv_bfloat16* V, int g, int t) {
+// the same in bf16 or fp16: P split into hi + lo terms of the storage
+// type, two products
+template <int N, int BK, int LD, typename At, typename T>
+__device__ __forceinline__ void pv_at16(float (&o)[N / 8][4], At at,
+                                        const T* V, int g, int t) {
 #pragma unroll
   for (int j = 0; j < BK / 16; ++j) {
     uint32_t ah[4], al[4];
-    split_bf16(at(2 * j, 0), at(2 * j, 1), ah[0], al[0]);
-    split_bf16(at(2 * j, 2), at(2 * j, 3), ah[1], al[1]);
-    split_bf16(at(2 * j + 1, 0), at(2 * j + 1, 1), ah[2], al[2]);
-    split_bf16(at(2 * j + 1, 2), at(2 * j + 1, 3), ah[3], al[3]);
-    const __nv_bfloat16* v = V + (j * 16 + 2 * t) * LD + g;
+    split16<T>(at(2 * j, 0), at(2 * j, 1), ah[0], al[0]);
+    split16<T>(at(2 * j, 2), at(2 * j, 3), ah[1], al[1]);
+    split16<T>(at(2 * j + 1, 0), at(2 * j + 1, 1), ah[2], al[2]);
+    split16<T>(at(2 * j + 1, 2), at(2 * j + 1, 3), ah[3], al[3]);
+    const T* v = V + (j * 16 + 2 * t) * LD + g;
 #pragma unroll
     for (int n = 0; n < N / 8; ++n) {
-      const __nv_bfloat16* vn = v + n * 8;
-      const uint32_t b[2] = {pack_bf16(vn[0], vn[LD]),
-                             pack_bf16(vn[8 * LD], vn[9 * LD])};
-      mma_bf16(o[n], al, b);
-      mma_bf16(o[n], ah, b);
+      const T* vn = v + n * 8;
+      const uint32_t b[2] = {pack16(vn[0], vn[LD]),
+                             pack16(vn[8 * LD], vn[9 * LD])};
+      Half16<T>::mma(o[n], al, b);
+      Half16<T>::mma(o[n], ah, b);
     }
   }
+}
+
+template <int N, int BK, int LD, typename At>
+__device__ __forceinline__ void pv_at(float (&o)[N / 8][4], At at,
+                                      const __nv_bfloat16* V, int g, int t) {
+  pv_at16<N, BK, LD>(o, at, V, g, t);
+}
+
+template <int N, int BK, int LD, typename At>
+__device__ __forceinline__ void pv_at(float (&o)[N / 8][4], At at,
+                                      const __half* V, int g, int t) {
+  pv_at16<N, BK, LD>(o, at, V, g, t);
 }
 
 // P held in registers, in the accumulator layout
@@ -246,6 +325,10 @@ __device__ __forceinline__ void store2(float* p, float x, float y) {
 
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+__device__ __forceinline__ void store2(__half* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
 }
 
 }  // namespace pt

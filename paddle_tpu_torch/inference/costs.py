@@ -29,7 +29,7 @@ from __future__ import annotations
 
 from typing import Dict, Iterable
 
-__all__ = ["HBM_BYTES_PER_S", "TF32_FLOPS", "BF16_FLOPS",
+__all__ = ["HBM_BYTES_PER_S", "TF32_FLOPS", "BF16_FLOPS", "FP16_FLOPS",
            "PRODUCT_ROUTES", "PAGED_POOLS", "bound_ms",
            "attention_fwd_cost", "paged_bytes", "out_proj_cost",
            "kv_position_bytes", "step_cost", "decode_cost",
@@ -38,11 +38,13 @@ __all__ = ["HBM_BYTES_PER_S", "TF32_FLOPS", "BF16_FLOPS",
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 TF32_FLOPS = 495e12         # dense TF32 on the tensor cores
 BF16_FLOPS = 989e12         # dense bf16 on the tensor cores
+FP16_FLOPS = 989e12         # dense fp16 on the tensor cores
 # route of a function's products -> (flops each costs, peak, bound_by):
 # an fp32 product to fp32 accuracy on the tensor cores is three TF32
 # products (3xTF32: hi*hi + hi*lo + lo*hi)
 PRODUCT_ROUTES = {"fp32": (3.0, TF32_FLOPS, "3xtf32"),
-                  "bf16": (1.0, BF16_FLOPS, "bf16")}
+                  "bf16": (1.0, BF16_FLOPS, "bf16"),
+                  "fp16": (1.0, FP16_FLOPS, "fp16")}
 
 # bytes of one pool value and of the query / context element, by pool
 PAGED_POOLS = {"fp32": (4, 4), "bf16": (2, 2), "int8": (1, 4)}

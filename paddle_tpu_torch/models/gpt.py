@@ -43,6 +43,7 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
+from ..amp.auto_cast import amp_cast, auto_cast, current_args
 from ..core import rng
 from ..device import resolve_device
 from ..nn.layer import checkpoint_state, load_jax_state  # noqa: F401
@@ -521,9 +522,11 @@ def _remat_block(block: nn.Module, x, save_attention: bool = False):
     The recompute runs on autograd's thread, so it re-opens what the
     forward saw in this thread: the ``key_scope`` generator, rewound to
     its state before the forward so dropout draws the same masks, and
-    the kernel selection (:func:`NF.plain_kernels`)."""
+    the kernel selection (:func:`NF.plain_kernels`) and the ``auto_cast``
+    state, so the recompute casts where the forward did."""
     gen = rng.next_generator()
     plain = NF.plain_mode()
+    amp = current_args()
     before = gen.get_state() if gen is not None else None
     ran = []
     saved = SavedAttention() if save_attention else None
@@ -538,7 +541,7 @@ def _remat_block(block: nn.Module, x, save_attention: bool = False):
         ran.append(True)
         try:
             with rng.key_scope(gen), NF.plain_kernels(plain), \
-                    NF.saved_attention(saved):
+                    NF.saved_attention(saved), auto_cast(**amp):
                 return block(h)
         finally:
             if after is not None:
@@ -794,9 +797,12 @@ class GPTForCausalLM(nn.Module):
         return self.gpt.wte.weight.device
 
     def logits(self, hidden):
+        """The head: the untied ``lm_head``, or the JAX op ``matmul``
+        with ``wte`` transposed."""
         if self.lm_head is not None:
             return self.lm_head(hidden)
-        return torch.matmul(hidden, self.gpt.wte.weight.t())
+        hidden, w = amp_cast("matmul", hidden, self.gpt.wte.weight)
+        return torch.matmul(hidden, w.t())
 
     def head_params(self):
         """``(weight, transpose_y, bias)`` of the lm head for the fused
@@ -910,7 +916,14 @@ class GPTForCausalLM(nn.Module):
         kernel selection and whether the head is fused. A program whose
         weights were replaced or moved since it was built
         (``WeightWatch``: an in-place conversion) is dropped and built
-        again, so no graph replays stale weights."""
+        again, so no graph replays stale weights.
+
+        The cache keeps the most recent program of each ``kv_cache``
+        kind: building one closes the kind's older program, whose caches
+        and graph then free their memory. JAX keeps a compiled program
+        per signature, but a call's caches die with the call
+        (``gpt.py:1331-1340``); a program here owns its caches, so a
+        sweep over signatures holds one program's memory a kind."""
         from ..ops.nn_functional import plain_mode
         self.eval()
         ids = self._prompt_ids(input_ids)
@@ -924,7 +937,8 @@ class GPTForCausalLM(nn.Module):
             prog.close()
             prog = None
         if prog is None:
-            for old in [k for k, p in progs.items() if p.watch.moved()]:
+            for old in [k for k, p in progs.items()
+                        if p.watch.moved() or p.kv_cache == kv_cache]:
                 progs.pop(old).close()
             prog = progs[sig] = _GenerateProgram(
                 self, b, s, int(max_new_tokens), float(temperature), top_k,
@@ -1024,9 +1038,15 @@ class GPTForCausalLM(nn.Module):
         hid = hidden[:, :-1]
         lab = labels[:, 1:].long()
         b, s = lab.shape
+        # the JAX chunk applies a tied head as a raw product, which no op
+        # dispatches and so no auto_cast casts (gpt.py:1136-1138)
+        head = self.lm_head if self.lm_head is not None else (
+            lambda h: torch.matmul(h, self.gpt.wte.weight.t()))
+        amp = current_args()  # the recompute re-enters it
 
         def chunk_loss(h, lab_c):
-            per = self.loss_fn(self.logits(h), lab_c)
+            with auto_cast(**amp):
+                per = self.loss_fn(head(h), lab_c)
             return torch.where(lab_c != self.loss_fn.ignore_index, per,
                                torch.zeros_like(per)).sum()
 
@@ -1056,7 +1076,8 @@ class GPTForCausalLM(nn.Module):
             return self._chunked_lm_loss(hidden, labels,
                                          self.config.loss_chunk_size)
         logits = self.logits(hidden)
-        return self.loss_fn(logits[:, :-1], labels[:, 1:]).mean()
+        (per,) = amp_cast("mean", self.loss_fn(logits[:, :-1], labels[:, 1:]))
+        return per.mean()
 
 
 class _GenerateProgram:

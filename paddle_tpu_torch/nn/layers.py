@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..amp.auto_cast import amp_cast
 from ..ops import nn_functional as NF
 
 
@@ -37,7 +38,14 @@ def _normal(shape, std: float, device, dtype, generator) -> nn.Parameter:
 
 
 class Linear(nn.Module):
-    """``y = x @ weight + bias`` with ``weight`` of shape ``[in, out]``."""
+    """``y = x @ weight + bias`` with ``weight`` of shape ``[in, out]``.
+    Under ``auto_cast`` it is the JAX op ``linear`` with the bias among
+    its inputs (``ColumnParallelLinear``, ``mp_layers.py:137-138``);
+    ``RowParallelLinear`` adds its bias after the op
+    (``mp_layers.py:170-174``), so there the bias keeps its dtype and
+    the add promotes."""
+
+    _bias_in_op = True
 
     def __init__(self, in_features: int, out_features: int,
                  has_bias: bool = True, *, device=None,
@@ -53,9 +61,13 @@ class Linear(nn.Module):
                      if has_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.matmul(x, self.weight)
-        if self.bias is not None:
-            out = out + self.bias
+        if self._bias_in_op:
+            x, w, b = amp_cast("linear", x, self.weight, self.bias)
+        else:
+            (x, w), b = amp_cast("linear", x, self.weight), self.bias
+        out = torch.matmul(x, w)
+        if b is not None:
+            out = out + b
         return out
 
 
@@ -64,7 +76,10 @@ class ColumnParallelLinear(Linear):
 
 
 class RowParallelLinear(Linear):
-    """Single-device RowParallelLinear: a plain ``Linear``."""
+    """Single-device RowParallelLinear: a plain ``Linear`` whose bias is
+    added after the ``linear`` op."""
+
+    _bias_in_op = False
 
 
 class Embedding(nn.Module):
@@ -104,12 +119,11 @@ class LayerNorm(nn.Module):
                                              dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype != self.weight.dtype:
-            return F.layer_norm(x.to(self.weight.dtype), (x.shape[-1],),
-                                self.weight, self.bias,
+        x, w, b = amp_cast("layer_norm", x, self.weight, self.bias)
+        if x.dtype != w.dtype:
+            return F.layer_norm(x.to(w.dtype), (x.shape[-1],), w, b,
                                 self.epsilon).to(x.dtype)
-        return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias,
-                            self.epsilon)
+        return F.layer_norm(x, (x.shape[-1],), w, b, self.epsilon)
 
 
 class Dropout(nn.Module):

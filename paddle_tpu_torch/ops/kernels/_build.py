@@ -202,7 +202,8 @@ def check(err: int, name: str) -> None:
 
 
 # storage-type codes of csrc/common.cuh (pt::DType)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float16: 3}
 
 
 def dtype_code(t: torch.Tensor, name: str, allowed=(torch.float32,

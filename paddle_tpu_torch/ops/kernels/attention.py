@@ -5,8 +5,9 @@ Port of ``paddle_tpu/ops/pallas/flash_attention.py`` and
 ``paddle_tpu/ops/pallas/folded_attention.py``. On the TPU the forward
 was three kernels for reasons of Mosaic's tiling (see
 ``csrc/attention_fwd.cu``); here :func:`attention_fwd` launches one
-online-softmax kernel on the tensor cores (3xTF32 for fp32, bf16
-products for bf16) that reads ``[B, S, H, D]`` through strides. The
+online-softmax kernel on the tensor cores (3xTF32 for fp32, bf16 or
+fp16 products for the 16-bit types) that reads ``[B, S, H, D]`` through
+strides. The
 backward kernels (``csrc/attention_bwd.cu``) keep the TPU's split:
 
 - :func:`attention_bwd_fused` (TPU #6) when the whole Q axis is one
@@ -16,9 +17,9 @@ backward kernels (``csrc/attention_bwd.cu``) keep the TPU's split:
   q and k (no saved lse).
 
 Every backward kernel runs on the tensor cores like the forward (3xTF32
-in fp32, bf16 products for bf16): the dK/dV pass (#8) is the single
-pass's key-major walk without its dQ share, the dQ pass (#7) takes the
-forward's query-major structure.
+in fp32, bf16 or fp16 products for the 16-bit types): the dK/dV pass
+(#8) is the single pass's key-major walk without its dQ share, the dQ
+pass (#7) takes the forward's query-major structure.
 
 :func:`flash_attention` returns ``(out, lse)`` with ``lse`` [B, S, H]
 f32, both differentiable (the ``flash_attention_lse`` convention,
@@ -42,6 +43,9 @@ import torch
 from . import _build
 
 _NEG_INF = -1e30
+# storage types of the forward and backward kernels: fp32 (3xTF32), bf16
+# and fp16 (16-bit products, f32 accumulators)
+ATTENTION_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 MAX_SINGLE_BLOCK = 1024  # folded_attention.py
@@ -132,7 +136,7 @@ def attention_fwd(q, k, v, causal: bool = False,
         return out, (lse if return_lse else None)
     dev = _check_operands("attention_fwd", q, k, v, (64, 128, 256))
     check_vector_aligned("attention_fwd", ("q", q), ("k", k), ("v", v))
-    code = _build.dtype_code(q, "attention_fwd")
+    code = _build.dtype_code(q, "attention_fwd", ATTENTION_DTYPES)
     out = torch.empty((b, sq, h, d), device=dev, dtype=q.dtype)
     lse = (torch.empty((b, sq, h), device=dev, dtype=torch.float32)
            if return_lse else None)
@@ -221,7 +225,7 @@ def _launch_bwd(name, mode, q, k, v, do, lse, delta, causal, scale):
     check_vector_aligned(name, ("q", q), ("k", k), ("v", v), ("dO", do))
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    code = _build.dtype_code(q, name)
+    code = _build.dtype_code(q, name, ATTENTION_DTYPES)
     rows = (b, sq, h)
     for t in (lse, delta):
         if t.shape != rows or t.dtype != torch.float32 or \

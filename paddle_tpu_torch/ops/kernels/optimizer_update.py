@@ -31,7 +31,8 @@ DECAY_NONE, DECAY_L2, DECAY_DECOUPLED = 0, 1, 2
 # (param dtype, slot dtype) pairs the kernel takes
 KERNEL_DTYPES = ((torch.float32, torch.float32),
                  (torch.bfloat16, torch.bfloat16),
-                 (torch.bfloat16, torch.float32))
+                 (torch.bfloat16, torch.float32),
+                 (torch.float16, torch.float16))
 MAX_TENSORS = 512  # csrc/adam_update.cu kMaxTensors: tensors a launch
 
 
@@ -55,21 +56,35 @@ def adam_update_reference(params: Sequence[torch.Tensor],
     L2 adds ``wd * p`` to the gradient before the moments; decoupled
     decay subtracts ``p * (lr * wd)`` (the value before the update, the
     product taken in float32) after it; the new value is computed in the
-    slots' dtype and stored in the parameter's."""
+    slots' dtype and stored in the parameter's. With fp16 storage the
+    moments are fp16 ops and the step from them runs in f32 (the JAX
+    rule divides them by float32 bias corrections, which promotes), the
+    decoupled decay too, each result rounded once to fp16."""
     lr = np.float32(lr)
     bc1, bc2 = (float(b) for b in bias_corrections(beta1, beta2, step))
     lr_wd = float(lr * np.float32(weight_decay))
     for p, g, m, v in zip(params, grads, exp_avgs, exp_avg_sqs):
         if decay == DECAY_L2:
             g = g + weight_decay * p
-        dec = p * lr_wd if decay == DECAY_DECOUPLED else None
         g = g.to(m.dtype)
         m.mul_(beta1).add_(g * (1 - beta1))
         v.mul_(beta2).add_(g * (1 - beta2) * g)
-        upd = (m / bc1).mul_(float(lr)).div_((v / bc2).sqrt_().add_(eps))
-        nv = (p.to(m.dtype) - upd).to(p.dtype)
-        if dec is not None:
-            nv = nv - dec
+        if m.dtype == torch.float16:
+            # fp16 slots: the step from the stored moments in f32, as the
+            # JAX rule's float32 bias corrections promote it; the bias-
+            # corrected v and eps (1e-8) would flush to 0 in fp16
+            upd = (m.float() / bc1).mul_(float(lr)).div_(
+                (v.float() / bc2).sqrt_().add_(eps))
+            nv = (p.float() - upd).to(p.dtype)
+            if decay == DECAY_DECOUPLED:
+                nv = (nv.float() - p.float() * lr_wd).to(p.dtype)
+        else:
+            dec = p * lr_wd if decay == DECAY_DECOUPLED else None
+            upd = (m / bc1).mul_(float(lr)).div_(
+                (v / bc2).sqrt_().add_(eps))
+            nv = (p.to(m.dtype) - upd).to(p.dtype)
+            if dec is not None:
+                nv = nv - dec
         p.copy_(nv)
 
 

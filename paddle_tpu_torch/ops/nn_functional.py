@@ -25,6 +25,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from ..amp.auto_cast import amp_cast
 from ..core import rng
 from .kernels.attention import (flash_attention, flash_attention_supported,
                                 folded_attention,
@@ -113,6 +114,7 @@ def cross_entropy(input, label, ignore_index: int = -100,  # noqa: A002
     label smoothing are not ported yet."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"cross_entropy: reduction {reduction!r}")
+    (input,) = amp_cast("cross_entropy", input)  # noqa: A001
     label = label.long()
     if label.dim() == input.dim():
         label = label.squeeze(axis)
@@ -138,6 +140,8 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     take no mask and no active dropout; they differentiate through their
     backward kernels. Dropout on the plain path draws from
     ``generator`` or the :func:`core.rng.key_scope` generator."""
+    q, k, v, attn_mask = amp_cast("scaled_dot_product_attention", q, k, v,
+                                  attn_mask)
     allowed = use_flash is True or (use_flash is None and
                                     k.shape[1] >= _FLASH_MIN_SEQ)
     folded_allowed = use_flash is True or (
@@ -314,6 +318,7 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     """``nn_functional.py:287-302``. ``weight`` is ``[out, in/groups, kh,
     kw]`` whatever ``data_format`` is. XLA's convolution in the JAX
     package; cuDNN here (no kernel of the JAX package's own)."""
+    x, weight, bias = amp_cast("conv2d", x, weight, bias)
     channel_last = data_format in ("NHWC", "NLC", "NDHWC")
     stride = _norm_tuple(stride, 2)
     dilation = _norm_tuple(dilation, 2)
@@ -415,6 +420,8 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     ones the JAX (and Paddle) way, ``momentum * old + (1 - momentum) *
     new`` (torch's ``F.batch_norm`` weighs the other way and keeps the
     unbiased variance, so it is not used)."""
+    x, running_mean, running_var, weight, bias = amp_cast(
+        "batch_norm", x, running_mean, running_var, weight, bias)
     ch = 1 if data_format.startswith("NC") and x.dim() > 1 else x.dim() - 1
     axes = [i for i in range(x.dim()) if i != ch]
     if training:

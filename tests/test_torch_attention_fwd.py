@@ -17,6 +17,8 @@ run only on the card. What can be shown here:
   ``chip_smoke.py``'s bound.
 """
 
+import _torch_threads  # noqa: F401
+
 import functools
 import importlib.util
 import math

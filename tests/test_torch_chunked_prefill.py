@@ -13,6 +13,8 @@ CPU at gpt_tiny size, mirroring ``tests/test_chunked_prefill.py``:
   cap; the server with ``prefill_chunk_tokens``.
 """
 
+import _torch_threads  # noqa: F401
+
 import threading
 import time
 

@@ -3,6 +3,8 @@ package's, on the CPU at gpt_tiny size: several requests through two
 slots with a small page pool, so pages are recycled between requests.
 """
 
+import _torch_threads  # noqa: F401
+
 import time
 
 import numpy as np

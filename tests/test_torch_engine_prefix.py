@@ -14,6 +14,8 @@ On-against-off in int8 is pinned on the prompts the JAX package's own
 tier tests pin it on (``_prompts``).
 """
 
+import _torch_threads  # noqa: F401
+
 import time
 
 import numpy as np

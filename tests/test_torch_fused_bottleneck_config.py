@@ -12,6 +12,8 @@ and column exactly once; otherwise the kernel would refuse a shape the
 model routes to it (the first kernel did so from 896x896 up).
 """
 
+import _torch_threads  # noqa: F401
+
 import pytest
 import torch
 

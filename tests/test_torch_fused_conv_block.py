@@ -19,6 +19,8 @@ blocks the first kernel could not place, and 3xTF32 products through
 the whole chain (``tests/tf32_emulation.py``).
 """
 
+import _torch_threads  # noqa: F401
+
 import functools
 import os
 import re

@@ -23,6 +23,8 @@ mirroring ``tests/test_paged_attention.py:183-270`` and
   serving a converted model equal to the JAX engine.
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch
@@ -226,6 +228,38 @@ def test_conversion_rebuilds_the_one_launch_program(state):
     (new,) = m._gen_programs.values()
     assert new is not old and old.caches == []
     np.testing.assert_array_equal(got, _greedy(m, "b1s9", "chunked", 6))
+
+
+def test_generate_keeps_one_program_a_cache_kind(state):
+    """A sweep over four signatures of each cache kind leaves one live
+    program a kind, the newest; every program it dropped is closed (no
+    caches, no graph), and a program built again for an old signature
+    gives the tokens it gave before."""
+    m = _port_model(state)
+    kinds = ("static", "paged", "paged_int8")
+    first = {}
+    built = []
+    for mode in kinds:
+        for name, n in (("b1s9", 4), ("b1s9", 6), ("b2s6", 4),
+                        ("b2s6", 6)):
+            toks = _greedy(m, name, mode, n)
+            first.setdefault(mode, toks)
+            live = list(m._gen_programs.values())
+            built.extend(p for p in live if p not in built)
+            assert sorted(p.kv_cache for p in live) == sorted(
+                kinds[:kinds.index(mode) + 1])
+    assert len(built) == 12
+    live = list(m._gen_programs.values())
+    assert len(live) == 3
+    for p in built:
+        if p not in live:
+            assert p.caches == [] and p.graphs is None
+    for mode in kinds:
+        np.testing.assert_array_equal(_greedy(m, "b1s9", mode, 4),
+                                      first[mode])
+    assert len(m._gen_programs) == 3
+    m.clear_generate_cache()
+    assert not getattr(m, "_gen_programs", {})
 
 
 def test_weight_watch_moves_on_replacement_not_on_copy(state):

@@ -6,6 +6,8 @@ fp32 (both on the CPU; sums in different orders), and greedy paged
 decoding produces the same tokens.
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

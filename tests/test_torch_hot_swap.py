@@ -19,6 +19,8 @@ model's weights, mirroring ``tests/test_hot_swap.py`` (``TestChainKeySalt``,
   resurrection after a swap keeps the generation.
 """
 
+import _torch_threads  # noqa: F401
+
 import os
 
 import numpy as np

@@ -18,6 +18,8 @@ mirroring ``tests/test_inprogram_inner_loop.py``:
 - ``inprogram=False`` and a host-only draft keep the boundary paths.
 """
 
+import _torch_threads  # noqa: F401
+
 import time
 
 import numpy as np

@@ -3,6 +3,8 @@
 they never carry on on the CPU by themselves.
 """
 
+import _torch_threads  # noqa: F401
+
 import ast
 import os
 import shutil
@@ -57,6 +59,9 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "import paddle_tpu_torch.regularizer, paddle_tpu_torch.core.flags\n"
         "import paddle_tpu_torch.ops.kernels.optimizer_update\n"
         "import paddle_tpu_torch.core.rng\n"
+        "import paddle_tpu_torch.amp, paddle_tpu_torch.amp.grad_scaler\n"
+        "import paddle_tpu_torch.optimizer.wrappers\n"
+        "import paddle_tpu_torch.optimizer.dgc\n"
         "import paddle_tpu_torch.vision.models\n"
         "import paddle_tpu_torch.inference.fusion\n"
         "import paddle_tpu_torch.ops.kernels.fused_conv_block\n"

@@ -8,6 +8,8 @@ CPU: through the Pallas interpreter. Tolerance 1e-5 in fp32: both sides
 compute in fp32 on the CPU, with sums in different orders.
 """
 
+import _torch_threads  # noqa: F401
+
 import functools
 
 import jax

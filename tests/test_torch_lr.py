@@ -6,6 +6,8 @@ midway and loaded into a fresh scheduler continues the same sequence;
 and an optimizer carries its scheduler's state under ``LR_Scheduler``.
 """
 
+import _torch_threads  # noqa: F401
+
 import pytest
 import torch
 

@@ -17,6 +17,8 @@ mirroring the single-server cases of ``tests/test_multi_step_decode.py``:
   replayed N times runs).
 """
 
+import _torch_threads  # noqa: F401
+
 import threading
 import time
 

@@ -21,6 +21,8 @@ the server cases of ``tests/test_tracing.py``:
   capture window ``tools/merge_traces.py`` merges, and the gauges.
 """
 
+import _torch_threads  # noqa: F401
+
 import importlib.util
 import os
 

@@ -15,6 +15,8 @@ ulp of the step, well inside that. bf16 parameters (``multi_precision``)
 within one bf16 ulp (rtol 2^-7).
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,8 @@ of the largest moment (atol 2^-6 of it); a parameter, which moves by
 ~lr a step, within one ulp of its own size (rtol 2^-7).
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,8 @@ can be shown here:
 - ``chip_smoke.py``'s bytes bound of the int8 and bf16 rows.
 """
 
+import _torch_threads  # noqa: F401
+
 import functools
 import importlib.util
 import math

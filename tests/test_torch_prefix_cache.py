@@ -7,6 +7,8 @@ and torn blobs) on the port's cache. Fault sites and retry dispositions
 against the JAX registry.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 import os
 

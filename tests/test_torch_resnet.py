@@ -9,6 +9,8 @@ sums in other orders); whole-model logits 1e-4 relative in L2 (fifty
 layers of such sums).
 """
 
+import _torch_threads  # noqa: F401
+
 import copy
 
 import jax.numpy as jnp

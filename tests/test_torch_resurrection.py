@@ -9,7 +9,10 @@ once; spill tiers ride along (``tests/test_prefix_tiers.py:573``). The
 rebuild allocates only once the dead engine's pools are freed.
 """
 
+import _torch_threads  # noqa: F401
+
 import threading
+import time
 import weakref
 
 import numpy as np
@@ -90,6 +93,28 @@ def _arm_when_decoding(srv, n, at_calls=(1, 2), decoding=None):
         return step()
 
     eng.step = arming_step
+
+
+def _gather(srv, n, timeout_s=30.0):
+    """Hold the engine's first steps, on the engine thread, until ``n``
+    requests are in flight (draining the server's inbox meanwhile), so
+    that every client's request is in the engine before any finishes,
+    however the client threads are scheduled. Released once; at most
+    ``timeout_s``."""
+    eng = srv.engine
+    step = eng.step
+    released = []
+
+    def gathered():
+        end = time.monotonic() + timeout_s
+        while not released and len(eng.dump_inflight()) < n and \
+                time.monotonic() < end:
+            srv._drain_inbox()
+            time.sleep(0.002)
+        released.append(True)
+        return step()
+
+    eng.step = gathered
 
 
 def _clients(port, prompts, mnt, stream=False):
@@ -191,6 +216,7 @@ def test_queued_requests_replay_too(model, jax_model):
                list(range(3, 22))]  # 3 requests, 2 slots: one queues
     expected = _expected(jax_model, prompts, 6)
     srv = _server(model, max_engine_errors=2)
+    _gather(srv, 3)
     _arm_when_decoding(srv, 3, decoding=2)
     port = srv.start()
     try:

@@ -3,6 +3,8 @@ with gpt_tiny: streaming and plain generate, health, stats, metrics,
 drain and the page audit, over a real localhost socket.
 """
 
+import _torch_threads  # noqa: F401
+
 import threading
 
 import numpy as np

@@ -19,6 +19,8 @@ the CPU (gpt_tiny, the JAX model's weights carried over by
 Mirrors ``tests/test_speculative.py`` where its cases apply.
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,8 @@ the key bias, whose gradient is 0 up to rounding (see
 ``_assert_params_close``).
 """
 
+import _torch_threads
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -89,7 +91,9 @@ def test_train_step_matches_jax_train_step():
     want = np.asarray(jstep.multi_step(jnp.asarray(batches)))
     jstep.sync_to_model()
     tstep = TrainStep(tm, AdamW(learning_rate=LR), _fn, device="cpu")
-    got = tstep.multi_step(torch.from_numpy(batches).long())
+    # the sums of torch's default thread count (tests/_torch_threads.py)
+    with _torch_threads.default_threads():
+        got = tstep.multi_step(torch.from_numpy(batches).long())
     assert got.shape == (3,) and got.device.type == "cpu"
     np.testing.assert_allclose(got.numpy(), want, rtol=LOSS_RTOL)
     assert want[-1] < want[0]

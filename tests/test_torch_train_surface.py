@@ -16,6 +16,8 @@ bias's gradient sums terms of both signs over the positions and loses
 digits to the cancellation).
 """
 
+import _torch_threads
+
 import numpy as np
 import pytest
 import torch
@@ -75,7 +77,9 @@ def test_remat_save_attention_step_matches_jax():
     want = np.asarray(jstep.multi_step(jnp.asarray(batches)))
     jstep.sync_to_model()
     tstep = TrainStep(tm, AdamW(learning_rate=LR), _fn, device="cpu")
-    got = tstep.multi_step(torch.from_numpy(batches).long())
+    # the sums of torch's default thread count (tests/_torch_threads.py)
+    with _torch_threads.default_threads():
+        got = tstep.multi_step(torch.from_numpy(batches).long())
     np.testing.assert_allclose(got.numpy(), want, rtol=LOSS_RTOL)
     _assert_params_close(jm, tm, PARAM_ATOL, steps=3)
 
