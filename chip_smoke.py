@@ -128,6 +128,25 @@ failure exits non-zero at once:
    under A; a truncated shard refused typed with B still serving; an
    eager engine's ``swap_weights`` A -> B bitwise B's tokens, and its
    decode ``program_costs`` beside one profiled step's device ms.
+5l. fleet — replicas as processes on the one card (``python -m
+   paddle_tpu_torch.serving.server``, GPT-1.3B fp32 seed 0, 8 slots,
+   page 64, 96 pages, a 4 GB host tier) under a ``Supervisor`` behind a
+   ``FailoverRouter`` in this process: roles prefill + decode take 4
+   keyed prompts of 1024-1600 tokens (prefill_only on one, a fetch_from
+   handoff on the other): every chain handed off and restored, no
+   failure, no leak; handoff ms and bytes, client TTFT / TPOT, the
+   prefill replica's engine stall during an export, token agreement with
+   the in-process engine; a profile window on each replica names the
+   decode kernels and ``attention_fwd`` in its trace; one handoff with
+   int8 blobs; an in-process pair holds restored pages byte-equal to the
+   exported blobs. Then two mixed replicas: a keyed stream whose replica
+   is killed mid-stream completes on the survivor equal to the
+   in-process engine's tokens, the replica respawns, fresh prompts equal
+   the in-process engine's; ``roll_fleet`` onto a seed-1 checkpoint
+   (canary 2 s) under a streaming client: generation 1 everywhere, no
+   failed request, a fresh prompt equal to the in-process engine on
+   seed-1 weights; ``fleet_stats`` and ``fleet_capacity`` through the
+   router.
 5k. generate — ``GPTForCausalLM.generate`` on the same model, 4 prompts
    of 1024 tokens: the one-launch mode over static, paged and int8-paged
    caches (one CUDA graph of the decode step, replayed a token), the
@@ -4152,6 +4171,509 @@ def phase_server_observe_swap(torch, dev, model, prompts, card):
     _free_engine_memory(torch)
 
 
+# -- the fleet ---------------------------------------------------------------
+
+FLEET_MODEL = "gpt_1p3b"
+FLEET_SERVER_ARGS = ("--num-slots", "8", "--page-size", "64",
+                     "--num-pages", "96", "--slo-ttft-ms", "5000",
+                     "--slo-tpot-ms", "200")
+# the decode replica lands a whole chain in its host tier before the
+# admission restores it (one fp32 page blob of GPT-1.3B is 25.2 MB, a
+# 1600-token prompt's chain 24 pages), and the prefill replica parks the
+# chains the device tier evicts there: room for every chain of the wave
+FLEET_SPILL_MB = 4096
+FLEET_HANDOFF_LENGTHS = (1024, 1200, 1400, 1600)
+FLEET_NEW = 32
+FLEET_PROFILE_MS = 300
+FLEET_STALL_PAGES = 4           # pages exported while the stall is read
+FLEET_BYTES_LEN = 260           # the in-process pair's prompt: 4 pages
+FLEET_FAILOVER_LEN = 200
+FLEET_FAILOVER_NEW = 256
+FLEET_FAILOVER_KILL_AT = 8      # streamed tokens before the kill
+FLEET_FRESH_LENGTHS = (300, 700)
+FLEET_ROLL_NEW = 16
+FLEET_CANARY_S = 2.0
+FLEET_KERNELS = {"decode": ("paged_decode_kernel", "out_proj_kernel",
+                            "argmax_tiles_kernel"),
+                 "prefill": ("attention_fwd_kernel",
+                             "argmax_tiles_kernel")}
+
+
+def _kernel_event_counts(path, symbols):
+    """Kernel events of a chrome trace by symbol substring."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {s: sum(s in n for n in names) for s in symbols}, len(names)
+
+
+def _top2_gap(torch, model, prompt, want, got):
+    """At the first position where ``got`` leaves ``want``: the position
+    and the in-process model's gap between its two largest logits
+    there."""
+    i = next(j for j, (a, b) in enumerate(zip(want, got)) if a != b)
+    ids = torch.tensor([list(prompt) + list(want[:i])],
+                       device=model.device)
+    with torch.no_grad():
+        out = model(ids)
+    logits = (out[0] if isinstance(out, tuple) else out)[0, -1].float()
+    top = torch.topk(logits, 2).values
+    return {"position": i, "top2_gap": float(top[0] - top[1])}
+
+
+def _fleet_tokens(torch, model, name, got, want, prompts):
+    """``check_tokens`` of the fleet against the in-process engine, with
+    the first divergence's top-2 logit gap of each request that left it."""
+    check_tokens(name, got, want)
+    if got != want:
+        emit({"check": name, "divergence": [
+            _top2_gap(torch, model, p, w, g)
+            for p, w, g in zip(prompts, want, got) if w != g]})
+
+
+def _alone(torch, model, prompts, max_new):
+    """Each prompt through its own in-process engine, alone (the fleet's
+    engine configuration), as each request reaches a replica."""
+    out = []
+    for p in prompts:
+        toks, _ = run_multi_engine(torch, model, [p], max_new,
+                                   multi_step=1)
+        out.append(toks[0])
+        _free_engine_memory(torch)
+    return out
+
+
+def _start_fleet(roles, extra=()):
+    from paddle_tpu_torch.serving.supervisor import (FailoverRouter,
+                                                     Supervisor)
+    env = {"PYTHONPATH": HERE + os.pathsep + os.environ.get("PYTHONPATH",
+                                                           "")}
+    sup = Supervisor(model=FLEET_MODEL, replicas=len(roles), roles=roles,
+                     server_args=list(FLEET_SERVER_ARGS)
+                     + ["--spill-mb", str(FLEET_SPILL_MB)] + list(extra),
+                     replica_env=env, probe_interval_s=0.25,
+                     ready_timeout_s=600,
+                     log_dir=os.path.join(HERE, "build", "fleet-logs"))
+    t0 = time.monotonic()
+    router = None
+    try:
+        sup.start(wait_ready=True)
+        boot_s = time.monotonic() - t0
+        router = FailoverRouter(sup)
+        router.start()
+    except BaseException:
+        if router is not None:
+            router.stop()
+        sup.stop()
+        raise
+    return sup, router, boot_s
+
+
+def _stop_fleet(sup, router):
+    try:
+        router.stop()
+    finally:
+        sup.stop()
+
+
+def _rpc(port, payload, timeout_s=600):
+    from paddle_tpu_torch.serving.server import client_request
+    return client_request("127.0.0.1", port, payload, timeout_s=timeout_s)
+
+
+def _routed(port, prompt, max_new, key=None, on_token=None, timeout_s=600):
+    """One streaming generate through the router: (reply, streamed
+    tokens, client ms to the first token, client ms a later token)."""
+    from paddle_tpu_torch.serving.server import client_request
+    streamed, stamps = [], []
+
+    def tok(t):
+        stamps.append(time.monotonic())
+        streamed.append(t)
+        if on_token is not None:
+            on_token(len(streamed))
+
+    msg = {"op": "generate", "prompt": [int(t) for t in prompt],
+           "max_new_tokens": max_new, "stream": True}
+    if key is not None:
+        msg["key"] = key
+    t0 = time.monotonic()
+    reply = client_request("127.0.0.1", port, msg, timeout_s=timeout_s,
+                           on_token=tok)
+    ttft = (stamps[0] - t0) * 1e3 if stamps else None
+    tpot = ((stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
+            if len(stamps) > 1 else None)
+    return reply, streamed, ttft, tpot
+
+
+def _counter(port, name):
+    return _rpc(port, {"op": "stats"})["stats"]["counters"].get(name, 0)
+
+
+def _profile_in_thread(port, ms, prof_dir, sink, key):
+    def run():
+        sink[key] = _rpc(port, {"op": "profile", "ms": ms,
+                                "dir": prof_dir})
+    t = threading.Thread(target=run)
+    t.start()
+    return t
+
+
+def fleet_handoff_bytes(torch, dev, model, prompt):
+    """An in-process prefill / decode ServingServer pair on ``model``:
+    one handoff of ``prompt``, then each restored page of the decode
+    server, read from its pool, packed and compared byte for byte with
+    the blob the prefill server exported."""
+    from paddle_tpu_torch.serving.prefix_cache import pack_page_blob
+    from paddle_tpu_torch.serving.server import (ServingServer,
+                                                 client_request,
+                                                 fetch_page_blobs)
+    kw = dict(device=dev, num_slots=8, page_size=PREFIX_PAGE,
+              num_pages=96, spill_bytes=FLEET_SPILL_MB << 20)
+    pf = ServingServer(model, role="prefill", **kw)
+    dec = ServingServer(model, role="decode", **kw)
+    try:
+        pf.start()
+        dec.start()
+        ack = client_request("127.0.0.1", pf.port,
+                             {"op": "generate", "prompt": prompt,
+                              "max_new_tokens": 1, "prefill_only": True},
+                             timeout_s=600)
+        out = client_request("127.0.0.1", dec.port,
+                             {"op": "generate", "prompt": prompt,
+                              "max_new_tokens": FLEET_NEW,
+                              "fetch_from": {"host": "127.0.0.1",
+                                             "port": pf.port}},
+                             timeout_s=600)
+        keys = [bytes.fromhex(k) for k in ack.get("keys", ())]
+        blobs, missing, _ = fetch_page_blobs("127.0.0.1", pf.port,
+                                             keys=keys)
+        if missing or out.get("stats", {}).get("handoff_pages") != \
+                len(keys) or not keys:
+            raise AssertionError(f"fleet byte check: ack {ack.get('keys')}"
+                                 f" missing {missing} reply {out}")
+        pc = dec.prefix_cache
+        equal = 0
+        for k in keys:
+            page = pc._entries[k].page
+            got = pack_page_blob(pc._read_page(page),
+                                 fmt=pc.blob_format)
+            equal += got == blobs[k]
+        return {"pages": len(keys), "byte_equal_pages": equal,
+                "tokens": out["generated"]}
+    finally:
+        dec.stop()
+        pf.stop()
+        _free_engine_memory(torch)
+
+
+def phase_fleet(torch, dev, model, card):
+    """The fleet on one card at GPT-1.3B's full width: replicas are
+    ``python -m paddle_tpu_torch.serving.server`` processes (seed-0
+    weights, 8 slots, page 64, 96 pages, fp32) under a ``Supervisor``,
+    fronted by a ``FailoverRouter`` in this process.
+    (1) Roles prefill + decode: 4 keyed prompts of 1024-1600 tokens, 32
+    new tokens each, one at a time: each runs prefill_only on replica 0
+    and decodes on replica 1 with a fetch_from hint. Held: 4 handoffs,
+    each request's handoff pages = its chain, restored = handoff pages,
+    no handoff failure, leak_check on both. Printed: handoff ms, bytes,
+    TTFT and TPOT at the client, the token agreement with the in-process
+    engine, the prefill replica's engine stall during an export (the
+    latency of a leak_check sent while a chain is exported), each
+    replica's memory and the card's. (2) A profile window on each
+    replica during the first request: the decode kernels in the decode
+    replica's trace, attention_fwd in the prefill replica's. One request
+    again on an int8-blob pair. In this process, an in-process pair holds
+    the restored pages byte-equal to the exported blobs. (3) Two mixed
+    replicas: a keyed stream of 256 tokens, its replica killed after 8
+    tokens; the stream completes on the survivor equal to the in-process
+    engine's tokens, the killed replica respawns; fresh prompts equal the
+    in-process engine's. (4) ``roll_fleet`` onto a seed-1 checkpoint
+    (canary 2 s) while a client streams: both replicas at generation 1,
+    no failed request, a fresh prompt equal to the in-process engine on
+    seed-1 weights. (5) ``fleet_stats`` and ``fleet_capacity`` through
+    the router."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.distributed.resilience import (
+        ResilientCheckpointManager)
+    from paddle_tpu_torch.models.gpt import checkpoint_state, load_jax_state
+    from paddle_tpu_torch.serving.prefix_cache import PrefixCache
+    phase = "fleet"
+    V = model.config.vocab_size
+    out = {"phase": phase, "card": card, "model": FLEET_MODEL,
+           "server_args": list(FLEET_SERVER_ARGS),
+           "spill_mb": FLEET_SPILL_MB}
+    gen = torch.Generator().manual_seed(31)
+    hand = [torch.randint(0, V, (n,), generator=gen).tolist()
+            for n in FLEET_HANDOFF_LENGTHS]
+    fresh = [torch.randint(0, V, (n,), generator=gen).tolist()
+             for n in FLEET_FRESH_LENGTHS]
+    fo_prompt = torch.randint(0, V, (FLEET_FAILOVER_LEN,),
+                              generator=gen).tolist()
+    _free_engine_memory(torch)
+    ref_hand = _alone(torch, model, hand, FLEET_NEW)
+    ref_fresh = _alone(torch, model, fresh, FLEET_NEW)
+    ref_fo = _alone(torch, model, [fo_prompt], FLEET_FAILOVER_NEW)[0]
+    byte_check = fleet_handoff_bytes(torch, dev, model,
+                                     hand[0][:FLEET_BYTES_LEN])
+    if byte_check["byte_equal_pages"] != byte_check["pages"]:
+        FAILED_CHECKS.append(f"{phase}: restored pages not byte-equal to "
+                             f"the exported blobs {byte_check}")
+    out["in_process_handoff"] = {
+        "pages": byte_check["pages"],
+        "byte_equal_pages": byte_check["byte_equal_pages"],
+        "token_agreement_vs_local": _agreement(
+            [byte_check["tokens"]],
+            _alone(torch, model, [hand[0][:FLEET_BYTES_LEN]],
+                   FLEET_NEW))}
+    state_a = checkpoint_state(model)
+    state_b = _seeded_state(torch, dev, model.config, 1)
+    load_jax_state(model, state_b)
+    ref_b = _alone(torch, model, fresh[:1], FLEET_NEW)
+    load_jax_state(model, state_a)
+    del state_a
+    ckdir = os.path.join(HERE, "build", "fleet-ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t0 = time.monotonic()
+    ResilientCheckpointManager(ckdir).save(1, state_b)
+    out["checkpoint_save_s"] = time.monotonic() - t0
+    del state_b
+    prof_dir = tempfile.mkdtemp(prefix="pt-fleet-profile-",
+                                dir=os.path.join(HERE, "build"))
+    try:
+        # (1) + (2): prefill -> decode handoff, kernels in the replicas
+        sup, router, boot_s = _start_fleet(["prefill", "decode"])
+        try:
+            pf, dec = sup.replicas
+            out["boot_s"] = boot_s
+            reqs, toks, profs = [], [], {}
+            for i, prompt in enumerate(hand):
+                threads = []
+                if i == 0:
+                    threads.append(_profile_in_thread(
+                        pf.port, FLEET_PROFILE_MS, prof_dir, profs,
+                        "prefill"))
+                    time.sleep(0.05)
+
+                def on_token(n, i=i):
+                    if i == 0 and n == 2:
+                        threads.append(_profile_in_thread(
+                            dec.port, FLEET_PROFILE_MS, prof_dir, profs,
+                            "decode"))
+
+                before = _counter(dec.port, "handoff_bytes_total")
+                reply, streamed, ttft, tpot = _routed(
+                    router.port, prompt, FLEET_NEW, key=f"h{i}",
+                    on_token=on_token)
+                for t in threads:
+                    t.join(timeout=600)
+                st = reply.get("stats", {})
+                chain = (len(prompt) - 1) // PREFIX_PAGE
+                if not reply.get("done") or streamed != \
+                        reply.get("generated") or \
+                        st.get("handoff_pages") != chain or \
+                        st.get("restored_pages") != chain:
+                    raise AssertionError(f"{phase} handoff {i}: chain "
+                                         f"{chain}, {st} {reply.get('error')}"
+                                         f" {reply.get('reason')}")
+                toks.append(reply["generated"])
+                reqs.append({
+                    "prompt_len": len(prompt), "chain_pages": chain,
+                    "handoff_pages": st["handoff_pages"],
+                    "restored_pages": st["restored_pages"],
+                    "handoff_ms": st.get("handoff_ms"),
+                    "handoff_bytes": _counter(
+                        dec.port, "handoff_bytes_total") - before,
+                    "client_ttft_ms": ttft, "client_tpot_ms": tpot,
+                    "replica_ttft_s": st.get("ttft_s"),
+                    "replica_tpot_s": st.get("tpot_s")})
+            h = _rpc(router.port, {"op": "health"})
+            fails = _counter(dec.port, "handoff_failures_total")
+            leaks = [_rpc(r.port, {"op": "leak_check"}) for r in
+                     (pf, dec)]
+            if h["handoffs_total"] != len(hand) or fails or \
+                    h["handoff_prefill_failures_total"] or \
+                    not all(lk.get("ok") for lk in leaks):
+                raise AssertionError(f"{phase}: handoffs "
+                                     f"{h['handoffs_total']}, failures "
+                                     f"{fails}, leak_check {leaks}")
+            out["handoff"] = {
+                "requests": reqs,
+                "token_agreement_vs_in_process": _agreement(toks,
+                                                            ref_hand)}
+            # the prefill replica's engine stall while it exports the
+            # first pages of the last prompt's (device-resident) chain
+            keys = [k.hex() for k in PrefixCache(PREFIX_PAGE)
+                    .chain_keys_for(hand[-1])][:FLEET_STALL_PAGES]
+            stall = {}
+
+            def fetch():
+                t = time.monotonic()
+                rep = _rpc(pf.port, {"op": "fetch_pages", "keys": keys})
+                stall["fetch_ms"] = (time.monotonic() - t) * 1e3
+                stall["pages"] = rep.get("count")
+                stall["bytes"] = rep.get("bytes")
+
+            th = threading.Thread(target=fetch)
+            th.start()
+            time.sleep(0.005)
+            t = time.monotonic()
+            _rpc(pf.port, {"op": "leak_check"})
+            stall["leak_check_ms"] = (time.monotonic() - t) * 1e3
+            th.join(timeout=600)
+            out["export_stall"] = stall
+            kern = {}
+            for role in ("prefill", "decode"):
+                prof = profs.get(role) or {}
+                if "trace_file" not in prof:
+                    raise AssertionError(f"{phase} {role} profile: {prof}")
+                counts, n = _kernel_event_counts(prof["trace_file"],
+                                                 FLEET_KERNELS[role])
+                mem = prof["devices"][0]["memory_stats"] or {}
+                kern[role] = {"kernel_events": n, "counts": counts,
+                              "allocated_bytes":
+                                  mem.get("allocated_bytes.all.current"),
+                              "reserved_bytes":
+                                  mem.get("reserved_bytes.all.current")}
+                if not all(counts.values()):
+                    raise AssertionError(f"{phase}: the {role} replica's "
+                                         f"trace lacks kernels {counts}")
+            free, total = torch.cuda.mem_get_info()
+            out["replicas"] = kern
+            out["card_memory_used_bytes"] = total - free
+            fs = _rpc(router.port, {"op": "fleet_stats"})["fleet"]
+            fc = _rpc(router.port, {"op": "fleet_capacity"})["capacity"]
+            out["fleet_stats"] = {"slo": fs.get("slo"),
+                                  "pressure": fs.get("pressure"),
+                                  "router": fs.get("router")}
+            out["fleet_capacity"] = {k: fc[k] for k in (
+                "replicas_fresh", "num_pages", "occupancy",
+                "used_fraction", "tte_s")}
+        finally:
+            _stop_fleet(sup, router)
+        sup, router, boot_s = _start_fleet(["prefill", "decode"],
+                                           ("--blob-format", "int8"))
+        try:
+            dec = sup.replicas[1]
+            before = _counter(dec.port, "handoff_bytes_total")
+            reply, streamed, ttft, _ = _routed(router.port, hand[0],
+                                               FLEET_NEW, key="i8")
+            st = reply.get("stats", {})
+            chain = (len(hand[0]) - 1) // PREFIX_PAGE
+            if st.get("handoff_pages") != chain or \
+                    streamed != reply.get("generated"):
+                raise AssertionError(f"{phase} int8 handoff: {st}")
+            out["handoff_int8"] = {
+                "boot_s": boot_s, "handoff_pages": st["handoff_pages"],
+                "handoff_ms": st.get("handoff_ms"),
+                "handoff_bytes": _counter(
+                    dec.port, "handoff_bytes_total") - before,
+                "client_ttft_ms": ttft,
+                "token_agreement_vs_in_process": _agreement(
+                    [reply["generated"]], ref_hand[:1])}
+        finally:
+            _stop_fleet(sup, router)
+
+        # (3) failover and respawn on two mixed replicas
+        sup, router, boot_s = _start_fleet(["mixed", "mixed"])
+        try:
+            out["mixed_boot_s"] = boot_s
+            killed = {}
+
+            def kill(n):
+                if n == FLEET_FAILOVER_KILL_AT:
+                    for rep in sup.replicas:
+                        if _rpc(rep.port, {"op": "health"})["active"]:
+                            killed["idx"] = rep.idx
+                            killed["t"] = time.monotonic()
+                            sup.kill_replica(rep.idx)
+                            return
+
+            reply, streamed, _, _ = _routed(
+                router.port, fo_prompt, FLEET_FAILOVER_NEW, key="fo",
+                on_token=kill)
+            h = _rpc(router.port, {"op": "health"})
+            if "idx" not in killed or not reply.get("done") or \
+                    h["failovers_total"] < 1:
+                raise AssertionError(f"{phase} failover: killed {killed},"
+                                     f" {reply.get('error')} "
+                                     f"{reply.get('reason')}, health {h}")
+            _fleet_tokens(torch, model, f"{phase} failover stream",
+                          [streamed, reply["generated"]],
+                          [ref_fo, ref_fo], [fo_prompt, fo_prompt])
+            rep = next(r for r in sup.replicas if r.idx == killed["idx"])
+            t_end = time.monotonic() + 600
+            while not (rep.ready and rep.alive() and rep.restarts == 1):
+                if time.monotonic() > t_end:
+                    raise AssertionError(f"{phase}: replica {rep.idx} did "
+                                         f"not respawn")
+                time.sleep(0.05)
+            out["failover"] = {
+                "killed_replica": killed["idx"],
+                "failovers_total": h["failovers_total"],
+                "restarts_total": sup.restarts_total,
+                "respawn_to_ready_s": time.monotonic() - killed["t"],
+                "streamed": len(streamed)}
+            if sup.restarts_total != 1:
+                raise AssertionError(f"{phase}: restarts_total "
+                                     f"{sup.restarts_total}")
+            got = [_routed(router.port, p, FLEET_NEW)[0]["generated"]
+                   for p in fresh]
+            _fleet_tokens(torch, model, f"{phase} fresh prompts vs the "
+                          f"in-process engine", got, ref_fresh, fresh)
+
+            # (4) roll onto seed-1 weights while a client streams
+            stop, during = threading.Event(), []
+
+            def client():
+                j = 0
+                while not stop.is_set():
+                    r, s, _, _ = _routed(router.port, fresh[j % 2],
+                                         FLEET_ROLL_NEW, key=f"r{j}")
+                    during.append(bool(r.get("done")) and
+                                  s == r.get("generated") and
+                                  len(s) == FLEET_ROLL_NEW)
+                    j += 1
+
+            th = threading.Thread(target=client)
+            th.start()
+            t0 = time.monotonic()
+            try:
+                roll = sup.roll_fleet(ckdir, canary_window_s=FLEET_CANARY_S)
+            finally:
+                roll_s = time.monotonic() - t0
+                stop.set()
+                th.join(timeout=600)
+            gens = [_rpc(r.port, {"op": "health"})["weight_generation"]
+                    for r in sup.replicas]
+            pauses = [_rpc(r.port, {"op": "stats"})["stats"]["swap_ms"]
+                      for r in sup.replicas]
+            if not roll.get("ok") or gens != [1, 1] or not during or \
+                    not all(during):
+                raise AssertionError(f"{phase} roll: {roll}, generations "
+                                     f"{gens}, requests {during}")
+            got_b = [_routed(router.port, p, FLEET_NEW)[0]["generated"]
+                     for p in fresh[:1]]
+            _fleet_tokens(torch, model, f"{phase} after the roll vs seed-1 "
+                          f"weights", got_b, ref_b, fresh[:1])
+            out["roll"] = {"wall_s": roll_s, "swapped": roll["swapped"],
+                           "canary": roll["canary"],
+                           "requests_during": len(during),
+                           "swap_ms": pauses}
+            fs = _rpc(router.port, {"op": "fleet_stats"})["fleet"]
+            out["fleet_stats_mixed"] = {
+                "restarts_total": fs["restarts_total"],
+                "weight_generations": fs["weight_generations"],
+                "router": fs["router"]}
+        finally:
+            _stop_fleet(sup, router)
+    finally:
+        shutil.rmtree(prof_dir, ignore_errors=True)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    emit(dict(out, ok=True))
+    _free_engine_memory(torch)
+
 # -- phase 5k ----------------------------------------------------------------
 
 GEN_B = 4                 # prompts a generate call
@@ -5661,6 +6183,7 @@ def main() -> int:
     small = phase_engine_multi_step(torch, dev, model, engine_prompts)
     phase_server_multi_step(torch, dev, small)
     phase_server_observe_swap(torch, dev, model, engine_prompts, smi_line)
+    phase_fleet(torch, dev, model, smi_line)
     phase_generate(torch, dev, model, smi_line)
     del model, small
     # the engine and the server leave reference cycles: collected here,

@@ -393,6 +393,10 @@ class DecodeRequest:
     # lifecycle-stage span (queue -> prefill -> decode)
     trace: Any = None
     span: Any = None
+    # a handoff-blocking prefill job (a prefill_only request: the router
+    # is mid-handoff and a decode replica waits on it); the scheduler
+    # boosts it by cfg.handoff_boost priority levels
+    handoff: bool = False
 
     @property
     def tokens(self) -> np.ndarray:
@@ -735,11 +739,18 @@ class ContinuousBatchingEngine:
                eos_token: Optional[int] = None, priority: int = 1,
                on_token: Optional[Callable[[int, int, bool], None]] = None,
                deadline_t: Optional[float] = None,
-               trace=None, trace_ctx: Optional[Dict] = None) -> int:
+               trace=None, trace_ctx: Optional[Dict] = None,
+               handoff: bool = False,
+               handoff_info: Optional[Dict] = None) -> int:
         """Queue a request; returns its id. ``trace``: an existing
         RequestTrace to continue (the server's resurrection replay
         resubmits an in-flight request onto its tree); ``trace_ctx``: an
-        upstream trace context that forces sampling."""
+        upstream trace context that forces sampling. ``handoff=True``
+        marks a handoff-blocking prefill job (the scheduler's boost);
+        ``handoff_info={"ms": ..., "bytes": ...}`` records the wire fetch
+        the server already made for this request (the fetched blobs sit
+        in the prefix cache's tiers, and admission splices them through
+        ``restore_from_spill``)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) + max_new_tokens > self.max_seq_len:
             raise ValueError(
@@ -767,9 +778,12 @@ class ContinuousBatchingEngine:
                             eos_token, priority=int(priority),
                             on_token=on_token,
                             deadline_t=(None if deadline_t is None
-                                        else float(deadline_t)))
+                                        else float(deadline_t)),
+                            handoff=bool(handoff))
         req.stats.submit_t = time.monotonic()
         req.stats.prompt_len = len(prompt)
+        if handoff_info:
+            req.stats.handoff_ms = float(handoff_info.get("ms", 0.0))
         self._next_id += 1
         tr = trace
         if tr is None and self._tracer is not None:
@@ -831,6 +845,39 @@ class ContinuousBatchingEngine:
                    if r is not None and r.state == "prefill_partial")
         debt += sum(len(r.prompt) for r in self._queue)
         return debt
+
+    def flight_summary(self) -> Dict[str, Any]:
+        """JSON-safe state card for the crash flight recorder: occupancy,
+        page pressure, EMAs, launch totals and the feature flags that
+        shaped the programs. Host-side numbers only; safe to call on a
+        dying engine."""
+        return {
+            "steps": int(self.steps),
+            "num_slots": int(self.num_slots),
+            "num_active": int(self.num_active),
+            "num_queued": int(self.num_queued),
+            "num_pages": int(self.num_pages),
+            "free_pages": int(self.free_pages),
+            "reserved_pages": int(self.allocator.reserved_total),
+            "page_size": int(self.page_size),
+            "max_seq_len": int(self.max_seq_len),
+            "decode_ema_ms": (None if self.decode_ema_s is None
+                              else round(self.decode_ema_s * 1e3, 3)),
+            "prefill_chunk_ema_ms": (
+                None if self.prefill_chunk_ema_s is None
+                else round(self.prefill_chunk_ema_s * 1e3, 3)),
+            "prefill_debt_tokens": int(self.prefill_debt_tokens),
+            "prefill_chunk_tokens": self.prefill_chunk_tokens,
+            "fused_step": bool(self.fused_step),
+            "multi_step": int(self.multi_step),
+            "macro_launches": int(self.macro_launches),
+            "speculative": self._spec_cfg is not None,
+            "mesh": None,  # single device (the mesh is not yet ported)
+            "programs_launched": dict(self.programs_launched),
+            "step_programs": dict(self.step_programs),
+            "ledger_events": (None if self.ledger is None
+                              else int(self.ledger.seq)),
+        }
 
     def step_timeline(self) -> List[Dict[str, Any]]:
         """Per-step records, oldest first (bounded ring)."""
@@ -1626,7 +1673,10 @@ class ContinuousBatchingEngine:
                     self.ledger.record("restore", req.req_id,
                                        pages=rpages)
                 if tr is not None:
+                    # fetched: restored pages whose blobs came over the
+                    # wire rather than from a local eviction
                     tr.end(rsp, pages=len(rkeys),
+                           fetched=rinfo.get("fetched", 0),
                            corrupt=rinfo.get("corrupt", 0))
                 if rkeys:
                     cache.acquire(rkeys)
@@ -1639,6 +1689,7 @@ class ContinuousBatchingEngine:
                     st.restored_disk_pages += rinfo.get("disk", 0)
                     st.restore_corrupt += rinfo.get("corrupt", 0)
                     st.restore_ms += rinfo.get("ms", 0.0)
+                    st.handoff_pages += rinfo.get("fetched", 0)
         req._pfx_device_hits = device_hits
         cached_len = len(shared) * self.page_size
         need = -(-(len(req.prompt) + req.max_new_tokens) // self.page_size)

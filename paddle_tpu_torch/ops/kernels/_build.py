@@ -12,12 +12,17 @@ The library is loaded with ``ctypes``; every pointer and the stream are
 ``c_void_p``. The build runs at the first kernel launch (never at
 import, so the CPU tests import the package without ``nvcc``) and is
 keyed on a hash of the sources: an unchanged tree reuses
-``build/kernels/libpt_kernels.so``.
+``build/kernels/libpt_kernels.so``. Builds are serialised across
+processes by an ``flock`` on ``build/kernels/.build.lock`` (the replicas
+of a fleet booting from a fresh tree all reach their first launch
+together): whoever takes the lock second finds the stamp written and
+loads the first one's library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -125,13 +130,37 @@ def build(verbose: bool = False) -> str:
     (:func:`ptxas_report_path`), rebuilding a library that has none."""
     digest = source_hash()
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
+    if _built(digest, verbose):
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".build.lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not _built(digest, verbose):
+                _compile(digest, verbose)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return lib_path
+
+
+def _built(digest: str, verbose: bool) -> bool:
+    """The library of ``digest`` exists with its stamp (and, for a
+    verbose build, its ptxas report)."""
+    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
+    stamp = lib_path + ".hash"
+    if not (os.path.exists(lib_path) and os.path.exists(stamp) and (
+            not verbose or os.path.exists(ptxas_report_path()))):
+        return False
+    with open(stamp) as f:
+        return f.read().strip() == digest
+
+
+def _compile(digest: str, verbose: bool) -> None:
+    """Compile every source and link the library (under the build
+    lock); the stamp is written last, atomically."""
+    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     stamp = lib_path + ".hash"
     report = ptxas_report_path()
-    if os.path.exists(lib_path) and os.path.exists(stamp) and (
-            not verbose or os.path.exists(report)):
-        with open(stamp) as f:
-            if f.read().strip() == digest:
-                return lib_path
     obj_dir = os.path.join(BUILD_DIR, "obj-" + digest)
     os.makedirs(obj_dir, exist_ok=True)
     nvcc = _nvcc()
@@ -169,9 +198,10 @@ def build(verbose: bool = False) -> str:
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + link.stdout)
     os.replace(tmp, lib_path)
-    with open(stamp, "w") as f:
+    tmp = stamp + f".tmp{os.getpid()}"
+    with open(tmp, "w") as f:
         f.write(digest)
-    return lib_path
+    os.replace(tmp, stamp)
 
 
 def ptxas_report_path() -> str:

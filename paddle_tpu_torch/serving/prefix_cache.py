@@ -560,6 +560,7 @@ class _Entry:
     refcount: int = 0             # active requests holding this one
     children: int = 0             # child entries chaining off this one
     last_used: int = 0            # LRU tick
+    head: Optional[bytes] = None  # the chain's head, fixed at insert
     dedup: bool = False           # a second request's identical page
                                   # folded onto this one: the allocator
                                   # owner is ("dedup", key)
@@ -633,6 +634,19 @@ class PrefixCache:
         self._read_page: Optional[Callable[[int], Any]] = None
         self._splice_page: Optional[Callable[[Sequence[int], Any],
                                              None]] = None
+        # chain heads with a blob in a tier (the affinity advertisement
+        # covers spilled prefixes too); pruned in advertised_keys_info
+        self._tier_heads: set = set()
+        # spilled chain members by head key: eviction is leaf-first, so
+        # the head is known at spill time. fetch_pages expands a head
+        # into its whole chain through this
+        self._spilled_by_head: Dict[bytes, set] = {}
+        # keys whose tier blobs came over the wire (import_blobs), for
+        # the fetched split of restore_from_spill
+        self._fetched_keys: set = set()
+        self.exported_pages = 0      # blobs served to peers
+        self.imported_pages = 0      # blobs accepted from peers
+        self.import_corrupt = 0      # wire blobs failing the crc check
 
     # -- spill-tier plumbing ------------------------------------------------
 
@@ -754,6 +768,11 @@ class PrefixCache:
             blob = blob[:-1] + bytes([blob[-1] ^ 0xFF])
         self.tiers[0].put(ent.key, blob)
         self.spilled_pages += 1
+        head = self._head_of(ent.key)
+        if head is not None:
+            self._spilled_by_head.setdefault(head, set()).add(ent.key)
+        if ent.parent is None:
+            self._tier_heads.add(ent.key)
 
     def restore_from_spill(self, prompt, matched_keys: Sequence[bytes],
                            allocator, memo=None
@@ -769,7 +788,7 @@ class PrefixCache:
         per-tier page counts, the corrupt count and the wall ms. The
         caller acquires the restored keys, as for device hits."""
         info: Dict[str, Any] = {t.name: 0 for t in self.tiers}
-        info.update(corrupt=0, ms=0.0)
+        info.update(corrupt=0, ms=0.0, fetched=0)
         if not self.spill_enabled or self._splice_page is None:
             return (), [], info
         chain = self._memo_chain(prompt, memo)
@@ -842,17 +861,174 @@ class PrefixCache:
                 self._entries[key] = _Entry(key, parent, page,
                                             np.array(block, np.int32),
                                             refcount=0,
-                                            last_used=self._tick)
+                                            last_used=self._tick,
+                                            head=self._memo_head(
+                                                key, parent))
                 if parent is not None:
                     self._entries[parent].children += 1
                 self.tier_hit_pages[tname] += 1
                 info[tname] += 1
+                if key in self._fetched_keys:
+                    # the blob came over the wire: the fetched split
+                    info["fetched"] += 1
+                    self._fetched_keys.discard(key)
         if new_keys or info["corrupt"]:
             ms = (time.perf_counter() - t0) * 1e3
             info["ms"] = ms
             self.last_restore_ms = ms
             self.restored_pages += len(new_keys)
         return tuple(new_keys), new_pages, info
+
+    # -- wire handoff --------------------------------------------------------
+
+    def _memo_head(self, key: bytes, parent: Optional[bytes]) -> bytes:
+        """Chain head of a new entry: the parent's memoized head (chains
+        build root-first, so the parent is resident), else the key."""
+        if parent is None:
+            return key
+        pent = self._entries.get(parent)
+        if pent is not None and pent.head is not None:
+            return pent.head
+        return self._walk_head(parent) or key
+
+    def _head_of(self, key: bytes) -> Optional[bytes]:
+        """Chain head of a resident entry: the insert-time memo, else
+        the parent walk."""
+        ent = self._entries.get(key)
+        if ent is None:
+            return None
+        if ent.head is not None:
+            return ent.head
+        return self._walk_head(key)
+
+    def _walk_head(self, key: bytes) -> Optional[bytes]:
+        """Walk parents to the chain head (eviction is leaf-first, so a
+        resident entry's parent path is resident); None for a key the
+        cache does not know."""
+        ent = self._entries.get(key)
+        if ent is None:
+            return None
+        while ent.parent is not None:
+            parent = self._entries.get(ent.parent)
+            if parent is None:
+                return None
+            ent = parent
+        return ent.key
+
+    def _tier_blob(self, key: bytes) -> Optional[bytes]:
+        """A tier blob read without the tier's hit/miss counts (those
+        describe restores); its recency is refreshed."""
+        for t in self.tiers:
+            if t.contains(key):
+                try:
+                    blob = t._load(key)
+                except OSError:
+                    continue
+                t.touch(key)
+                return blob
+        return None
+
+    def expand_heads(self, heads: Sequence[bytes]) -> List[bytes]:
+        """Every chain key reachable from ``heads``: the device subtree
+        (through a reverse child index), then the members recorded at
+        spill time. ``fetch_pages`` serves a whole chain this way when
+        the caller knows only the advertised head."""
+        children: Dict[bytes, List[bytes]] = {}
+        for e in self._entries.values():
+            if e.parent is not None:
+                children.setdefault(e.parent, []).append(e.key)
+        out: List[bytes] = []
+        seen: set = set()
+        for head in heads:
+            stack = [head]
+            while stack:
+                k = stack.pop()
+                if k in seen:
+                    continue
+                seen.add(k)
+                out.append(k)
+                stack.extend(children.get(k, ()))
+            for k in sorted(self._spilled_by_head.get(head, ())):
+                if k not in seen:
+                    seen.add(k)
+                    out.append(k)
+        return out
+
+    def export_blobs(self, keys: Sequence[bytes]
+                     ) -> Tuple[Dict[bytes, bytes], List[bytes]]:
+        """Serve chain pages to a peer (the ``fetch_pages`` op, engine
+        thread): tier blobs as stored (their crc travels with them),
+        device-resident pages packed through the device reader in the
+        spill format. Returns (blobs by key, missing keys): a key this
+        cache cannot produce is missing, never an error."""
+        blobs: Dict[bytes, bytes] = {}
+        missing: List[bytes] = []
+        for key in keys:
+            blob = self._tier_blob(key) if self.tiers else None
+            if blob is None:
+                ent = self._entries.get(key)
+                if ent is not None and self._read_page is not None:
+                    try:
+                        blob = pack_page_blob(
+                            self._read_page(ent.page),
+                            fmt=self.blob_format,
+                            stats=self.codec_stats)
+                    except Exception:
+                        blob = None
+            if blob is None:
+                missing.append(key)
+            else:
+                blobs[key] = blob
+                self.exported_pages += 1
+        return blobs, missing
+
+    def import_blobs(self, blobs: Dict[bytes, bytes],
+                     heads: Sequence[bytes] = ()) -> Dict[str, int]:
+        """Accept a peer's chain pages (engine thread): every blob's crc
+        is checked again (a torn transfer is a counted corrupt, never
+        spliced), device-resident keys are skipped, and the rest land in
+        the first spill tier like a local eviction, where
+        ``restore_from_spill`` finds them at admission. ``heads`` marks
+        chain heads for the advertisement. Returns {imported, corrupt,
+        skipped, dropped, bytes}; ``dropped`` counts blobs the tiers
+        could not keep."""
+        report = {"imported": 0, "corrupt": 0, "skipped": 0,
+                  "dropped": 0, "bytes": 0}
+        if not self.tiers:
+            report["skipped"] = len(blobs)
+            return report
+        # a fetched marker whose blob left every tier can never restore
+        if self._fetched_keys:
+            self._fetched_keys = {
+                k for k in self._fetched_keys
+                if any(t.contains(k) for t in self.tiers)}
+        landed = []
+        for key, blob in blobs.items():
+            if key in self._entries:
+                report["skipped"] += 1
+                continue
+            try:
+                unpack_page_blob(blob)
+            except SpillCorrupt:
+                self.import_corrupt += 1
+                report["corrupt"] += 1
+                continue
+            self.tiers[0].put(key, blob)
+            landed.append((key, len(blob)))
+        # count what is resident after the whole batch: a put may demote
+        # or drop an oversize blob, and a later put may evict an earlier
+        for key, nbytes in landed:
+            if not any(t.contains(key) for t in self.tiers):
+                report["dropped"] += 1
+                continue
+            self._fetched_keys.add(key)
+            self.imported_pages += 1
+            report["imported"] += 1
+            report["bytes"] += nbytes
+        for h in heads:
+            if any(t.contains(h) for t in self.tiers):
+                self._tier_heads.add(h)
+        return report
 
     # -- insertion ---------------------------------------------------------
 
@@ -918,7 +1094,8 @@ class PrefixCache:
             self._tick += 1
             self._entries[key] = _Entry(key, parent, page,
                                         np.array(block, np.int32),
-                                        refcount=1, last_used=self._tick)
+                                        refcount=1, last_used=self._tick,
+                                        head=self._memo_head(key, parent))
             if parent is not None:
                 self._entries[parent].children += 1
             self.inserted_pages += 1
@@ -997,6 +1174,9 @@ class PrefixCache:
         self._entries.clear()
         for t in self.tiers:
             t.clear()
+        self._tier_heads.clear()
+        self._spilled_by_head.clear()
+        self._fetched_keys.clear()
 
     def set_generation(self, generation: int, allocator) -> None:
         """Move the cache to a new weight generation
@@ -1040,6 +1220,45 @@ class PrefixCache:
             s["hit_pages"] = self.tier_hit_pages.get(t.name, 0)
             out[t.name] = s
         return out
+
+    def advertised_keys(self, limit: int = 128) -> List[str]:
+        """The keys of :meth:`advertised_keys_info`."""
+        return self.advertised_keys_info(limit)["keys"]
+
+    def advertised_keys_info(self, limit: int = 128) -> Dict[str, Any]:
+        """Chain-head keys (hex) this cache can serve a prefix for:
+        device-resident heads, then heads whose blob sits in a tier,
+        ordered by the latest touch anywhere in the head's chain.
+        Returns ``{"keys": [...], "truncated": bool}``, so the router
+        tells "not resident" from "not advertised". The server's health
+        reply carries it and the failover router steers on it; it is a
+        hint, so staleness is harmless."""
+        recency: Dict[bytes, int] = {}
+        for e in self._entries.values():
+            head = self._head_of(e.key)
+            if head is not None:
+                recency[head] = max(recency.get(head, 0), e.last_used)
+        ordered = sorted(recency, key=lambda k: -recency[k])
+        out = [k.hex() for k in ordered[:limit]]
+        seen = set(out)
+        extra = 0
+        for k in list(self._tier_heads):
+            if k in self._entries:
+                continue  # advertised as device-resident
+            if any(t.contains(k) for t in self.tiers):
+                if k.hex() in seen:
+                    continue
+                if len(out) < limit:
+                    out.append(k.hex())
+                    seen.add(k.hex())
+                else:
+                    extra += 1
+            else:
+                # the head's blob left every tier: forget the chain
+                self._tier_heads.discard(k)
+                self._spilled_by_head.pop(k, None)
+        return {"keys": out,
+                "truncated": bool(len(ordered) > limit or extra)}
 
     def check_consistent(self, allocator) -> None:
         """Drained-engine audit: every page the allocator sees as owned

@@ -21,6 +21,10 @@ Newline-JSON protocol (one JSON object per line, both directions):
     -> {"op": "capacity", "ledger_tail": 32}  # occupancy + forecast
     -> {"op": "profile", "ms": 300, "dir": "/path"}  # memory + capture
     -> {"op": "swap", "checkpoint": "/ckpt/dir", "generation": 1}
+    -> {"op": "fetch_pages", "keys": [hex...], "heads": [hex...],
+        "cursor": 0}         # a peer's chain-page blobs (base64)
+    -> {"op": "prefetch", "host": h, "port": p, "heads": [hex...]}
+                             # pull a peer's chains into the tiers
 
 Typed failures are structured replies, never hangs: ``ServerOverloaded``
 (queue past the SLO scheduler's bounds), ``ServerDraining`` (a drained
@@ -109,9 +113,29 @@ chain keys and rides the resurrection recipe.
 ``--forecast-admission`` charges the forecast page burn at admission;
 ``--no-page-ledger`` turns the page ledger off.
 
-Ops and flags not yet ported (``fetch_pages``, ``prefetch``;
-``--role``, ``--flight-*``, ``--mesh``, ...) are answered as the JAX
-server answers an unknown op or flag.
+Disaggregated roles: ``--role prefill`` serves ``prefill_only``
+generates (the reply is an ack naming the chain keys), parks the
+finished chain in its cache and tiers, advertises the heads in health's
+``prefix_keys`` and serves the pages over ``fetch_pages`` (at most
+``FETCH_PAGES_CAP`` = 512 a reply, ``next_cursor`` pages through the
+rest); a plain generate gets a typed ``WrongRole``. ``--role decode``
+takes a router's ``"fetch_from": {"host", "port", "generation"}`` hint
+on a generate: the connection thread pulls the prompt's chain from the
+peer (``--handoff-timeout-s``), the engine thread imports the blobs into
+the tiers (each crc checked again) and admission splices them instead of
+prefilling; greedy outputs equal the local path's. Any fetch failure is
+a counted fallback to the local prefill (``handoff_failures_total``); a
+hint of another weight generation is skipped and counted
+(``cross_generation_skips_total``). ``prefetch`` pulls a peer's chains
+into this replica's tiers (the receiving side of a drain handoff).
+``--role mixed`` (the default) is the single server.
+
+``--flight-dir DIR`` (``--flight-budget-mb``, default 64) writes a
+black-box bundle on a resurrection, a terminal failure, a stall or a
+failed swap; ``tools/flight_inspect.py`` lints it.
+
+Not yet ported: ``--mesh`` (answered as the JAX server answers an
+unknown flag).
 
 Threading: the ENGINE THREAD exclusively owns the engine and every CUDA
 launch (it sets the CUDA device first); connection threads parse
@@ -130,7 +154,7 @@ import queue as queue_mod
 import socket
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -140,15 +164,85 @@ from ..distributed.fault_inject import InjectedFault, fault_point
 from ..distributed.resilience import (ResilientCheckpointManager,
                                       RetryExhausted, get_retry_policy)
 from ..inference.continuous_batching import SwapFailed
+from .fleet_metrics import FlightRecorder
 from .metrics import ServingMetrics, SLOAttainment
 from .prefix_cache import PrefixCache
 from .scheduler import Priority, ServerOverloaded, SLOScheduler
 from .tracing import SpanTracer, stderr_span_sink
 
-__all__ = ["ServingServer", "client_request"]
+__all__ = ["ServingServer", "client_request", "fetch_page_blobs",
+           "PageFetchFailed"]
 
 _PRIORITIES = {"batch": Priority.BATCH, "normal": Priority.NORMAL,
                "interactive": Priority.INTERACTIVE}
+
+_ROLES = ("mixed", "prefill", "decode")
+
+
+class PageFetchFailed(ConnectionError):
+    """A cross-replica page fetch (the ``fetch_pages`` op) delivered no
+    usable blobs: the peer is dead, the transport tore, the peer replied
+    with a typed error or a malformed payload. Always recoverable: the
+    caller falls back to a local (chained) prefill, the socket timeout
+    bounds the wait and ``handoff_failures_total`` counts it."""
+
+
+def _hexes(ks) -> List[str]:
+    return [k.hex() if isinstance(k, bytes) else str(k) for k in ks]
+
+
+def fetch_page_blobs(host: str, port: int, keys=None, heads=None,
+                     timeout_s: float = 30.0):
+    """Client side of the ``fetch_pages`` op: pull chain-page blobs from
+    a peer replica. ``keys`` are exact chain keys (bytes or hex);
+    ``heads`` are chain heads the peer expands to whole chains. Returns
+    ``(blobs: {key_bytes: blob_bytes}, missing_hex, bytes_total)``;
+    raises :class:`PageFetchFailed` on any transport or protocol
+    failure. Blob crcs are checked by the importer
+    (``PrefixCache.import_blobs``), not here.
+
+    A chain longer than the peer's ``FETCH_PAGES_CAP`` pages through the
+    reply's ``next_cursor``: the client pulls bounded windows, each its
+    own timeout-bounded call, until the peer returns no next cursor (at
+    most 256 rounds, so a peer echoing a cursor cannot spin it)."""
+    import base64
+
+    base: Dict[str, Any] = {"op": "fetch_pages"}
+    if keys:
+        base["keys"] = _hexes(keys)
+    if heads:
+        base["heads"] = _hexes(heads)
+    blobs: Dict[bytes, bytes] = {}
+    missing: List[str] = []
+    total = 0
+    cursor = 0
+    for _round in range(256):
+        payload = dict(base)
+        if cursor:
+            payload["cursor"] = cursor
+        try:
+            reply = client_request(host, int(port), payload,
+                                   timeout_s=timeout_s)
+        except Exception as e:
+            raise PageFetchFailed(f"{type(e).__name__}: {e}")
+        if not isinstance(reply, dict) or reply.get("error"):
+            raise PageFetchFailed(
+                f"{reply.get('error')}: {reply.get('reason')}"
+                if isinstance(reply, dict) else "non-object reply")
+        try:
+            for khex, b64 in (reply.get("blobs") or {}).items():
+                blob = base64.b64decode(b64)
+                blobs[bytes.fromhex(khex)] = blob
+                total += len(blob)
+        except Exception as e:
+            raise PageFetchFailed(f"malformed blob payload: "
+                                  f"{type(e).__name__}: {e}")
+        missing.extend(reply.get("missing") or ())
+        nxt = reply.get("next_cursor")
+        if not isinstance(nxt, int) or nxt <= cursor:
+            break
+        cursor = nxt
+    return blobs, missing, total
 
 
 class _Pending:
@@ -192,11 +286,29 @@ class ServingServer:
                  slo_ttft_ms: Optional[float] = None,
                  slo_tpot_ms: Optional[float] = None,
                  slo_window_s: float = 120.0,
+                 flight_dir: Optional[str] = None,
+                 flight_budget_bytes: int = 64 << 20,
+                 role: str = "mixed",
+                 handoff_timeout_s: float = 30.0,
                  blob_format: str = "raw",
                  dedup: bool = True,
                  checkpoint: Optional[str] = None,
                  weight_generation: int = 0,
                  device=None, **engine_kwargs):
+        # "mixed" is the single server. "prefill" admits and prefills
+        # only (plain generates get a typed WrongRole) and parks finished
+        # chains in its cache and tiers for peers to fetch; "decode"
+        # serves streams and pulls advertised chains over fetch_pages
+        # instead of prefilling again. Both need a spill tier (the
+        # parking lot and the wire's landing zone): one is defaulted
+        if role not in _ROLES:
+            raise ValueError(f"role must be one of {_ROLES}; got "
+                             f"{role!r}")
+        self.role = role
+        self.handoff_timeout_s = float(handoff_timeout_s)
+        if role != "mixed" and prefix_cache and spill_bytes is None \
+                and spill_dir is None:
+            spill_bytes = 64 << 20
         self.device = resolve_device(device)
         if tracer is not None:
             self.tracer = tracer
@@ -227,6 +339,11 @@ class ServingServer:
             self.metrics = ServingMetrics(
                 slo=SLOAttainment(ttft_ms=slo_ttft_ms, tpot_ms=slo_tpot_ms,
                                   window_s=slo_window_s))
+        # crash flight recorder: black-box bundles on resurrection, a
+        # terminal failure, a stall and a failed swap
+        self.flight = (FlightRecorder(flight_dir,
+                                      budget_bytes=flight_budget_bytes)
+                       if flight_dir else None)
         # the resurrection recipe, captured once: a rebuild constructs an
         # equivalent engine (fresh allocator, pools and prefix cache)
         self._use_prefix_cache = bool(prefix_cache)
@@ -484,6 +601,47 @@ class ServingServer:
             self._wake.wait(timeout=self.poll_interval_s)
             self._wake.clear()
 
+    def _flight_record(self, reason: str, inflight=None,
+                       **extra) -> None:
+        """Crash flight recorder (engine thread): assemble and write one
+        black-box bundle atomically, from bounded structures only (the
+        timeline ring, the finished-trace ring, the in-flight dump).
+        Never raises: a postmortem must not cause the next incident."""
+        if self.flight is None:
+            return
+        eng = self.engine
+
+        def collect() -> Dict:
+            reqs = (inflight if inflight is not None
+                    else eng.dump_inflight())
+            return {
+                # v2 bundles carry the page-ledger tail and a capacity
+                # snapshot; tools/flight_inspect.py requires both
+                "v": 2,
+                "page_ledger": getattr(eng, "ledger_tail",
+                                       lambda n: [])(256),
+                "capacity": self._capacity(),
+                "model": type(self._model).__name__,
+                "weight_generation": self._weight_generation,
+                "engine": eng.flight_summary(),
+                "recipe": dict(self._engine_kwargs),
+                "restarts": self._restarts,
+                "consec_errors": self._consec_errors,
+                "step_timeline": eng.step_timeline(),
+                "traces": self.tracer.finished(),
+                "events": self.tracer.events(),
+                "metrics": self.metrics.export(),
+                "inflight": [{"req_id": int(r.req_id),
+                              "state": r.state,
+                              "prompt_len": int(len(r.prompt)),
+                              "generated": int(len(r.generated)),
+                              "priority": int(r.priority)}
+                             for r in reqs],
+                **extra,
+            }
+
+        self.flight.record(reason, collect)
+
     def _resurrect_engine(self) -> None:
         """Recoverable engine death (engine thread; ``server.py:716-831``):
         snapshot every request the dead engine owes an answer, tear it
@@ -495,6 +653,9 @@ class ServingServer:
         self.metrics.counter("engine_restarts_total").add()
         old = self.engine
         snapshot = old.dump_inflight()
+        # the bundle before teardown: the dying engine's timeline ring
+        # and in-flight set are what the postmortem needs
+        self._flight_record("resurrect", inflight=snapshot)
         self.tracer.annotate(
             "resurrect",
             rids=[(r.req_id, len(r.prompt), len(r.generated), r.state)
@@ -555,6 +716,9 @@ class ServingServer:
                     replay_prompt, max_new_tokens=remaining,
                     eos_token=req.eos_token, priority=req.priority,
                     deadline_t=req.deadline_t, on_token=on_token,
+                    # a handoff-blocking prefill keeps its boost: a
+                    # decode replica still waits on the chain
+                    handoff=req.handoff,
                     trace=saved_traces.get(req.req_id))
             except Exception as e:
                 self.tracer.annotate(
@@ -587,6 +751,7 @@ class ServingServer:
         admitting."""
         self._failed = True
         self._draining = True
+        self._flight_record("engine_failed")
         self._resolve_swap_pending(
             {"error": "SwapFailed",
              "reason": "engine failed terminally before the swap "
@@ -624,6 +789,19 @@ class ServingServer:
             if payload.get("ctl") == "profile":
                 self._start_capture(payload, pending)
                 continue
+            if payload.get("ctl") == "fetch_pages":
+                # the serving side of a handoff: pages are read from the
+                # pool and tier indexes walked on the engine thread, so
+                # neither races a step
+                pending.outbox.put(self._serve_fetch_pages(payload))
+                pending.outbox.put(None)
+                continue
+            if payload.get("ctl") == "import_blobs":
+                # the receiving side of a prefetch: the connection
+                # thread pulled the blobs, the tier puts happen here
+                pending.outbox.put(self._import_blobs(payload))
+                pending.outbox.put(None)
+                continue
             if payload.get("ctl") == "swap":
                 # the connection thread loaded and validated the
                 # checkpoint; park the apply until the active slots
@@ -652,6 +830,25 @@ class ServingServer:
                     _p.outbox.put({"rid": rid, "token": int(tok),
                                    "done": bool(done)})
 
+            # a generate that rode a handoff carries the fetched blobs:
+            # import them into the tiers now, so its admission restores
+            # them instead of prefilling (corrupt blobs are dropped by
+            # the crc check, missing ones fall to the chained prefill)
+            handoff_info = None
+            ho = payload.pop("_handoff", None)
+            if ho is not None:
+                pc = self.prefix_cache
+                if pc is not None and pc.tiers:
+                    rep = pc.import_blobs(ho["blobs"],
+                                          heads=ho.get("heads", ()))
+                    handoff_info = {"ms": ho["ms"], "bytes": ho["bytes"],
+                                    "imported": rep["imported"],
+                                    "corrupt": rep["corrupt"]}
+                    if rep["corrupt"] and not rep["imported"]:
+                        # the handoff delivered nothing: a counted
+                        # fallback to the local prefill
+                        self.metrics.counter(
+                            "handoff_failures_total").add()
             try:
                 rid = self.engine.submit(
                     np.asarray(payload["prompt"], np.int32),
@@ -660,6 +857,10 @@ class ServingServer:
                     priority=payload.get("priority", Priority.NORMAL),
                     deadline_t=payload.get("deadline_t"),
                     on_token=on_token,
+                    # a prefill_only job is handoff-blocking (the
+                    # scheduler's boost)
+                    handoff=bool(payload.get("handoff")),
+                    handoff_info=handoff_info,
                     trace_ctx=payload.get("trace_ctx"))
             except Exception as e:
                 # one malformed payload costs that client a BadRequest,
@@ -717,9 +918,12 @@ class ServingServer:
                                     generation=payload.get("generation"))
         except SwapFailed as e:
             self.metrics.counter("weight_swaps_failed_total").add()
+            self._flight_record("swap_failed", swap_error=str(e))
             return {"error": "SwapFailed", "reason": str(e)}
         except Exception as e:
             self.metrics.counter("weight_swaps_failed_total").add()
+            self._flight_record("swap_failed",
+                                swap_error=f"{type(e).__name__}: {e}")
             return {"error": "SwapFailed",
                     "reason": f"{type(e).__name__}: {e}"}
         self._weight_generation = int(info["generation"])
@@ -852,10 +1056,17 @@ class ServingServer:
             if fors:
                 msg["page_forensics"] = fors[-8:]
         elif req.state == "stalled":
+            # a stall is the third black-box trigger: something below
+            # the engine stopped without an error
+            fors = getattr(req, "page_forensics", None)
+            self._flight_record("stall", stalled_rid=int(req.req_id),
+                                page_forensics=fors or [])
             msg = {"rid": req.req_id, "error": "RequestStalled",
                    "reason": f"no token for "
                              f"{self.engine.stall_timeout_s}s; evicted",
                    "tokens_out": int(req.stats.tokens_out)}
+            if fors:
+                msg["page_forensics"] = fors[-8:]
         elif req.state == "shed":
             cfg = getattr(self.scheduler, "cfg", None)
             msg = {"rid": req.req_id, "error": "ServerOverloaded",
@@ -990,6 +1201,35 @@ class ServingServer:
             self._wake.set()
             self._await_outbox(pending, send)
             return
+        if op == "fetch_pages":
+            # serve chain-page blobs to a peer; keys and heads are hex
+            # chain keys, answered on the engine thread
+            keys = self._parse_hex_keys(msg.get("keys"))
+            heads = self._parse_hex_keys(msg.get("heads"))
+            if keys is None or heads is None or not (keys or heads):
+                send({"error": "BadRequest",
+                      "reason": "fetch_pages needs 'keys' and/or "
+                                "'heads' as lists of hex chain keys"})
+                return
+            try:
+                cursor = max(0, int(msg.get("cursor") or 0))
+            except (TypeError, ValueError):
+                send({"error": "BadRequest",
+                      "reason": "fetch_pages cursor must be an int"})
+                return
+            pending = _Pending(stream=False)
+            self._inbox.put(({"ctl": "fetch_pages", "keys": keys,
+                              "heads": heads, "cursor": cursor},
+                             pending))
+            self._wake.set()
+            self._await_outbox(pending, send)
+            return
+        if op == "prefetch":
+            # pull a peer's chains into this replica's tiers (the
+            # receiving side of a drain handoff): the fetch runs on
+            # this connection thread, the import on the engine thread
+            self._prefetch(msg, send)
+            return
         if op != "generate":
             send({"error": "BadRequest", "reason": f"unknown op {op!r}"})
             return
@@ -1009,7 +1249,26 @@ class ServingServer:
             send({"error": "BadRequest",
                   "reason": "prompt must be a non-empty token list"})
             return
+        prefill_only = bool(msg.get("prefill_only"))
+        if self.role == "prefill" and not prefill_only:
+            # a prefill replica only prefills; the role-aware router
+            # never sends it a decode stream
+            send({"error": "WrongRole", "retryable": True,
+                  "reason": "replica role is 'prefill'; route decode "
+                            "streams through a role-aware router or "
+                            "send prefill_only requests"})
+            return
+        if prefill_only and self.prefix_cache is None:
+            send({"error": "BadRequest",
+                  "reason": "prefill_only needs a prefix cache to "
+                            "park the finished chain in"})
+            return
         mnt = int(msg.get("max_new_tokens", 16))
+        if prefill_only:
+            # the prefill is the work: one token (the least a submit
+            # takes) proves the chain complete, and the reply is an ack
+            # naming the chain
+            mnt = 1
         if mnt < 1 or mnt > self.max_new_tokens_cap:
             send({"error": "BadRequest",
                   "reason": f"max_new_tokens must be in [1, "
@@ -1032,7 +1291,18 @@ class ServingServer:
                 return
             # the budget starts at ARRIVAL
             deadline_t = time.monotonic() + float(dl) / 1e3
-        pending = _Pending(stream=bool(msg.get("stream", False)))
+        # a fetch_from hint names the peer holding this prompt's chain:
+        # pull its blobs on this connection thread before enqueueing (a
+        # failed fetch is a counted fallback to the local prefill)
+        handoff = None
+        if not prefill_only and msg.get("fetch_from") is not None:
+            # overload pre-check before the wire pull: a request the
+            # gate would shed must not first spend the fetch
+            self.scheduler.check_admission(self.engine.num_queued
+                                           + self._inbox.qsize())
+            handoff = self._handoff_fetch(msg.get("fetch_from"), prompt)
+        pending = _Pending(stream=bool(msg.get("stream", False))
+                           and not prefill_only)
         with self._admission_lock:
             # submit-time overload gate, atomic with the enqueue
             self.scheduler.check_admission(self.engine.num_queued
@@ -1041,13 +1311,20 @@ class ServingServer:
             if not (isinstance(tctx, dict) and
                     isinstance(tctx.get("id"), str)):
                 tctx = None
-            self._inbox.put(({"prompt": prompt, "max_new_tokens": mnt,
-                              "eos": msg.get("eos"),
-                              "priority": int(_PRIORITIES[prio]),
-                              "deadline_t": deadline_t,
-                              "trace_ctx": tctx}, pending))
+            payload = {"prompt": prompt, "max_new_tokens": mnt,
+                       "eos": msg.get("eos"),
+                       "priority": int(_PRIORITIES[prio]),
+                       "deadline_t": deadline_t,
+                       "trace_ctx": tctx}
+            if prefill_only:
+                payload["handoff"] = True
+            if handoff is not None:
+                payload["_handoff"] = handoff
+            self._inbox.put((payload, pending))
         self._wake.set()
-        self._await_outbox(pending, send)
+        self._await_outbox(pending, send,
+                           transform=(self._prefill_ack(prompt)
+                                      if prefill_only else None))
 
     def _slo(self, msg: Dict, send) -> None:
         """The ``slo`` op (``server.py:1320-1352``): retarget (resetting
@@ -1217,10 +1494,12 @@ class ServingServer:
         pending.outbox.put(reply)
         pending.outbox.put(None)
 
-    def _await_outbox(self, pending: _Pending, send) -> None:
+    def _await_outbox(self, pending: _Pending, send,
+                      transform=None) -> None:
         """Relay one request's outbox to the client until the None
-        sentinel; a fully exited engine thread answers ServerEvicted
-        instead of hanging."""
+        sentinel (``transform`` rewrites each message: the prefill ack);
+        a fully exited engine thread answers ServerEvicted instead of
+        hanging."""
         while True:
             try:
                 out = pending.outbox.get(timeout=1.0)
@@ -1232,18 +1511,204 @@ class ServingServer:
                 continue
             if out is None:
                 return
-            send(out)
+            send(out if transform is None else transform(out))
+
+    # -- disaggregated serving ---------------------------------------------
+
+    @staticmethod
+    def _parse_hex_keys(val) -> Optional[list]:
+        """[] for absent, None for malformed, else the key bytes."""
+        if val is None:
+            return []
+        if not isinstance(val, list):
+            return None
+        out = []
+        for k in val:
+            if not isinstance(k, str):
+                return None
+            try:
+                out.append(bytes.fromhex(k))
+            except ValueError:
+                return None
+        return out
+
+    def _prefill_ack(self, prompt):
+        """Reply transform of a prefill_only request: the engine's done
+        reply becomes an ack naming the parked chain; typed errors pass
+        through."""
+        def transform(reply: Dict) -> Dict:
+            if not reply.get("done"):
+                return reply
+            pc = self.prefix_cache
+            chain = []
+            if pc is not None:
+                try:
+                    chain = [k.hex() for k in pc.chain_keys_for(
+                        np.asarray(prompt, np.int32))]
+                except Exception:
+                    chain = []
+            return {"rid": reply.get("rid"), "done": True,
+                    "prefilled": True, "keys": chain,
+                    "page_size": self._page_size, "role": self.role,
+                    "stats": reply.get("stats")}
+        return transform
+
+    def _handoff_fetch(self, ff, prompt) -> Optional[Dict]:
+        """Wire pull of a generate carrying a ``fetch_from`` hint
+        (connection thread): hash the prompt's chain keys, fetch their
+        blobs from the peer and return the bundle the engine thread
+        imports before the submit. Any failure (a malformed hint, a dead
+        peer, a typed peer error) is a counted fallback to the local
+        prefill (None), never a hang and never a client error."""
+        pc = self.prefix_cache
+        if pc is None or not pc.tiers or not isinstance(ff, dict):
+            return None
+        try:
+            host = str(ff.get("host") or self.host)
+            port = int(ff["port"])
+        except (KeyError, TypeError, ValueError):
+            return None
+        # a hint stamped with another weight generation is skipped and
+        # counted before any wire traffic: its pages came from other
+        # weights (the salted chain keys would miss anyway)
+        peer_gen = ff.get("generation")
+        if peer_gen is not None:
+            try:
+                peer_gen = int(peer_gen)
+            except (TypeError, ValueError):
+                return None
+            if peer_gen != self._weight_generation:
+                self.metrics.counter(
+                    "cross_generation_skips_total").add()
+                self.tracer.annotate(
+                    "handoff_skipped_cross_generation",
+                    peer_generation=peer_gen,
+                    generation=self._weight_generation)
+                return None
+        t0 = time.perf_counter()
+        try:
+            chain = pc.chain_keys_for(np.asarray(prompt, np.int32))
+            if not chain:
+                return None  # no full shareable block: nothing to pull
+            blobs, _missing, nbytes = fetch_page_blobs(
+                host, port, keys=chain,
+                timeout_s=self.handoff_timeout_s)
+        except PageFetchFailed as e:
+            self.metrics.counter("handoff_failures_total").add()
+            self.tracer.annotate("handoff_fetch_failed",
+                                 peer=f"{ff.get('host')}:{ff.get('port')}",
+                                 error=str(e)[:200])
+            return None
+        except Exception as e:
+            # e.g. hashing a malformed prompt: the engine's BadRequest
+            # owns the reply
+            self.metrics.counter("handoff_failures_total").add()
+            self.tracer.annotate("handoff_fetch_failed",
+                                 error=f"{type(e).__name__}: {e}"[:200])
+            return None
+        if not blobs:
+            return None  # the peer no longer holds the chain
+        self.metrics.counter("handoff_bytes_total").add(nbytes)
+        return {"blobs": blobs, "heads": chain[:1],
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "bytes": nbytes}
+
+    def _prefetch(self, msg: Dict, send) -> None:
+        """The ``prefetch`` op: fetch a peer's chains (by key or head)
+        into this replica's tiers. Fetched on this connection thread,
+        imported on the engine thread; every failure is a typed
+        reply."""
+        keys = self._parse_hex_keys(msg.get("keys"))
+        heads = self._parse_hex_keys(msg.get("heads"))
+        if keys is None or heads is None or not (keys or heads):
+            send({"error": "BadRequest",
+                  "reason": "prefetch needs 'keys' and/or 'heads' as "
+                            "lists of hex chain keys, plus the peer's "
+                            "'host'/'port'"})
+            return
+        pc = self.prefix_cache
+        if pc is None or not pc.tiers:
+            send({"error": "PageFetchFailed",
+                  "reason": "replica has no spill tier to land "
+                            "fetched pages in"})
+            return
+        try:
+            host = str(msg.get("host") or self.host)
+            port = int(msg["port"])
+        except (KeyError, TypeError, ValueError):
+            send({"error": "BadRequest",
+                  "reason": "prefetch needs the peer's 'port'"})
+            return
+        # the cross-generation rule of fetch_from hints
+        peer_gen = msg.get("generation")
+        if peer_gen is not None and not isinstance(peer_gen, bool) \
+                and isinstance(peer_gen, int) \
+                and peer_gen != self._weight_generation:
+            self.metrics.counter("cross_generation_skips_total").add()
+            send({"error": "StaleGeneration",
+                  "reason": f"prefetch stamped generation {peer_gen} "
+                            f"but this replica serves generation "
+                            f"{self._weight_generation}; "
+                            f"cross-generation pages never splice",
+                  "generation": self._weight_generation})
+            return
+        t0 = time.perf_counter()
+        try:
+            blobs, missing, nbytes = fetch_page_blobs(
+                host, port, keys=keys, heads=heads,
+                timeout_s=self.handoff_timeout_s)
+        except PageFetchFailed as e:
+            self.metrics.counter("handoff_failures_total").add()
+            send({"error": "PageFetchFailed", "reason": str(e)})
+            return
+        self.metrics.counter("handoff_bytes_total").add(nbytes)
+        ms = (time.perf_counter() - t0) * 1e3
+        pending = _Pending(stream=False)
+        self._inbox.put(({"ctl": "import_blobs", "blobs": blobs,
+                          "heads": heads}, pending))
+        self._wake.set()
+
+        def add_fetch_info(reply: Dict) -> Dict:
+            if reply.get("ok"):
+                reply = dict(reply)
+                reply["fetch_ms"] = round(ms, 3)
+                reply["missing"] = missing
+            return reply
+
+        self._await_outbox(pending, send, transform=add_fetch_info)
 
     def _health(self) -> Dict:
         eng = self.engine
         pc = self.prefix_cache
+
+        def racy(fn, fallback):
+            # a connection-thread read of the cache's books, which the
+            # engine thread mutates: a probe degrades to a stale value,
+            # never to an error the supervisor would count as a failure
+            for _ in range(3):
+                try:
+                    return fn()
+                except RuntimeError:
+                    continue
+            return fallback
+
+        none = {"keys": [], "truncated": False}
+        adv = (racy(pc.advertised_keys_info, none) if pc is not None
+               else none)
         return {"status": ("failed" if self._failed else
                            "draining" if self._draining else "ok"),
                 "pid": os.getpid(),
                 "device": str(self.device),
                 "active": eng.num_active,
                 "queued": eng.num_queued,
+                # the role-aware router's dispatch input
+                "role": self.role,
+                # cache affinity: the page size and the chain heads this
+                # replica can serve (device entries and tier blobs);
+                # truncated says "not advertised" may still be resident
                 "page_size": eng.page_size,
+                "prefix_keys": adv["keys"],
+                "prefix_keys_truncated": adv["truncated"],
                 "free_pages": eng.free_pages,
                 "reserved_pages": eng.allocator.reserved_total,
                 "cached_pages": pc.total_pages() if pc is not None else 0,
@@ -1367,6 +1832,63 @@ class ServingServer:
             mseen = ml
         self._macro_seen = (mkey, mseen)
 
+    # chain pages served a fetch_pages reply at most: bounds how long one
+    # peer call holds the engine thread between steps
+    FETCH_PAGES_CAP = 512
+
+    def _serve_fetch_pages(self, payload: Dict) -> Dict:
+        """Engine-thread half of the ``fetch_pages`` op: expand the
+        requested chain heads, pack device-resident pages and read tier
+        blobs, base64 them. A key this replica cannot produce is listed
+        in ``missing`` (the peer's chained prefill covers it).
+
+        Each reply serves at most ``FETCH_PAGES_CAP`` keys from
+        ``payload["cursor"]`` (an offset into the expanded key list) and
+        carries ``next_cursor`` while more remain, so a long chain hands
+        off whole over several bounded calls; ``truncated`` says the
+        list passed the cap."""
+        import base64
+        pc = self.prefix_cache
+        if pc is None:
+            return {"error": "PageFetchFailed",
+                    "reason": "replica has no prefix cache"}
+        keys = list(payload.get("keys") or ())
+        heads = list(payload.get("heads") or ())
+        if heads:
+            seen = set(keys)
+            keys += [k for k in pc.expand_heads(heads)
+                     if k not in seen]
+        cursor = max(0, int(payload.get("cursor") or 0))
+        window = keys[cursor:cursor + self.FETCH_PAGES_CAP]
+        remaining = len(keys) - (cursor + len(window))
+        truncated = len(keys) > self.FETCH_PAGES_CAP
+        blobs, missing = pc.export_blobs(window)
+        reply = {"blobs": {k.hex(): base64.b64encode(b).decode("ascii")
+                           for k, b in blobs.items()},
+                 "missing": [k.hex() for k in missing],
+                 "count": len(blobs),
+                 "bytes": sum(len(b) for b in blobs.values()),
+                 "truncated": truncated,
+                 "role": self.role,
+                 # the generation these blobs were computed under
+                 "generation": self._weight_generation}
+        if remaining > 0:
+            reply["next_cursor"] = cursor + len(window)
+        return reply
+
+    def _import_blobs(self, payload: Dict) -> Dict:
+        """Engine-thread half of the ``prefetch`` op: land fetched blobs
+        in the cache's tiers (each crc checked by ``import_blobs``)."""
+        pc = self.prefix_cache
+        if pc is None or not pc.tiers:
+            return {"error": "PageFetchFailed",
+                    "reason": "replica has no spill tier to land "
+                              "fetched pages in"}
+        rep = pc.import_blobs(payload.get("blobs") or {},
+                              heads=payload.get("heads") or ())
+        rep["ok"] = True
+        return rep
+
     def _leak_check(self) -> Dict:
         """Engine-thread page audit: with no in-flight work the
         allocator must balance (no cache: everything free; with one:
@@ -1407,6 +1929,10 @@ class ServingServer:
                 "restored_pages": pc.restored_pages,
                 "restore_corrupt": pc.restore_corrupt,
                 "spill_failed": pc.spill_failed,
+                # the wire handoff's pages, each way
+                "exported_pages": pc.exported_pages,
+                "imported_pages": pc.imported_pages,
+                "import_corrupt": pc.import_corrupt,
                 "blob_format": pc.blob_format,
                 "dedup": pc.dedup,
                 "dedup_hits": pc.dedup_hits,
@@ -1471,6 +1997,22 @@ def main(argv=None) -> None:
     parser.add_argument("--no-prefix-cache", action="store_true",
                         help="serve without the prefix cache (greedy "
                              "outputs are the same)")
+    parser.add_argument(
+        "--role", default="mixed", choices=list(_ROLES),
+        help="'mixed' (default) is the whole replica. 'prefill' answers "
+             "prefill_only requests only, parks finished KV chains in "
+             "its cache and spill tiers, advertises them in health's "
+             "prefix_keys and serves them to peers over fetch_pages "
+             "(plain generates get a typed WrongRole). 'decode' serves "
+             "token streams and, given a fetch_from hint, pulls the "
+             "prompt's chain from the prefill peer and splices it in "
+             "instead of prefilling (greedy outputs are the same either "
+             "way). Non-mixed roles default a 64 MB host spill tier")
+    parser.add_argument(
+        "--handoff-timeout-s", type=float, default=30.0, metavar="S",
+        help="socket timeout of a fetch_pages pull from a peer; on "
+             "expiry the request falls back to the local prefill "
+             "(counted, never a hang)")
     parser.add_argument(
         "--spill-mb", type=int, default=None, metavar="MB",
         help="add a host-RAM spill tier of this many MB: evicted prefix "
@@ -1544,6 +2086,18 @@ def main(argv=None) -> None:
     parser.add_argument("--slo-tpot-ms", type=float, default=None)
     parser.add_argument("--slo-window-s", type=float, default=120.0)
     parser.add_argument(
+        "--flight-dir", default=None, metavar="DIR",
+        help="crash flight recorder: write black-box bundles (step "
+             "timeline ring, sampled traces, metrics export, in-flight "
+             "dump, engine recipe) to DIR on a resurrection, a terminal "
+             "EngineFailed, a stalled request or a failed swap; atomic "
+             "writes, byte-budgeted retention; read them with "
+             "tools/flight_inspect.py")
+    parser.add_argument(
+        "--flight-budget-mb", type=int, default=64, metavar="MB",
+        help="retention byte budget of --flight-dir (oldest bundles "
+             "pruned first, the newest always kept; default 64)")
+    parser.add_argument(
         "--no-page-ledger", action="store_true",
         help="turn the page ledger off (every page event in a bounded "
              "ring with owner, step and reason: leak forensics, ledger "
@@ -1600,6 +2154,8 @@ def main(argv=None) -> None:
             k=args.speculate, draft=draft, draft_window=args.draft_window)
     server = ServingServer(model, host=args.host, port=args.port,
                            prefix_cache=not args.no_prefix_cache,
+                           role=args.role,
+                           handoff_timeout_s=args.handoff_timeout_s,
                            dedup=not args.no_dedup,
                            spill_bytes=(None if args.spill_mb is None
                                         else args.spill_mb << 20),
@@ -1614,6 +2170,9 @@ def main(argv=None) -> None:
                            slo_ttft_ms=args.slo_ttft_ms,
                            slo_tpot_ms=args.slo_tpot_ms,
                            slo_window_s=args.slo_window_s,
+                           flight_dir=args.flight_dir,
+                           flight_budget_bytes=(
+                               args.flight_budget_mb << 20),
                            checkpoint=args.checkpoint,
                            weight_generation=args.weight_generation,
                            device=device, **engine_kwargs)

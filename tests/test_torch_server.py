@@ -197,7 +197,35 @@ def test_cli_rejects_unported_flags_like_an_unknown_flag():
                                   ["--flight-dir", "/tmp/x"],
                                   ["--flight-budget-mb", "8"],
                                   ["--handoff-timeout-s", "5"]])
-def test_cli_rejects_fleet_flags_like_an_unknown_flag(flag):
-    with pytest.raises(SystemExit) as e:
+def test_cli_rejects_fleet_flags_like_an_unknown_flag(flag, monkeypatch):
+    """Each fleet flag reaches the server under the JAX server's name
+    and default; with ``--mesh``, still unported, the command line is
+    answered as one with an unknown flag."""
+    made = {}
+
+    class Stop(Exception):
+        pass
+
+    class Fake:
+        def __init__(self, model, **kw):
+            made.update(kw)
+
+        def start(self):
+            raise Stop
+
+    monkeypatch.setattr(srv, "ServingServer", Fake)
+    monkeypatch.setattr(srv, "build_model", lambda name, dev: None)
+    with pytest.raises(Stop):
+        srv.main(["--device", "cpu"])
+    assert (made["role"], made["flight_dir"], made["flight_budget_bytes"],
+            made["handoff_timeout_s"]) == ("mixed", None, 64 << 20, 30.0)
+    want = {"--role": ("role", "prefill"),
+            "--flight-dir": ("flight_dir", "/tmp/x"),
+            "--flight-budget-mb": ("flight_budget_bytes", 8 << 20),
+            "--handoff-timeout-s": ("handoff_timeout_s", 5.0)}[flag[0]]
+    with pytest.raises(Stop):
         srv.main(["--device", "cpu"] + flag)
+    assert made[want[0]] == want[1]
+    with pytest.raises(SystemExit) as e:
+        srv.main(["--device", "cpu", "--mesh", "2"] + flag)
     assert e.value.code == 2
