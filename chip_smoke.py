@@ -147,6 +147,26 @@ failure exits non-zero at once:
    failed request, a fresh prompt equal to the in-process engine on
    seed-1 weights; ``fleet_stats`` and ``fleet_capacity`` through the
    router.
+5m. fleet_autoscale — the autoscaler at the same width: (a) in this
+   process, one replica under a ``Supervisor`` with an ``Autoscaler``
+   and a ``FailoverRouter``: 4 keyed prompts of 130-190 tokens (16 new
+   tokens) served, a forced ``scale_up`` (its seconds), a profiled
+   64-token stream of a fifth prompt on the spawned replica naming the
+   decode kernels in its trace, served again, a forced ``scale_down``
+   (drain, the fifth prompt's chain handed off, kill), served again and
+   the fifth prompt on the survivor: every reply equals the
+   in-process engine's tokens, the journal holds a spawn and a drain and
+   lints clean, the survivor's leak_check; (b) ``paddle_tpu_torch.tools.
+   chaos_serving.run_autoscale_chaos`` (the supervisor SIGKILLed
+   mid-spawn and mid-scale-down, restarted on its journal; 6 keyed
+   requests of 2-3 pages) and (c) ``run_roll_chaos`` (the supervisor
+   SIGKILLed mid-roll, a corrupt checkpoint refused, a replica SIGKILLed
+   mid-roll): each report ok, 2 recoveries in (b), no stranded process,
+   no generation failure; the supervisor's restart-to-serving seconds
+   and each journaled action's wall seconds; no supervisor process ever
+   holds the card's device files open (``nvidia-smi`` here names every
+   process pid 1, so the check reads ``/proc/<pid>/fd``), each
+   replica's largest reserved memory, and the card's.
 5k. generate — ``GPTForCausalLM.generate`` on the same model, 4 prompts
    of 1024 tokens: the one-launch mode over static, paged and int8-paged
    caches (one CUDA graph of the decode step, replayed a token), the
@@ -4674,6 +4694,373 @@ def phase_fleet(torch, dev, model, card):
     emit(dict(out, ok=True))
     _free_engine_memory(torch)
 
+# -- the autoscaler, its journal and the chaos harness on the card ----------
+
+FA_LENGTHS = (130, 150, 170, 190)   # (a)'s keyed prompts: 2-3 pages of 64
+FA_NEW = 16
+FA_PROFILE_LEN = 190                # the spawned replica's profiled stream:
+FA_PROFILE_NEW = 64                 # a prompt no other replica holds
+FA_PROFILE_MS = 300
+# (a)'s replicas: FLEET_SERVER_ARGS and a host tier for the scale-down's
+# handoff to land in (a mixed replica has none by default)
+FA_SPILL_MB = 512
+FA_CHAOS_REQUESTS = 6
+FA_CHAOS_LENGTHS = (130, 191)       # rng.integers(lo, hi): 2-3 pages
+FA_CHAOS_MAX_SEQ = 256
+FA_CHAOS_PAGE = 64
+FA_DEVICE = "cuda"                  # the chaos replicas' --device
+FA_APPS_EVERY_S = 1.0
+
+
+def _proc_cmdline(pid):
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode("utf-8", "replace")
+    except OSError:
+        return ""
+
+
+def _proc_kind(pid):
+    """This script, one of the port's replicas or supervisors, or None."""
+    if pid == os.getpid():
+        return "smoke"
+    cmd = _proc_cmdline(pid)
+    for mod, kind in (("paddle_tpu_torch.serving.server", "replica"),
+                      ("paddle_tpu_torch.serving.supervisor",
+                       "supervisor")):
+        if mod in cmd:
+            return kind
+    return None
+
+
+def _device_fds(pid):
+    """Open files of ``pid`` on ``/dev/nvidia*``: a process that created
+    a CUDA context holds the card's device files open."""
+    n = 0
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return 0
+    for fd in fds:
+        try:
+            n += os.readlink(f"/proc/{pid}/fd/{fd}").startswith(
+                "/dev/nvidia")
+        except OSError:
+            pass
+    return n
+
+
+class _CardApps:
+    """Every ``FA_APPS_EVERY_S`` seconds on a thread: this script and the
+    port's replica and supervisor processes, each with its largest count
+    of open ``/dev/nvidia*`` files (a CUDA context) and, for a replica,
+    its largest reserved bytes (the ``profile`` op without a window);
+    the card's largest used bytes; the rows of ``nvidia-smi
+    --query-compute-apps=pid,used_memory``."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.seen = {}
+        self.smi_rows = set()
+        self.card_max_bytes = 0
+        self.samples = 0
+        self.errors = []
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def sample(self):
+        try:
+            r = subprocess.run(["nvidia-smi",
+                                "--query-compute-apps=pid,used_memory",
+                                "--format=csv,noheader"],
+                               capture_output=True, text=True, timeout=30)
+            self.smi_rows.update(x.strip() for x in r.stdout.splitlines()
+                                 if x.strip())
+        except (OSError, subprocess.SubprocessError):
+            pass
+        for name in os.listdir("/proc"):
+            if not name.isdigit():
+                continue
+            pid = int(name)
+            kind = _proc_kind(pid)
+            if kind is None:
+                continue
+            ent = self.seen.setdefault(pid, {"kind": kind, "device_fds": 0,
+                                             "max_reserved_bytes": None})
+            ent["device_fds"] = max(ent["device_fds"], _device_fds(pid))
+            toks = _proc_cmdline(pid).split()
+            if kind == "replica" and "--port" in toks:
+                try:
+                    port = int(toks[toks.index("--port") + 1])
+                    mem = _rpc(port, {"op": "profile"}, timeout_s=3)[
+                        "devices"][0]["memory_stats"] or {}
+                    got = mem.get("reserved_bytes.all.current")
+                    if got is not None:
+                        ent["max_reserved_bytes"] = max(
+                            ent["max_reserved_bytes"] or 0, got)
+                except (OSError, ValueError, KeyError, IndexError):
+                    pass  # booting, or gone
+        free, total = self.torch.cuda.mem_get_info()
+        self.card_max_bytes = max(self.card_max_bytes, total - free)
+        self.samples += 1
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                self.sample()
+            except Exception as e:  # the sampler must outlive a bad read
+                self.errors.append(f"{type(e).__name__}: {e}")
+            self._stop.wait(FA_APPS_EVERY_S)
+
+    def stop(self):
+        self._stop.set()
+        self._t.join(timeout=60)
+        return {"samples": self.samples, "errors": self.errors[:4],
+                "card_max_used_bytes": self.card_max_bytes,
+                "nvidia_smi_rows": sorted(self.smi_rows),
+                "processes": {str(p): v
+                              for p, v in sorted(self.seen.items())}}
+
+    @staticmethod
+    def failures(rec):
+        """A supervisor process that held the card's device files open,
+        or a run in which the method saw no context at all."""
+        procs = rec["processes"].values()
+        sups = [p for p in procs if p["kind"] == "supervisor"]
+        bad = [p for p in sups if p["device_fds"]]
+        if bad or not sups or not any(
+                p["device_fds"] for p in procs if p["kind"] == "replica"):
+            return {"supervisors": sups, "with_device_files": bad}
+        return None
+
+
+def fleet_autoscale_live(torch, model, root):
+    """(a): a ``Supervisor`` + ``Autoscaler`` + ``FailoverRouter`` in this
+    process on one replica; 4 keyed prompts served, a forced scale-up,
+    served again (and a profiled stream on the spawned replica), a forced
+    scale-down, served again."""
+    from paddle_tpu_torch.serving.autoscaler import (AutoscaleConfig,
+                                                     Autoscaler)
+    from paddle_tpu_torch.serving.supervisor import (FailoverRouter,
+                                                     Supervisor)
+    from paddle_tpu_torch.tools.flight_inspect import lint_fleet_journal
+    phase = "fleet_autoscale"
+    V = model.config.vocab_size
+    gen = torch.Generator().manual_seed(41)
+    prompts = [torch.randint(0, V, (n,), generator=gen).tolist()
+               for n in FA_LENGTHS]
+    own = torch.randint(0, V, (FA_PROFILE_LEN,), generator=gen).tolist()
+    ref = _alone(torch, model, prompts, FA_NEW)
+    ref_own = _alone(torch, model, [own], FA_PROFILE_NEW)[0]
+    journal = os.path.join(root, "fleet-journal.json")
+    prof_dir = os.path.join(root, "profile")
+    os.makedirs(prof_dir, exist_ok=True)
+    env = {"PYTHONPATH": HERE + os.pathsep + os.environ.get("PYTHONPATH",
+                                                           "")}
+    sup = Supervisor(model=FLEET_MODEL, replicas=1,
+                     server_args=list(FLEET_SERVER_ARGS)
+                     + ["--spill-mb", str(FA_SPILL_MB)],
+                     replica_env=env, probe_interval_s=0.25,
+                     ready_timeout_s=600,
+                     log_dir=os.path.join(root, "logs"))
+    asc = Autoscaler(sup, AutoscaleConfig(min_replicas=1, max_replicas=2,
+                                          cooldown_up_s=0.0,
+                                          cooldown_down_s=0.0,
+                                          spawn_ready_timeout_s=600.0),
+                     journal_path=journal)
+    drains = []
+    drain_replica = sup.drain_replica
+
+    def recorded_drain(*a, **kw):
+        drains.append(drain_replica(*a, **kw))
+        return drains[-1]
+
+    sup.drain_replica = recorded_drain
+    out = {}
+    router = None
+    try:
+        t0 = time.monotonic()
+        sup.start(wait_ready=True)
+        out["boot_to_ready_s"] = time.monotonic() - t0
+        router = FailoverRouter(sup)
+        router.start()
+
+        def wave(label):
+            got = []
+            for i, p in enumerate(prompts):
+                reply, streamed, _, _ = _routed(router.port, p, FA_NEW,
+                                                key=f"as{i}")
+                if not reply.get("done") or \
+                        streamed != reply.get("generated"):
+                    raise AssertionError(f"{phase} {label} {i}: "
+                                         f"{reply.get('error')} "
+                                         f"{reply.get('reason')}")
+                got.append(reply["generated"])
+            _fleet_tokens(torch, model, f"{phase} {label} vs the "
+                          f"in-process engine", got, ref, prompts)
+
+        wave("before the scale-up")
+        t0 = time.monotonic()
+        up = asc.scale_up(reason="smoke", force=True)
+        out["scale_up_s"] = time.monotonic() - t0
+        if not up.get("ok") or len(sup.replicas) != 2:
+            raise AssertionError(f"{phase} scale_up: {up}")
+        spawned = sup._by_idx(up["replica"])
+        profs, threads = {}, []
+
+        def on_token(n):
+            if n == 2:
+                threads.append(_profile_in_thread(
+                    spawned.port, FA_PROFILE_MS, prof_dir, profs,
+                    "spawned"))
+
+        reply, streamed, _, _ = _routed(spawned.port, own,
+                                        FA_PROFILE_NEW, on_token=on_token)
+        for t in threads:
+            t.join(timeout=600)
+        check_tokens(f"{phase} the spawned replica's stream vs the "
+                     f"in-process engine", [streamed, reply["generated"]],
+                     [ref_own, ref_own])
+        prof = profs.get("spawned") or {}
+        if "trace_file" not in prof:
+            raise AssertionError(f"{phase} profile: {prof}")
+        counts, n = _kernel_event_counts(prof["trace_file"],
+                                         FLEET_KERNELS["decode"])
+        if not all(counts.values()):
+            raise AssertionError(f"{phase}: the spawned replica's trace "
+                                 f"lacks kernels {counts}")
+        mem = prof["devices"][0]["memory_stats"] or {}
+        out["spawned_replica"] = {
+            "idx": spawned.idx, "kernel_events": n, "counts": counts,
+            "allocated_bytes": mem.get("allocated_bytes.all.current"),
+            "reserved_bytes": mem.get("reserved_bytes.all.current")}
+        wave("after the scale-up")
+        t0 = time.monotonic()
+        down = asc.scale_down(reason="smoke", force=True)
+        out["scale_down_s"] = time.monotonic() - t0
+        if not down.get("ok") or len(sup.replicas) != 1 or not drains:
+            raise AssertionError(f"{phase} scale_down: {down}")
+        hand = drains[-1].get("handoff") or {}
+        out["drain"] = {"victim": down["replica"],
+                        "drained": drains[-1].get("drained"),
+                        "handoff_pages": hand.get("imported_pages"),
+                        "handoff_bytes": hand.get("bytes"),
+                        "handoff_failures": len(hand.get("failures")
+                                                or ())}
+        wave("after the scale-down")
+        # the chain only the victim held, served by the survivor
+        reply, _, _, _ = _routed(router.port, own, FA_NEW, key="as-own")
+        _fleet_tokens(torch, model, f"{phase} the victim's chain on the "
+                      f"survivor", [reply.get("generated")],
+                      [ref_own[:FA_NEW]], [own])
+        out["drain"]["survivor_restored_pages"] = \
+            (reply.get("stats") or {}).get("restored_pages")
+        with open(journal) as f:
+            lint = lint_fleet_journal(json.load(f), allow_open_tail=0)
+        kinds = [a["action"] for a in asc.journal.tail(99)
+                 if a.get("phase") == "begin"]
+        leak = _rpc(sup.replicas[0].port, {"op": "leak_check"})
+        out["journal"] = {"begins": kinds, "lint": lint,
+                          "seq": asc.journal.seq}
+        if kinds != ["spawn", "drain"] or lint or not leak.get("ok"):
+            raise AssertionError(f"{phase}: journal {kinds} {lint}, "
+                                 f"leak_check {leak}")
+        out["actions_total"] = asc.status()["actions_total"]
+    finally:
+        if router is not None:
+            router.stop()
+        sup.stop()
+    return out
+
+
+def _chaos_summary(report):
+    d = report.to_dict()
+    keep = {k: v for k, v in d.items() if k != "details"}
+    for det in d["details"]:
+        if "i" in det:
+            continue
+        keep.setdefault("details", []).append(det)
+    return keep
+
+
+def phase_fleet_autoscale(torch, dev, model, card):
+    """The autoscaler on the card at GPT-1.3B's full width (seed-0
+    weights, fp32). (a) In this process: one replica (FLEET_SERVER_ARGS,
+    a 512 MB host tier) under a ``Supervisor`` with an ``Autoscaler``
+    behind a ``FailoverRouter``; 4 keyed prompts of 130-190 tokens, 16
+    new tokens each, served one at a time; a forced ``scale_up``; the
+    spawned replica streams 64 tokens of a fifth prompt under a profile
+    window (the decode kernels in its trace); served again; a forced
+    ``scale_down`` (drain with handoff: the fifth prompt's chain, then
+    kill); served again, and the fifth prompt through the router on the
+    survivor. Held: every reply equals the
+    in-process engine's tokens, the journal's begins are spawn and drain
+    and it lints clean (allow_open_tail=0), the survivor's leak_check.
+    (b) ``run_autoscale_chaos``: the supervisor (a subprocess) SIGKILLed
+    mid-spawn and mid-scale-down and restarted on its journal, 6 keyed
+    requests of 2-3 pages. (c) ``run_roll_chaos``: the supervisor
+    SIGKILLed mid-roll, a corrupt checkpoint, a replica SIGKILLed
+    mid-roll (three 5.3 GB checkpoints under build/, deleted after).
+    Held: each report ok, 2 recoveries in (b), no stranded process, no
+    journal lint failure, no generation failure. Throughout, a thread
+    reads which of the port's processes hold the card's device files
+    (``/dev/nvidia*``, open in a process with a CUDA context): the
+    replicas and this script do, no supervisor process (the chaos runs'
+    subprocesses) may. ``nvidia-smi --query-compute-apps`` names every
+    process pid 1 on this machine (the container's pid namespace), so
+    its rows are printed but cannot name the processes."""
+    import shutil
+    from paddle_tpu_torch.tools import chaos_serving
+    phase = "fleet_autoscale"
+    out = {"phase": phase, "card": card, "model": FLEET_MODEL,
+           "server_args": list(FLEET_SERVER_ARGS)}
+    root = os.path.join(HERE, "build", "fleet-autoscale")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _free_engine_memory(torch)
+    apps = _CardApps(torch)
+    t_phase = time.monotonic()
+    try:
+        t0 = time.monotonic()
+        out["live"] = fleet_autoscale_live(torch, model, root)
+        out["live"]["wall_s"] = time.monotonic() - t0
+        _free_engine_memory(torch)
+        chaos_kw = dict(model=FLEET_MODEL, device=FA_DEVICE,
+                        page_size=FA_CHAOS_PAGE,
+                        max_seq_len=FA_CHAOS_MAX_SEQ, max_new_tokens=FA_NEW,
+                        requests=FA_CHAOS_REQUESTS,
+                        prompt_len_range=FA_CHAOS_LENGTHS)
+        t0 = time.monotonic()
+        rep = chaos_serving.run_autoscale_chaos(
+            log_dir=os.path.join(root, "autoscale-chaos"), **chaos_kw)
+        out["autoscale_chaos"] = dict(_chaos_summary(rep),
+                                      phase_wall_s=time.monotonic() - t0)
+        if not rep.ok or rep.recoveries != 2 or rep.stranded_processes \
+                or rep.journal_lint_failures:
+            FAILED_CHECKS.append(f"{phase} autoscale chaos: "
+                                 f"{json.dumps(_chaos_summary(rep))[:4000]}")
+        _free_engine_memory(torch)
+        t0 = time.monotonic()
+        rep = chaos_serving.run_roll_chaos(
+            log_dir=os.path.join(root, "roll-chaos"), **chaos_kw)
+        out["roll_chaos"] = dict(_chaos_summary(rep),
+                                 phase_wall_s=time.monotonic() - t0)
+        if not rep.ok or rep.generation_failures:
+            FAILED_CHECKS.append(f"{phase} roll chaos: "
+                                 f"{json.dumps(_chaos_summary(rep))[:4000]}")
+        _free_engine_memory(torch)
+    finally:
+        out["card_apps"] = apps.stop()
+        out["wall_s"] = time.monotonic() - t_phase
+        shutil.rmtree(os.path.join(root, "roll-chaos"), ignore_errors=True)
+    bad = _CardApps.failures(out["card_apps"])
+    if bad is not None:
+        FAILED_CHECKS.append(f"{phase}: a supervisor held the card, or "
+                             f"no replica was seen holding it: {bad}")
+    emit(dict(out, ok=True))
+
+
 # -- phase 5k ----------------------------------------------------------------
 
 GEN_B = 4                 # prompts a generate call
@@ -6184,6 +6571,7 @@ def main() -> int:
     phase_server_multi_step(torch, dev, small)
     phase_server_observe_swap(torch, dev, model, engine_prompts, smi_line)
     phase_fleet(torch, dev, model, smi_line)
+    phase_fleet_autoscale(torch, dev, model, smi_line)
     phase_generate(torch, dev, model, smi_line)
     del model, small
     # the engine and the server leave reference cycles: collected here,

@@ -38,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -1223,3 +1224,27 @@ class _GenerateProgram:
             self.graphs.close()
             self.graphs = None
         self.caches = []
+
+
+# -- checkpoint-state helpers ------------------------------------------------
+
+def perturbed_state(state: dict, scale: float = 1e-3,
+                    seed: int = 0) -> dict:
+    """A deterministic variant of ``state`` (name -> numpy array, the
+    form ``checkpoint_state`` returns) with every float leaf nudged by
+    ``scale`` times a standard normal draw of ``default_rng(seed)``: a
+    "new checkpoint" that is structurally identical but gives other
+    logits, so a hot-swap's generation isolation is observable without
+    training anything. Integer leaves and bf16 bit patterns pass through
+    untouched. numpy throughout, so the result is bitwise the JAX
+    package's ``perturbed_state`` on the same state and seed."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, arr in state.items():
+        arr = np.asarray(arr)
+        if np.issubdtype(arr.dtype, np.floating):
+            out[name] = (arr + scale * rng.standard_normal(
+                arr.shape).astype(arr.dtype)).astype(arr.dtype)
+        else:
+            out[name] = arr
+    return out

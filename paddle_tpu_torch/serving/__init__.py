@@ -3,7 +3,9 @@ the newline-JSON server (``server``), replica supervision with the
 failover router (``supervisor``), SLO-aware admission (``scheduler``),
 the refcounted prefix cache with its spill tiers (``prefix_cache``),
 request metrics (``metrics``), the fleet telemetry plane and the crash
-flight recorder (``fleet_metrics``) and span tracing (``tracing``)."""
+flight recorder (``fleet_metrics``), span tracing (``tracing``), and the
+autoscaler with its crash-safe fleet journal (``autoscaler``; as in the
+JAX package, its names are imported from the module itself)."""
 
 from .fleet_metrics import (FleetMetrics, FlightRecorder,  # noqa: F401
                             PressureMonitor)

@@ -37,9 +37,18 @@ taxonomy. ``roll_fleet`` hot-swaps the fleet replica by replica onto a
 new checkpoint behind the router, with a canary window and automatic
 rollback.
 
-Not yet ported: the autoscaler (its journal, crash recovery and scaling
-loop); ``main``'s autoscale flags raise ``NotImplementedError`` and the
-router's ``autoscale`` op answers ``AutoscalerUnavailable``.
+Autoscaling (serving/autoscaler.py): ``--autoscale`` attaches an
+`Autoscaler` that spawns, drains and re-roles replicas inside a
+min/max envelope and journals every action, and every swap of a roll,
+to a crc-checked fleet journal before it acts. ``_spawn`` stamps each
+replica's env with the journal's path and the replica's index, so a
+supervisor restarted on the same ``--journal`` adopts the replicas its
+predecessor left running instead of spawning second copies. The
+router's ``autoscale`` op forces an action or reads the status. The
+supervisor process never touches the card: only its replicas hold a
+CUDA context there.
+
+Not ported: ``--mesh`` (a tensor-parallel mesh per replica).
 
 Fault sites (distributed/fault_inject.py): ``net.recv`` fires in the
 router's backend reader: an armed schedule makes the router treat the
@@ -275,6 +284,13 @@ class Supervisor:
                     f"{role!r} for replica {i}")
             rep.role = role
             self.roles.append(role)
+        # `Autoscaler` attaches itself here and sets journal_path so
+        # _spawn stamps the env markers recovery scans for; the router
+        # back-references itself for the shape planner's handoff
+        # failure signal
+        self.autoscaler = None
+        self.journal_path: Optional[str] = None
+        self.router = None
         self._next_idx = int(replicas)
         self._stop = threading.Event()
         self._monitor: Optional[threading.Thread] = None
@@ -283,6 +299,9 @@ class Supervisor:
     # -- lifecycle ---------------------------------------------------------
 
     def start(self, wait_ready: bool = True) -> None:
+        # spawn only the unspawned: after the autoscaler's recovery the
+        # list holds adopted replicas (proc set) beside records to
+        # respawn (proc None)
         for rep in self.replicas:
             if rep.proc is None:
                 self._spawn(rep)
@@ -643,25 +662,47 @@ class Supervisor:
                               timeout_s=timeout_s)
 
     def _rollback_generation(self, checkpoint: Optional[str],
-                             generation: int,
+                             generation: int, journal,
+                             reason: str,
                              swap_timeout_s: float = 120.0) -> List:
         """Converge every live replica back to ``generation`` (the
-        canary's automatic rollback). A replica that refuses the swap
-        (or a fleet with no old checkpoint to reload) is respawned from
-        the committed config instead: the fleet never stays mixed."""
+        canary's automatic rollback, and recovery's convergence of an
+        unconfirmed roll). Each swap back is a journaled roll action
+        marked ``rollback`` when ``journal`` is given. A replica that
+        refuses the swap (or a fleet with no old checkpoint to reload)
+        is respawned from the committed config instead: the fleet never
+        stays mixed."""
         out = []
         for rep in sorted(self.live(), key=lambda r: r.idx):
             cur = self._probe_generation(rep)
             if cur == generation:
                 continue
+            seq = None
+            if journal is not None:
+                seq = journal.begin(
+                    "roll", replica=rep.idx, checkpoint=checkpoint,
+                    generation_from=(cur if cur is not None
+                                     else rep.weight_generation),
+                    generation_to=generation, rollback=True,
+                    pid=(rep.proc.pid if rep.proc else None),
+                    port=rep.port, role=rep.role, reason=reason)
             err = ("no rollback checkpoint"
                    if not checkpoint else
                    self._swap_replica(rep, checkpoint, generation,
                                       swap_timeout_s, rollback=True))
             if err is None:
+                if journal is not None:
+                    journal.update(seq, phase="swapped", swapped=True)
+                    journal.commit(seq)
                 out.append({"replica": rep.idx, "how": "swap"})
             else:
                 ok = self._respawn_with_config(rep)
+                if journal is not None:
+                    if ok:
+                        journal.commit(seq, respawned=True)
+                    else:
+                        journal.rollback(
+                            seq, reason="rollback_respawn_pending")
                 out.append({"replica": rep.idx,
                             "how": "respawn" if ok else "pending",
                             "swap_error": err})
@@ -673,22 +714,25 @@ class Supervisor:
                    slo_regress: float = 0.1,
                    canary_check=None,
                    handoff: bool = True,
-                   swap_timeout_s: float = 120.0) -> Dict:
+                   swap_timeout_s: float = 120.0,
+                   reason: str = "roll") -> Dict:
         """Rolling weight upgrade (r24 tentpole): converge the fleet,
         replica by replica behind the router, onto ``checkpoint`` at
         the next (or given) weight generation — hot-swapping live
         engines, never dropping a request (the server-side swap holds
         admission while active slots drain; queued work waits).
 
-        Per replica: hand its hot chains to survivors, send the swap
-        op, verify the health probe reports the target generation. The
-        first swapped replica is the canary: it is watched for
-        ``canary_window_s`` against the pre-roll SLO baseline, the
-        outlier detector and ``canary_check`` before the rest follow; a
-        regression swaps everything back to the previous generation and
-        the roll reports the typed reason. (The reference journals each
-        swap for the autoscaler's crash recovery; that journal is not
-        yet ported.)
+        Per replica: journal a ``roll`` action (begin, swapped, commit:
+        the crash-recovery record) when an autoscaler is attached, hand
+        its hot chains to survivors, send the swap op, verify the
+        health probe reports the target generation. The first swapped
+        replica is the canary: it is watched for ``canary_window_s``
+        against the pre-roll SLO baseline, the outlier detector and
+        ``canary_check`` before the rest follow; a regression swaps
+        everything back to the previous generation (journaled, counted,
+        flight-recorded) and the roll reports the typed reason. A roll
+        that commits records its checkpoint and generation as the
+        journal's committed config.
 
         Failure containment: a canary whose swap fails TYPED (corrupt
         checkpoint, validation refusal) aborts the roll with zero
@@ -705,6 +749,8 @@ class Supervisor:
         old_ckpt, old_gen = self.checkpoint, self.weight_generation
         gen_to = (int(generation) if generation is not None
                   else old_gen + 1)
+        asc = self.autoscaler
+        journal = getattr(asc, "journal", None)
         baseline = self._fleet_attainment()
         report: Dict = {"ok": False, "checkpoint": checkpoint,
                         "generation_from": old_gen,
@@ -721,9 +767,20 @@ class Supervisor:
                 report["skipped"].append(rep.idx)
                 canary_done = True
                 continue
+            seq = None
+            if journal is not None:
+                seq = journal.begin(
+                    "roll", replica=rep.idx, checkpoint=checkpoint,
+                    generation_from=(cur if cur is not None
+                                     else rep.weight_generation),
+                    generation_to=gen_to,
+                    pid=(rep.proc.pid if rep.proc else None),
+                    port=rep.port, role=rep.role, reason=reason)
             if handoff:
                 report.setdefault("handoff", {})[str(rep.idx)] = \
                     self._handoff_before_swap(rep, swap_timeout_s)
+            if asc is not None:
+                asc._chaos_hold()
             err = self._swap_replica(rep, checkpoint, gen_to,
                                      swap_timeout_s)
             if err is not None:
@@ -731,16 +788,34 @@ class Supervisor:
                     # canary refusal: NOTHING changed — the corrupt/
                     # mismatched checkpoint never reaches a second
                     # replica and old weights keep serving everywhere
+                    if journal is not None:
+                        journal.rollback(seq,
+                                         reason="canary_swap_failed")
                     report["failed"] = {"replica": rep.idx,
                                         "error": err}
                     report["refused"] = "canary_swap_failed"
+                    if asc is not None:
+                        asc._record("roll", "canary_swap_failed",
+                                    ok=False, replica=rep.idx,
+                                    generation=gen_to, seq=seq)
                     return report
                 # the canary proved the checkpoint: converge forward
                 ok = self._respawn_with_config(rep)
+                if journal is not None:
+                    if ok:
+                        journal.update(seq, phase="swapped",
+                                       swapped=True, respawned=True)
+                        journal.commit(seq)
+                    else:
+                        journal.rollback(
+                            seq, reason="roll_respawn_pending")
                 report["respawned"].append(
                     {"replica": rep.idx, "swap_error": err,
                      "ready": ok})
                 continue
+            if journal is not None:
+                journal.update(seq, phase="swapped", swapped=True)
+                journal.commit(seq)
             report["swapped"].append(rep.idx)
             if not canary_done:
                 canary_done = True
@@ -758,11 +833,23 @@ class Supervisor:
                     report["regression"] = why
                     report["rolled_back"] = \
                         self._rollback_generation(
-                            old_ckpt, old_gen,
+                            old_ckpt, old_gen, journal,
+                            reason=f"canary_{why}",
                             swap_timeout_s=swap_timeout_s)
+                    if asc is not None:
+                        asc._record("roll", f"canary_rollback_{why}",
+                                    ok=False, canary=rep.idx,
+                                    generation=gen_to)
                     return report
         self.checkpoint = checkpoint
         self.weight_generation = gen_to
+        if journal is not None:
+            journal.record_config(checkpoint, gen_to)
+        if asc is not None:
+            asc._record("roll", reason, ok=True, generation=gen_to,
+                        swapped=len(report["swapped"]),
+                        skipped=len(report["skipped"]),
+                        respawned=len(report["respawned"]))
         report["ok"] = True
         return report
 
@@ -807,6 +894,14 @@ class Supervisor:
                "--port", str(rep.port)] + extra
         env = dict(os.environ)
         env.update(self.replica_env)
+        if self.journal_path:
+            # the autoscaler's fleet markers: a restarted supervisor's
+            # recovery attributes an orphaned server to its fleet by
+            # these even when the journal's pid snapshot is stale
+            # (monitor respawns change pids without a journal write)
+            from .autoscaler import JOURNAL_ENV, REPLICA_IDX_ENV
+            env[JOURNAL_ENV] = self.journal_path
+            env[REPLICA_IDX_ENV] = str(rep.idx)
         rep.proc = subprocess.Popen(cmd, stdout=rep._log_file,
                                     stderr=subprocess.STDOUT, env=env)
 
@@ -1021,6 +1116,10 @@ class Supervisor:
         out["weight_generations"] = sorted(
             {getattr(r, "weight_generation", 0)
              for r in self.live()} or {self.weight_generation})
+        # the autoscaler's envelope, cooldowns, last action and journal
+        # health: fleet_stats is the one op an operator watches
+        if self.autoscaler is not None:
+            out["autoscaler"] = self.autoscaler.status()
         return out
 
     def _mark_dead(self, rep: Replica) -> None:
@@ -1138,6 +1237,13 @@ class FailoverRouter:
                  fleet_cache: bool = True,
                  forecast_placement: bool = False):
         self.sup = supervisor
+        # back-reference: the autoscaler's shape planner reads
+        # handoff_prefill_failures_total off the router; a frozen stub
+        # supervisor just does not get one
+        try:
+            supervisor.router = self
+        except AttributeError:
+            pass
         self.host = host
         self._requested_port = port
         self.max_failover = int(max_failover)
@@ -1388,14 +1494,46 @@ class FailoverRouter:
                       "reason": "supervisor has no fleet telemetry "
                                 "plane"})
                 return
-            send({"text": fm.prometheus_text()})
+            text = fm.prometheus_text()
+            asc = getattr(self.sup, "autoscaler", None)
+            if asc is not None:
+                # serving_autoscale_actions_total and
+                # serving_fleet_replicas
+                text = (text.rstrip("\n") + "\n"
+                        + "\n".join(asc.prometheus_lines()) + "\n")
+            send({"text": text})
             return
         if op == "autoscale":
-            # the autoscaler is not yet ported: answered as the
-            # reference answers a supervisor started without it
-            send({"error": "AutoscalerUnavailable",
-                  "reason": "autoscaling is not yet ported, see "
-                            "ROADMAP.md"})
+            # the actuator's one-port drive: status, or a forced
+            # scale_up / scale_down / rerole (cooldowns bypassed, the
+            # envelope and the guards still apply)
+            asc = getattr(self.sup, "autoscaler", None)
+            if asc is None:
+                send({"error": "AutoscalerUnavailable",
+                      "reason": "supervisor started without "
+                                "--autoscale"})
+                return
+            action = msg.get("action")
+            if action in (None, "status"):
+                send({"autoscaler": asc.status()})
+            elif action == "scale_up":
+                send({"result": asc.scale_up(
+                    reason=msg.get("reason") or "forced",
+                    role=msg.get("role") or "mixed", force=True)})
+            elif action == "scale_down":
+                send({"result": asc.scale_down(
+                    reason=msg.get("reason") or "forced",
+                    force=True)})
+            elif action == "rerole":
+                send({"result": asc.rerole(
+                    int(msg.get("replica", -1)),
+                    msg.get("role") or "mixed",
+                    reason=msg.get("reason") or "forced",
+                    force=True)})
+            else:
+                send({"error": "BadRequest",
+                      "reason": f"unknown autoscale action "
+                                f"{action!r}"})
             return
         if op == "roll":
             # rolling weight upgrade (r24): the one-port drive for
@@ -1897,10 +2035,6 @@ class FailoverRouter:
             raise _BackendLost(f"{type(e).__name__}: {e}")
 
 
-_AUTOSCALE_FLAGS = ("autoscale", "min_replicas", "max_replicas",
-                    "cooldown_s", "autoscale_interval_s", "journal")
-
-
 def main(argv=None) -> None:
     import argparse
     parser = argparse.ArgumentParser(
@@ -1991,27 +2125,41 @@ def main(argv=None) -> None:
         "--forecast-placement", action="store_true",
         help="steer new requests away from replicas whose exhaustion "
              "forecast is under the pressure floor")
-    # the autoscaler's flags: parsed so a caller gets the typed
-    # not-yet-ported error, never an unknown-flag message
-    parser.add_argument("--autoscale", action="store_true",
-                        default=None, help=argparse.SUPPRESS)
-    for flag, typ in (("--min-replicas", int), ("--max-replicas", int),
-                      ("--cooldown-s", float),
-                      ("--autoscale-interval-s", float),
-                      ("--journal", str)):
-        parser.add_argument(flag, type=typ, default=None,
-                            help=argparse.SUPPRESS)
+    parser.add_argument(
+        "--autoscale", action="store_true",
+        help="autoscaling: a supervisor control loop consumes the "
+             "pressure verdict, spawns a replica on scale_up and drains "
+             "then kills one on scale_down inside the --min/"
+             "--max-replicas envelope, and on disaggregated fleets "
+             "re-roles replicas toward the prefill:decode ratio. Every "
+             "action is journaled to a crc-checked fleet-state file "
+             "before it acts; a restarted supervisor adopts the "
+             "journal's fleet and resumes or rolls back what was half "
+             "done")
+    parser.add_argument("--min-replicas", type=int, default=1,
+                        help="autoscale floor (default 1)")
+    parser.add_argument("--max-replicas", type=int, default=4,
+                        help="autoscale ceiling (default 4)")
+    parser.add_argument(
+        "--cooldown-s", type=float, default=30.0,
+        help="seconds between scale actions of one direction (scale-up "
+             "and scale-down/rerole keep a clock each; default 30)")
+    parser.add_argument(
+        "--autoscale-interval-s", type=float, default=1.0,
+        help="the actuator's tick interval (default 1.0)")
+    parser.add_argument(
+        "--journal", default=None, metavar="PATH",
+        help="fleet-state journal path (default: "
+             "<log-dir>/fleet-journal.json). Recovery adopts the fleet "
+             "recorded here: restart a supervisor on the SAME absolute "
+             "path (and --log-dir) to inherit its predecessor's "
+             "replicas instead of orphaning them")
     parser.add_argument(
         "server_args", nargs="*",
         help="extra args passed to every replica's "
              "`python -m paddle_tpu_torch.serving.server` after `--` "
              "(e.g. -- --page-size 64 --device cpu)")
     args = parser.parse_args(argv)
-    given = [f for f in _AUTOSCALE_FLAGS if getattr(args, f) is not None]
-    if given:
-        raise NotImplementedError(
-            f"--{given[0].replace('_', '-')}: the autoscaler is not yet "
-            f"ported, see ROADMAP.md")
 
     def _sigterm(signum, frame):
         # kill, docker stop and systemd speak SIGTERM: route it through
@@ -2063,6 +2211,37 @@ def main(argv=None) -> None:
     print(f"[paddle_tpu_torch.supervisor] spawning {args.replicas} "
           f"replicas of {args.model} (logs: {sup.log_dir}) ...",
           flush=True)
+    asc = None
+    if args.autoscale:
+        from .autoscaler import AutoscaleConfig, Autoscaler
+        flight = None
+        if args.flight_dir is not None:
+            from .fleet_metrics import FlightRecorder
+            # min_interval_s=0: scale actions are rare and each one
+            # matters for the postmortem
+            flight = FlightRecorder(
+                os.path.join(args.flight_dir, "supervisor"),
+                budget_bytes=args.flight_budget_mb << 20,
+                min_interval_s=0.0)
+        asc = Autoscaler(
+            sup,
+            AutoscaleConfig(min_replicas=args.min_replicas,
+                            max_replicas=args.max_replicas,
+                            cooldown_up_s=args.cooldown_s,
+                            cooldown_down_s=args.cooldown_s,
+                            interval_s=args.autoscale_interval_s),
+            journal_path=args.journal, flight=flight)
+        # recovery BEFORE start(): adopt the previous generation's live
+        # replicas (journal + env-marker scan) so start() spawns only
+        # what recovery says is dead
+        rec = asc.recover()
+        print(f"[paddle_tpu_torch.supervisor] autoscale journal "
+              f"{asc.journal.path}: adopted "
+              f"{[a['idx'] for a in rec['adopted']]}, respawning "
+              f"{[a['idx'] for a in rec['respawned']]}, reaped "
+              f"{len(rec['reaped'])}, resolved "
+              f"{len(rec['resolved'])}, resuming "
+              f"{len(rec['resumed'])} action(s)", flush=True)
     router = None
     try:
         sup.start(wait_ready=True)
@@ -2074,6 +2253,8 @@ def main(argv=None) -> None:
             fleet_cache=not args.no_fleet_cache,
             forecast_placement=args.forecast_placement)
         port = router.start()
+        if asc is not None:
+            asc.start()
         print(f"[paddle_tpu_torch.supervisor] router on "
               f"{args.host}:{port}; replicas "
               f"{[(r.idx, r.port) for r in sup.replicas]}", flush=True)
@@ -2083,6 +2264,8 @@ def main(argv=None) -> None:
         print("[paddle_tpu_torch.supervisor] stopping ...", flush=True)
     finally:
         # every exit path must tear down whatever was spawned
+        if asc is not None:
+            asc.stop()
         if router is not None:
             router.stop()
         sup.stop()

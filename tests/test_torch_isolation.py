@@ -45,6 +45,38 @@ def test_no_module_of_the_port_imports_jax_or_paddle_tpu(path):
     assert not bad, f"{os.path.relpath(path, REPO)} imports {sorted(bad)}"
 
 
+# the repo's top-level tools/ directory: the port keeps its own copies
+TOOL_MODULES = ("tools", "flight_inspect", "trace_lint", "chaos_serving",
+                "merge_traces")
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_module_of_the_port_imports_the_repo_tools(path):
+    bad = _imported_roots(path) & set(TOOL_MODULES)
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {sorted(bad)}"
+
+
+def test_supervisor_side_modules_load_no_cuda_code():
+    """The supervisor, the autoscaler and the lints import nothing that
+    builds or loads a kernel, so the supervisor process holds no CUDA
+    context: only its replicas do."""
+    code = ("import sys\n"
+            "import paddle_tpu_torch.serving.supervisor\n"
+            "import paddle_tpu_torch.serving.autoscaler\n"
+            "import paddle_tpu_torch.tools.flight_inspect\n"
+            "bad = [m for m in sys.modules if m.startswith("
+            "('paddle_tpu_torch.ops', 'paddle_tpu_torch.inference', "
+            "'paddle_tpu_torch.models', 'paddle_tpu_torch.serving.server'))]"
+            "\n"
+            "assert not bad, bad\n"
+            "print('light')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "light" in r.stdout
+
+
 def test_package_imports_with_jax_and_paddle_tpu_blocked():
     code = (
         "import sys\n"
@@ -74,6 +106,9 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "import paddle_tpu_torch.inference.graphs\n"
         "from paddle_tpu_torch.models.gpt import multi_step_decode\n"
         "from paddle_tpu_torch.nn.decode import masked_run_advance\n"
+        "import paddle_tpu_torch.serving.autoscaler\n"
+        "import paddle_tpu_torch.tools.flight_inspect\n"
+        "import paddle_tpu_torch.tools.chaos_serving\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -148,11 +148,26 @@ def test_roll_refused_and_membership_guards(tmp_path):
         sup.add_replica("verifier", spawn=False)
 
 
-def test_main_unported_flags(monkeypatch):
-    for argv in (["--autoscale"], ["--min-replicas", "2"],
-                 ["--journal", "/j.json"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            sup_mod.main(argv)
+def test_main_unported_flags(tmp_path, monkeypatch):
+    """``--mesh`` is the one supervisor flag left unported; the
+    autoscaler's flags parse and build it (the fleet's start is stopped
+    at once here)."""
+    seen = []
+
+    def no_start(self, wait_ready=True):
+        seen.append(self.autoscaler)
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(sup_mod.Supervisor, "start", no_start)
+    monkeypatch.setattr(sup_mod.signal, "signal", lambda *a: None)
+    for i, argv in enumerate((["--autoscale"],
+                              ["--autoscale", "--min-replicas", "2"],
+                              ["--autoscale", "--journal",
+                               str(tmp_path / "j.json")])):
+        sup_mod.main(argv + ["--replicas", "2", "--log-dir",
+                             str(tmp_path / f"logs{i}")])
+    assert [a.cfg.min_replicas for a in seen] == [1, 2, 1]
+    assert seen[2].journal.path == str(tmp_path / "j.json")
     with pytest.raises(SystemExit) as e:
         sup_mod.main(["--mesh", "model=2"])
     assert e.value.code == 2  # argparse's unknown-flag exit
