@@ -232,6 +232,29 @@ failure exits non-zero at once:
    the plain path, 5 kernel launches per forward, ms per forward,
    imgs/s, peak memory, N=1 latency, and a profiled forward of the
    kernel and plain paths.
+8. bert_pretrain — BERT-base MLM pretraining, the JAX package's
+   benchmark config 2 (``bench_all.py:149-227``; seed 0, dropout 0,
+   76 masked slots a sequence, S=512): (a) fp32 at full width and depth,
+   B=8, one forward+backward through the kernels against the plain path
+   (loss and every gradient; the folded forward #9 and backward #10
+   launched once a layer on the kernel run, never on the plain run);
+   (b) B=64 under the bf16 recipe with ``AdamW(1e-4)`` and
+   ``TrainStep.multi_step``: finite losses, ms a step, tokens/s, MFU
+   (the port's copy of ``bench_all.py``'s executed-FLOPs count), peak
+   memory, launches a step, a profiled step; then #9 and #10 at that
+   shape (B=64 S=512 H=12 D=64, fp32 and bf16) against their plain
+   versions, timed beside them and SDPA.
+8b. bert_classify — ``BertForSequenceClassification`` in eval, B=8,
+   S=512: a padding mask takes the plain math (bitwise under
+   ``plain_kernels()``), no mask the folded kernel, its logits within
+   ``MODEL_REL_TOL`` of the plain path's and an all-ones mask's.
+8c. seq2seq_beam — ``Transformer()`` (Transformer-base), a shared
+   vocabulary of 37000, beam 4: 8 sources of 64 tokens,
+   ``BeamSearchDecoder`` + ``dynamic_decode`` for at most 64 + 50 steps
+   over the decoder with its ``MultiHeadAttention.Cache`` states; each
+   best score against a teacher-forced uncached forward under the
+   causal mask; ms a step and tokens/s. Its attention is plain math at
+   these lengths, as in the JAX package.
 
 Then, if no check failed, the script's wall time, a ``kernels`` line,
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -6532,6 +6555,459 @@ def phase_resnet(torch, dev, launches):
           "profile": prof})
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+# bert_pretrain: the JAX package's benchmark config 2 (bench_all.py:
+# 149-227): BERT-base MLM pretraining, B=64, S=512, 76 masked slots a
+# sequence, dropout 0, AdamW(1e-4), the bf16 recipe; (a) holds fp32 at a
+# smaller batch against the plain path
+BERT_B = 64
+BERT_S = 512
+BERT_MASKED = 76              # max_predictions_per_seq
+BERT_PARITY_B = 8
+BERT_STEPS = 6
+BERT_LR = 1e-4
+# the kernels of BERT's self-attention (unmasked S=512: the folded gate)
+BERT_KERNELS = ("attention_fwd", "folded_attention_bwd")
+BERT_CLASSIFY_B = 8
+# seq2seq_beam: Transformer-base (Vaswani et al. 2017, §5.1 and §6.1:
+# a shared source-target vocabulary of about 37000, beam 4, at most the
+# input length + 50 steps)
+S2S_VOCAB = 37000
+S2S_B = 8
+S2S_SRC = 64
+S2S_BEAM = 4
+S2S_MAX_STEPS = S2S_SRC + 50
+S2S_START, S2S_END = 1, 2
+# each best hypothesis's score (fp32 sums of up to 114 log-probs near
+# -10 over a 37000 vocabulary) against the teacher-forced sum: the two
+# paths' logits come from products in other orders (~2e-5 a log-prob,
+# 2.3e-3 over 114), and the score's 114 sequential fp32 additions of
+# values up to ~1200 round by up to 114 * 1200 * 2^-24 ~ 8e-3
+S2S_SCORE_ATOL = 1e-2
+
+
+def bert_flops_per_token(model, cfg, seq: int, head_positions: int):
+    """Executed training FLOPs a token of the BERT pretraining step (the
+    port's copy of ``bench_all.py:230-251``
+    ``bert_executed_flops_per_token``): 6 x the matmul parameters
+    traversed (the encoder, the MLM transform and the tied vocabulary
+    head, the last two scaled by the share of positions they run on)
+    plus the attention's 12 x layers x hidden x seq. Embedding lookups
+    and the pooler (one token a sequence) are not counted."""
+    emb_names = ("embeddings.word_embeddings",
+                 "embeddings.position_embeddings",
+                 "embeddings.token_type_embeddings", "pooler")
+    n_body = sum(p.numel() for name, p in model.named_parameters()
+                 if not name.startswith(("mlm_", "nsp_"))
+                 and not any(t in name for t in emb_names))
+    h = cfg.hidden_size
+    frac = head_positions / seq
+    return (6.0 * n_body + 6.0 * (h * h + h + cfg.vocab_size * h) * frac
+            + 12.0 * cfg.num_hidden_layers * h * seq)
+
+
+def _bert_model(torch, dev, cls="BertForPretraining", **kw):
+    """A seed-0 BERT-base with dropout 0 (``bench_all.py:159``)."""
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base(hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+    return getattr(bert, cls)(cfg, device=dev, **kw), cfg
+
+
+def _bert_batch(torch, dev, vocab, B, S, K, seed):
+    """ids [B, S], K distinct masked positions a row and their labels
+    (the reference's gathered ``masked_lm_ids`` form)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, vocab, (B, S), generator=gen, device=dev)
+    pos = torch.rand((B, S), generator=gen, device=dev).argsort(dim=1)[:, :K]
+    return ids, pos, torch.gather(ids, 1, pos)
+
+
+def _bert_fn(m, b):
+    return m(b[0], masked_positions=b[1], labels=b[2])
+
+
+def _bert_grads(torch, model, batch, plain: bool):
+    """One forward+backward of the MLM loss through the kernels or their
+    plain versions; returns (loss, {name: grad}, launch counts)."""
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.ops.nn_functional import plain_kernels
+    model.train()
+    model.zero_grad(set_to_none=True)
+    reset_launch_counts()
+    with plain_kernels(plain):
+        loss = _bert_fn(model, batch)
+        loss.backward()
+    torch.cuda.synchronize()
+    # the pooler and the NSP head are off the MLM loss: no gradient
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads, launch_counts()
+
+
+def _key_bias_ratio(grads):
+    """The key projections' bias gradients against their layers' query
+    bias gradients, the largest ratio of norms. Softmax is invariant to
+    the key bias, so its gradient is zero in exact arithmetic and its
+    relative error says nothing; it is held to rounding size instead
+    (``GRAD_REL_TOL`` of the query bias's)."""
+    return max(float(g.float().norm()
+                     / grads[n.replace("k_proj", "q_proj")].float().norm())
+               for n, g in grads.items() if n.endswith("k_proj.bias"))
+
+
+def bert_kernel_rows(torch, dev, records, per_step):
+    """#9 and #10 at BERT-base's shape (B=64 S=512 H=12 D=64,
+    non-causal, q, k and v as three projections' outputs) in fp32 and
+    bf16: the folded forward and backward against their plain versions
+    (fp32 ``ATTN_TOL`` / ``BWD_TOL``; bf16 before the rounding,
+    ``BF16_ATOL``), timed beside the plain versions and SDPA, with their
+    bounds and ``per_step``, the bench step's launches; added to the
+    kernel records as rows of their own."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import attention as A
+    timer = Timer(torch, dev)
+    B, S, H, D = BERT_B, BERT_S, 12, 64
+    out = []
+    for dtype, tag, route in ((torch.float32, "fp32", "fp32"),
+                              (torch.bfloat16, "bf16", "bf16")):
+        gen = check_gen(torch, dev, f"bert attention {tag}")
+        q, k, v, do = (torch.randn((B, S, H, D), generator=gen,
+                                   device=dev).to(dtype) for _ in range(4))
+        isz = q.element_size()
+        shape = f"B={B} S={S} H={H} D={D} non-causal {tag}"
+        got = A.attention_fwd(q, k, v, return_lse=False)[0]
+        grads = A.folded_attention_bwd(q, k, v, do)
+        if dtype == torch.float32:
+            want = A.attention_reference(q, k, v)[0]
+            fwd_err = check_close(f"attention_fwd bert {tag}", got, want,
+                                  ATTN_TOL)
+            wants = A.folded_bwd_reference(q, k, v, do)
+            bwd_err = max(check_close(f"folded_attention_bwd bert {tag} "
+                                      f"{n}", g, w, BWD_TOL)
+                          for n, g, w in zip("qkv", grads, wants))
+        else:
+            f32 = [t.float() for t in (q, k, v, do)]
+            want = A.attention_reference(*f32[:3])[0]
+            fwd_err = check_rounded_from(f"attention_fwd bert {tag}", got,
+                                         want, BF16_ATOL["attention_fwd"])
+            wants = A.folded_bwd_reference(*f32)
+            bwd_err = max(check_rounded_from(
+                f"folded_attention_bwd bert {tag} d{n}", g, w,
+                BF16_ATOL["folded_attention_bwd"])
+                for n, g, w in zip("qkv", grads, wants))
+        del got, want, grads, wants
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        fwd = dict(
+            ms=timer(lambda: A.attention_fwd(q, k, v, return_lse=False)),
+            plain_ms=timer(lambda: A.attention_reference(q, k, v)),
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt)), library="F.scaled_dot_product_attention")
+        fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+            4 * B * S * H * D * isz, 4 * B * H * D * S * S, route)
+        del qt, kt, vt
+        rd, wr, st = BWD_ROWS["folded_attention_bwd"]
+        lib_ms, backend = _sdpa_bwd_ms(torch, timer, q, k, v, do, False)
+        bwd = dict(
+            ms=timer(lambda: A.folded_attention_bwd(q, k, v, do)),
+            plain_ms=timer(lambda: A.folded_bwd_reference(q, k, v, do)),
+            library_ms=lib_ms, library=f"SDPA backward ({backend})")
+        bwd["bound_ms"], bwd["bound_by"] = bound_ms(
+            (rd + wr) * B * S * H * D * isz + st * B * S * H * 4,
+            BWD_FLOPS["folded_attention_bwd"] * B * H * S * S * D, route)
+        for name, rec, err in (("attention_fwd", fwd, fwd_err),
+                               ("folded_attention_bwd", bwd, bwd_err)):
+            rec = dict(rec, shape=f"bert {shape}", max_abs_err=err,
+                       launches_per_step=per_step[name])
+            records[name].setdefault("per_shape", []).append(rec)
+            out.append(dict(rec, kernel=name))
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    emit({"phase": "bert_kernels", "ok": True, "rows": out})
+
+
+def phase_bert_pretrain(torch, dev, records):
+    """BERT-base MLM pretraining (``bench_all.py:149-227``). (a) fp32,
+    full width and depth, B=8, S=512, 76 masked slots: one
+    forward+backward through the kernels against the plain path (loss
+    within ``LOSS_REL_TOL``, every gradient within ``GRAD_REL_TOL`` in
+    L2, the key biases' at rounding size), #9 and #10 launched once a
+    layer on the kernel run and never on the plain run. (b) the bench
+    config: B=64, the bf16 recipe, ``AdamW(1e-4)``, ``TrainStep.
+    multi_step`` over ``BERT_STEPS`` steps: finite losses, ms a step,
+    tokens/s, MFU against 989 TFLOP/s (``bert_flops_per_token``), peak
+    memory, launches a step, one profiled step. Then #9 and #10 at the
+    bench shape (``bert_kernel_rows``), each row with its launches a
+    step."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.optimizer import AdamW
+    t0 = time.monotonic()
+    model, cfg = _bert_model(torch, dev)
+    layers = cfg.num_hidden_layers
+    batch = _bert_batch(torch, dev, cfg.vocab_size, BERT_PARITY_B, BERT_S,
+                        BERT_MASKED, 3)
+    loss_k, grads_k, counts_k = _bert_grads(torch, model, batch, False)
+    loss_p, grads_p, counts_p = _bert_grads(torch, model, batch, True)
+    errs = {n: e for n, e in _grad_rel(grads_k, grads_p).items()
+            if not n.endswith("k_proj.bias")}
+    key_bias = max(_key_bias_ratio(grads_k), _key_bias_ratio(grads_p))
+    if not key_bias <= GRAD_REL_TOL:
+        raise AssertionError(f"bert: key bias gradients at {key_bias:.3g}"
+                             f" of the query biases'")
+    rec = _check_train_parity("bert parity", loss_k, loss_p, errs)
+    want = {name: layers for name in BERT_KERNELS}
+    got = {name: counts_k[name] for name in BERT_KERNELS}
+    if got != want or any(counts_p.values()):
+        raise AssertionError(f"bert parity launches: kernel run {got} "
+                             f"(want {want}), plain run {counts_p}")
+    others = {n: c for n, c in counts_k.items()
+              if c and n not in BERT_KERNELS}
+    if others:
+        raise AssertionError(f"bert parity: other kernels launched "
+                             f"{others}")
+    del grads_k, grads_p, model
+    emit({"phase": "bert_parity", "ok": True, "model": "bert_base",
+          "layers": layers, "B": BERT_PARITY_B, "S": BERT_S,
+          "masked": BERT_MASKED, "dtype": "float32",
+          "tol": {"loss_rel": LOSS_REL_TOL, "grad_rel": GRAD_REL_TOL},
+          **rec, "key_bias_grad_vs_query_bias": key_bias,
+          "launches_kernel_run": got,
+          "launches_plain_run": {n: c for n, c in counts_p.items() if c},
+          "grad_rel": {n: float(f"{e:.3g}") for n, e in errs.items()}})
+    torch.cuda.empty_cache()
+
+    model, cfg = _bert_model(torch, dev)
+    to_bf16_except_norms(torch, model)
+    batch = _bert_batch(torch, dev, cfg.vocab_size, BERT_B, BERT_S,
+                        BERT_MASKED, 4)
+    step = TrainStep(model, AdamW(learning_rate=BERT_LR), _bert_fn, seed=0,
+                     device=dev)
+    first = float(step(batch))  # warm-up step: Adam slots allocated here
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t1 = time.monotonic()
+    losses = step.multi_step(tuple(t[None].expand((BERT_STEPS,) + t.shape)
+                                   for t in batch))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t1
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses.float().tolist()]
+    if not all(map(math.isfinite, losses + [first])):
+        raise AssertionError(f"bert losses: {first} {losses}")
+    per_step = {n: c / BERT_STEPS for n, c in counts.items() if c}
+    for name in BERT_KERNELS:
+        if per_step.get(name) != layers:
+            raise AssertionError(f"bert step: {name} launched "
+                                 f"{per_step.get(name)} times a step, not "
+                                 f"{layers}")
+    prof = profile_once(torch, lambda: step(batch))
+    ms = wall * 1e3 / BERT_STEPS
+    tok_s = BERT_B * BERT_S * BERT_STEPS / wall
+    flops_tok = bert_flops_per_token(model, cfg, BERT_S, BERT_MASKED)
+    emit({"phase": "bert_pretrain", "ok": True, "model": "bert_base",
+          "layers": layers, "B": BERT_B, "S": BERT_S,
+          "masked": BERT_MASKED, "recipe": "bf16 except norms",
+          "optimizer": f"AdamW({BERT_LR})", "warmup_loss": first,
+          "losses": losses, "ms_per_step": ms, "tokens_per_s": tok_s,
+          "flops_per_token": flops_tok,
+          "mfu": tok_s * flops_tok / BF16_FLOPS,
+          "peak_mem_gb": peak / 1e9, "launches_per_step": per_step,
+          "step_profile": prof})
+    del step, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_kernel_rows(torch, dev, records, per_step)
+    emit({"phase": "bert_pretrain_wall", "seconds": time.monotonic() - t0})
+
+
+def phase_bert_classify(torch, dev):
+    """``BertForSequenceClassification`` (BERT-base, seed 0, eval),
+    B=8, S=512: with a padding mask (rows of 512 down to 288 tokens) it
+    takes the plain math, through the kernels' selection and under
+    ``plain_kernels()`` alike, bitwise; without a mask the folded kernel
+    (#9, once a layer), its logits within ``MODEL_REL_TOL`` of the plain
+    path's and of an all-ones mask's."""
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.ops.nn_functional import plain_kernels
+    t0 = time.monotonic()
+    model, cfg = _bert_model(torch, dev, "BertForSequenceClassification")
+    model.eval()
+    B, S = BERT_CLASSIFY_B, BERT_S
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                        device=dev)
+    lens = torch.tensor([S - 32 * i for i in range(B)], device=dev)
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None]).long()
+    runs = {}
+    for tag, m, plain in (("masked", mask, False),
+                          ("masked_plain", mask, True),
+                          ("unmasked", None, False),
+                          ("unmasked_plain", None, True),
+                          ("all_ones_mask", torch.ones_like(mask), False)):
+        reset_launch_counts()
+        with torch.inference_mode(), plain_kernels(plain):
+            logits = model(ids, attention_mask=m)
+        torch.cuda.synchronize()
+        if tuple(logits.shape) != (B, 2) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"bert classify {tag}: logits "
+                                 f"{tuple(logits.shape)}")
+        runs[tag] = (logits, launch_counts()["attention_fwd"])
+    fwd = {tag: n for tag, (_, n) in runs.items()}
+    if fwd != {"masked": 0, "masked_plain": 0,
+               "unmasked": cfg.num_hidden_layers, "unmasked_plain": 0,
+               "all_ones_mask": 0}:
+        raise AssertionError(f"bert classify attention_fwd launches {fwd}")
+    if not torch.equal(runs["masked"][0], runs["masked_plain"][0]):
+        raise AssertionError("bert classify: the masked run differs from "
+                             "its plain run")
+    rel = {tag: rel_err(runs["unmasked"][0], runs[tag][0])
+           for tag in ("unmasked_plain", "all_ones_mask")}
+    for tag, r in rel.items():
+        if not r <= MODEL_REL_TOL:
+            raise AssertionError(f"bert classify: kernel logits {r:.3g} "
+                                 f"relative off the {tag} run")
+    emit({"phase": "bert_classify", "ok": True, "model": "bert_base",
+          "B": B, "S": S, "lengths": lens.tolist(),
+          "attention_fwd_launches": fwd, "tol_rel": MODEL_REL_TOL,
+          "kernel_logits_rel": rel, "masked_plain_bitwise": True,
+          "seconds": time.monotonic() - t0})
+    del model, runs
+    torch.cuda.empty_cache()
+
+
+def _sinusoid(torch, n, d, dev):
+    """Vaswani et al.'s positional encodings, [n, d]."""
+    pos = torch.arange(n, device=dev, dtype=torch.float32)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, device=dev, dtype=torch.float32)
+                    * (-math.log(10000.0) / d))
+    out = torch.zeros((n, d), device=dev)
+    out[:, 0::2] = torch.sin(pos * div)
+    out[:, 1::2] = torch.cos(pos * div)
+    return out
+
+
+class Seq2SeqCell:
+    """Transformer-base's decoder as a beam-search cell (this script's
+    code, not a package feature): the states are the encoder memory and
+    each layer's self-attention ``MultiHeadAttention.Cache`` as a ``(k,
+    v)`` tuple, batch first, so the search tiles and reorders them; the
+    input is the shared embedding plus the position of the cache
+    length; the output projects onto the vocabulary through the shared
+    embedding matrix (Vaswani et al. §3.4) over sqrt(d_model), the
+    scale the embedding layers apply to its unscaled form."""
+
+    def __init__(self, torch, model, emb, table):
+        from paddle_tpu_torch.nn.transformer import MultiHeadAttention
+        self.torch, self.decoder, self.emb = torch, model.decoder, emb
+        self.table, self.cache = table, MultiHeadAttention.Cache
+        self.scale = 1.0 / math.sqrt(model.d_model)
+
+    def logits(self, h):
+        return self.torch.matmul(h, self.emb.weight.t()) * self.scale
+
+    def __call__(self, x, states):
+        memory, caches = states
+        pos = caches[0][0].shape[1]
+        x = (x + self.table[pos])[:, None]
+        out, new = self.decoder(x, memory, cache=[
+            (self.cache(k, v),) for k, v in caches])
+        return out[:, 0], (memory, tuple((c[0].k, c[0].v) for c in new))
+
+
+def phase_seq2seq_beam(torch, dev):
+    """Transformer-base (``Transformer()`` at its defaults, seed 0,
+    eval), a shared vocabulary of 37000, beam 4: 8 source sentences of
+    64 tokens encoded, then ``BeamSearchDecoder`` + ``dynamic_decode``
+    over ``Seq2SeqCell`` for at most 64 + 50 steps. Check: each best
+    hypothesis's score within ``S2S_SCORE_ATOL`` of the sum of its token
+    log-probs from one teacher-forced, uncached decoder forward under
+    ``generate_square_subsequent_mask``, the cached incremental path
+    against the full one. At these lengths (64 keys, one query a step,
+    a mask in the teacher-forced pass) the JAX package's crossovers
+    send every attention to the plain math, so no kernel launches; the
+    count is printed. Reports ms a decode step, steps and tokens/s."""
+    from paddle_tpu_torch.nn.common import Embedding
+    from paddle_tpu_torch.nn.decode import BeamSearchDecoder, dynamic_decode
+    from paddle_tpu_torch.nn.transformer import Transformer
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    t0 = time.monotonic()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = Transformer(device=dev, generator=gen).eval()
+    d = model.d_model
+    emb = Embedding(S2S_VOCAB, d, device=dev, generator=gen)
+    table = _sinusoid(torch, S2S_MAX_STEPS + 1, d, dev)
+    cell = Seq2SeqCell(torch, model, emb, table)
+    src = torch.randint(3, S2S_VOCAB, (S2S_B, S2S_SRC), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    reset_launch_counts()
+    with torch.inference_mode():
+        t1 = time.monotonic()
+        memory = model.encoder(emb(src) + table[:S2S_SRC])
+        caches = tuple((c[0].k, c[0].v)
+                       for c in model.decoder.gen_cache(memory))
+        torch.cuda.synchronize()
+        encode_s = time.monotonic() - t1
+        dec = BeamSearchDecoder(cell, start_token=S2S_START,
+                                end_token=S2S_END, beam_size=S2S_BEAM,
+                                embedding_fn=emb, output_fn=cell.logits)
+        t1 = time.monotonic()
+        ids, scores, lengths = dynamic_decode(
+            dec, inits=(memory, caches), max_step_num=S2S_MAX_STEPS,
+            return_length=True)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t1
+        counts = {n: c for n, c in launch_counts().items() if c}
+        steps = ids.shape[1]
+        # teacher-forced: [start, y_1 .. y_{T-1}] at positions 0 .. T-1
+        tgt = torch.cat([torch.full((S2S_B, 1), S2S_START, device=dev,
+                                    dtype=ids.dtype), ids[:, :-1]], dim=1)
+        mask = Transformer.generate_square_subsequent_mask(steps,
+                                                           device=dev)
+        h = model.decoder(emb(tgt) + table[:steps], memory, tgt_mask=mask)
+        logp = torch.log_softmax(cell.logits(h).float(), dim=-1)
+        tok_logp = torch.gather(logp, 2, ids.long()[..., None])[..., 0]
+        # a finished beam carries its score: count up to its first end
+        upto = torch.arange(steps, device=dev)[None, :] <= \
+            lengths.long()[:, None]
+        forced = (tok_logp * upto).sum(dim=1)
+    if tuple(ids.shape) != (S2S_B, steps) or \
+            not torch.isfinite(scores).all():
+        raise AssertionError(f"seq2seq: ids {tuple(ids.shape)}, scores "
+                             f"{scores.tolist()}")
+    err = float((scores - forced).abs().max())
+    if not err <= S2S_SCORE_ATOL:
+        raise AssertionError(f"seq2seq: best scores {scores.tolist()} vs "
+                             f"teacher-forced {forced.tolist()} (max abs "
+                             f"err {err:.3g})")
+    emit({"phase": "seq2seq_beam", "ok": True, "model": "Transformer()",
+          "d_model": d, "layers": "6+6", "vocab": S2S_VOCAB, "B": S2S_B,
+          "src_len": S2S_SRC, "beam": S2S_BEAM,
+          "max_step_num": S2S_MAX_STEPS, "steps": steps,
+          "lengths": lengths.tolist(), "scores": scores.tolist(),
+          "score_max_abs_err_vs_teacher_forced": err,
+          "tol_abs": S2S_SCORE_ATOL, "kernel_launches": counts,
+          "attention": "plain math at these lengths (JAX crossovers)",
+          "build_s": build_s, "encode_s": encode_s, "decode_s": wall,
+          "ms_per_decode_step": wall * 1e3 / steps,
+          "hypothesis_tokens_per_s": S2S_B * steps / wall,
+          "beam_tokens_per_s": S2S_B * S2S_BEAM * steps / wall,
+          "seconds": time.monotonic() - t0})
+    del model, emb, memory, caches
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -6583,6 +7059,11 @@ def main() -> int:
     phase_train_bf16(torch, dev, launches)
     phase_train_amp(torch, dev, launches)
     phase_resnet(torch, dev, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_bert_pretrain(torch, dev, records)
+    phase_bert_classify(torch, dev)
+    phase_seq2seq_beam(torch, dev)
     if FAILED_CHECKS:
         emit({"phase": "checks", "ok": False, "failed": FAILED_CHECKS})
         print(f"chip_smoke: {len(FAILED_CHECKS)} closeness checks failed",

@@ -3,7 +3,8 @@ the carry-form stop rules of multi-step decode (port of
 ``sample_token``, ``masked_carry_advance``, ``masked_run_advance``,
 ``ngram_draft_tokens``, ``_head_logits``, ``fused_sample_token``,
 ``fused_verify_tokens`` and ``speculative_verify_tokens`` of
-``paddle_tpu/nn/decode.py:39-348``).
+``paddle_tpu/nn/decode.py:39-348``), and beam search over a recurrent
+cell, ``BeamSearchDecoder`` and ``dynamic_decode`` (``:351-477``).
 
 Greedy at ``temperature == 0``; temperature / top-k sampling draws from
 an explicit ``torch.Generator`` (JAX's keys and torch's generators give
@@ -13,11 +14,14 @@ the two packages).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
+from ..device import resolve_device
+from ..ops.decode_extra import beam_search_step, best_beams, gather_tree
 from ..ops.nn_functional import fused_sample
+from .rnn import flatten_structure, map_structure
 
 
 def sample_token(last, temperature: float = 0.0, top_k=None,
@@ -235,3 +239,94 @@ def speculative_verify_tokens(logits, drafts, temperature: float = 0.0,
         torch.softmax(masked, dim=-1).reshape(b * (s - 1), -1), 1,
         generator=generator).reshape(b, s - 1).to(torch.int32)
     return accept, resampled, full
+
+
+class BeamSearchDecoder:
+    """Beam search over a recurrent cell (reference: fluid/layers/rnn.py
+    ``BeamSearchDecoder``).
+
+    ``cell`` maps ``(inputs, states) -> (output, new_states)``; its
+    states may be a tensor or tuples, lists and dicts of tensors with
+    the batch first, and are tiled to ``batch * beam_size`` rows and
+    reordered along each step's parents with their container types
+    kept. ``output_fn`` maps the cell's output to logits over the
+    vocabulary (identity by default), ``embedding_fn`` token ids to the
+    cell's inputs (the ids themselves by default).
+    """
+
+    def __init__(self, cell, start_token: int, end_token: int,
+                 beam_size: int, embedding_fn: Optional[Callable] = None,
+                 output_fn: Optional[Callable] = None):
+        self.cell = cell
+        self.start_token = int(start_token)
+        self.end_token = int(end_token)
+        self.beam_size = int(beam_size)
+        self.embedding_fn = embedding_fn
+        self.output_fn = output_fn
+
+    def decode(self, initial_states, max_step_num: int):
+        """The whole search: ``(ids [B, T], scores [B])`` of each row's
+        best beam, T at most ``max_step_num``. Log-softmax runs in fp32;
+        the loop stops once every beam has emitted ``end_token``."""
+        leaves = flatten_structure(initial_states)
+        batch = leaves[0].shape[0] if leaves else 1
+        dev = leaves[0].device if leaves else resolve_device(None)
+        beam = self.beam_size
+        states = map_structure(
+            lambda t: t.repeat_interleave(beam, dim=0), initial_states)
+        tokens = torch.full((batch, beam), self.start_token,
+                            dtype=torch.int32, device=dev)
+        # the first expansion starts from one live beam a row
+        scores = torch.full((batch, beam), float("-inf"), device=dev)
+        scores[:, 0] = 0.0
+        finished = torch.zeros((batch, beam), dtype=torch.bool, device=dev)
+        row_base = torch.arange(batch, device=dev)[:, None] * beam
+        ids_steps, parent_steps = [], []
+        for _ in range(max_step_num):
+            flat_tok = tokens.reshape(-1)
+            inp = self.embedding_fn(flat_tok) if self.embedding_fn \
+                else flat_tok
+            cell_out, states = self.cell(inp, states)
+            logits = self.output_fn(cell_out) if self.output_fn \
+                else cell_out
+            logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+            scores, parent, tok = beam_search_step(
+                logp.reshape(batch, beam, -1), scores, beam,
+                end_token=self.end_token, finished=finished)
+            flat_parent = (parent + row_base).reshape(-1)
+            states = map_structure(
+                lambda t: t.index_select(0, flat_parent), states)
+            finished = torch.gather(finished, 1, parent.long()) | (
+                tok == self.end_token)
+            tokens = tok
+            ids_steps.append(tok)
+            parent_steps.append(parent)
+            if bool(finished.all()):
+                break
+        full = gather_tree(torch.stack(ids_steps), torch.stack(parent_steps))
+        return best_beams(full, scores)
+
+    @staticmethod
+    def tile_beam_merge_with_batch(x, beam_size):
+        """Each batch row repeated ``beam_size`` times: ``[B * beam,
+        ...]``."""
+        return x.repeat_interleave(beam_size, dim=0)
+
+
+def dynamic_decode(decoder, inits=None, max_step_num: int = 100,
+                   output_time_major: bool = False, impute_finished=False,
+                   is_test: bool = False, return_length: bool = False,
+                   **kwargs):
+    """Run ``decoder`` to its end (reference: fluid/layers/rnn.py
+    ``dynamic_decode``): ``(ids, scores)``, and with ``return_length``
+    each row's length, the position of its first ``end_token`` (T when
+    it has none), int32. ``output_time_major`` gives ids ``[T, B]``."""
+    ids, scores = decoder.decode(inits, max_step_num)
+    out = ids.transpose(0, 1) if output_time_major else ids
+    if not return_length:
+        return out, scores
+    ended = torch.cat([ids == decoder.end_token,
+                       torch.ones_like(ids[:, :1], dtype=torch.bool)], dim=1)
+    # torch.argmax takes no bool tensor: the first 1 of the cast
+    lengths = torch.argmax(ended.to(torch.uint8), dim=1).to(torch.int32)
+    return out, scores, lengths

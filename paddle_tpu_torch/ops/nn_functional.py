@@ -1,6 +1,6 @@
 """Kernel selection and the functional ops of the serving, training and
 vision paths (port of the attention, sampling, dropout, cross-entropy,
-convolution, pooling and batch-norm entries of
+activation, embedding, convolution, pooling and batch-norm entries of
 ``paddle_tpu/ops/nn_functional.py``).
 
 Each attention or sampling entry picks a CUDA kernel by the JAX
@@ -250,11 +250,28 @@ def fused_sample(hidden, weight, bias=None, transpose_y=False, top_k=None,
                                   tile=tile)
 
 
-# -- activations, convolution, pooling, batch norm (the vision path) ---------
+# -- activations, lookups, convolution, pooling, batch norm -----------------
 
 def relu(x):
     """``nn_functional.py:26``."""
     return torch.relu(x)
+
+
+def gelu(x, approximate: bool = False):
+    """``nn_functional.py:69``: the exact (erf) form by default, the
+    tanh form for ``approximate=True``. BERT's ``hidden_act="gelu"``
+    is the exact one; GPT's MLP calls ``nn.layers.gelu``, the tanh
+    form."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def embedding(x, weight, padding_idx=None):
+    """``nn_functional.py:180-185``: the rows of ``weight`` at ``x``,
+    zero where ``x == padding_idx``."""
+    out = F.embedding(x, weight)
+    if padding_idx is not None:
+        out = out * (x != padding_idx).unsqueeze(-1).to(out.dtype)
+    return out
 
 
 def _norm_tuple(v, n: int):
