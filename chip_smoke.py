@@ -455,6 +455,25 @@ def max_err(a, b) -> float:
 # the closeness checks that failed; main exits 1 after the last phase
 # if any did
 FAILED_CHECKS = []
+# each limited check's largest share of its limit (1.0 = at the limit);
+# main prints the tightest, so a check that runs close to its limit shows
+# in a run that passes
+CHECK_SHARES = {}
+
+
+def note_share(name, share) -> None:
+    """Record ``share`` (a check's error over its limit) under ``name``,
+    keeping the largest."""
+    share = float(share)
+    share = math.inf if math.isnan(share) else share
+    if share > CHECK_SHARES.get(name, -1.0):
+        CHECK_SHARES[name] = share
+
+
+def tightest_checks(n=15):
+    """The ``n`` checks nearest their limits, largest share first."""
+    top = sorted(CHECK_SHARES.items(), key=lambda kv: -kv[1])[:n]
+    return [{"check": k, "share_of_limit": v} for k, v in top]
 
 
 def check_close(name, got, want, tol, rtol=None):
@@ -464,7 +483,9 @@ def check_close(name, got, want, tol, rtol=None):
     import torch
     rtol = tol if rtol is None else rtol
     err = max_err(got, want)
-    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=rtol):
+    g, w = got.float(), want.float()
+    note_share(name, ((g - w).abs() / (tol + rtol * w.abs())).max().item())
+    if not torch.allclose(g, w, atol=tol, rtol=rtol):
         FAILED_CHECKS.append(f"{name}: max abs err {err:.3g} over atol "
                              f"{tol} rtol {rtol}")
         emit({"check": name, "ok": False, "max_abs_err": err, "atol": tol,
@@ -5848,8 +5869,8 @@ def remat_memory(torch, dev, ids):
 # -- phase 6b ----------------------------------------------------------------
 
 # the bf16 recipe of the JAX headline step (bench_all.py
-# _to_bf16_except_norms): bf16 weights, fp32 for every parameter whose
-# name holds one of these, fp32 floating buffers
+# _to_bf16_except_norms): bf16 weights and buffers, fp32 for every
+# parameter whose name holds one of these
 BF16_KEEP_TOKENS = ("bn", "norm", "ln_")
 # kernel path against plain path in bf16. u = 2^-8 is bf16's unit
 # roundoff (8 significant bits). The two paths round at other places:
@@ -5873,14 +5894,17 @@ BF16_VOCAB = 32768  # bench.py:129
 
 
 def to_bf16_except_norms(torch, model):
-    """The bf16 recipe (``bench_all._to_bf16_except_norms``) in place."""
+    """The bf16 recipe (``bench_all._to_bf16_except_norms``) in place, as
+    it acts: every floating parameter and buffer in bf16, then fp32 for
+    each parameter whose name holds a keep-token. The JAX recipe's loop
+    over the buffers would widen them again, but it asks
+    ``np.issubdtype(dtype, np.floating)``, which is false for ml_dtypes'
+    bfloat16; so the BN running statistics stay bf16 there, and here
+    (GPT and BERT hold no buffers)."""
     model.to(torch.bfloat16)
     for name, p in model.named_parameters():
         if any(t in name for t in BF16_KEEP_TOKENS):
             p.data = p.data.float()
-    for _, b in model.named_buffers():
-        if b is not None and b.is_floating_point():
-            b.data = b.data.float()
     return model
 
 
@@ -6527,6 +6551,7 @@ def phase_resnet(torch, dev, launches):
             raise AssertionError(f"resnet {name} logits: shape "
                                  f"{tuple(out.shape)} or non-finite")
         rel[name] = float((out.float() - plain).norm() / plain.norm())
+        note_share(f"resnet {name}", rel[name] / RESNET_REL_TOL)
         if not rel[name] <= RESNET_REL_TOL:
             raise AssertionError(f"resnet {name} path: logits {rel[name]:.3g}"
                                  f" relative off the plain path")
@@ -6553,6 +6578,468 @@ def phase_resnet(torch, dev, launches):
           "tol_rel": RESNET_REL_TOL, "logits_rel_l2_vs_plain": rel,
           "top1_agreement_vs_plain": top1, "timing": timing,
           "profile": prof})
+
+
+# -- phase 7b ----------------------------------------------------------------
+
+# resnet_train: the JAX package's vision training benchmark, config 1
+# (bench_all.py:83-145), uncut: ResNet-50, NCHW, 224x224, N=128, the
+# bf16 recipe, labels in [0, 10), mean(cross_entropy(logits.float(), y)),
+# Momentum(0.1, 0.9), TrainStep.multi_step over 16 stacked copies of one
+# batch. The trained weights then run in eval, NHWC, on the
+# fused-bottleneck kernel path and the plain path.
+RT_STEPS = 16
+RT_IMAGE = 224
+RT_TIMED_CALLS = 2
+RT_CLASSES = 10
+RT_LR, RT_MOMENTUM = 0.1, 0.9
+# 4.09 GFLOP a 224x224 forward (bench_all.py:136-139), x3 for a train step
+RT_FLOPS_PER_IMAGE = 3 * 4.09e9
+# bf16 trained eval, kernel against plain path: the kernel folds each BN
+# into its conv's weights and rounds the folded weight to bf16 (u, with
+# u = 2^-8), where the plain path rounds the conv's output before the BN
+# (u); either output differs by up to 2u relative. 15 fused products (5
+# blocks x 3) whose differences add as independent roundings give
+# sqrt(15) * 2u ~ 8u over the logits, relative in L2.
+RT_BF16_REL_TOL = 8 * BF16_U
+# device time of a step by kernel group (first match wins): cuDNN's
+# backward kernels name their pass (dgrad, wgrad), its forward ones fprop
+# or the implicit-GEMM / winograd families
+RT_KERNEL_GROUPS = (
+    ("convolution backward", ("dgrad", "wgrad", "bprop", "backward")),
+    ("convolution forward", ("fprop", "conv", "cudnn", "xmma", "winograd",
+                             "implicit", "gemm", "nchw", "nhwc")),
+    ("pooling", ("pool",)),
+    ("BN, elementwise, reductions", ("elementwise", "vectorized", "reduce",
+                                     "norm", "batch")),
+)
+
+
+def _vision_loss(m, b):
+    """``mean(cross_entropy(logits.float(), y))``, the JAX bench's train
+    function (``bench_all.py:113-116``)."""
+    from paddle_tpu_torch.ops import nn_functional as NF
+    return NF.cross_entropy(m(b[0]).float(), b[1]).mean()
+
+
+def _step_split_ms(torch, step, batch):
+    """One train step split by CUDA events into the device time of the
+    forward, the backward and the optimizer update (``TrainStep._one``
+    with events between its parts)."""
+    from paddle_tpu_torch.core import rng
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    model, opt = step.model, step.optimizer
+    lr = opt.get_lr()
+    torch.cuda.synchronize()
+    model.train()
+    opt.clear_grad()
+    with rng.key_scope(step.generator):
+        ev[0].record()
+        loss = step.train_fn(model, batch)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+    opt._step(lr)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return {"forward": ev[0].elapsed_time(ev[1]),
+            "backward": ev[1].elapsed_time(ev[2]),
+            "optimizer": ev[2].elapsed_time(ev[3])}
+
+
+def _trained_eval(torch, dev, state, x, bf16, timer):
+    """The trained ``state`` in an NHWC ResNet-50 (fp32, or under the bf16
+    recipe), eval, on the kernel path and the plain path: logits,
+    ``fused_bottleneck`` launches a forward, ms a forward."""
+    from paddle_tpu_torch.nn.layer import load_jax_state
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.ops.kernels import fused_conv_block as FC
+    from paddle_tpu_torch.vision.models import resnet50
+    model = resnet50(data_format="NHWC", device=dev)
+    if bf16:
+        to_bf16_except_norms(torch, model)
+    load_jax_state(model, state)
+    model.eval()
+    x = x.to(torch.bfloat16 if bf16 else torch.float32)
+
+    def forward(fused):
+        FC.enable_fused_conv_eval(fused)
+        try:
+            with torch.inference_mode():
+                return model(x)
+        finally:
+            FC.enable_fused_conv_eval(False)
+
+    out, counts = {}, {}
+    for name, fused in (("kernel", True), ("plain", False)):
+        reset_launch_counts()
+        out[name] = forward(fused)
+        torch.cuda.synchronize()
+        counts[name] = launch_counts()
+    ms = {name: timer(lambda: forward(name == "kernel"), iters=5,
+                      warmup=1) for name in ("kernel", "plain")}
+    del model
+    return out, counts, ms
+
+
+def phase_resnet_train(torch, dev):
+    """Config 1 of the JAX vision benchmark uncut (see ``RT_*``): a warm
+    ``multi_step`` (16 steps; finite losses, the last below the first on
+    the same batch, no kernel of the port launched: every convolution is
+    cuDNN's, as every one is XLA's in the JAX package), two timed calls
+    (ms a step, imgs/s, peak memory, MFU against 989 TFLOP/s bf16 with
+    the JAX bench's 3 x 4.09 GFLOP an image), a profiled step by kernel
+    group and one split by CUDA events into forward, backward and
+    optimizer. Then the trained weights in eval, NHWC, fp32 and bf16, on
+    the fused-bottleneck path (5 launches a forward at N=128) against
+    the plain path."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.layer import checkpoint_state
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    t0 = time.monotonic()
+    model = to_bf16_except_norms(torch, resnet50(
+        device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+    keep = {n: str(p.dtype) for n, p in model.named_parameters()
+            if "downsample.1" in n}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x32 = torch.randn((RESNET_BATCH, 3, RT_IMAGE, RT_IMAGE), generator=gen,
+                      device=dev)
+    y = torch.randint(0, RT_CLASSES, (RESNET_BATCH,), generator=gen,
+                      device=dev)
+    # one batch staged 16 times on the card, as the JAX bench stages it
+    xs = x32.to(torch.bfloat16)[None].expand(
+        RT_STEPS, *x32.shape).contiguous()
+    ys = y[None].expand(RT_STEPS, RESNET_BATCH).contiguous()
+    step = TrainStep(model, Momentum(learning_rate=RT_LR,
+                                     momentum=RT_MOMENTUM), _vision_loss,
+                     device=dev)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    reset_launch_counts()
+    t0 = time.monotonic()
+    losses = step.multi_step((xs, ys))
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    counts = launch_counts()
+    losses = [float(v) for v in losses.float().tolist()]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"resnet_train losses do not fall: {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"resnet_train launched port kernels: "
+                             f"{ {k: v for k, v in counts.items() if v} }")
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(RT_TIMED_CALLS):
+        t0 = time.monotonic()
+        more = step.multi_step((xs, ys))
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    more = [float(v) for v in more.float().tolist()]
+    ms = min(walls) * 1e3 / RT_STEPS
+    imgs_s = RESNET_BATCH / ms * 1e3
+    prof = profile_once(torch, lambda: step((xs[0], ys[0])),
+                        RT_KERNEL_GROUPS)
+    split = _step_split_ms(torch, step, (xs[0], ys[0]))
+    velocity = sorted({str(s["velocity"].dtype)
+                       for s in step.optimizer._state.values()})
+    state = checkpoint_state(model)
+    stat_dtypes = sorted({str(b.dtype) for b in model.buffers()})
+    del step, model, xs, ys
+    torch.cuda.empty_cache()
+    emit({"phase": "resnet_train", "ok": True, "model": "resnet50",
+          "config": "bench_all.py config 1", "data_format": "NCHW",
+          "batch": RESNET_BATCH, "image": RT_IMAGE, "classes": RT_CLASSES,
+          "recipe": "bf16 except norms", "optimizer":
+          f"Momentum({RT_LR}, {RT_MOMENTUM})", "steps_per_call": RT_STEPS,
+          "downsample_bn_dtypes": sorted(set(keep.values())),
+          "running_stat_dtypes": stat_dtypes, "velocity_dtypes": velocity,
+          "build_s": build_s, "warm_call_s": warm_s, "losses": losses,
+          "later_losses": more, "launches": counts,
+          "timed_call_s": walls, "ms_per_step": ms, "imgs_per_s": imgs_s,
+          "peak_mem_gb": peak / 1e9,
+          "mfu": imgs_s * RT_FLOPS_PER_IMAGE / BF16_FLOPS,
+          "step_split_ms": split, "step_profile": prof})
+
+    timer = Timer(torch, dev)
+    evals = {}
+    for tag, bf16, tol in (("fp32", False, RESNET_REL_TOL),
+                           ("bf16", True, RT_BF16_REL_TOL)):
+        out, c, fwd_ms = _trained_eval(torch, dev, state, x32, bf16, timer)
+        for path, want in (("kernel", RESNET_FUSED_BLOCKS), ("plain", 0)):
+            if c[path]["fused_bottleneck"] != want:
+                raise AssertionError(
+                    f"trained eval {tag} {path}: fused_bottleneck launched "
+                    f"{c[path]['fused_bottleneck']} times, not {want}")
+            others = {k: v for k, v in c[path].items()
+                      if k != "fused_bottleneck" and v}
+            if others:
+                raise AssertionError(f"trained eval {tag} {path} launched "
+                                     f"{others}")
+        plain = out["plain"].float()
+        got = out["kernel"].float()
+        if not (torch.isfinite(got).all() and torch.isfinite(plain).all()):
+            raise AssertionError(f"trained eval {tag}: non-finite logits")
+        rel = float((got - plain).norm() / plain.norm())
+        note_share(f"resnet trained eval {tag}", rel / tol)
+        if not rel <= tol:
+            FAILED_CHECKS.append(f"resnet trained eval {tag}: logits "
+                                 f"{rel:.3g} relative off the plain path "
+                                 f"(limit {tol:.3g})")
+            emit({"check": f"resnet_trained_eval_{tag}", "ok": False,
+                  "rel_l2": rel, "tol": tol})
+        evals[tag] = {"rel_l2_vs_plain": rel, "tol_rel": tol,
+                      "top1_agreement": float((got.argmax(-1) ==
+                                               plain.argmax(-1)).float()
+                                              .mean()),
+                      "launches_per_forward": c["kernel"][
+                          "fused_bottleneck"],
+                      "ms_per_forward": fwd_ms}
+    emit({"phase": "resnet_trained_eval", "ok": True, "model": "resnet50",
+          "data_format": "NHWC", "batch": RESNET_BATCH, "image": RT_IMAGE,
+          "weights": "resnet_train's, after its 48 steps", **evals})
+
+
+# -- phase 7c ----------------------------------------------------------------
+
+# vision_zoo: the rest of the zoo at full width, 224x224 (LeNet 28x28),
+# seed-0 weights with seeded BN running statistics
+ZOO_MODELS = (
+    # name, constructor kwargs, batch, classes, conv+BN pairs fuse_conv_bn
+    # folds, Momentum's rate (VGG16 without BN starts from logits of
+    # ~10, and at 0.01 its steps overshoot)
+    ("lenet", {}, 256, 10, 0, 0.01),
+    ("mobilenet_v1", {}, 64, 1000, 27, 0.01),
+    ("mobilenet_v2", {}, 64, 1000, 52, 0.01),
+    ("vgg16", {}, 32, 1000, 0, 1e-4),
+    ("vgg16_bn", {"batch_norm": True}, 32, 1000, 13, 1e-3),
+)
+ZOO_IMAGE = 224
+ZOO_STEPS = 4
+ZOO_REL_TOL = RESNET_REL_TOL
+
+
+def _zoo_model(torch, dev, name, kw, data_format):
+    from paddle_tpu_torch.vision import models as M
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if name == "lenet":
+        return M.LeNet(device=dev, generator=gen)
+    make = getattr(M, name.replace("_bn", ""))
+    return make(data_format=data_format, device=dev, generator=gen, **kw)
+
+
+def phase_vision_zoo(torch, dev):
+    """LeNet (B=256, 1x28x28), MobileNet v1 / v2 (N=64) and VGG16 /
+    VGG16-BN (N=32), 224x224, fp32 (TF32 off): NCHW against NHWC on the
+    same weights, ``fuse_conv_bn`` (the folds pinned in ``ZOO_MODELS``,
+    as the CPU tests pin them) against the unfolded model, ms a forward
+    and imgs/s, and ``ZOO_STEPS`` Momentum steps on one batch with the
+    loss falling."""
+    import copy
+    from paddle_tpu_torch.inference.fusion import fuse_conv_bn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.norm import BatchNorm2D
+    from paddle_tpu_torch.optimizer import Momentum
+    timer = Timer(torch, dev)
+    rows = {}
+    for name, kw, batch, classes, want_folds, lr in ZOO_MODELS:
+        t0 = time.monotonic()
+        gen = torch.Generator(device=dev).manual_seed(5)
+        shape = (batch, 1, 28, 28) if name == "lenet" else \
+            (batch, 3, ZOO_IMAGE, ZOO_IMAGE)
+        x = torch.randn(shape, generator=gen, device=dev)
+        y = torch.randint(0, classes, (batch,), generator=gen, device=dev)
+        model = _zoo_model(torch, dev, name, kw, "NCHW")
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, BatchNorm2D):
+                    m._mean.normal_(0.0, 0.3, generator=gen)
+                    m._variance.uniform_(0.5, 2.0, generator=gen)
+        model.eval()
+        row = {"batch": batch, "input": list(shape[1:])}
+        with torch.no_grad():
+            ref = model(x)
+            if name != "lenet":
+                nhwc = _zoo_model(torch, dev, name, kw, "NHWC")
+                nhwc.load_state_dict(model.state_dict())
+                nhwc.eval()
+                got = nhwc(x)
+                row["nhwc_rel_l2"] = float((got - ref).norm() / ref.norm())
+                row["nhwc_ms_per_forward"] = timer(lambda: nhwc(x), iters=5,
+                                                   warmup=1)
+                del nhwc, got
+            folded = copy.deepcopy(model)
+            row["folds"] = fuse_conv_bn(folded)
+            row["folded_rel_l2"] = float((folded(x) - ref).norm() /
+                                         ref.norm())
+            row["ms_per_forward"] = timer(lambda: model(x), iters=5,
+                                          warmup=1)
+            del folded
+        if not torch.isfinite(ref).all() or tuple(ref.shape) != (batch,
+                                                                  classes):
+            raise AssertionError(f"{name}: logits {tuple(ref.shape)} or "
+                                 f"non-finite")
+        if row["folds"] != want_folds:
+            raise AssertionError(f"{name}: fuse_conv_bn folded "
+                                 f"{row['folds']} pairs, not {want_folds}")
+        for key in ("nhwc_rel_l2", "folded_rel_l2"):
+            if key in row:
+                note_share(f"vision_zoo {name} {key}", row[key] / ZOO_REL_TOL)
+            if key in row and not row[key] <= ZOO_REL_TOL:
+                FAILED_CHECKS.append(f"vision_zoo {name}: {key} "
+                                     f"{row[key]:.3g} over {ZOO_REL_TOL}")
+                emit({"check": f"vision_zoo_{name}_{key}", "ok": False,
+                      "rel_l2": row[key], "tol": ZOO_REL_TOL})
+        row["imgs_per_s"] = batch / row["ms_per_forward"] * 1e3
+        step = TrainStep(model, Momentum(learning_rate=lr, momentum=0.9),
+                         _vision_loss, device=dev)
+        losses = step.multi_step((x[None].expand(ZOO_STEPS, *shape),
+                                  y[None].expand(ZOO_STEPS, batch)))
+        losses = [float(v) for v in losses.tolist()]
+        if not all(map(math.isfinite, losses)) or \
+                not losses[-1] < losses[0]:
+            FAILED_CHECKS.append(f"vision_zoo {name}: losses do not fall: "
+                                 f"{losses}")
+            emit({"check": f"vision_zoo_{name}_losses", "ok": False,
+                  "losses": losses})
+        row["train_losses"] = losses
+        row["lr"] = lr
+        row["seconds"] = time.monotonic() - t0
+        rows[name] = row
+        del step, model, ref
+        torch.cuda.empty_cache()
+    emit({"phase": "vision_zoo", "ok": True, "dtype": "float32",
+          "tol_rel": ZOO_REL_TOL, "optimizer": "Momentum(lr, 0.9)",
+          "steps": ZOO_STEPS, "models": rows})
+
+
+# -- phase 7d ----------------------------------------------------------------
+
+# vision_layers: each functional of slice 14 on the card (fp32, TF32 off)
+# against the same call on the CPU in float64, on inputs drawn in fp32 (so
+# float64 holds them exactly and a tie stays a tie): within 1e-5 of the
+# largest magnitude; masks and max values exactly
+VL_TOL = 1e-5
+
+
+def _vision_layer_cases(F, VE):
+    """(name, function, input shapes, options); an input named ``ties``
+    is a ReLU output, full of zeros."""
+    conv = dict(stride=2, padding=1)
+    return (
+        ("conv1d", F.conv1d, ((8, 16, 64), (32, 8, 3)), dict(
+            padding=1, groups=2, data_format="NCL")),
+        ("conv3d", F.conv3d, ((4, 8, 16, 16, 16), (16, 8, 3, 3, 3)), conv),
+        ("conv2d_transpose", F.conv2d_transpose,
+         ((8, 32, 28, 28), (32, 8, 3, 3)), dict(conv, groups=2,
+                                                output_padding=1)),
+        ("conv2d_transpose_nhwc", F.conv2d_transpose,
+         ((8, 28, 28, 32), (32, 16, 4, 4)), dict(
+             stride=2, padding=[1, 2, 2, 1], output_size=(57, 55),
+             data_format="NHWC")),
+        ("conv1d_transpose", F.conv1d_transpose,
+         ((8, 16, 64), (16, 8, 5)), dict(stride=3, padding=2)),
+        ("conv3d_transpose", VE.conv3d_transpose,
+         ((4, 8, 8, 8, 8), (8, 4, 3, 3, 3)), dict(conv, output_padding=1)),
+        ("max_pool2d_mask", F.max_pool2d, (("ties", 16, 32, 56, 56),),
+         dict(kernel_size=3, stride=2, padding=1, return_mask=True)),
+        ("max_pool2d_mask_nhwc", F.max_pool2d, (("ties", 16, 56, 56, 32),),
+         dict(kernel_size=2, return_mask=True, data_format="NHWC")),
+        ("max_pool1d_mask", F.max_pool1d, (("ties", 16, 32, 100),),
+         dict(kernel_size=4, stride=2, padding=1, return_mask=True)),
+        ("avg_pool1d", F.avg_pool1d, ((16, 32, 100),),
+         dict(kernel_size=4, stride=2, padding=1)),
+        ("max_pool3d", F.max_pool3d, ((4, 8, 16, 16, 16),),
+         dict(kernel_size=3, stride=2, padding=1)),
+        ("avg_pool3d", F.avg_pool3d, ((4, 8, 16, 16, 16),),
+         dict(kernel_size=3, stride=2, padding=1)),
+        ("adaptive_max_pool2d_mask", F.adaptive_max_pool2d,
+         (("ties", 16, 32, 28, 28),), dict(output_size=7, return_mask=True)),
+        ("adaptive_max_pool2d_general", F.adaptive_max_pool2d,
+         ((16, 32, 28, 28),), dict(output_size=5)),
+        ("adaptive_avg_pool1d", F.adaptive_avg_pool1d, ((16, 32, 100),),
+         dict(output_size=7)),
+        ("adaptive_max_pool1d_mask", F.adaptive_max_pool1d,
+         (("ties", 16, 32, 100),), dict(output_size=10, return_mask=True)),
+        ("adaptive_avg_pool3d", F.adaptive_avg_pool3d,
+         ((4, 8, 16, 16, 16),), dict(output_size=(3, 5, 4))),
+        ("adaptive_max_pool3d", F.adaptive_max_pool3d,
+         ((4, 8, 16, 16, 16),), dict(output_size=4)),
+        ("lp_pool2d", F.lp_pool2d, ((16, 32, 28, 28),),
+         dict(norm_type=2, kernel_size=3, stride=2)),
+        ("rms_norm", F.rms_norm, ((16, 128, 256), (256,)), {}),
+        ("instance_norm", F.instance_norm, ((16, 32, 28, 28), (32,), (32,)),
+         {}),
+        ("group_norm_nhwc", F.group_norm, ((16, 28, 28, 32),),
+         dict(num_groups=8, data_format="NHWC")),
+        ("normalize", F.normalize, ((16, 32, 28, 28),), dict(p=3, axis=1)),
+        ("local_response_norm", F.local_response_norm,
+         ((16, 32, 28, 28),), dict(size=5)),
+        ("relu6", F.relu6, ((64, 1024),), {}),
+        ("selu", F.selu, ((64, 1024),), {}),
+        ("mish", F.mish, ((64, 1024),), {}),
+        ("hardswish", F.hardswish, ((64, 1024),), {}),
+        ("softplus", F.softplus, ((64, 1024),), dict(beta=2.0)),
+        ("softshrink", F.softshrink, ((64, 1024),), {}),
+        ("log_softmax", F.log_softmax, ((64, 1024),), {}),
+        ("maxout", F.maxout, ((16, 32, 28, 28),), dict(groups=4)),
+        ("glu", F.glu, ((64, 1024),), {}),
+        ("prelu", F.prelu, ((16, 32, 28, 28), (32,)), {}),
+        ("thresholded_relu", F.thresholded_relu, ((64, 1024),), {}),
+    )
+
+
+def phase_vision_layers(torch, dev):
+    """Each case of ``_vision_layer_cases`` on the card against the CPU in
+    float64 (``VL_TOL``); ``max_unpool2d`` on the card's mask closes the
+    round trip exactly."""
+    from paddle_tpu_torch.ops import nn_functional as F
+    from paddle_tpu_torch.ops import vision_extra as VE
+    rows = {}
+    for name, fn, shapes, kw in _vision_layer_cases(F, VE):
+        gen = check_gen(torch, "cpu", name)
+        ins = []
+        for shape in shapes:
+            ties = shape[0] == "ties"
+            t = torch.randn(shape[1:] if ties else shape, generator=gen)
+            ins.append(torch.relu(t) if ties else t)
+        got = fn(*(t.to(dev) for t in ins), **kw)
+        want = fn(*(t.double() for t in ins), **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs = []
+        for g, w in zip(got, want):
+            g = g.cpu()
+            if not g.is_floating_point() or name.startswith(
+                    ("max_pool", "adaptive_max")):
+                if not torch.equal(g.to(w.dtype), w):
+                    FAILED_CHECKS.append(f"vision_layers {name}: not equal "
+                                         f"to the float64 CPU result")
+                    emit({"check": f"vision_layers_{name}", "ok": False,
+                          "exact": True})
+                errs.append(0.0 if torch.equal(g.to(w.dtype), w) else None)
+            else:
+                scale = max(float(w.abs().max()), 1e-30)
+                errs.append(check_close(f"vision_layers {name}",
+                                        g.double() / scale, w / scale,
+                                        VL_TOL) * scale)
+        rows[name] = {"max_abs_err": errs,
+                      "shape": [list(g.shape) for g in got]}
+    x = torch.relu(torch.randn((16, 32, 56, 56), generator=check_gen(
+        torch, dev, "unpool"), device=dev))
+    pooled, mask = F.max_pool2d(x, 2, return_mask=True)
+    back = VE.max_unpool2d(pooled, mask, 2)
+    roundtrip = bool(((back == 0) | (back == x)).all()) and bool(
+        torch.equal(F.max_pool2d(back, 2), pooled))
+    if not roundtrip:
+        FAILED_CHECKS.append("vision_layers max_unpool2d: the round trip "
+                             "did not restore the pooled maxima")
+    emit({"phase": "vision_layers", "ok": True, "tol": VL_TOL,
+          "tf32": False, "unpool_roundtrip": roundtrip, "cases": rows})
 
 
 # -- phase 8 -----------------------------------------------------------------
@@ -7059,14 +7546,21 @@ def main() -> int:
     phase_train_bf16(torch, dev, launches)
     phase_train_amp(torch, dev, launches)
     phase_resnet(torch, dev, launches)
+    phase_resnet_train(torch, dev)
+    phase_vision_zoo(torch, dev)
+    phase_vision_layers(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
     phase_bert_pretrain(torch, dev, records)
     phase_bert_classify(torch, dev)
     phase_seq2seq_beam(torch, dev)
+    emit({"phase": "check_margins", "tightest": tightest_checks()})
     if FAILED_CHECKS:
         emit({"phase": "checks", "ok": False, "failed": FAILED_CHECKS})
-        print(f"chip_smoke: {len(FAILED_CHECKS)} closeness checks failed",
+        for failed in FAILED_CHECKS:
+            print(f"chip_smoke: failed check: {failed[:600]}",
+                  file=sys.stderr)
+        print(f"chip_smoke: {len(FAILED_CHECKS)} checks failed",
               file=sys.stderr)
         return 1
     emit({"phase": "wall", "seconds": time.monotonic() - t_start})

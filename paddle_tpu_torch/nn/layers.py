@@ -54,15 +54,11 @@ class Linear(nn.Module):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = self._draw_weight((in_features, out_features), std,
-                                        device, dtype, generator)
+        self.weight = _normal((in_features, out_features), std, device,
+                              dtype, generator)
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device,
                                               dtype=dtype))
                      if has_bias else None)
-
-    @staticmethod
-    def _draw_weight(shape, std, device, dtype, generator) -> nn.Parameter:
-        return _normal(shape, std, device, dtype, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._bias_in_op:

@@ -12,7 +12,8 @@ dropout between layers.
 
 Constructors take ``device`` (``None`` means CUDA and raises without a
 GPU), ``dtype`` and ``generator`` (``None``: the device's default
-generator). Weight attributes (``ParamAttr``) raise: not ported yet.
+generator). The weight attributes (``weight_ih_attr`` and the others)
+are accepted and ignored, as in the JAX layers.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import rnn as R
-from . import initializer as init
+from .initializer import Uniform, create_parameter
 
 _GATES = {"SimpleRNN": 1, "LSTM": 4, "GRU": 3}
 
@@ -55,12 +56,15 @@ def flatten_structure(tree):
     return leaves
 
 
-def _init_kw(owner, device, dtype, generator, hidden_size, attrs):
-    init.check_no_attr(owner, **{k: v for k, v in attrs.items()
-                                 if k.endswith("_attr")})
-    std = 1.0 / math.sqrt(hidden_size)
-    return std, dict(device=resolve_device(device), dtype=dtype,
-                     generator=generator)
+def _draw(device, dtype, generator, hidden_size):
+    """The drawer of every weight and bias: ``Uniform(±1/sqrt(H))``. The
+    JAX layers create them without their ``*_attr`` arguments, which
+    they accept and ignore; so do these."""
+    init = Uniform(-1.0 / math.sqrt(hidden_size), 1.0 / math.sqrt(
+        hidden_size))
+    kw = dict(default_initializer=init, device=resolve_device(device),
+              dtype=dtype, generator=generator)
+    return lambda shape: create_parameter(shape, **kw)
 
 
 class _RNNBase(nn.Module):
@@ -69,8 +73,7 @@ class _RNNBase(nn.Module):
                  activation="tanh", *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None, **attrs):
         super().__init__()
-        std, kw = _init_kw(mode, device, dtype, generator, hidden_size,
-                           attrs)
+        draw = _draw(device, dtype, generator, hidden_size)
         self.mode = mode
         self.input_size = input_size
         self.hidden_size = hidden_size
@@ -94,8 +97,7 @@ class _RNNBase(nn.Module):
                           (g * hidden_size, hidden_size),
                           (g * hidden_size,), (g * hidden_size,)]
                 for n, s in zip(names, shapes):
-                    self.register_parameter(n, init.uniform(s, -std, std,
-                                                            **kw))
+                    self.register_parameter(n, draw(s))
                 self._weight_names.extend(names)
 
     def _weights(self):
@@ -148,16 +150,13 @@ class _CellBase(nn.Module):
                  dtype=torch.float32,
                  generator: Optional[torch.Generator] = None, **attrs):
         super().__init__()
-        std, kw = _init_kw(mode + "Cell", device, dtype, generator,
-                           hidden_size, attrs)
+        draw = _draw(device, dtype, generator, hidden_size)
         g = _GATES[mode]
         self.input_size, self.hidden_size = input_size, hidden_size
-        self.weight_ih = init.uniform((g * hidden_size, input_size), -std,
-                                      std, **kw)
-        self.weight_hh = init.uniform((g * hidden_size, hidden_size), -std,
-                                      std, **kw)
-        self.bias_ih = init.uniform((g * hidden_size,), -std, std, **kw)
-        self.bias_hh = init.uniform((g * hidden_size,), -std, std, **kw)
+        self.weight_ih = draw((g * hidden_size, input_size))
+        self.weight_hh = draw((g * hidden_size, hidden_size))
+        self.bias_ih = draw((g * hidden_size,))
+        self.bias_hh = draw((g * hidden_size,))
 
     def _zeros(self, inputs):
         return torch.zeros((inputs.shape[0], self.hidden_size),

@@ -1,7 +1,9 @@
 """Kernel selection and the functional ops of the serving, training and
 vision paths (port of the attention, sampling, dropout, cross-entropy,
-activation, embedding, convolution, pooling and batch-norm entries of
-``paddle_tpu/ops/nn_functional.py``).
+activation, embedding, convolution, pooling and normalisation entries
+of ``paddle_tpu/ops/nn_functional.py``; the losses other than
+``cross_entropy`` and the resampling ops are not ported yet, see
+ROADMAP.md).
 
 Each attention or sampling entry picks a CUDA kernel by the JAX
 package's shape rules, gated on the tensors lying on a CUDA device where
@@ -19,6 +21,7 @@ training never enter it.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import threading
 
@@ -80,6 +83,13 @@ def saved_attention(saved):
 
 def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda and not plain_mode()
+
+
+def weak_scalar(value: float, like: torch.Tensor) -> float:
+    """A Python number as JAX's weak typing reads it beside ``like``:
+    rounded to ``like``'s dtype (0.9 beside a bf16 tensor is 0.8984375).
+    PyTorch would multiply a bf16 tensor by the float32 0.9."""
+    return float(torch.tensor(value, dtype=like.dtype))
 
 
 def dropout(x, p: float = 0.5, training: bool = True,
@@ -250,11 +260,55 @@ def fused_sample(hidden, weight, bias=None, transpose_y=False, top_k=None,
                                   tile=tile)
 
 
-# -- activations, lookups, convolution, pooling, batch norm -----------------
+# -- activations --------------------------------------------------------------
+# nn_functional.py:26-169 and :1398; the formulas are the JAX package's
 
 def relu(x):
     """``nn_functional.py:26``."""
     return torch.relu(x)
+
+
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def leaky_relu(x, negative_slope=0.01):
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def prelu(x, weight):
+    """``weight`` of one element, or one a channel on axis 1."""
+    if weight.numel() > 1:
+        shape = [1] * x.dim()
+        shape[1] = weight.numel()
+        weight = weight.reshape(shape)
+    return torch.where(x >= 0, x, weight * x)
+
+
+def rrelu(x, lower=1.0 / 8.0, upper=1.0 / 3.0, training=True,
+          generator=None):
+    """In training each negative element takes a slope drawn uniformly
+    from ``[lower, upper)`` (from ``generator``, else the
+    :func:`core.rng.key_scope` generator); in eval the mean slope."""
+    if training:
+        gen = generator if generator is not None else rng.next_generator()
+        slope = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        slope.uniform_(lower, upper, generator=gen)
+    else:
+        slope = (lower + upper) / 2.0
+    return torch.where(x >= 0, x, slope * x)
+
+
+def elu(x, alpha=1.0):
+    return torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772):
+    return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+def celu(x, alpha=1.0):
+    return F.celu(x, alpha)
 
 
 def gelu(x, approximate: bool = False):
@@ -265,6 +319,123 @@ def gelu(x, approximate: bool = False):
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
+def silu(x):
+    return F.silu(x)
+
+
+swish = silu
+
+
+def mish(x):
+    return F.mish(x)
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def log_sigmoid(x):
+    return F.logsigmoid(x)
+
+
+def hardsigmoid(x, slope=1.0 / 6.0, offset=0.5):
+    return torch.clamp(slope * x + offset, 0.0, 1.0)
+
+
+def hardswish(x):
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+def hardtanh(x, min=-1.0, max=1.0):  # noqa: A002
+    return torch.clamp(x, min, max)
+
+
+def hardshrink(x, threshold=0.5):
+    return torch.where(torch.abs(x) > threshold, x, torch.zeros_like(x))
+
+
+def softshrink(x, threshold=0.5):
+    zero = torch.zeros_like(x)
+    return torch.where(x > threshold, x - threshold,
+                       torch.where(x < -threshold, x + threshold, zero))
+
+
+def tanhshrink(x):
+    return x - torch.tanh(x)
+
+
+def softplus(x, beta=1.0, threshold=20.0):
+    return torch.where(beta * x > threshold, x,
+                       torch.log1p(torch.exp(beta * x)) / beta)
+
+
+def softsign(x):
+    return x / (1.0 + torch.abs(x))
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
+def as_dtype(dtype):
+    """A torch dtype from a torch dtype or its name (``"float32"``); None
+    stays None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, str(dtype))
+
+
+def softmax(x, axis=-1, dtype=None):
+    (x,) = amp_cast("softmax", x)
+    if dtype is not None:
+        x = x.to(as_dtype(dtype))
+    return torch.softmax(x, dim=axis)
+
+
+def log_softmax(x, axis=-1, dtype=None):
+    (x,) = amp_cast("log_softmax", x)
+    if dtype is not None:
+        x = x.to(as_dtype(dtype))
+    return torch.log_softmax(x, dim=axis)
+
+
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, generator=None):
+    """``softmax((x + g) / temperature)`` with standard Gumbel noise
+    ``g = -log(-log(u))`` drawn from ``generator`` (else the
+    :func:`core.rng.key_scope` generator); ``hard`` returns the one-hot
+    of the argmax with the soft gradient (straight-through)."""
+    gen = generator if generator is not None else rng.next_generator()
+    u = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    u.uniform_(0.0, 1.0, generator=gen)
+    u = u.clamp_min(torch.finfo(x.dtype).tiny)
+    g = -torch.log(-torch.log(u))
+    y = torch.softmax((x + g) / temperature, dim=axis)
+    if hard:
+        idx = torch.argmax(y, dim=axis, keepdim=True)
+        y_hard = torch.zeros_like(y).scatter(axis, idx, 1.0)
+        y = (y_hard - y).detach() + y
+    return y
+
+
+def maxout(x, groups, axis=1):
+    axis = axis % x.dim()
+    shape = list(x.shape)
+    shape[axis] = x.shape[axis] // groups
+    shape.insert(axis + 1, groups)
+    return torch.amax(x.reshape(shape), dim=axis + 1)
+
+
+def glu(x, axis=-1):
+    a, b = torch.chunk(x, 2, dim=axis)
+    return a * torch.sigmoid(b)
+
+
+def thresholded_relu(x, threshold=1.0):
+    return torch.where(x > threshold, x, torch.zeros_like(x)).to(x.dtype)
+
+
+# -- lookups, dropouts ---------------------------------------------------------
+
 def embedding(x, weight, padding_idx=None):
     """``nn_functional.py:180-185``: the rows of ``weight`` at ``x``,
     zero where ``x == padding_idx``."""
@@ -273,6 +444,39 @@ def embedding(x, weight, padding_idx=None):
         out = out * (x != padding_idx).unsqueeze(-1).to(out.dtype)
     return out
 
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW", generator=None):
+    """Whole channels (``nn_functional.py:219``)."""
+    axis = (0, 1) if data_format == "NCHW" else (0, 3)
+    return dropout(x, p, training, axis=axis, generator=generator)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW",
+              generator=None):
+    axis = (0, 1) if data_format == "NCDHW" else (0, 4)
+    return dropout(x, p, training, axis=axis, generator=generator)
+
+
+def alpha_dropout(x, p=0.5, training=True, generator=None):
+    """SELU-preserving dropout (``nn_functional.py:229-239``): dropped
+    elements take ``-alpha * scale``, then the affine map that keeps the
+    mean and variance."""
+    if not training or p == 0.0:
+        return x
+    alpha = 1.6732632423543772
+    scale = 1.0507009873554805
+    alpha_p = -alpha * scale
+    gen = generator if generator is not None else rng.next_generator()
+    keep = torch.rand(x.shape, device=x.device, generator=gen) < (1.0 - p)
+    a = (1.0 / math.sqrt((1.0 - p) * (1.0 + p * alpha_p ** 2))) \
+        if p < 1 else 0.0
+    b = -a * alpha_p * p
+    kept = torch.where(keep, x, torch.full((), alpha_p, dtype=x.dtype,
+                                           device=x.device))
+    return (a * kept + b).to(x.dtype)
+
+
+# -- convolution ----------------------------------------------------------------
 
 def _norm_tuple(v, n: int):
     if isinstance(v, int):
@@ -314,117 +518,464 @@ def _explicit_pads(padding, in_sp, ksize, stride, dilation):
     return [(int(lo), int(hi)) for lo, hi in pads]
 
 
-def _pad_spatial(x_nchw, pads, value: float):
-    """Pad H and W of an NCHW tensor with (lo, hi) pairs."""
-    (hl, hh), (wl, wh) = pads
-    return F.pad(x_nchw, (wl, wh, hl, hh), value=value)
+def _pad_spatial(x_cf, pads, value: float):
+    """Pad the spatial dims of a channels-first tensor with (lo, hi)
+    pairs; negative entries crop."""
+    flat = []
+    for lo, hi in reversed(pads):
+        flat += [lo, hi]
+    return F.pad(x_cf, flat, value=value)
 
 
 def _to_nchw(x, channel_last: bool):
-    # an NHWC tensor viewed as NCHW: channels-last memory, no copy, and
-    # cuDNN / the pooling kernels then run in NHWC
-    return x.permute(0, 3, 1, 2) if channel_last else x
+    # a channels-last tensor viewed channels-first: channels-last memory,
+    # no copy, and cuDNN / the pooling kernels then run channels-last
+    return torch.movedim(x, -1, 1) if channel_last else x
 
 
 def _from_nchw(y, channel_last: bool):
-    return y.permute(0, 2, 3, 1) if channel_last else y
+    return torch.movedim(y, 1, -1) if channel_last else y
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _conv(name, x, weight, bias, stride, padding, dilation, groups,
+          channel_last, nsp):
+    """``lax.conv_general_dilated`` of the JAX package, on cuDNN (no
+    kernel of the JAX package's own): ``weight`` is ``[out, in/groups,
+    *k]`` whatever the layout."""
+    x, weight, bias = amp_cast(name, x, weight, bias)
+    stride = _norm_tuple(stride, nsp)
+    dilation = _norm_tuple(dilation, nsp)
+    xin = _to_nchw(x, channel_last)
+    pads = _explicit_pads(padding, tuple(xin.shape[2:]),
+                          tuple(weight.shape[2:]), stride, dilation)
+    conv = _CONV[nsp]
+    if all(lo == hi for lo, hi in pads):
+        out = conv(xin, weight, bias, stride, [lo for lo, _ in pads],
+                   dilation, groups)
+    else:
+        out = conv(_pad_spatial(xin, pads, 0.0), weight, bias, stride, 0,
+                   dilation, groups)
+    return _from_nchw(out, channel_last)
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL"):
+    """``nn_functional.py:305``; ``weight [out, in/groups, k]``."""
+    return _conv("conv1d", x, weight, bias, stride, padding, dilation,
+                 groups, data_format == "NLC", 1)
 
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
     """``nn_functional.py:287-302``. ``weight`` is ``[out, in/groups, kh,
-    kw]`` whatever ``data_format`` is. XLA's convolution in the JAX
-    package; cuDNN here (no kernel of the JAX package's own)."""
-    x, weight, bias = amp_cast("conv2d", x, weight, bias)
-    channel_last = data_format in ("NHWC", "NLC", "NDHWC")
-    stride = _norm_tuple(stride, 2)
-    dilation = _norm_tuple(dilation, 2)
+    kw]`` whatever ``data_format`` is."""
+    return _conv("conv2d", x, weight, bias, stride, padding, dilation,
+                 groups, data_format in ("NHWC", "NLC", "NDHWC"), 2)
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW"):
+    """``nn_functional.py:321``; ``weight [out, in/groups, kd, kh, kw]``."""
+    return _conv("conv3d", x, weight, bias, stride, padding, dilation,
+                 groups, data_format == "NDHWC", 3)
+
+
+def _out_padding_from_size(in_sp, output_size, stride, padding, dilation,
+                           ksp, nsp):
+    """The ``output_padding`` that gives ``output_size`` (``nn_functional.
+    py:337-362``); each must lie in ``[0, stride)``."""
+    st = _norm_tuple(stride, nsp)
+    dl = _norm_tuple(dilation, nsp)
+    osz = _norm_tuple(output_size, nsp)
+    op = []
+    for i in range(nsp):
+        if isinstance(padding, str):
+            if padding.upper() == "SAME":
+                base = in_sp[i] * st[i]
+            else:
+                base = (in_sp[i] - 1) * st[i] + dl[i] * (ksp[i] - 1) + 1
+        else:
+            pd = _norm_tuple(padding, nsp)
+            base = (in_sp[i] - 1) * st[i] - 2 * pd[i] + \
+                dl[i] * (ksp[i] - 1) + 1
+        op.append(int(osz[i]) - base)
+    if any(o < 0 or o >= st[i] for i, o in enumerate(op)):
+        raise ValueError(
+            f"output_size {tuple(int(o) for o in osz)} unreachable from "
+            f"input {tuple(in_sp)}: derived output_padding {op} must be "
+            f"in [0, stride) per dim (stride {st})")
+    return tuple(op)
+
+
+def _conv_transpose(x, weight, bias, stride, pads, output_padding,
+                    dilation, groups, channel_last, nsp):
+    """The JAX transposed convolution (``nn_functional.py:365-404``: the
+    flipped, regrouped ``[in, out/groups, *k]`` weight over the input
+    dilated by ``stride``, padded ``k_eff - 1 - lo`` and ``k_eff - 1 -
+    hi + output_padding``). ``F.conv_transpose*d`` computes the same
+    product with no padding; the (lo, hi) pads and the output padding
+    then crop or extend its ends, which takes any pads, asymmetric ones
+    included, and any output padding."""
+    stride = _norm_tuple(stride, nsp)
+    dilation = _norm_tuple(dilation, nsp)
+    out_pad = _norm_tuple(output_padding, nsp)
     xin = _to_nchw(x, channel_last)
-    pads = _explicit_pads(padding, tuple(xin.shape[2:]),
-                          tuple(weight.shape[2:]), stride, dilation)
-    if all(lo == hi for lo, hi in pads):
-        out = F.conv2d(xin, weight, bias, stride, [lo for lo, _ in pads],
-                       dilation, groups)
-    else:
-        out = F.conv2d(_pad_spatial(xin, pads, 0.0), weight, bias, stride, 0,
-                       dilation, groups)
+    full = _CONV_T[nsp](xin, weight, None, stride, 0, 0, groups, dilation)
+    out = _pad_spatial(full, [(-lo, -hi + op)
+                              for (lo, hi), op in zip(pads, out_pad)], 0.0)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nsp)
     return _from_nchw(out, channel_last)
 
 
-def _pool_args(x_nchw, kernel_size, stride, padding):
-    ksize = _norm_tuple(kernel_size, 2)
-    stride = _norm_tuple(stride if stride is not None else ksize, 2)
-    pads = _explicit_pads(padding, tuple(x_nchw.shape[2:]), ksize, stride,
-                          (1, 1))
+def _transpose_pads(padding, nsp, what):
+    pads = _conv_padding(padding, nsp)
+    if pads == "VALID":
+        return [(0, 0)] * nsp
+    if isinstance(pads, str):
+        # the JAX function has no pads for 'SAME' and fails indexing them
+        raise ValueError(f"{what}: padding={padding!r} is not supported by "
+                         f"the transposed convolution; give explicit pads "
+                         f"or 'VALID'")
+    return [(int(lo), int(hi)) for lo, hi in pads]
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     output_size=None, data_format="NCHW"):
+    """``nn_functional.py:365-404``; ``weight [in, out/groups, kh, kw]``.
+    ``output_size`` sets ``output_padding`` (``_out_padding_from_size``).
+    ``padding='SAME'`` raises (the JAX function fails on it)."""
+    x, weight, bias = amp_cast("conv2d_transpose", x, weight, bias)
+    if output_size is not None:
+        sp = x.shape[1:3] if data_format == "NHWC" else x.shape[2:4]
+        output_padding = _out_padding_from_size(
+            tuple(sp), output_size, stride, padding, dilation,
+            tuple(weight.shape[2:4]), 2)
+    return _conv_transpose(x, weight, bias, stride,
+                           _transpose_pads(padding, 2, "conv2d_transpose"),
+                           output_padding, dilation, groups,
+                           data_format == "NHWC", 2)
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     output_size=None, data_format="NCL"):
+    """``nn_functional.py:407-428``: ``conv2d_transpose`` over a unit
+    trailing spatial dim, with the JAX function's reading of the
+    arguments (a list ``padding`` gives its first entry)."""
+    x, weight, bias = amp_cast("conv1d_transpose", x, weight, bias)
+    if output_size is not None:
+        sp = (x.shape[1],) if data_format == "NLC" else (x.shape[2],)
+        output_padding = _out_padding_from_size(
+            sp, output_size, stride, padding, dilation,
+            (weight.shape[2],), 1)[0]
+    x4 = x.unsqueeze(-1 if data_format == "NCL" else 2)
+    w4 = weight.unsqueeze(-1)
+    out = conv2d_transpose(
+        x4, w4, bias, stride=(_norm_tuple(stride, 1)[0], 1),
+        padding=(_norm_tuple(padding, 1)[0], 0) if isinstance(
+            padding, (int, list, tuple)) else padding,
+        output_padding=(_norm_tuple(output_padding, 1)[0], 0),
+        dilation=(_norm_tuple(dilation, 1)[0], 1), groups=groups,
+        data_format="NCHW" if data_format == "NCL" else "NHWC")
+    return out.squeeze(-1 if data_format == "NCL" else 2)
+
+
+# -- pooling ----------------------------------------------------------------------
+# nn_functional.py:431-660; ceil_mode is ignored, as the JAX _pool ignores it
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _pool_args(x_cf, kernel_size, stride, padding, nsp):
+    ksize = _norm_tuple(kernel_size, nsp)
+    stride = _norm_tuple(stride if stride is not None else ksize, nsp)
+    pads = _explicit_pads(padding, tuple(x_cf.shape[2:]), ksize, stride,
+                          (1,) * nsp)
     return ksize, stride, pads
 
 
-def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               return_mask=False, data_format="NCHW"):
-    """``nn_functional.py:431-465``: the window max with -inf padding
-    (the dtype's minimum for integers). ``ceil_mode`` is ignored, as the
-    JAX package's ``_pool`` ignores it."""
-    if return_mask:
-        raise NotImplementedError("max_pool2d(return_mask=True) is not yet "
-                                  "ported, see ROADMAP.md")
-    channel_last = data_format == "NHWC"
+def _max_pool(x, kernel_size, stride, padding, channel_last, nsp):
+    """The window max over ``-inf`` padding (the dtype's minimum for
+    integers)."""
     xin = _to_nchw(x, channel_last)
-    ksize, stride, pads = _pool_args(xin, kernel_size, stride, padding)
+    ksize, stride, pads = _pool_args(xin, kernel_size, stride, padding, nsp)
     if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads, ksize)):
         # torch pads with -inf itself when the pad is symmetric and at
         # most half the window
-        out = F.max_pool2d(xin, ksize, stride, [lo for lo, _ in pads])
+        out = _MAX_POOL[nsp](xin, ksize, stride, [lo for lo, _ in pads])
     else:
         low = (-math.inf if x.dtype.is_floating_point
                else torch.iinfo(x.dtype).min)
-        out = F.max_pool2d(_pad_spatial(xin, pads, low), ksize, stride, 0)
+        out = _MAX_POOL[nsp](_pad_spatial(xin, pads, low), ksize, stride, 0)
     return _from_nchw(out, channel_last)
 
 
-def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               exclusive=True, divisor_override=None, data_format="NCHW"):
-    """``nn_functional.py:512-526``: the window sum over zero padding,
-    divided by ``divisor_override``, else by the count of unpadded
-    positions (``exclusive`` with numeric padding), else by the window
-    size (also for ``'SAME'``/``'VALID'``, as in the JAX package)."""
-    channel_last = data_format == "NHWC"
+def _avg_pool(x, kernel_size, stride, padding, exclusive, divisor_override,
+              channel_last, nsp):
+    """The window sum over zero padding, divided by ``divisor_override``,
+    else by the count of unpadded positions (``exclusive`` with numeric
+    padding), else by the window size (also for ``'SAME'`` / ``'VALID'``,
+    as in the JAX package)."""
     xin = _to_nchw(x, channel_last)
-    ksize, stride, pads = _pool_args(xin, kernel_size, stride, padding)
-    summed = F.avg_pool2d(_pad_spatial(xin, pads, 0.0), ksize, stride, 0,
-                          divisor_override=1)
+    ksize, stride, pads = _pool_args(xin, kernel_size, stride, padding, nsp)
+
+    def window_sum(t):
+        return _AVG_POOL[nsp](_pad_spatial(t, pads, 0.0), ksize, stride, 0,
+                              divisor_override=1)
+
+    summed = window_sum(xin)
     if divisor_override:
         out = summed / divisor_override
     elif exclusive and not isinstance(padding, str):
         ones = torch.ones((1, 1) + tuple(xin.shape[2:]), dtype=x.dtype,
                           device=x.device)
-        counts = F.avg_pool2d(_pad_spatial(ones, pads, 0.0), ksize, stride,
-                              0, divisor_override=1)
-        out = summed / counts
+        out = summed / window_sum(ones)
     else:
-        out = summed / (ksize[0] * ksize[1])
+        out = summed / math.prod(ksize)
     return _from_nchw(out.to(x.dtype), channel_last)
 
 
-def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
-    """``nn_functional.py:576-614``: a plain average pool when each input
-    size divides by its output size; otherwise the mean over the windows
-    ``[floor(i*in/out), ceil((i+1)*in/out))``, one spatial axis after the
-    other, as the JAX package computes it."""
+def _max_pool_indices(x, kernel_size, stride, padding, channel_last):
+    """The JAX package's max-pool mask (``nn_functional.py:468-505``): for
+    each window the flat index, in the input plane, of its first maximum
+    in the window's row-major scan, int32. Padded positions read -inf
+    and index -1; a ``'SAME'`` / ``'VALID'`` padding is taken as none,
+    as there. A NaN counts as the maximum, as ``jnp.argmax`` counts it.
+    The windows are walked offset by offset with a strict comparison,
+    which fixes the tie order on every device (torch's
+    ``return_indices`` leaves it to the backend)."""
+    nsp = x.dim() - 2
+    ksize = _norm_tuple(kernel_size, nsp)
+    st = _norm_tuple(stride if stride is not None else kernel_size, nsp)
+    xc = _to_nchw(x, channel_last)
+    spatial = tuple(xc.shape[2:])
+    lin = torch.arange(math.prod(spatial), device=x.device).reshape(spatial)
+    pads = _conv_padding(padding, nsp)
+    if isinstance(pads, str):
+        pads = [(0, 0)] * nsp
+    xp = _pad_spatial(xc, pads, -math.inf)
+    lp = _pad_spatial(lin, pads, -1)
+    out_sp = [(xp.shape[2 + i] - ksize[i]) // st[i] + 1 for i in range(nsp)]
+    best = idx = None
+    for offs in itertools.product(*(range(k) for k in ksize)):
+        sl = tuple(slice(o, o + n * s, s)
+                   for o, n, s in zip(offs, out_sp, st))
+        v = xp[(slice(None), slice(None)) + sl]
+        l_ = lp[sl].expand_as(v)
+        if best is None:
+            best, idx = v, l_
+            continue
+        take = (v > best) | (torch.isnan(v) & ~torch.isnan(best))
+        best = torch.where(take, v, best)
+        idx = torch.where(take, l_, idx)
+    return _from_nchw(idx.to(torch.int32), channel_last)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW"):
+    """``nn_functional.py:454-465``: the window max with -inf padding;
+    ``return_mask`` adds :func:`_max_pool_indices`."""
     channel_last = data_format == "NHWC"
-    out_size = _norm_tuple(output_size, 2)
-    sp_axes = (1, 2) if channel_last else (2, 3)
-    in_size = tuple(x.shape[a] for a in sp_axes)
-    if all(i % o == 0 for i, o in zip(in_size, out_size)):
-        k = tuple(i // o for i, o in zip(in_size, out_size))
-        return avg_pool2d(x, k, k, 0, data_format=data_format)
+    out = _max_pool(x, kernel_size, stride, padding, channel_last, 2)
+    if return_mask:
+        return out, _max_pool_indices(x, kernel_size, stride, padding,
+                                      channel_last)
+    return out
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCHW"):
+    """``nn_functional.py:512-526``."""
+    return _avg_pool(x, kernel_size, stride, padding, exclusive,
+                     divisor_override, data_format == "NHWC", 2)
+
+
+def _pool1d_args(kernel_size, stride, padding):
+    return ((_norm_tuple(kernel_size, 1)[0], 1),
+            (_norm_tuple(stride, 1)[0], 1) if stride else None,
+            (_norm_tuple(padding, 1)[0], 0) if isinstance(padding, int)
+            else padding)
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False):
+    """``nn_functional.py:529-539``: ``max_pool2d`` over a unit trailing
+    dim of ``[N, C, L]``."""
+    k, s, p = _pool1d_args(kernel_size, stride, padding)
+    out = max_pool2d(x.unsqueeze(-1), k, s, p, ceil_mode, return_mask)
+    if return_mask:
+        return out[0].squeeze(-1), out[1].squeeze(-1)
+    return out.squeeze(-1)
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True):
+    k, s, p = _pool1d_args(kernel_size, stride, padding)
+    return avg_pool2d(x.unsqueeze(-1), k, s, p, ceil_mode,
+                      exclusive).squeeze(-1)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCDHW"):
+    """``nn_functional.py:553-558``; ``return_mask`` is read and
+    ignored there, and here."""
+    return _max_pool(x, kernel_size, stride, padding,
+                     data_format == "NDHWC", 3)
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCDHW"):
+    return _avg_pool(x, kernel_size, stride, padding, exclusive,
+                     divisor_override, data_format == "NDHWC", 3)
+
+
+def _adaptive_pool_general(x, out_size, sp_axes, mode):
+    """Mean or max over the windows ``[floor(i*in/out), ceil((i+1)*in/
+    out))``, one spatial axis after the other (``nn_functional.py:
+    601-614``)."""
     out = x
     for ax, osz in zip(sp_axes, out_size):
         isz = out.shape[ax]
         pieces = []
         for j in range(osz):
             s, e = (j * isz) // osz, ((j + 1) * isz + osz - 1) // osz
-            pieces.append(out.narrow(ax, s, e - s).mean(dim=ax, keepdim=True))
+            seg = out.narrow(ax, s, e - s)
+            pieces.append(seg.mean(dim=ax, keepdim=True) if mode == "avg"
+                          else seg.amax(dim=ax, keepdim=True))
         out = torch.cat(pieces, dim=ax)
+    return out
+
+
+def _adaptive_axes(x, output_size, channel_last, nsp):
+    out_size = _norm_tuple(output_size, nsp)
+    sp_axes = tuple(range(1, 1 + nsp)) if channel_last else \
+        tuple(range(2, 2 + nsp))
+    in_size = tuple(x.shape[a] for a in sp_axes)
+    return out_size, sp_axes, in_size
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    """``nn_functional.py:576-585``: a plain average pool when each input
+    size divides by its output size, else the general windows."""
+    out_size, sp_axes, in_size = _adaptive_axes(
+        x, output_size, data_format == "NHWC", 2)
+    if all(i % o == 0 for i, o in zip(in_size, out_size)):
+        k = tuple(i // o for i, o in zip(in_size, out_size))
+        return avg_pool2d(x, k, k, 0, data_format=data_format)
+    return _adaptive_pool_general(x, out_size, sp_axes, "avg")
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False,
+                        data_format="NCHW"):
+    """``nn_functional.py:588-598``: ``max_pool2d`` (with its mask) when
+    the sizes divide; else the general windows, without a mask, as
+    there."""
+    out_size, sp_axes, in_size = _adaptive_axes(
+        x, output_size, data_format == "NHWC", 2)
+    if all(i % o == 0 for i, o in zip(in_size, out_size)):
+        k = tuple(i // o for i, o in zip(in_size, out_size))
+        return max_pool2d(x, k, k, 0, return_mask=return_mask,
+                          data_format=data_format)
+    return _adaptive_pool_general(x, out_size, sp_axes, "max")
+
+
+def adaptive_avg_pool1d(x, output_size):
+    return adaptive_avg_pool2d(x.unsqueeze(-1),
+                               (output_size, 1)).squeeze(-1)
+
+
+def _first_argmax(win):
+    """The index of the first maximum along the last dim (a NaN counts as
+    the maximum, as in ``jnp.argmax``), the same on every device."""
+    best = win[..., 0]
+    idx = torch.zeros(best.shape, dtype=torch.int64, device=win.device)
+    for j in range(1, win.shape[-1]):
+        v = win[..., j]
+        take = (v > best) | (torch.isnan(v) & ~torch.isnan(best))
+        best = torch.where(take, v, best)
+        idx = torch.where(take, torch.full_like(idx, j), idx)
+    return idx
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False):
+    """``nn_functional.py:622-636``; the mask (int64, input positions)
+    needs a length divisible by ``output_size``, as there."""
+    out = adaptive_max_pool2d(x.unsqueeze(-1), (output_size, 1)).squeeze(-1)
+    if not return_mask:
+        return out
+    n, c, length = x.shape
+    o = int(output_size)
+    if length % o:
+        raise NotImplementedError(
+            "return_mask needs input length divisible by output_size")
+    k = length // o
+    idx = _first_argmax(x.reshape(n, c, o, k))
+    idx = idx + torch.arange(o, device=x.device)[None, None] * k
+    return out, idx.to(torch.int64)
+
+
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW"):
+    """``nn_functional.py:639-642``: always the general windows."""
+    out_size, sp_axes, _ = _adaptive_axes(x, output_size,
+                                          data_format == "NDHWC", 3)
+    return _adaptive_pool_general(x, out_size, sp_axes, "avg")
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False,
+                        data_format="NCDHW"):
+    out_size, sp_axes, in_size = _adaptive_axes(
+        x, output_size, data_format == "NDHWC", 3)
+    if all(i % o == 0 for i, o in zip(in_size, out_size)):
+        k = tuple(i // o for i, o in zip(in_size, out_size))
+        return max_pool3d(x, k, k, 0, data_format=data_format)
+    return _adaptive_pool_general(x, out_size, sp_axes, "max")
+
+
+def lp_pool2d(x, norm_type, kernel_size, stride=None, padding=0,
+              ceil_mode=False, data_format="NCHW"):
+    """``(sum |x|^p)^(1/p)`` over each window (``nn_functional.py:
+    1386-1395``)."""
+    p = float(norm_type)
+    pooled = avg_pool2d(torch.abs(x) ** p, kernel_size, stride, padding,
+                        ceil_mode=ceil_mode, exclusive=False,
+                        data_format=data_format)
+    k = _norm_tuple(kernel_size, 2)
+    return (pooled * (k[0] * k[1])) ** (1.0 / p)
+
+
+# -- normalisation --------------------------------------------------------------
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """``nn_functional.py:662-673``, over the trailing ``normalized_shape``
+    dims. An input of another dtype than the parameters is normalised in
+    the parameters' dtype and returned in its own, as in
+    ``nn.layers.LayerNorm`` (PyTorch's CUDA layer norm takes no mixed
+    dtypes)."""
+    x, weight, bias = amp_cast("layer_norm", x, weight, bias)
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    dt = weight.dtype if weight is not None else x.dtype
+    return F.layer_norm(x.to(dt), tuple(normalized_shape), weight, bias,
+                        epsilon).to(x.dtype)
+
+
+def rms_norm(x, weight=None, epsilon=1e-6, axis=-1):
+    """``nn_functional.py:676-682``: the mean square in f32, the scale
+    cast to ``x``'s dtype."""
+    x, weight = amp_cast("rms_norm", x, weight)
+    var = torch.mean(torch.square(x.to(torch.float32)), dim=axis,
+                     keepdim=True)
+    out = x * torch.rsqrt(var + epsilon).to(x.dtype)
+    if weight is not None:
+        out = out * weight
     return out
 
 
@@ -436,7 +987,10 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     biased variance ``E[x^2] - E[x]^2`` in f32, and updates the running
     ones the JAX (and Paddle) way, ``momentum * old + (1 - momentum) *
     new`` (torch's ``F.batch_norm`` weighs the other way and keeps the
-    unbiased variance, so it is not used)."""
+    unbiased variance, so it is not used). Dtypes follow the JAX
+    promotion: a bf16 input with f32 statistics normalises in f32 (with
+    bf16 or f32 affine parameters) and returns bf16; the running
+    statistics stay in their own dtype."""
     x, running_mean, running_var, weight, bias = amp_cast(
         "batch_norm", x, running_mean, running_var, weight, bias)
     ch = 1 if data_format.startswith("NC") and x.dim() > 1 else x.dim() - 1
@@ -445,17 +999,91 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         xf = x.to(torch.float32)
         mean = xf.mean(dim=axes)
         var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
-        new_rm = momentum * running_mean + (1.0 - momentum) * mean.detach()
-        new_rv = momentum * running_var + (1.0 - momentum) * var.detach()
+        new_rm = (weak_scalar(momentum, running_mean) * running_mean
+                  + (1.0 - momentum) * mean.detach())
+        new_rv = (weak_scalar(momentum, running_var) * running_var
+                  + (1.0 - momentum) * var.detach())
     else:
         mean, var = running_mean, running_var
         new_rm, new_rv = running_mean, running_var
+    # x in the promoted dtype once, so that a bf16 input's gradient sums
+    # its direct and its statistics terms (which nearly cancel) in f32
+    # and rounds once, as XLA's fused backward does
+    xc = x.to(torch.result_type(x, mean))
     shape = [1] * x.dim()
     shape[ch] = -1
-    out = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
-                                                  + epsilon)
+    out = (xc - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                   + epsilon)
     if weight is not None:
         out = out * weight.reshape(shape)
     if bias is not None:
         out = out + bias.reshape(shape)
     return out.to(x.dtype), new_rm, new_rv
+
+
+def _affine_cf(out, weight, bias):
+    shape = [1, -1] + [1] * (out.dim() - 2)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def instance_norm(x, weight=None, bias=None, epsilon=1e-5):
+    """``nn_functional.py:718-729``: per sample and channel over the
+    spatial dims of a channels-first input."""
+    x, weight, bias = amp_cast("instance_norm", x, weight, bias)
+    axes = tuple(range(2, x.dim()))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, unbiased=False, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + epsilon)
+    return _affine_cf(out, weight, bias).to(x.dtype)
+
+
+def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
+               data_format="NCHW"):
+    """``nn_functional.py:732-750``."""
+    x, weight, bias = amp_cast("group_norm", x, weight, bias)
+    channel_last = data_format == "NHWC"
+    xc = _to_nchw(x, channel_last)
+    n, c = xc.shape[:2]
+    g = xc.reshape((n, num_groups, c // num_groups) + tuple(xc.shape[2:]))
+    axes = tuple(range(2, g.dim()))
+    mean = g.mean(dim=axes, keepdim=True)
+    var = g.var(dim=axes, unbiased=False, keepdim=True)
+    out = ((g - mean) * torch.rsqrt(var + epsilon)).reshape(xc.shape)
+    out = _affine_cf(out, weight, bias)
+    return _from_nchw(out, channel_last).to(x.dtype)
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12):
+    """``x / max(||x||_p, epsilon)`` along ``axis``."""
+    norm = torch.linalg.vector_norm(x, ord=p, dim=axis, keepdim=True)
+    return x / torch.clamp_min(norm, epsilon)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW"):
+    """``nn_functional.py:758-773``: ``x / (k + alpha * sum of squares
+    over a window of `size` channels) ** beta``, the window's odd half
+    after the channel."""
+    (x,) = amp_cast("local_response_norm", x)
+    channel_last = data_format == "NHWC"
+    xc = _to_nchw(x, channel_last)
+    half = size // 2
+    sq = F.pad(torch.square(xc), [0, 0] * (xc.dim() - 2) +
+               [half, size - 1 - half])
+    c = xc.shape[1]
+    window = sum(sq[:, i:i + c] for i in range(size))
+    out = xc / torch.pow(k + alpha * window, beta)
+    return _from_nchw(out, channel_last)
+
+
+def data_norm(x, batch_size, batch_sum, batch_square_sum, epsilon=1e-4):
+    """``nn_functional.py:1465-1472``: ``(x - batch_sum / batch_size) *
+    sqrt(batch_size / max(batch_square_sum, epsilon))``."""
+    mean = batch_sum / batch_size
+    scale = torch.sqrt(batch_size / torch.clamp_min(batch_square_sum,
+                                                    epsilon))
+    return (x - mean) * scale

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..core.flags import get_flag
+from ..ops.nn_functional import weak_scalar
 from ..ops.kernels.optimizer_update import (DECAY_DECOUPLED, DECAY_L2,
                                             DECAY_NONE, adam_update,
                                             adam_update_reference,
@@ -285,12 +286,16 @@ class Momentum(Optimizer):
         return {"velocity": torch.zeros_like(value)}
 
     def _update(self, value, grad, state, lr, step):
+        # the momentum takes the velocity's dtype (JAX's weak typing); the
+        # float32 rate widens the step to f32, and _update_with_wd rounds
+        # the new value back, as the JAX step with its float32 rate does
         g = grad.to(value.dtype)
-        v = self._momentum * state["velocity"] + g
+        mu = weak_scalar(self._momentum, state["velocity"])
+        v = mu * state["velocity"] + g
         state["velocity"] = v
-        if self._nesterov:
-            return value - float(lr) * (g + self._momentum * v)
-        return value - float(lr) * v
+        wide = torch.promote_types(value.dtype, torch.float32)
+        step_dir = g + mu * v if self._nesterov else v
+        return value.to(wide) - float(lr) * step_dir.to(wide)
 
 
 class Adagrad(Optimizer):

@@ -295,6 +295,7 @@ class Supervisor:
         self._stop = threading.Event()
         self._monitor: Optional[threading.Thread] = None
         self._lock = threading.Lock()
+        self._spawn_lock = threading.Lock()
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -864,46 +865,59 @@ class Supervisor:
     # -- internals ---------------------------------------------------------
 
     def _spawn(self, rep: Replica) -> None:
-        rep.port = _free_port(self.host)
-        rep.ready = False
-        rep.probe_failures = 0
-        rep.next_spawn_t = None
-        rep.spawn_t = time.monotonic()
-        rep.close_log()
-        rep.log_path = os.path.join(self.log_dir,
-                                    f"replica{rep.idx}.log")
-        rep._log_file = open(rep.log_path, "ab")
-        # "{replica}" in an arg expands to this replica's index — how
-        # per-replica paths (e.g. --spill-dir subdirs) stay disjoint
-        # while every replica shares one server_args list
-        extra = [a.replace("{replica}", str(rep.idx))
-                 if "{replica}" in a else a for a in self.server_args]
-        if rep.role != "mixed":
-            extra = ["--role", rep.role] + extra
-        # weight hot-swap (r24): spawn at the fleet's COMMITTED weight
-        # config — a monitor respawn or a --roles re-role restart after
-        # a roll boots the rolled checkpoint at the rolled generation
-        # instead of regressing to the boot image at generation 0
-        if self.weight_generation:
-            extra = ["--weight-generation",
-                     str(self.weight_generation)] + extra
-        if self.checkpoint:
-            extra = ["--checkpoint", self.checkpoint] + extra
-        cmd = [sys.executable, "-m", "paddle_tpu_torch.serving.server",
-               "--model", self.model, "--host", self.host,
-               "--port", str(rep.port)] + extra
-        env = dict(os.environ)
-        env.update(self.replica_env)
-        if self.journal_path:
-            # the autoscaler's fleet markers: a restarted supervisor's
-            # recovery attributes an orphaned server to its fleet by
-            # these even when the journal's pid snapshot is stale
-            # (monitor respawns change pids without a journal write)
-            from .autoscaler import JOURNAL_ENV, REPLICA_IDX_ENV
-            env[JOURNAL_ENV] = self.journal_path
-            env[REPLICA_IDX_ENV] = str(rep.idx)
-        rep.proc = subprocess.Popen(cmd, stdout=rep._log_file,
-                                    stderr=subprocess.STDOUT, env=env)
+        """Start ``rep``'s server process on a fresh port. Under
+        ``_spawn_lock``, and the process it replaces is killed first if
+        it still runs: the monitor's respawn and a roll's
+        ``_respawn_with_config`` can both replace one replica, and the
+        handle each overwrote left a server no one would stop."""
+        with self._spawn_lock:
+            old = rep.proc
+            if old is not None and old.poll() is None:
+                try:
+                    old.kill()
+                    old.wait(timeout=10.0)
+                except Exception:
+                    pass
+            rep.port = _free_port(self.host)
+            rep.ready = False
+            rep.probe_failures = 0
+            rep.next_spawn_t = None
+            rep.spawn_t = time.monotonic()
+            rep.close_log()
+            rep.log_path = os.path.join(self.log_dir,
+                                        f"replica{rep.idx}.log")
+            rep._log_file = open(rep.log_path, "ab")
+            # "{replica}" in an arg expands to this replica's index — how
+            # per-replica paths (e.g. --spill-dir subdirs) stay disjoint
+            # while every replica shares one server_args list
+            extra = [a.replace("{replica}", str(rep.idx))
+                     if "{replica}" in a else a for a in self.server_args]
+            if rep.role != "mixed":
+                extra = ["--role", rep.role] + extra
+            # weight hot-swap (r24): spawn at the fleet's COMMITTED weight
+            # config — a monitor respawn or a --roles re-role restart after
+            # a roll boots the rolled checkpoint at the rolled generation
+            # instead of regressing to the boot image at generation 0
+            if self.weight_generation:
+                extra = ["--weight-generation",
+                         str(self.weight_generation)] + extra
+            if self.checkpoint:
+                extra = ["--checkpoint", self.checkpoint] + extra
+            cmd = [sys.executable, "-m", "paddle_tpu_torch.serving.server",
+                   "--model", self.model, "--host", self.host,
+                   "--port", str(rep.port)] + extra
+            env = dict(os.environ)
+            env.update(self.replica_env)
+            if self.journal_path:
+                # the autoscaler's fleet markers: a restarted supervisor's
+                # recovery attributes an orphaned server to its fleet by
+                # these even when the journal's pid snapshot is stale
+                # (monitor respawns change pids without a journal write)
+                from .autoscaler import JOURNAL_ENV, REPLICA_IDX_ENV
+                env[JOURNAL_ENV] = self.journal_path
+                env[REPLICA_IDX_ENV] = str(rep.idx)
+            rep.proc = subprocess.Popen(cmd, stdout=rep._log_file,
+                                        stderr=subprocess.STDOUT, env=env)
 
     def _monitor_loop(self) -> None:
         while not self._stop.is_set():

@@ -753,6 +753,25 @@ class _CliFleet:
     def op(self, payload: Dict, timeout_s: float = 10.0) -> Dict:
         return _call("127.0.0.1", self.rport, payload, timeout_s)
 
+    def wait_open(self, kind: str, need: Sequence[str] = (),
+                  timeout_s: float = 120.0) -> None:
+        """Until the journal holds an open ``kind`` action that carries
+        every field of ``need``, or ``timeout_s`` passes. That is the
+        span a kill must land in, and the action's hold keeps it open
+        for ``hold_s`` seconds; a kill that misses it is counted by
+        ``_check_armed``. A fixed sleep after forcing the action missed
+        it when the supervisor took longer than the sleep to journal
+        the action's begin."""
+        from ..serving.autoscaler import open_actions
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            body = (self.journal_obj() or {}).get("body") or {}
+            if any(a.get("action") == kind
+                   and all(a.get(k) is not None for k in need)
+                   for a in open_actions(body)):
+                return
+            time.sleep(0.05)
+
     def force(self, payload: Dict, timeout_s: float) -> threading.Thread:
         """``payload`` sent from a thread: the supervisor may die
         before it answers."""
@@ -803,6 +822,23 @@ class _CliFleet:
         jobj = self.journal_obj()
         return jobj is not None and not flight_inspect.lint_fleet_journal(
             jobj, allow_open_tail=0)
+
+    def wait_quiescent(self, timeout_s: float) -> bool:
+        """Until no resume is pending, no action is in flight and the
+        journal has no open action left, or ``timeout_s`` passes;
+        whether that came. With a short cooldown the autoscaler may
+        begin a pressure-driven action of its own at any time, and the
+        journal holds it open until it ends."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            asc = self.op({"op": "autoscale"}).get("autoscaler") or {}
+            if (asc.get("pending_resumes") == 0
+                    and not asc.get("action_in_flight")
+                    and self.journal_clean()):
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.5)
 
     def stop(self) -> None:
         """Graceful stop (SIGTERM), a SIGKILL if it does not end."""
@@ -860,7 +896,11 @@ def _final_checks(report: ChaosReport, fleet: _CliFleet,
                   drain_timeout_s: float) -> None:
     """Zero leaks and a clean ledger on every live member, the
     supervisor's autoscale bundles and the journal lint clean (every
-    action resolved), each action's wall seconds from the journal."""
+    action resolved), each action's wall seconds from the journal. An
+    action the autoscaler began of its own is given ``drain_timeout_s``
+    to end before the audit and again before the journal is read; one
+    still open then fails the lint."""
+    fleet.wait_quiescent(drain_timeout_s)
     h = fleet.op({"op": "health"}, timeout_s=10.0)
     _audit(report, "127.0.0.1",
            [(r.get("idx"), lambda p=r.get("port"): p)
@@ -869,6 +909,7 @@ def _final_checks(report: ChaosReport, fleet: _CliFleet,
            time.monotonic() + drain_timeout_s)
     _lint_flight(report, os.path.join(fleet.log_dir, "flight",
                                       "supervisor"))
+    fleet.wait_quiescent(drain_timeout_s)
     jobj = fleet.journal_obj()
     errs = (["journal unreadable"] if jobj is None else
             flight_inspect.lint_fleet_journal(jobj, name="fleet-journal",
@@ -965,7 +1006,8 @@ def run_autoscale_chaos(requests: int = 8, seed: int = 0,
 
     The kill window comes from ``PT_AUTOSCALE_HOLD_S``: every scale
     action sleeps ``hold_s`` between its journal record and its commit
-    path, so a kill half a hold after forcing lands inside the
+    path, so a kill made as soon as the journal shows the action open
+    (``_CliFleet.wait_open``) lands inside the
     journaled-but-uncommitted span; a restarted supervisor whose
     recovery found no open action of the kind killed counts an
     ``arming_failures`` (the kill missed its window). ``prompt_len_range`` (tokens) should
@@ -1014,9 +1056,9 @@ def run_autoscale_chaos(requests: int = 8, seed: int = 0,
         # ---- phase A: SIGKILL mid-SPAWN under keyed traffic ----------
         wave1 = _run_clients(range(requests // 2), client)
         fleet.force({"op": "autoscale", "action": "scale_up"}, 60.0)
-        # half a hold after forcing: the journal holds begin+launched
-        # for the spawn, the commit has not happened
-        time.sleep(hold_s * 0.5)
+        # the journal holds begin+launched (the pid) for the spawn, the
+        # commit has not happened
+        fleet.wait_open("spawn", need=("pid",))
         fleet.kill_and_restart(min_live=1)
         report.recoveries += 1
         _check_armed(report, fleet, "spawn", "phase_a")
@@ -1038,22 +1080,13 @@ def run_autoscale_chaos(requests: int = 8, seed: int = 0,
         # ---- phase B: SIGKILL mid-SCALE-DOWN under keyed traffic -----
         wave2 = _run_clients(range(requests // 2, requests), client)
         fleet.force({"op": "autoscale", "action": "scale_down"}, 60.0)
-        time.sleep(hold_s * 0.5)
+        fleet.wait_open("drain")
         fleet.kill_and_restart(min_live=1)
         report.recoveries += 1
         _check_armed(report, fleet, "drain", "phase_b")
         # the resumed drain resolves when nothing is pending or in
         # flight and the journal has no open action left
-        deadline = time.monotonic() + drain_timeout_s
-        resolved = False
-        while time.monotonic() < deadline and not resolved:
-            asc = fleet.op({"op": "autoscale"}).get("autoscaler") or {}
-            resolved = (asc.get("pending_resumes") == 0
-                        and not asc.get("action_in_flight")
-                        and fleet.journal_clean())
-            if not resolved:
-                time.sleep(0.5)
-        if not resolved:
+        if not fleet.wait_quiescent(drain_timeout_s):
             report.journal_lint_failures += 1
             report.details.append(
                 {"journal": "open actions never resolved after "
@@ -1240,9 +1273,9 @@ def run_roll_chaos(requests: int = 8, seed: int = 0,
         wave1 = _run_clients(range(requests // 2), client)
         fleet.force({"op": "roll", "checkpoint": ckpt_b,
                      "generation": 1}, 600.0)
-        # half a hold after forcing: the canary's roll action is
-        # journaled (begin, maybe handoff) but the swap has not run
-        time.sleep(hold_s * 0.5)
+        # the canary's roll action is journaled (begin, maybe handoff)
+        # but the swap has not run
+        fleet.wait_open("roll")
         fleet.kill_and_restart(min_live=2)
         report.recoveries += 1
         _check_armed(report, fleet, "roll", "phase_a")

@@ -30,7 +30,7 @@ from ...device import resolve_device
 from ...nn.activation import ReLU
 from ...nn.container import Sequential
 from ...nn.conv import Conv2D
-from ...nn.layers import Linear
+from ...nn.common import Linear
 from ...nn.norm import BatchNorm2D
 from ...nn.pooling import AdaptiveAvgPool2D, MaxPool2D
 from ...ops.kernels import fused_conv_block as FC

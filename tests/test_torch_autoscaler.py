@@ -1203,3 +1203,95 @@ def test_recover_adopts_respawns_and_resolves(tmp_path, monkeypatch):
     body, _ = load_journal(path)
     assert body["seq"] == s and open_actions(body) == []
     assert body["supervisor_pid"] == os.getpid()
+
+
+def test_chaos_kill_waits_for_the_journaled_window(tmp_path, monkeypatch):
+    """The chaos harness kills a supervisor once the journal holds the
+    forced action open (a spawn only once its pid is journaled), not
+    after a fixed sleep; and its final journal lint first waits out an
+    action the autoscaler began of its own."""
+    from paddle_tpu_torch.tools import chaos_serving as tcs
+    path = str(tmp_path / "fleet-journal.json")
+    fleet = tcs._CliFleet(["true"], 0.0, str(tmp_path), 1, path)
+    try:
+        journal = FleetJournal(path)
+        t0 = time.monotonic()
+        fleet.wait_open("spawn", timeout_s=0.3)   # no journal yet
+        assert time.monotonic() - t0 >= 0.3
+        seq = journal.begin("spawn", replica=1, role="mixed")
+        t0 = time.monotonic()
+        fleet.wait_open("spawn", need=("pid",), timeout_s=0.3)
+        assert time.monotonic() - t0 >= 0.3       # begun, not launched
+        journal.update(seq, phase="launched", pid=4242, port=1)
+        t0 = time.monotonic()
+        fleet.wait_open("spawn", need=("pid",), timeout_s=30.0)
+        fleet.wait_open("spawn", timeout_s=30.0)
+        assert time.monotonic() - t0 < 5.0
+        t0 = time.monotonic()
+        fleet.wait_open("drain", timeout_s=0.3)   # another kind
+        assert time.monotonic() - t0 >= 0.3
+
+        monkeypatch.setattr(fleet, "op", lambda payload, timeout_s=10.0: {
+            "autoscaler": {"pending_resumes": 0, "action_in_flight": None}})
+        assert not fleet.wait_quiescent(0.6)      # seq still open
+        journal.commit(seq)
+        t0 = time.monotonic()
+        fleet.wait_open("spawn", timeout_s=0.3)   # resolved: not open
+        assert time.monotonic() - t0 >= 0.3
+        assert fleet.wait_quiescent(30.0)
+        monkeypatch.setattr(fleet, "op", lambda payload, timeout_s=10.0: {
+            "autoscaler": {"pending_resumes": 0,
+                           "action_in_flight": "drain"}})
+        assert not fleet.wait_quiescent(0.6)      # in flight, journal clean
+    finally:
+        fleet.log.close()
+
+
+def test_spawn_kills_the_process_it_replaces(tmp_path, monkeypatch):
+    """A replica's respawn stops the process it replaces if that still
+    runs: the monitor's respawn and a roll's ``_respawn_with_config``
+    racing on one replica left the first spawn's server running with
+    no handle to it (a stranded process in ``run_roll_chaos``)."""
+    import threading
+
+    class Proc:
+        def __init__(self):
+            self.pid, self.returncode = 4242, None
+
+        def poll(self):
+            return self.returncode
+
+        def kill(self):
+            self.returncode = -9
+
+        def wait(self, timeout=None):
+            return self.returncode
+
+    spawned = []
+
+    def popen(cmd, **kw):
+        time.sleep(0.01)     # widen the window between read and replace
+        spawned.append(Proc())
+        return spawned[-1]
+
+    monkeypatch.setattr(tsup.subprocess, "Popen", popen)
+    sup = _sup(1, tmp=tmp_path)
+    rep = sup.replicas[0]
+    try:
+        sup._spawn(rep)
+        first = rep.proc
+        sup._spawn(rep)
+        assert first.returncode == -9 and rep.proc.returncode is None
+        rep.proc.returncode = 1           # died on its own: left alone
+        sup._spawn(rep)
+        assert spawned[1].returncode == 1
+        threads = [threading.Thread(target=sup._spawn, args=(rep,))
+                   for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        running = [p for p in spawned if p.returncode is None]
+        assert running == [rep.proc] and len(spawned) == 11
+    finally:
+        rep.close_log()

@@ -145,8 +145,24 @@ def test_default_initializer_is_uniform_over_one_over_sqrt_hidden():
     for p in t.parameters():
         assert float(p.detach().abs().max()) <= 1.0 / 8.0
     assert float(t.bias_ih_l0.detach().abs().max()) > 0.1
-    with pytest.raises(NotImplementedError):
-        tr.LSTM(I, H, weight_ih_attr=object(), device="cpu")
+    # the JAX recurrent layers accept their weight attributes and create
+    # every weight without them: an attribute object, and a ParamAttr
+    # with an initializer, leave the default draw in both packages
+    from paddle_tpu.nn import initializer as jinit
+    from paddle_tpu_torch.nn import initializer as tinit
+    gen = torch.Generator().manual_seed(3)
+    plain = tr.LSTM(I, H, device="cpu", generator=gen)
+    for attr in (object(), tinit.ParamAttr(initializer=tinit.Constant(0.5))):
+        got = tr.LSTM(I, H, weight_ih_attr=attr, device="cpu",
+                      generator=torch.Generator().manual_seed(3))
+        for (n, p), (_, q) in zip(got.named_parameters(),
+                                  plain.named_parameters()):
+            assert torch.equal(p, q), n
+    pt.seed(0)
+    j = jnn.LSTM(I, H, weight_ih_attr=jnn.ParamAttr(
+        initializer=jinit.Constant(0.5)))
+    w = jax_state(j)["weight_ih_l0"]
+    assert np.abs(w).max() <= 1.0 / np.sqrt(H) and (w != 0.5).all()
 
 
 @pytest.mark.parametrize("time_major", [False, True])

@@ -272,8 +272,34 @@ def test_clone_layer_draws_fresh_parameters_from_the_generator():
 
 
 def test_param_attr_objects_raise():
-    with pytest.raises(NotImplementedError):
-        tt.MultiHeadAttention(32, 4, weight_attr=object(), device="cpu")
+    """Weight attributes are ported: an attribute object without an
+    ``initializer`` takes the default, as the JAX layer reads one
+    (``xavier_uniform`` weights, zero biases), and a
+    ``ParamAttr(initializer=...)`` takes effect in the port as in the
+    JAX layer."""
+    from paddle_tpu.nn import initializer as jinit
+    from paddle_tpu_torch.nn import initializer as tinit
+    m = tt.MultiHeadAttention(32, 4, weight_attr=object(),
+                              bias_attr=object(), device="cpu")
+    limit = np.sqrt(6.0 / (32 + 32))
+    for lin in (m.q_proj, m.k_proj, m.v_proj, m.out_proj):
+        w = lin.weight.detach().numpy()
+        assert np.abs(w).max() <= limit and w.std() > 0.5 * limit / 2
+        assert not lin.bias.detach().numpy().any()
+    pt.seed(0)
+    j = jnn.MultiHeadAttention(
+        32, 4, weight_attr=jnn.ParamAttr(initializer=jinit.Constant(0.5)),
+        bias_attr=jnn.ParamAttr(initializer=jinit.Constant(-0.25)))
+    t = tt.MultiHeadAttention(
+        32, 4, weight_attr=tinit.ParamAttr(initializer=tinit.Constant(0.5)),
+        bias_attr=tinit.ParamAttr(initializer=tinit.Constant(-0.25)),
+        device="cpu")
+    want = jax_state(j)
+    got = {k: v.detach().numpy() for k, v in t.state_dict().items()}
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert float(t.q_proj.weight.detach()[0, 0]) == 0.5
 
 
 # -- the folded attention path ------------------------------------------------
