@@ -232,6 +232,23 @@ failure exits non-zero at once:
    the plain path, 5 kernel launches per forward, ms per forward,
    imgs/s, peak memory, N=1 latency, and a profiled forward of the
    kernel and plain paths.
+7e. vision_folder — the slice's path: 400 seeded uint8 ``.npy`` images
+   (short sides 240-320, 10 classes) under ``build/vision-folder/``,
+   read by ``DatasetFolder(loader=np.load)`` through
+   ``RandomResizedCrop(224)``, ``RandomHorizontalFlip``, ``ToTensor``
+   and ``Normalize`` and ``io.DataLoader(batch_size=128, shuffle=True,
+   num_workers=4, drop_last=True)``; ResNet-50 at config 1 with
+   ``nn.CrossEntropyLoss(label_smoothing=0.1)`` for 3 steps (finite
+   losses, no port kernel launched); the loader's first-batch latency
+   and steady ms a batch over 12 batches, each step's wait and ms and
+   the device's idle share with the iterator warm; the trained weights on
+   the eval transforms' batch through ``fused_bottleneck`` (5 launches
+   a forward) against the plain path, fp32 and bf16.
+7f. vision_ops — the slice's losses, resampling ops, vision extras and
+   ``yolo_box`` on the card against the CPU in float64 (``interpolate``
+   in every mode, ``grid_sample``, ``deformable_conv``, the RoI pools,
+   ``yolov3_loss``, ``ctc_loss`` among them), each within its stated
+   tolerance.
 8. bert_pretrain — BERT-base MLM pretraining, the JAX package's
    benchmark config 2 (``bench_all.py:149-227``; seed 0, dropout 0,
    76 masked slots a sequence, S=512): (a) fp32 at full width and depth,
@@ -5593,14 +5610,18 @@ TRAIN_KERNEL_GROUPS = (
 COUNTED_KERNELS = ("adam_update_kernel",)
 
 
-def profile_once(torch, fn, groups=TRAIN_KERNEL_GROUPS):
+def profile_once(torch, fn, groups=TRAIN_KERNEL_GROUPS, host_ops=True):
     """One call of ``fn`` under ``torch.profiler``: wall time, device
     kernel time by group (``groups``: name substrings, first match wins)
-    and by kernel, launches, and the device's idle share."""
+    and by kernel, launches, and the device's idle share. ``host_ops``
+    False records the device alone: a loader's worker threads run
+    thousands of host ops whose records took ~20 s to read back."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.monotonic()
         fn()
         torch.cuda.synchronize()
@@ -6683,6 +6704,52 @@ def _trained_eval(torch, dev, state, x, bf16, timer):
     return out, counts, ms
 
 
+def _checked_trained_evals(torch, dev, state, x, label):
+    """``_trained_eval`` in fp32 and under the bf16 recipe, each held to
+    its plain path (``RESNET_REL_TOL``, ``RT_BF16_REL_TOL``, relative in
+    L2 over the logits) with exactly ``RESNET_FUSED_BLOCKS``
+    ``fused_bottleneck`` launches a kernel forward and none a plain one.
+    A failed closeness check goes to ``FAILED_CHECKS`` as
+    ``{label} trained eval {tag}``; a wrong launch count raises."""
+    timer = Timer(torch, dev)
+    evals = {}
+    for tag, bf16, tol in (("fp32", False, RESNET_REL_TOL),
+                           ("bf16", True, RT_BF16_REL_TOL)):
+        out, c, fwd_ms = _trained_eval(torch, dev, state, x, bf16, timer)
+        for path, want in (("kernel", RESNET_FUSED_BLOCKS), ("plain", 0)):
+            if c[path]["fused_bottleneck"] != want:
+                raise AssertionError(
+                    f"{label} trained eval {tag} {path}: fused_bottleneck "
+                    f"launched {c[path]['fused_bottleneck']} times, not "
+                    f"{want}")
+            others = {k: v for k, v in c[path].items()
+                      if k != "fused_bottleneck" and v}
+            if others:
+                raise AssertionError(f"{label} trained eval {tag} {path} "
+                                     f"launched {others}")
+        plain = out["plain"].float()
+        got = out["kernel"].float()
+        if not (torch.isfinite(got).all() and torch.isfinite(plain).all()):
+            raise AssertionError(f"{label} trained eval {tag}: non-finite "
+                                 f"logits")
+        rel = float((got - plain).norm() / plain.norm())
+        note_share(f"{label} trained eval {tag}", rel / tol)
+        if not rel <= tol:
+            FAILED_CHECKS.append(f"{label} trained eval {tag}: logits "
+                                 f"{rel:.3g} relative off the plain path "
+                                 f"(limit {tol:.3g})")
+            emit({"check": f"{label}_trained_eval_{tag}", "ok": False,
+                  "rel_l2": rel, "tol": tol})
+        evals[tag] = {"rel_l2_vs_plain": rel, "tol_rel": tol,
+                      "top1_agreement": float((got.argmax(-1) ==
+                                               plain.argmax(-1)).float()
+                                              .mean()),
+                      "launches_per_forward": c["kernel"][
+                          "fused_bottleneck"],
+                      "ms_per_forward": fwd_ms}
+    return evals
+
+
 def phase_resnet_train(torch, dev):
     """Config 1 of the JAX vision benchmark uncut (see ``RT_*``): a warm
     ``multi_step`` (16 steps; finite losses, the last below the first on
@@ -6765,40 +6832,7 @@ def phase_resnet_train(torch, dev):
           "mfu": imgs_s * RT_FLOPS_PER_IMAGE / BF16_FLOPS,
           "step_split_ms": split, "step_profile": prof})
 
-    timer = Timer(torch, dev)
-    evals = {}
-    for tag, bf16, tol in (("fp32", False, RESNET_REL_TOL),
-                           ("bf16", True, RT_BF16_REL_TOL)):
-        out, c, fwd_ms = _trained_eval(torch, dev, state, x32, bf16, timer)
-        for path, want in (("kernel", RESNET_FUSED_BLOCKS), ("plain", 0)):
-            if c[path]["fused_bottleneck"] != want:
-                raise AssertionError(
-                    f"trained eval {tag} {path}: fused_bottleneck launched "
-                    f"{c[path]['fused_bottleneck']} times, not {want}")
-            others = {k: v for k, v in c[path].items()
-                      if k != "fused_bottleneck" and v}
-            if others:
-                raise AssertionError(f"trained eval {tag} {path} launched "
-                                     f"{others}")
-        plain = out["plain"].float()
-        got = out["kernel"].float()
-        if not (torch.isfinite(got).all() and torch.isfinite(plain).all()):
-            raise AssertionError(f"trained eval {tag}: non-finite logits")
-        rel = float((got - plain).norm() / plain.norm())
-        note_share(f"resnet trained eval {tag}", rel / tol)
-        if not rel <= tol:
-            FAILED_CHECKS.append(f"resnet trained eval {tag}: logits "
-                                 f"{rel:.3g} relative off the plain path "
-                                 f"(limit {tol:.3g})")
-            emit({"check": f"resnet_trained_eval_{tag}", "ok": False,
-                  "rel_l2": rel, "tol": tol})
-        evals[tag] = {"rel_l2_vs_plain": rel, "tol_rel": tol,
-                      "top1_agreement": float((got.argmax(-1) ==
-                                               plain.argmax(-1)).float()
-                                              .mean()),
-                      "launches_per_forward": c["kernel"][
-                          "fused_bottleneck"],
-                      "ms_per_forward": fwd_ms}
+    evals = _checked_trained_evals(torch, dev, state, x32, "resnet")
     emit({"phase": "resnet_trained_eval", "ok": True, "model": "resnet50",
           "data_format": "NHWC", "batch": RESNET_BATCH, "image": RT_IMAGE,
           "weights": "resnet_train's, after its 48 steps", **evals})
@@ -7040,6 +7074,445 @@ def phase_vision_layers(torch, dev):
                              "did not restore the pooled maxima")
     emit({"phase": "vision_layers", "ok": True, "tol": VL_TOL,
           "tf32": False, "unpool_roundtrip": roundtrip, "cases": rows})
+
+
+# -- phase 7e ----------------------------------------------------------------
+
+# vision_folder: ResNet-50 at config 1 (as resnet_train) trained from an
+# image folder through the port's transforms and io.DataLoader. The chip
+# machine has no PIL, so the seeded images are uint8 HWC .npy files read
+# by DatasetFolder(loader=np.load)
+VF_CLASSES = 10
+VF_IMAGES = 400
+VF_SHORT = (240, 320)         # each image's short side; the long one up
+VF_ASPECT = 4.0 / 3.0         # to 4/3 of it
+VF_STEPS = 3
+VF_WORKERS = 4
+# the loader timed alone: batches drawn with replacement from the folder,
+# 3 for each worker, so that its steady rate shows past the first wave
+VF_LOADER_BATCHES = 3 * VF_WORKERS
+VF_SEED = 21
+VF_MEAN = (0.485, 0.456, 0.406)
+VF_STD = (0.229, 0.224, 0.225)
+VF_SMOOTHING = 0.1
+
+
+def _write_image_folder(np, root):
+    """``VF_IMAGES`` seeded uint8 HWC images, class ``i % VF_CLASSES``,
+    as ``root/class_k/img_i.npy``; the tree is written anew each run.
+    Returns the bytes written."""
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(VF_SEED)
+    total = 0
+    for c in range(VF_CLASSES):
+        os.makedirs(os.path.join(root, f"class_{c}"))
+    for i in range(VF_IMAGES):
+        short = int(rng.integers(VF_SHORT[0], VF_SHORT[1] + 1))
+        long = int(rng.integers(short, int(short * VF_ASPECT) + 1))
+        hw = (short, long) if rng.random() < 0.5 else (long, short)
+        img = rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+        np.save(os.path.join(root, f"class_{i % VF_CLASSES}",
+                             f"img_{i:04d}.npy"), img)
+        total += img.nbytes
+    return total
+
+
+def phase_vision_folder(torch, dev):
+    """The slice's path on the card: a ``DatasetFolder`` of ``.npy``
+    images, ``Compose([RandomResizedCrop(224), RandomHorizontalFlip(),
+    ToTensor(), Normalize(ImageNet)])`` and ``io.DataLoader(batch_size=128,
+    shuffle=True, num_workers=4, drop_last=True)`` feed ResNet-50 under
+    the bf16 recipe with ``Momentum(0.1, 0.9)`` and
+    ``nn.CrossEntropyLoss(label_smoothing=0.1)`` for 3 steps (finite
+    losses; no kernel of the port launched, as in resnet_train). The
+    loader is timed alone over ``VF_LOADER_BATCHES`` batches of the same
+    folder and transforms: its first batch's latency from a fresh
+    iterator (cold) and its steady ms a batch after the first wave of
+    ``VF_WORKERS`` batches. The 3 steps are then profiled on an iterator
+    whose first batch has arrived (warm): each step's wait for its
+    batch, its ms, and the device's idle share over the 3; the step
+    waits on the loader in a long run when the steady ms a batch passes
+    the step's. The trained weights then serve the
+    eval transforms' batch (``Resize(256)``, ``CenterCrop(224)``,
+    ``ToTensor``, ``Normalize``) on the NHWC eval path through
+    ``fused_bottleneck``, against the plain path."""
+    import numpy as np
+
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.layer import checkpoint_state
+    from paddle_tpu_torch.nn.loss import CrossEntropyLoss
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import datasets
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.models import resnet50
+    t_phase = time.monotonic()
+    root = os.path.join(HERE, "build", "vision-folder")
+    t0 = time.monotonic()
+    written = _write_image_folder(np, root)
+    write_s = time.monotonic() - t0
+    np.random.seed(VF_SEED)       # the transforms' draws: numpy's stream
+    folder = dict(loader=np.load, extensions=(".npy",))
+    train = datasets.DatasetFolder(root, transform=T.Compose([
+        T.RandomResizedCrop(RT_IMAGE), T.RandomHorizontalFlip(),
+        T.ToTensor(), T.Normalize(VF_MEAN, VF_STD)]), **folder)
+    loader = tio.DataLoader(train, places=dev, batch_size=RESNET_BATCH,
+                            shuffle=True, num_workers=VF_WORKERS,
+                            drop_last=True)
+    if len(train) != VF_IMAGES or len(train.classes) != VF_CLASSES or \
+            len(loader) != VF_STEPS:
+        raise AssertionError(f"vision_folder: {len(train)} images in "
+                             f"{len(train.classes)} classes, "
+                             f"{len(loader)} batches")
+    # (a) the loader alone: its first batch, and its steady rate
+    timed = tio.DataLoader(train, places=dev, batch_sampler=tio.BatchSampler(
+        sampler=tio.RandomSampler(train, replacement=True, num_samples=(
+            VF_LOADER_BATCHES * RESNET_BATCH), generator=VF_SEED),
+        batch_size=RESNET_BATCH, drop_last=True), num_workers=VF_WORKERS)
+    shapes, arrived = set(), []
+    t0 = time.monotonic()
+    for x, y in timed:
+        torch.cuda.synchronize()
+        arrived.append((time.monotonic() - t0) * 1e3)
+        shapes.add((tuple(x.shape), str(x.dtype), str(y.dtype),
+                    str(x.device)))
+    if len(arrived) != VF_LOADER_BATCHES:
+        raise AssertionError(f"vision_folder: the timed loader gave "
+                             f"{len(arrived)} batches")
+    loader_first_ms = arrived[0]
+    loader_steady_ms = (arrived[-1] - arrived[VF_WORKERS - 1]) / (
+        VF_LOADER_BATCHES - VF_WORKERS)
+    # (b) 3 train steps from the loader, profiled
+    t0 = time.monotonic()
+    model = to_bf16_except_norms(torch, resnet50(
+        device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+    ce = CrossEntropyLoss(label_smoothing=VF_SMOOTHING)
+    step = TrainStep(model, Momentum(learning_rate=RT_LR,
+                                     momentum=RT_MOMENTUM),
+                     lambda m, b: ce(m(b[0]).float(), b[1]), device=dev)
+    torch.cuda.synchronize()
+    model_s = time.monotonic() - t0
+    waits, walls, losses = [], [], []
+    it = iter(loader)
+    t0 = time.monotonic()
+    ready = [next(it)]
+    torch.cuda.synchronize()
+    first_wait_ms = (time.monotonic() - t0) * 1e3
+
+    def three_steps():
+        for _ in range(VF_STEPS):
+            t0 = time.monotonic()
+            x, y = ready.pop() if ready else next(it)
+            t1 = time.monotonic()
+            losses.append(step((x.to(torch.bfloat16), y)))
+            torch.cuda.synchronize()
+            waits.append((t1 - t0) * 1e3)
+            walls.append((time.monotonic() - t0) * 1e3)
+
+    reset_launch_counts()
+    t0 = time.monotonic()
+    prof = profile_once(torch, three_steps, RT_KERNEL_GROUPS,
+                        host_ops=False)
+    profile_s = time.monotonic() - t0
+    counts = launch_counts()
+    losses = [float(v) for v in losses]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"vision_folder losses not finite: {losses}")
+    if any(counts.values()):
+        launched = {k: v for k, v in counts.items() if v}
+        raise AssertionError(f"vision_folder training launched port "
+                             f"kernels: {launched}")
+    state = checkpoint_state(model)
+    del step, model
+    torch.cuda.empty_cache()
+    # (c) the trained weights on the eval transforms' batch, NHWC, #11
+    evalset = datasets.DatasetFolder(root, transform=T.Compose([
+        T.Resize(256), T.CenterCrop(RT_IMAGE), T.ToTensor(),
+        T.Normalize(VF_MEAN, VF_STD)]), **folder)
+    t0 = time.monotonic()
+    x_eval, y_eval = next(iter(tio.DataLoader(
+        evalset, places=dev, batch_size=RESNET_BATCH,
+        num_workers=VF_WORKERS)))
+    torch.cuda.synchronize()
+    eval_load_ms = (time.monotonic() - t0) * 1e3
+    t0 = time.monotonic()
+    evals = _checked_trained_evals(torch, dev, state, x_eval, "vision_folder")
+    evals_s = time.monotonic() - t0
+    emit({"phase": "vision_folder", "ok": True, "model": "resnet50",
+          "config": "bench_all.py config 1", "data_format": "NCHW",
+          "recipe": "bf16 except norms", "optimizer":
+          f"Momentum({RT_LR}, {RT_MOMENTUM})",
+          "loss": f"nn.CrossEntropyLoss(label_smoothing={VF_SMOOTHING})",
+          "images": VF_IMAGES, "classes": VF_CLASSES,
+          "short_side": list(VF_SHORT), "written_mb": written / 1e6,
+          "write_s": write_s, "batch": RESNET_BATCH,
+          "workers": VF_WORKERS, "batches": [list(s) for s in shapes],
+          "loader_batches": VF_LOADER_BATCHES,
+          "loader_arrival_ms": arrived,
+          "loader_first_batch_ms": loader_first_ms,
+          "loader_steady_ms_per_batch": loader_steady_ms,
+          "loader_bound": loader_steady_ms > min(walls[1:]),
+          "steps": VF_STEPS, "first_wait_ms_cold": first_wait_ms,
+          "losses": losses, "wait_ms_warm": waits, "step_wall_ms": walls,
+          "wait_share_warm": sum(waits) / sum(walls),
+          "device_idle_share_warm": prof["idle_share"],
+          "device_kernel_ms": prof["device_kernel_ms"],
+          "profile_wall_ms": prof["wall_ms"],
+          "by_group_ms": prof["by_group_ms"], "launches": counts,
+          "eval_batch_load_ms": eval_load_ms,
+          "eval_labels": sorted({int(v) for v in y_eval.tolist()}),
+          "trained_eval": evals, "model_build_s": model_s,
+          "profiled_steps_s": profile_s,
+          "trained_evals_s": evals_s, "seconds": time.monotonic() - t_phase})
+
+
+# vision_ops: the slice's functionals on the card against the same call
+# on the CPU in float64 (integer outputs exactly); each within VO_TOL of
+# the CPU result's largest magnitude unless the case names its own
+VO_TOL = 1e-5
+# cases that step at a bin edge (psroi_pool's bins take the pixels from
+# floor(start) to ceil(end)): an f64 edge on an integer is an f32 edge an
+# ulp to either side, so these hold the card's f32 against the CPU's f32
+VO_CPU_F32 = frozenset({"psroi_pool"})
+
+
+def _vo_probs(torch, g, shape):
+    p = torch.rand(shape, generator=g) + 0.05
+    return p / p.sum(-1, keepdim=True)
+
+
+def _vision_ops_cases(torch, F, LE, VE, D):
+    """(name, function, argument builder from a CPU generator, tolerance
+    or None for ``VO_TOL``)."""
+    r = torch.randn
+
+    def ints(g, hi, shape, lo=0):
+        return torch.randint(lo, hi, shape, generator=g)
+
+    def signs(g, shape):
+        return torch.where(torch.rand(shape, generator=g) < 0.5, -1.0, 1.0)
+
+    def deform(g, masked, dg):
+        off = torch.rand((4, 2 * dg * 9, 28, 28), generator=g) * 6 - 3
+        mask = torch.rand((4, dg * 9, 28, 28), generator=g)
+        return [r((4, 16, 28, 28), generator=g), off,
+                r((32, 16, 3, 3), generator=g) * 0.1,
+                mask if masked else None, r((32,), generator=g)]
+
+    # integer RoIs (the first four: every edge of their 3 x 3 bins is an
+    # integer) and fractional ones
+    rois = torch.tensor([[0., 0., 24., 30.], [8., 4., 44., 40.],
+                         [3., 6., 33., 27.], [-3., -3., 66., 51.],
+                         [1.3, 2.6, 40.7, 30.4], [-4.2, -2.7, 60.9, 50.3],
+                         [10.2, 5.1, 22.7, 39.9],
+                         [30.1, 20.3, 30.6, 20.45]])
+    gt_box = torch.tensor([[[0.5, 0.5, 0.3, 0.4], [0.2, 0.3, 0.1, 0.2]],
+                           [[0.7, 0.2, 0.2, 0.1], [0.0, 0.0, 0.0, 0.0]]])
+    anchors = [10, 13, 16, 30, 33, 23]
+    cases = [
+        ("cross_entropy_weighted", F.cross_entropy, lambda g: [
+            r((256, 1000), generator=g), ints(g, 1000, (256,)),
+            torch.rand((1000,), generator=g) + 0.5, 5, "mean", False, -1,
+            True, 0.1], None),
+        ("cross_entropy_soft", lambda x, y: F.cross_entropy(
+            x, y, soft_label=True), lambda g: [
+            r((128, 100), generator=g), _vo_probs(torch, g, (128, 100))],
+         None),
+        ("softmax_with_cross_entropy", F.softmax_with_cross_entropy,
+         lambda g: [r((64, 100), generator=g), ints(g, 100, (64, 1))],
+         None),
+        ("nll_loss", F.nll_loss, lambda g: [
+            torch.log(_vo_probs(torch, g, (256, 50))), ints(g, 50, (256,)),
+            torch.rand((50,), generator=g) + 0.5], None),
+        ("bce_with_logits", F.binary_cross_entropy_with_logits, lambda g: [
+            r((64, 80), generator=g), (torch.rand((64, 80), generator=g)
+                                       < 0.5).float()], None),
+        ("kl_div", F.kl_div, lambda g: [
+            torch.log(_vo_probs(torch, g, (64, 80))),
+            _vo_probs(torch, g, (64, 80))], None),
+        ("cosine_embedding_loss", F.cosine_embedding_loss, lambda g: [
+            r((64, 128), generator=g), r((64, 128), generator=g),
+            signs(g, (64,))], None),
+        ("triplet_margin_loss", F.triplet_margin_loss, lambda g: [
+            r((64, 128), generator=g), r((64, 128), generator=g),
+            r((64, 128), generator=g)], None),
+        ("sigmoid_focal_loss", F.sigmoid_focal_loss, lambda g: [
+            r((64, 80), generator=g), (torch.rand((64, 80), generator=g)
+                                       < 0.1).float()], None),
+        ("multi_label_soft_margin_loss", F.multi_label_soft_margin_loss,
+         lambda g: [r((64, 80), generator=g),
+                    (torch.rand((64, 80), generator=g) < 0.5).float()],
+         None),
+        ("poisson_nll_loss", lambda x, y: F.poisson_nll_loss(
+            x, y, full=True), lambda g: [
+            r((64, 80), generator=g), torch.rand((64, 80), generator=g) * 5],
+         None),
+        ("gaussian_nll_loss", F.gaussian_nll_loss, lambda g: [
+            r((64, 80), generator=g), r((64, 80), generator=g),
+            torch.rand((64, 80), generator=g) + 0.1], None),
+        ("ctc_loss", LE.ctc_loss, lambda g: [
+            r((100, 16, 30), generator=g), ints(g, 30, (16, 20), 1),
+            ints(g, 101, (16,), 60), ints(g, 21, (16,), 5)], 1e-4),
+        ("hsigmoid_loss", lambda x, y, w, b: LE.hsigmoid_loss(
+            x, y, w, b, num_classes=1000), lambda g: [
+            r((64, 128), generator=g), ints(g, 1000, (64,)),
+            r((999, 128), generator=g) * 0.1, r((999,), generator=g)],
+         None),
+    ]
+    for mode, shape, fmt, sizes in (
+            ("nearest", (8, 16, 56, 56), "NCHW", ((112, 100), (28, 20))),
+            ("bilinear", (8, 16, 56, 56), "NCHW", ((112, 100), (28, 20))),
+            ("bilinear", (8, 56, 56, 16), "NHWC", ((81, 97), (17, 23))),
+            ("bicubic", (8, 16, 56, 56), "NCHW", ((112, 100), (28, 20))),
+            ("area", (8, 16, 56, 56), "NCHW", ((28, 28),)),
+            ("linear", (8, 16, 300), "NCW", ((512,), (77,))),
+            ("trilinear", (2, 8, 16, 24, 24), "NCDHW", ((32, 40, 20),
+                                                        (8, 9, 11)))):
+        for size in sizes:
+            tag = "x".join(map(str, size))
+            cases.append((f"interpolate_{mode}_{fmt}_{tag}",
+                          lambda x, m=mode, s=size, f=fmt: F.interpolate(
+                              x, s, mode=m, data_format=f),
+                          lambda g, sh=shape: [r(sh, generator=g)], None))
+    cases += [
+        ("interpolate_align_mode_1", lambda x: F.interpolate(
+            x, (112, 41), mode="bilinear", align_mode=1),
+         lambda g: [r((8, 16, 56, 56), generator=g)], None),
+        # the sample position is an f32 value up to 55 (an ulp of 3.8e-6),
+        # which moves each bilinear weight by as much (so in the RoI
+        # pools and deformable_conv too)
+        ("grid_sample_zeros", F.grid_sample, lambda g: [
+            r((8, 16, 56, 56), generator=g),
+            torch.rand((8, 40, 40, 2), generator=g) * 2.6 - 1.3], 1e-4),
+        ("grid_sample_border_nearest", lambda x, gr: F.grid_sample(
+            x, gr, "nearest", "border", False), lambda g: [
+            r((8, 16, 56, 56), generator=g),
+            torch.rand((8, 40, 40, 2), generator=g) * 2.6 - 1.3], None),
+        ("affine_grid", lambda t: F.affine_grid(t, (8, 3, 64, 48), False),
+         lambda g: [r((8, 2, 3), generator=g)], None),
+        ("unfold", lambda x: F.unfold(x, 3, 2, 1), lambda g: [
+            r((8, 16, 56, 56), generator=g)], None),
+        ("fold", lambda x: F.fold(x, (56, 56), 3, 2, 1), lambda g: [
+            r((8, 144, 784), generator=g)], None),
+        ("pad3d_reflect", lambda x: F.pad3d(x, [1, 2, 2, 1, 1, 1],
+                                            "reflect"),
+         lambda g: [r((2, 8, 16, 24, 24), generator=g)], None),
+        ("pad_circular", lambda x: F.pad(x, [2, 1, 3, 0], "circular"),
+         lambda g: [r((8, 16, 56, 56), generator=g)], None),
+        ("pixel_shuffle", lambda x: F.pixel_shuffle(x, 2), lambda g: [
+            r((8, 64, 28, 28), generator=g)], None),
+        ("pixel_unshuffle", lambda x: F.pixel_unshuffle(x, 2), lambda g: [
+            r((8, 16, 56, 56), generator=g)], None),
+        ("temporal_shift", lambda x: F.temporal_shift(x, 4), lambda g: [
+            r((16, 32, 28, 28), generator=g)], None),
+        ("channel_shuffle", lambda x: F.channel_shuffle(x, 4), lambda g: [
+            r((8, 32, 28, 28), generator=g)], None),
+        ("sequence_mask", lambda x: F.sequence_mask(x, 64), lambda g: [
+            ints(g, 65, (32,))], None),
+        ("one_hot", lambda x: F.one_hot(x, 1000), lambda g: [
+            ints(g, 1000, (256,))], None),
+        ("bilinear", F.bilinear, lambda g: [
+            r((64, 32), generator=g), r((64, 48), generator=g),
+            r((16, 32, 48), generator=g), r((16,), generator=g)], None),
+        # offsets move each sample's bilinear weights as in grid_sample
+        ("deformable_conv_v1", lambda x, o, w, m, b: VE.deformable_conv(
+            x, o, w, m, b, 1, 1), lambda g: deform(g, False, 1), 1e-4),
+        ("deformable_conv_v2", lambda x, o, w, m, b: VE.deformable_conv(
+            x, o, w, m, b, 1, 1, 1, 2, 1), lambda g: deform(g, True, 2), 1e-4),
+        ("psroi_pool", lambda x, rr: VE.psroi_pool(x, rr, 8, 1.0, 3, 3),
+         lambda g: [r((1, 72, 48, 64), generator=g), rois], None),
+        ("prroi_pool", lambda x, rr, n: VE.prroi_pool(x, rr, 0.5, 7, 7, n),
+         lambda g: [r((2, 16, 48, 64), generator=g), rois * 2,
+                    torch.tensor([3, 5])], 1e-4),
+        ("spp", lambda x: VE.spp(x, 3), lambda g: [
+            r((8, 16, 28, 28), generator=g)], None),
+        ("correlation", lambda a, b: VE.correlation(a, b, 4, 1, 4),
+         lambda g: [r((2, 32, 24, 32), generator=g),
+                    r((2, 32, 24, 32), generator=g)], None),
+        ("row_conv", VE.row_conv, lambda g: [
+            r((8, 100, 64), generator=g), r((5, 64), generator=g)], None),
+        ("yolov3_loss", lambda x, b, lab: VE.yolov3_loss(
+            x, b, lab, anchors, [0, 1, 2], 80, 0.7, 32), lambda g: [
+            r((2, 3 * 85, 13, 13), generator=g), gt_box,
+            torch.tensor([[1, 2], [3, 0]])], 1e-4),
+        ("yolo_box", lambda x, sz: D.yolo_box(x, sz, anchors, 80, 0.01, 32),
+         lambda g: [r((2, 3 * 85, 13, 13), generator=g),
+                    torch.tensor([[416, 416], [320, 480]])], None),
+        ("yolo_box_iou_aware", lambda x, sz: D.yolo_box(
+            x, sz, anchors, 80, 0.01, 32, iou_aware=True), lambda g: [
+            r((2, 3 * 86, 13, 13), generator=g),
+            torch.tensor([[416, 416], [320, 480]])], None),
+    ]
+    return cases
+
+
+def phase_vision_ops(torch, dev):
+    """Each case of ``_vision_ops_cases`` (the losses, the resampling
+    ops, the vision extras and ``yolo_box`` of the slice) on the card in
+    float32 against the CPU in float64 (in float32 for the cases of
+    ``VO_CPU_F32``), within its tolerance of the CPU result's largest
+    magnitude; ``shuffle_batch`` a permutation of the rows on the
+    card."""
+    from paddle_tpu_torch.ops import detection as D
+    from paddle_tpu_torch.ops import loss_extra as LE
+    from paddle_tpu_torch.ops import nn_functional as F
+    from paddle_tpu_torch.ops import vision_extra as VE
+    t0 = time.monotonic()
+    rows = {}
+    for name, fn, build, tol in _vision_ops_cases(torch, F, LE, VE, D):
+        tol = VO_TOL if tol is None else tol
+        args = build(check_gen(torch, "cpu", name))
+
+        cpu_dtype = torch.float32 if name in VO_CPU_F32 else torch.float64
+
+        def to(a, where):
+            if not isinstance(a, torch.Tensor):
+                return a
+            if where == "cpu":
+                return a.to(cpu_dtype) if a.is_floating_point() else a
+            return a.to(dev)
+
+        got = fn(*(to(a, "card") for a in args))
+        want = fn(*(to(a, "cpu") for a in args))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs = []
+        for g, w in zip(got, want):
+            if g.device.type != "cuda":
+                raise AssertionError(f"vision_ops {name}: the card's call "
+                                     f"returned a {g.device} tensor")
+            g = g.cpu()
+            if not w.is_floating_point():
+                same = torch.equal(g.to(w.dtype), w)
+                if not same:
+                    FAILED_CHECKS.append(f"vision_ops {name}: not equal to "
+                                         f"the CPU result")
+                    emit({"check": f"vision_ops_{name}", "ok": False,
+                          "exact": True})
+                errs.append(0.0 if same else None)
+                continue
+            w = w.double()
+            scale = max(float(w.abs().max()), 1e-30)
+            errs.append(check_close(f"vision_ops {name}", g.double() / scale,
+                                    w / scale, tol) * scale)
+        rows[name] = {"max_abs_err": errs, "tol_of_max": tol,
+                      "cpu_dtype": str(cpu_dtype).replace("torch.", ""),
+                      "shape": [list(g.shape) for g in got]}
+    x = torch.arange(1024.0, device=dev).reshape(256, 4)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out, idx = VE.shuffle_batch(x, gen)
+    perm = bool(torch.equal(idx.sort().values, torch.arange(256,
+                                                            device=dev))
+                and torch.equal(out, x[idx]))
+    if not perm:
+        FAILED_CHECKS.append("vision_ops shuffle_batch: not a row "
+                             "permutation")
+    emit({"phase": "vision_ops", "ok": True, "tol": VO_TOL, "tf32": False,
+          "cases": rows, "shuffle_batch_permutation": perm,
+          "seconds": time.monotonic() - t0})
 
 
 # -- phase 8 -----------------------------------------------------------------
@@ -7495,6 +7968,18 @@ def phase_seq2seq_beam(torch, dev):
     torch.cuda.empty_cache()
 
 
+# each phase's wall seconds, by function name, emitted before "wall"
+PHASE_WALLS = {}
+
+
+def _walled(fn, *args):
+    t0 = time.monotonic()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_WALLS[fn.__name__] = time.monotonic() - t0
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -7519,41 +8004,46 @@ def main() -> int:
     records = {}
     launches = {}
     t_start = time.monotonic()
-    smi_line = phase_device(torch)
-    phase_build()
-    phase_kernels(torch, dev, records)
-    model, engine_prompts = phase_engine(torch, dev, records, launches)
-    phase_server(torch, dev, model)
-    phase_engine_prefix(torch, dev, model)
-    phase_engine_spill(torch, dev, model)
-    phase_server_resurrect(torch, dev, model)
-    phase_engine_chunked(torch, dev, model)
-    phase_engine_spec(torch, dev, model, records)
-    phase_server_chunked_spec(torch, dev, model)
-    small = phase_engine_multi_step(torch, dev, model, engine_prompts)
-    phase_server_multi_step(torch, dev, small)
-    phase_server_observe_swap(torch, dev, model, engine_prompts, smi_line)
-    phase_fleet(torch, dev, model, smi_line)
-    phase_fleet_autoscale(torch, dev, model, smi_line)
-    phase_generate(torch, dev, model, smi_line)
+    smi_line = _walled(phase_device, torch)
+    _walled(phase_build)
+    _walled(phase_kernels, torch, dev, records)
+    model, engine_prompts = _walled(phase_engine, torch, dev, records,
+                                    launches)
+    _walled(phase_server, torch, dev, model)
+    _walled(phase_engine_prefix, torch, dev, model)
+    _walled(phase_engine_spill, torch, dev, model)
+    _walled(phase_server_resurrect, torch, dev, model)
+    _walled(phase_engine_chunked, torch, dev, model)
+    _walled(phase_engine_spec, torch, dev, model, records)
+    _walled(phase_server_chunked_spec, torch, dev, model)
+    small = _walled(phase_engine_multi_step, torch, dev, model,
+                    engine_prompts)
+    _walled(phase_server_multi_step, torch, dev, small)
+    _walled(phase_server_observe_swap, torch, dev, model, engine_prompts,
+            smi_line)
+    _walled(phase_fleet, torch, dev, model, smi_line)
+    _walled(phase_fleet_autoscale, torch, dev, model, smi_line)
+    _walled(phase_generate, torch, dev, model, smi_line)
     del model, small
     # the engine and the server leave reference cycles: collected here,
     # they free the model and its KV pool before the train phase reads
     # its peak memory, instead of whenever the collector next runs
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train(torch, dev, launches)
-    phase_train_bf16(torch, dev, launches)
-    phase_train_amp(torch, dev, launches)
-    phase_resnet(torch, dev, launches)
-    phase_resnet_train(torch, dev)
-    phase_vision_zoo(torch, dev)
-    phase_vision_layers(torch, dev)
+    _walled(phase_train, torch, dev, launches)
+    _walled(phase_train_bf16, torch, dev, launches)
+    _walled(phase_train_amp, torch, dev, launches)
+    _walled(phase_resnet, torch, dev, launches)
+    _walled(phase_resnet_train, torch, dev)
+    _walled(phase_vision_zoo, torch, dev)
+    _walled(phase_vision_layers, torch, dev)
+    _walled(phase_vision_folder, torch, dev)
+    _walled(phase_vision_ops, torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_bert_pretrain(torch, dev, records)
-    phase_bert_classify(torch, dev)
-    phase_seq2seq_beam(torch, dev)
+    _walled(phase_bert_pretrain, torch, dev, records)
+    _walled(phase_bert_classify, torch, dev)
+    _walled(phase_seq2seq_beam, torch, dev)
     emit({"phase": "check_margins", "tightest": tightest_checks()})
     if FAILED_CHECKS:
         emit({"phase": "checks", "ok": False, "failed": FAILED_CHECKS})
@@ -7563,6 +8053,7 @@ def main() -> int:
         print(f"chip_smoke: {len(FAILED_CHECKS)} checks failed",
               file=sys.stderr)
         return 1
+    emit({"phase": "phase_walls", "seconds": PHASE_WALLS})
     emit({"phase": "wall", "seconds": time.monotonic() - t_start})
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():

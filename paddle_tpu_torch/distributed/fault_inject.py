@@ -33,6 +33,8 @@ checkpoint.load      the server's swap op and --checkpoint boot (load +
                      validate on the calling thread, retried)
 swap.apply           engine swap_weights, after validation and before
                      the first tensor write
+dataloader.fetch     io.DataLoader's batch assembly in a worker
+                     (retried per the stock policy)
 ==================== =================================================
 
 Default-OFF: with no site armed, ``fault_point`` is one module-bool
@@ -88,6 +90,7 @@ FAULT_SITES: Dict[str, str] = {
                        "retry via the builtin policy, a persistent/"
                        "corrupt load fails as a typed SwapFailed "
                        "with the old weights still serving)",
+    "dataloader.fetch": "dataloader worker batch assembly",
     "swap.apply": "engine weight-swap apply (fires after validation, "
                   "before the first tensor write — an abort here "
                   "proves the all-or-nothing swap contract)",

@@ -173,6 +173,8 @@ _BUILTIN_SITE_POLICIES: Dict[str, RetryPolicy] = {
     "checkpoint.write": DEFAULT_RETRY,
     "checkpoint.read": DEFAULT_RETRY,
     "checkpoint.load": DEFAULT_RETRY,
+    # io.DataLoader's batch assembly: a flaky filesystem read retries
+    "dataloader.fetch": DEFAULT_RETRY,
 }
 
 # sites deliberately not retried in place: a higher layer owns recovery

@@ -1,6 +1,10 @@
 """The JAX package's common layers (port of ``paddle_tpu/nn/common.py``):
-``Linear``, ``Identity``, ``Embedding``, ``Flatten`` and the dropouts
-``Dropout``, ``Dropout2D``, ``Dropout3D`` and ``AlphaDropout``.
+``Linear``, ``Identity``, ``Embedding``, ``Flatten``, the dropouts
+``Dropout``, ``Dropout2D``, ``Dropout3D`` and ``AlphaDropout``, the pads
+``Pad1D`` / ``Pad2D`` / ``Pad3D`` / ``ZeroPad2D``, the resamplers
+``Upsample`` / ``UpsamplingNearest2D`` / ``UpsamplingBilinear2D`` /
+``PixelShuffle``, ``Unfold`` / ``Fold``, ``Bilinear``,
+``CosineSimilarity`` and ``PairwiseDistance``.
 
 - ``Linear`` keeps the JAX layout (weight ``[in, out]``, ``y = x @ W +
   b``) and draws ``xavier_uniform`` weights and zero biases, as the JAX
@@ -13,6 +17,12 @@
   layer.
 - ``Dropout`` is ``nn/layers.py``'s; all the dropouts draw from the
   ``core.rng.key_scope`` generator that ``jit.TrainStep`` opens.
+- ``Bilinear`` draws its ``[out, in1, in2]`` weight with the default of
+  ``create_parameter`` (``xavier_uniform``) and zero biases, as the JAX
+  layer does; the resamplers are ``ops/nn_functional.py``'s, with the
+  JAX package's semantics (``interpolate`` ignores ``align_corners``
+  outside ``"nearest"``, so ``UpsamplingBilinear2D`` is the half-pixel
+  antialiased resize there too).
 
 Constructors with parameters take ``device`` (``None`` means CUDA and
 raises without a GPU) and ``generator`` (``None``: the device's default
@@ -26,6 +36,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..amp.auto_cast import amp_cast
 from ..device import resolve_device
 from ..ops import nn_functional as NF
 from .initializer import Normal, create_parameter
@@ -129,3 +140,157 @@ class AlphaDropout(nn.Module):
 
     def forward(self, x):
         return NF.alpha_dropout(x, p=self.p, training=self.training)
+
+
+class Pad1D(nn.Module):
+    """``ops/nn_functional.py`` ``pad`` over the last (NCL) or middle
+    (NLC) dim; an int pads both sides."""
+
+    _n = 2
+
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL"):
+        super().__init__()
+        self._pad = padding if isinstance(padding, (list, tuple)) else \
+            [padding] * self._n
+        self._mode, self._value, self._fmt = mode, value, data_format
+
+    def forward(self, x):
+        return NF.pad(x, self._pad, mode=self._mode, value=self._value,
+                      data_format=self._fmt)
+
+
+class Pad2D(Pad1D):
+    _n = 4
+
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW"):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(Pad1D):
+    _n = 6
+
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW"):
+        super().__init__(padding, mode, value, data_format)
+
+    def forward(self, x):
+        return NF.pad3d(x, self._pad, mode=self._mode, value=self._value,
+                        data_format=self._fmt)
+
+
+class ZeroPad2D(nn.Module):
+    def __init__(self, padding, data_format="NCHW"):
+        super().__init__()
+        self._pad = padding if isinstance(padding, (list, tuple)) else \
+            [padding] * 4
+        self._fmt = data_format
+
+    def forward(self, x):
+        return NF.zeropad2d(x, self._pad, data_format=self._fmt)
+
+
+class Upsample(nn.Module):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW"):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return NF.interpolate(x, self.size, self.scale_factor, self.mode,
+                              self.align_corners, self.align_mode,
+                              self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW"):
+        super().__init__(size, scale_factor, "nearest",
+                         align_corners=False, data_format=data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW"):
+        super().__init__(size, scale_factor, "bilinear",
+                         align_corners=True, data_format=data_format)
+
+
+class PixelShuffle(nn.Module):
+    def __init__(self, upscale_factor: int, data_format="NCHW"):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return NF.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class Bilinear(nn.Module):
+    """``out[b, o] = x1[b] @ weight[o] @ x2[b] + bias[o]``."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kw = dict(device=resolve_device(device), dtype=dtype,
+                  generator=generator)
+        self.weight = create_parameter(
+            (out_features, in1_features, in2_features), attr=weight_attr,
+            **kw)
+        self.bias = None if bias_attr is False else create_parameter(
+            (out_features,), attr=bias_attr, is_bias=True, **kw)
+
+    def forward(self, x1, x2):
+        return NF.bilinear(x1, x2, self.weight, self.bias)
+
+
+class CosineSimilarity(nn.Module):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return NF.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class Unfold(nn.Module):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self._args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        k, s, p, d = self._args
+        return NF.unfold(x, k, strides=s, paddings=p, dilations=d)
+
+
+class Fold(nn.Module):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self._args = (output_sizes, kernel_sizes, strides, paddings,
+                      dilations)
+
+    def forward(self, x):
+        o, k, s, p, d = self._args
+        return NF.fold(x, o, k, strides=s, paddings=p, dilations=d)
+
+
+class PairwiseDistance(nn.Module):
+    """``||x - y + epsilon||_p`` over the last dim."""
+
+    def __init__(self, p: float = 2.0, epsilon: float = 1e-6,
+                 keepdim: bool = False, name=None):
+        super().__init__()
+        self.p = p
+        self.epsilon = epsilon
+        self.keepdim = keepdim
+
+    def forward(self, x, y):
+        (d,) = amp_cast("norm", x - y + self.epsilon)
+        return torch.linalg.vector_norm(d, ord=self.p, dim=-1,
+                                        keepdim=self.keepdim)

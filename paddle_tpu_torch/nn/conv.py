@@ -18,7 +18,8 @@ keyword. The JAX layers pass it by position, where it lands in
 tests hold these layers against the JAX functionals on the JAX layers'
 weights.
 
-``DeformConv2D`` is not ported yet (it raises, see ROADMAP.md).
+``DeformConv2D`` convolves at offset sampling positions through
+``ops/vision_extra.py`` ``deformable_conv``.
 """
 
 from __future__ import annotations
@@ -173,9 +174,21 @@ class Conv3DTranspose(_ConvNd):
                                    data_format=self._data_format)
 
 
-class DeformConv2D(nn.Module):
-    """Deformable convolution: not ported yet."""
+class DeformConv2D(_ConvNd):
+    """Deformable convolution v1, or v2 with a ``mask`` at the call, over
+    ``ops/vision_extra.py`` ``deformable_conv`` (NCHW; the weight and
+    bias as ``Conv2D``'s, with the JAX layer's names)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("DeformConv2D is not yet ported, see "
-                                  "ROADMAP.md")
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, deformable_groups=1, groups=1,
+                 weight_attr=None, bias_attr=None, **kw):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, bias_attr, weight_attr,
+                         "NCHW", 2, **kw)
+        self._deformable_groups = deformable_groups
+
+    def forward(self, x, offset, mask=None):
+        return VE.deformable_conv(x, offset, self.weight, mask, self.bias,
+                                  self._stride, self._padding,
+                                  self._dilation, self._deformable_groups,
+                                  self._groups)

@@ -1,9 +1,7 @@
 """Kernel selection and the functional ops of the serving, training and
-vision paths (port of the attention, sampling, dropout, cross-entropy,
-activation, embedding, convolution, pooling and normalisation entries
-of ``paddle_tpu/ops/nn_functional.py``; the losses other than
-``cross_entropy`` and the resampling ops are not ported yet, see
-ROADMAP.md).
+vision paths (port of ``paddle_tpu/ops/nn_functional.py``: attention,
+sampling, dropout, activations, embedding, convolution, pooling,
+normalisation, the losses and the resampling ops).
 
 Each attention or sampling entry picks a CUDA kernel by the JAX
 package's shape rules, gated on the tensors lying on a CUDA device where
@@ -25,6 +23,7 @@ import itertools
 import math
 import threading
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -116,29 +115,106 @@ def dropout(x, p: float = 0.5, training: bool = True,
     return torch.where(keep, x, zero).to(x.dtype)
 
 
-def cross_entropy(input, label, ignore_index: int = -100,  # noqa: A002
-                  reduction: str = "mean", axis: int = -1):
-    """Hard-label softmax cross entropy (``nn_functional.py:986-1027``):
-    positions whose label is ``ignore_index`` give 0, and ``"mean"``
-    divides by the number of the others. Soft labels, class weights and
-    label smoothing are not ported yet."""
-    if reduction not in ("mean", "sum", "none"):
-        raise ValueError(f"cross_entropy: reduction {reduction!r}")
-    (input,) = amp_cast("cross_entropy", input)  # noqa: A001
-    label = label.long()
-    if label.dim() == input.dim():
-        label = label.squeeze(axis)
-    logp = torch.log_softmax(input, dim=axis)
-    valid = label != ignore_index
-    picked = torch.gather(logp, axis, torch.where(valid, label, 0)
-                          .unsqueeze(axis)).squeeze(axis)
-    loss = torch.where(valid, -picked, torch.zeros((), dtype=logp.dtype,
-                                                   device=logp.device))
+def _reduce(loss, reduction):
+    """``nn_functional.py:972-977``: ``"mean"``, ``"sum"``, anything else
+    unreduced."""
     if reduction == "mean":
-        return loss.sum() / valid.sum().clamp_min(1)
+        return loss.mean()
     if reduction == "sum":
         return loss.sum()
     return loss
+
+
+def _take_along_axis(arr, idx, axis: int):
+    """``jnp.take_along_axis`` as JAX reads it: the dims other than
+    ``axis`` broadcast, a negative index counts from the end and one
+    outside the axis gives NaN (a floating ``arr``) or 0."""
+    axis = axis % arr.dim()
+    size = arr.shape[axis]
+    rest = torch.broadcast_shapes(
+        tuple(1 if i == axis else s for i, s in enumerate(arr.shape)),
+        tuple(1 if i == axis else s for i, s in enumerate(idx.shape)))
+    a_shape, i_shape = list(rest), list(rest)
+    a_shape[axis], i_shape[axis] = size, idx.shape[axis]
+    idx = idx.long().expand(i_shape)
+    idx = torch.where(idx < 0, idx + size, idx)
+    inside = (idx >= 0) & (idx < size)
+    out = torch.gather(arr.expand(a_shape), axis,
+                       torch.where(inside, idx, 0))
+    fill = float("nan") if out.is_floating_point() else 0
+    return torch.where(inside, out, torch.full((), fill, dtype=out.dtype,
+                                               device=out.device))
+
+
+def _take_weight(weight, label):
+    """``jnp.take(weight, jnp.clip(label, 0, None))`` as JAX reads it: a
+    label past the last class (an ``ignore_index`` of 255, say) gives
+    NaN, which the caller's ``valid`` mask then drops."""
+    idx = label.long().clamp_min(0)
+    inside = idx < weight.shape[0]
+    w = weight[torch.where(inside, idx, 0)]
+    return torch.where(inside, w, torch.full((), float("nan"),
+                                             dtype=w.dtype,
+                                             device=w.device))
+
+
+def _log_probs(logits, axis, use_softmax):
+    if use_softmax:
+        return torch.log_softmax(logits, dim=axis)
+    return torch.log(torch.clamp_min(logits, 1e-15))
+
+
+def _cross_entropy(logits, label, weight, ignore_index, reduction,
+                   soft_label, axis, use_softmax, label_smoothing):
+    if soft_label:
+        logp = _log_probs(logits, axis, use_softmax)
+        tgt = label
+        if label_smoothing > 0.0:
+            tgt = (1 - label_smoothing) * tgt + \
+                label_smoothing / logits.shape[axis]
+        return _reduce(-torch.sum(tgt * logp, dim=axis), reduction)
+    label = label.to(torch.int32)
+    if label.dim() == logits.dim():
+        label = label.squeeze(axis)
+    logp = _log_probs(logits, axis, use_softmax)
+    if label_smoothing > 0.0:
+        nll = -_take_along_axis(logp, label[..., None], axis)[..., 0]
+        smooth = -torch.mean(logp, dim=axis)
+        loss = (1 - label_smoothing) * nll + label_smoothing * smooth
+    else:
+        loss = -_take_along_axis(logp, label.unsqueeze(axis),
+                                 axis).squeeze(axis)
+    valid = label != ignore_index
+    zero = torch.zeros((), dtype=loss.dtype, device=loss.device)
+    if weight is not None:
+        w = _take_weight(weight, label)
+        loss = loss * w
+        if reduction == "mean":
+            denom = torch.where(valid, w, torch.zeros_like(w)).sum()
+            return torch.where(valid, loss, zero).sum() / torch.clamp_min(
+                denom, 1e-12)
+    loss = torch.where(valid, loss, zero)
+    if reduction == "mean":
+        return loss.sum() / valid.sum().clamp_min(1)
+    return _reduce(loss, reduction)
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0):
+    """``nn_functional.py:986-1027``, with its signature in its order.
+    Hard labels: positions whose label is ``ignore_index`` give 0;
+    ``"mean"`` divides by the number of the others, or under ``weight``
+    by the sum of their picked class weights. ``soft_label`` takes a
+    distribution (``weight`` and ``ignore_index`` unused there);
+    ``use_softmax=False`` reads ``input`` as probabilities;
+    ``label_smoothing`` mixes in the uniform distribution. A
+    ``reduction`` other than ``"mean"`` / ``"sum"`` returns the
+    per-position losses, as the JAX function's ``_reduce`` does."""
+    input, label, weight = amp_cast(  # noqa: A001
+        "cross_entropy", input, label, weight)
+    return _cross_entropy(input, label, weight, ignore_index, reduction,
+                          soft_label, axis, use_softmax, label_smoothing)
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
@@ -315,8 +391,11 @@ def gelu(x, approximate: bool = False):
     """``nn_functional.py:69``: the exact (erf) form by default, the
     tanh form for ``approximate=True``. BERT's ``hidden_act="gelu"``
     is the exact one; GPT's MLP calls ``nn.layers.gelu``, the tanh
-    form."""
-    return F.gelu(x, approximate="tanh" if approximate else "none")
+    form. The exact form keeps ``+inf`` as ``jax.nn.gelu`` does (torch's
+    vectorised CPU loop gives NaN there); ``-inf`` gives NaN in both."""
+    if approximate:
+        return F.gelu(x, approximate="tanh")
+    return torch.where(x == math.inf, x, F.gelu(x, approximate="none"))
 
 
 def silu(x):
@@ -1087,3 +1166,649 @@ def data_norm(x, batch_size, batch_sum, batch_square_sum, epsilon=1e-4):
     scale = torch.sqrt(batch_size / torch.clamp_min(batch_square_sum,
                                                     epsilon))
     return (x - mean) * scale
+
+
+# -- losses (nn_functional.py:1030-1158, 1422-1462) --------------------------
+
+def jmax(x, v):
+    """``jnp.maximum(x, v)`` with JAX's gradient: at a tie each side takes
+    half (``torch.clamp_min`` gives all of it to ``x``). It matters where
+    a loss's argument is exactly at its kink, as zero logits are."""
+    return torch.maximum(x, torch.as_tensor(v, dtype=x.dtype,
+                                            device=x.device))
+
+
+def jclip(x, lo=None, hi=None):
+    """``jnp.clip``: :func:`jmax` then a minimum, half the gradient at
+    either bound."""
+    if lo is not None:
+        x = jmax(x, lo)
+    if hi is not None:
+        x = torch.minimum(x, torch.as_tensor(hi, dtype=x.dtype,
+                                             device=x.device))
+    return x
+
+
+def _sigmoid_ce(logit, target):
+    """``max(z, 0) - z * t + log1p(exp(-|z|))`` (``nn_functional.py:
+    980-983``), shared by the loss families."""
+    return (jmax(logit, 0.0) - logit * target
+            + torch.log1p(torch.exp(-torch.abs(logit))))
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, axis=-1,
+                               return_softmax=False,
+                               numeric_stable_mode=True):
+    """``nn_functional.py:1030-1043``: the unreduced loss with ``axis``
+    kept as a dim of 1, and the softmax when asked."""
+    logits, label = amp_cast("softmax_with_cross_entropy", logits, label)
+    sm = torch.softmax(logits, dim=axis)
+    loss = _cross_entropy(logits, label, None, ignore_index, "none",
+                          soft_label, axis, True, 0.0).unsqueeze(axis)
+    if return_softmax:
+        return loss, sm
+    return loss
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100,  # noqa: A002
+             reduction="mean"):
+    """``nn_functional.py:1046-1061``: ``-input`` at the label, read along
+    the last axis of a 2-D input and along axis 1 otherwise, through
+    ``take_along_axis`` as JAX reads it."""
+    input, label, weight = amp_cast(  # noqa: A001
+        "nll_loss", input, label, weight)
+    axis = -1 if input.dim() == 2 else 1
+    loss = -_take_along_axis(input, label[..., None], axis).squeeze(axis)
+    valid = label != ignore_index
+    zero = torch.zeros((), dtype=loss.dtype, device=loss.device)
+    if weight is not None:
+        w = _take_weight(weight, label)
+        loss = loss * w
+        if reduction == "mean":
+            return torch.where(valid, loss, zero).sum() / torch.where(
+                valid, w, torch.zeros_like(w)).sum()
+    loss = torch.where(valid, loss, zero)
+    if reduction == "mean":
+        return loss.sum() / valid.sum().clamp_min(1)
+    return _reduce(loss, reduction)
+
+
+def mse_loss(input, label, reduction="mean"):  # noqa: A002
+    input, label = amp_cast("mse_loss", input, label)  # noqa: A001
+    return _reduce(torch.square(input - label), reduction)
+
+
+def l1_loss(input, label, reduction="mean"):  # noqa: A002
+    return _reduce(torch.abs(input - label), reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0):  # noqa: A002
+    diff = torch.abs(input - label)
+    loss = torch.where(diff < delta, 0.5 * diff * diff / delta,
+                       diff - 0.5 * delta)
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy(input, label, weight=None,  # noqa: A002
+                         reduction="mean"):
+    """Probabilities clipped to ``[1e-12, 1 - 1e-12]``."""
+    input, label, weight = amp_cast(  # noqa: A001
+        "binary_cross_entropy", input, label, weight)
+    x = jclip(input, 1e-12, 1.0 - 1e-12)
+    loss = -(label * torch.log(x) + (1.0 - label) * torch.log1p(-x))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def _bce_with_logits(logit, label, weight, reduction, pos_weight):
+    max_val = jclip(-logit, 0)
+    soft = torch.log1p(torch.exp(-torch.abs(logit)))
+    if pos_weight is not None:
+        log_w = (pos_weight - 1.0) * label + 1.0
+        loss = (1.0 - label) * logit + log_w * (soft + max_val)
+    else:
+        loss = (1.0 - label) * logit + max_val + soft
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None):
+    logit, label, weight, pos_weight = amp_cast(
+        "binary_cross_entropy_with_logits", logit, label, weight,
+        pos_weight)
+    return _bce_with_logits(logit, label, weight, reduction, pos_weight)
+
+
+def kl_div(input, label, reduction="mean"):  # noqa: A002
+    """``label * (log(label) - input)``, ``label`` clipped at 1e-12 in the
+    log; ``"batchmean"`` divides the sum by the batch."""
+    input, label = amp_cast("kl_div", input, label)  # noqa: A001
+    loss = label * (torch.log(torch.clamp_min(label, 1e-12)) - input)
+    if reduction == "batchmean":
+        return loss.sum() / input.shape[0]
+    return _reduce(loss, reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0,  # noqa: A002
+                        reduction="mean"):
+    loss = jclip(-label * (input - other) + margin, 0)
+    return _reduce(loss, reduction)
+
+
+def hinge_embedding_loss(input, label, margin=1.0,  # noqa: A002
+                         reduction="mean"):
+    loss = torch.where(label == 1.0, input, jclip(margin - input, 0))
+    return _reduce(loss, reduction)
+
+
+def _cosine_similarity(x1, x2, axis, eps):
+    dot = torch.sum(x1 * x2, dim=axis)
+    n1 = torch.linalg.vector_norm(x1, dim=axis)
+    n2 = torch.linalg.vector_norm(x2, dim=axis)
+    return dot / jmax(n1 * n2, eps)
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    """``dot / max(|x1| * |x2|, eps)``: the product of the norms is
+    clamped, not each norm (``nn_functional.py:1123-1127``)."""
+    x1, x2 = amp_cast("cosine_similarity", x1, x2)
+    return _cosine_similarity(x1, x2, axis, eps)
+
+
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction="mean"):
+    sim = _cosine_similarity(input1, input2, 1, 1e-8)
+    loss = torch.where(label == 1, 1.0 - sim, jclip(sim - margin, 0))
+    return _reduce(loss, reduction)
+
+
+def triplet_margin_loss(anchor, positive, negative, margin=1.0, p=2.0,
+                        eps=1e-6, swap=False, reduction="mean"):
+    def dist(a, b):
+        return torch.linalg.vector_norm(a - b + eps, ord=p, dim=-1)
+
+    d_pos = dist(anchor, positive)
+    d_neg = dist(anchor, negative)
+    if swap:
+        d_neg = torch.minimum(d_neg, dist(positive, negative))
+    return _reduce(jclip(d_pos - d_neg + margin, 0), reduction)
+
+
+def square_error_cost(input, label):  # noqa: A002
+    return torch.square(input - label)
+
+
+def log_loss(input, label, epsilon=1e-4):  # noqa: A002
+    return -label * torch.log(input + epsilon) - (1 - label) * torch.log(
+        1 - input + epsilon)
+
+
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25,
+                       gamma=2.0, reduction="sum"):
+    p = torch.sigmoid(logit)
+    ce = _bce_with_logits(logit, label, None, "none", None)
+    p_t = p * label + (1 - p) * (1 - label)
+    a_t = alpha * label + (1 - alpha) * (1 - label)
+    loss = a_t * torch.pow(1 - p_t, gamma) * ce
+    if normalizer is not None:
+        loss = loss / normalizer
+    return _reduce(loss, reduction)
+
+
+def _softplus(x):
+    # jax.nn.softplus: logaddexp(x, 0), no threshold
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def soft_margin_loss(input, label, reduction="mean"):  # noqa: A002
+    """``log(1 + exp(-label * input))``, labels in {-1, 1}."""
+    return _reduce(_softplus(-label.to(input.dtype) * input), reduction)
+
+
+def multi_label_soft_margin_loss(input, label, weight=None,  # noqa: A002
+                                 reduction="mean"):
+    y = label.to(input.dtype)
+    loss = -(y * F.logsigmoid(input) + (1.0 - y) * F.logsigmoid(-input))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss.mean(dim=-1), reduction)
+
+
+def poisson_nll_loss(input, label, log_input=True, full=False,  # noqa: A002
+                     epsilon=1e-8, reduction="mean"):
+    if log_input:
+        loss = torch.exp(input) - label * input
+    else:
+        loss = input - label * torch.log(input + epsilon)
+    if full:
+        # the log of a safe argument, so that the branch not taken puts
+        # no NaN into the gradient (label 0 is common)
+        safe = torch.where(label > 1.0, label, torch.ones_like(label))
+        stirling = safe * torch.log(safe) - safe + \
+            0.5 * torch.log(2.0 * math.pi * safe)
+        loss = loss + torch.where(label > 1.0, stirling,
+                                  torch.zeros_like(stirling))
+    return _reduce(loss, reduction)
+
+
+def gaussian_nll_loss(input, label, variance, full=False,  # noqa: A002
+                      epsilon=1e-6, reduction="mean"):
+    var = jclip(variance, epsilon)
+    loss = 0.5 * (torch.log(var) + (input - label) ** 2 / var)
+    if full:
+        loss = loss + 0.5 * torch.log(torch.tensor(
+            2.0 * math.pi, dtype=input.dtype, device=input.device))
+    return _reduce(loss, reduction)
+
+
+# -- lookups and products of nn/common.py -------------------------------------
+
+def linear(x, weight, bias=None):
+    """``x @ weight + bias``, weight ``[in, out]`` (``nn_functional.py:
+    172-177``)."""
+    x, weight, bias = amp_cast("linear", x, weight, bias)
+    out = torch.matmul(x, weight)
+    return out if bias is None else out + bias
+
+
+def bilinear(x1, x2, weight, bias=None):
+    """``out[b, o] = x1[b] @ weight[o] @ x2[b]``, weight ``[out, in1,
+    in2]``."""
+    out = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
+    return out if bias is None else out + bias
+
+
+def one_hot(x, num_classes):
+    """float32 rows, all zero for a label outside ``[0, num_classes)``
+    (``jax.nn.one_hot``)."""
+    classes = torch.arange(num_classes, device=x.device)
+    return (x[..., None] == classes).to(torch.float32)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1):
+    if prior_dist is not None:
+        return (1.0 - epsilon) * label + epsilon * prior_dist
+    return (1.0 - epsilon) * label + epsilon / label.shape[-1]
+
+
+# -- resampling (nn_functional.py:1174-1420) ---------------------------------
+
+def _triangle(d):
+    return np.maximum(1 - np.abs(d), np.float32(0))
+
+
+def _keys_cubic(d):
+    out = ((1.5 * d - 2.5) * d) * d + 1.
+    out = np.where(d >= 1., ((-0.5 * d + 2.5) * d - 4.) * d + 2., out)
+    return np.where(d >= 2., np.float32(0), out).astype(np.float32)
+
+
+_RESIZE_KERNELS = {"linear": _triangle, "cubic": _keys_cubic}
+
+
+def _resize_weights(in_size: int, out_size: int, kernel):
+    """``jax.image``'s ``compute_weight_mat`` at translation 0 with
+    antialiasing: ``[in, out]`` numpy weights, in float32. Half-pixel
+    centres; when downsampling, the kernel is widened by the inverse
+    scale (a low pass), each column is normalised to sum 1, and a column
+    whose sample falls outside the input is 0."""
+    inv_scale = in_size / out_size
+    kernel_scale = np.float32(max(inv_scale, 1.0))
+    sample = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) \
+        * np.float32(inv_scale) - np.float32(0.5)
+    src = np.arange(in_size, dtype=np.float32)
+    w = kernel(np.abs(sample[None, :] - src[:, None]) / kernel_scale)
+    total = w.sum(axis=0, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000. * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, np.float32(1)),
+                 np.float32(0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, np.float32(0)).astype(np.float32)
+
+
+def resize(x, shape, method="linear"):
+    """``jax.image.resize(x, shape, method)`` with its default
+    ``antialias=True``: every dim whose size changes is resampled by a
+    ``[in, out]`` weight matrix (``method`` ``"linear"``, the triangle
+    kernel, or ``"cubic"``, Keys' kernel); an integer input comes back
+    float32. PyTorch's ``F.interpolate`` is neither antialiased in 3-D /
+    5-D nor half-pixel in the same way, so the port keeps JAX's
+    filter."""
+    kernel = _RESIZE_KERNELS[method]
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    for d, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+        if n_in == n_out:
+            continue
+        w = torch.from_numpy(_resize_weights(n_in, n_out, kernel)).to(
+            x.device, x.dtype)
+        x = torch.movedim(torch.matmul(torch.movedim(x, d, -1), w), -1, d)
+    return x
+
+
+def _band(w):
+    """An ``[in, out]`` weight matrix as its columns' nonzero runs:
+    ``idx[out, K]`` rows of the input and ``wk[out, K]`` their weights
+    (0 past a run's end), K the longest run."""
+    n_in, n_out = w.shape
+    nz = w != 0
+    hit = nz.any(axis=0)
+    first = np.where(hit, nz.argmax(axis=0), 0)
+    last = np.where(hit, n_in - 1 - nz[::-1].argmax(axis=0), 0)
+    idx = first[:, None] + np.arange(int((last - first).max()) + 1)
+    live = idx <= last[:, None]
+    idx = np.minimum(idx, n_in - 1)
+    wk = np.where(live, w[idx, np.arange(n_out)[:, None]], 0).astype(
+        w.dtype)
+    return idx, wk
+
+
+def resize_host(x: np.ndarray, shape, method="linear") -> np.ndarray:
+    """:func:`resize` on a numpy array, in numpy: the vision transforms'
+    host-side path. It runs no torch op and no BLAS call, so a loader's
+    worker threads leave torch's and BLAS's thread pools alone: each
+    changed dim sums its few nonzero taps (:func:`_band`) per output."""
+    kernel = _RESIZE_KERNELS[method]
+    x = np.asarray(x)
+    if not np.issubdtype(x.dtype, np.floating):
+        x = x.astype(np.float32)
+    for d, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+        if n_in == n_out:
+            continue
+        idx, wk = _band(_resize_weights(n_in, n_out, kernel).astype(
+            x.dtype, copy=False))
+        moved = np.ascontiguousarray(np.moveaxis(x, d, 0))
+        tap = (n_out,) + (1,) * (x.ndim - 1)
+        y = moved[idx[:, 0]] * wk[:, 0].reshape(tap)
+        for k in range(1, idx.shape[1]):
+            y += moved[idx[:, k]] * wk[:, k].reshape(tap)
+        x = np.moveaxis(y, 0, d)
+    return np.ascontiguousarray(x)
+
+
+_INTERP_METHOD = {"nearest": "nearest", "bilinear": "linear",
+                  "linear": "linear", "trilinear": "linear",
+                  "bicubic": "cubic", "area": "linear"}
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW"):
+    """``nn_functional.py:1174-1217``, JAX's semantics and not
+    ``F.interpolate``'s:
+
+    - ``"nearest"``: the floor map ``floor(i * in / out)``;
+    - ``"linear"`` / ``"bilinear"`` / ``"trilinear"`` / ``"area"`` and
+      ``"bicubic"``: :func:`resize` (half-pixel, antialiased when it
+      downsamples, Keys cubic; ``"area"`` is linear);
+      ``align_corners`` is ignored, as in JAX;
+    - ``align_mode=1`` (linear, without ``align_corners``): the
+      asymmetric map ``src = i * in / out``, a lerp between the two
+      neighbours with the upper one clamped at the edge."""
+    channel_last = data_format in ("NHWC", "NWC", "NDHWC")
+    nsp = x.dim() - 2
+    sp_axes = tuple(range(1, 1 + nsp)) if channel_last else \
+        tuple(range(2, 2 + nsp))
+    in_size = [x.shape[a] for a in sp_axes]
+    if size is None:
+        sf = _norm_tuple(scale_factor, nsp)
+        size = [int(i * s) for i, s in zip(in_size, sf)]
+    else:
+        size = [int(s) for s in _norm_tuple(size, nsp)]
+    method = _INTERP_METHOD[mode]
+    if mode == "nearest":
+        out = x
+        for a, s, i in zip(sp_axes, size, in_size):
+            idx = torch.floor(torch.arange(s, dtype=torch.float32,
+                                           device=x.device) * (i / s))
+            out = torch.index_select(out, a, idx.long())
+        return out
+    if align_mode == 1 and method == "linear" and not align_corners:
+        out = x
+        for a, osz, isz in zip(sp_axes, size, in_size):
+            src = torch.arange(osz, dtype=torch.float32,
+                               device=x.device) * (isz / osz)
+            i0 = torch.clamp(torch.floor(src).long(), 0, isz - 1)
+            i1 = torch.clamp(i0 + 1, 0, isz - 1)
+            shape = [1] * out.dim()
+            shape[a] = osz
+            frac = (src - i0).to(out.dtype).reshape(shape)
+            out = (torch.index_select(out, a, i0) * (1 - frac)
+                   + torch.index_select(out, a, i1) * frac)
+        return out
+    new_shape = list(x.shape)
+    for a, s in zip(sp_axes, size):
+        new_shape[a] = s
+    return resize(x, new_shape, method)
+
+
+def upsample(x, size=None, scale_factor=None, mode="nearest",
+             align_corners=False, align_mode=0, data_format="NCHW"):
+    return interpolate(x, size, scale_factor, mode, align_corners,
+                       align_mode, data_format)
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW"):
+    r = upscale_factor
+    if data_format == "NCHW":
+        n, c, h, w = x.shape
+        x = x.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+        return x.reshape(n, c // (r * r), h * r, w * r)
+    n, h, w, c = x.shape
+    x = x.reshape(n, h, w, r, r, c // (r * r)).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h * r, w * r, c // (r * r))
+
+
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW"):
+    r = downscale_factor
+    if data_format == "NCHW":
+        n, c, h, w = x.shape
+        x = x.reshape(n, c, h // r, r, w // r, r).permute(0, 1, 3, 5, 2, 4)
+        return x.reshape(n, c * r * r, h // r, w // r)
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // r, r, w // r, r, c).permute(0, 2, 4, 1, 3, 5)
+    return x.reshape(n, h // r, w // r, c * r * r)
+
+
+def _unfold_geometry(paddings, kernel_sizes, strides, dilations):
+    kh, kw = _norm_tuple(kernel_sizes, 2)
+    sh, sw = _norm_tuple(strides, 2)
+    dh, dw = _norm_tuple(dilations, 2)
+    pads = _conv_padding(paddings, 2)
+    return (kh, kw), (sh, sw), (dh, dw), [tuple(p) for p in pads]
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1):
+    """im2col: ``[N, C, H, W] -> [N, C * kh * kw, L]``, the taps of each
+    channel together in row-major order."""
+    n, c = x.shape[:2]
+    (kh, kw), (sh, sw), (dh, dw), pads = _unfold_geometry(
+        paddings, kernel_sizes, strides, dilations)
+    xp = _pad_spatial(x, pads, 0.0)
+    oh = (xp.shape[2] - (dh * (kh - 1) + 1)) // sh + 1
+    ow = (xp.shape[3] - (dw * (kw - 1) + 1)) // sw + 1
+    cols = [xp[:, :, i * dh:i * dh + oh * sh:sh, j * dw:j * dw + ow * sw:sw]
+            for i in range(kh) for j in range(kw)]
+    return torch.stack(cols, dim=2).reshape(n, c * kh * kw, oh * ow)
+
+
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0,
+         dilations=1):
+    """col2im, :func:`unfold`'s inverse: ``[N, C * kh * kw, L] -> [N, C,
+    H, W]``; overlapping taps add."""
+    n = x.shape[0]
+    oh_img, ow_img = _norm_tuple(output_sizes, 2)
+    (kh, kw), (sh, sw), (dh, dw), pads = _unfold_geometry(
+        paddings, kernel_sizes, strides, dilations)
+    (pt, pb), (pl, pr) = pads
+    hp, wp = oh_img + pt + pb, ow_img + pl + pr
+    oh = (hp - (dh * (kh - 1) + 1)) // sh + 1
+    ow = (wp - (dw * (kw - 1) + 1)) // sw + 1
+    c = x.shape[1] // (kh * kw)
+    cols = x.reshape(n, c, kh * kw, oh, ow)
+    out = torch.zeros((n, c, hp, wp), dtype=x.dtype, device=x.device)
+    for i in range(kh):
+        for j in range(kw):
+            out[:, :, i * dh:i * dh + oh * sh:sh,
+                j * dw:j * dw + ow * sw:sw] += cols[:, :, i * kw + j]
+    return out[:, :, pt:pt + oh_img, pl:pl + ow_img]
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True):
+    """``nn_functional.py:1274-1306``: ``x [N, C, H, W]``, ``grid [N, Hg,
+    Wg, 2]`` in ``[-1, 1]`` (x then y). Bilinear reads the four
+    neighbours; with ``padding_mode="zeros"`` a neighbour outside the
+    image gives 0, any other mode clamps it to the edge. Nearest rounds
+    half to even and clamps."""
+    n, c, h, w = x.shape
+    if align_corners:
+        gx = (grid[..., 0] + 1.0) * ((w - 1) / 2.0)
+        gy = (grid[..., 1] + 1.0) * ((h - 1) / 2.0)
+    else:
+        gx = ((grid[..., 0] + 1.0) * w - 1.0) / 2.0
+        gy = ((grid[..., 1] + 1.0) * h - 1.0) / 2.0
+    flat = x.reshape(n, c, h * w)
+
+    def read(ix, iy):
+        ind = (iy.long() * w + ix.long()).reshape(n, 1, -1)
+        return torch.gather(flat, 2, ind.expand(n, c, ind.shape[-1])
+                            ).reshape((n, c) + tuple(ix.shape[1:]))
+
+    if mode == "nearest":
+        return read(torch.clamp(torch.round(gx), 0, w - 1),
+                    torch.clamp(torch.round(gy), 0, h - 1))
+    x0 = torch.floor(gx)
+    y0 = torch.floor(gy)
+    wx1 = gx - x0
+    wy1 = gy - y0
+    out = 0.0
+    for xi, wxf in ((x0, 1.0 - wx1), (x0 + 1, wx1)):
+        for yi, wyf in ((y0, 1.0 - wy1), (y0 + 1, wy1)):
+            v = read(torch.clamp(xi, 0, w - 1), torch.clamp(yi, 0, h - 1))
+            if padding_mode == "zeros":
+                valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+                v = torch.where(valid[:, None], v, torch.zeros_like(v))
+            out = out + v * (wxf * wyf)[:, None]
+    return out
+
+
+def affine_grid(theta, out_shape, align_corners=True):
+    """The ``[N, H, W, 2]`` sampling grid of ``theta [N, 2, 3]`` over an
+    ``out_shape = (N, C, H, W)`` output."""
+    _, _, h, w = (int(s) for s in out_shape)
+    kw = dict(dtype=theta.dtype, device=theta.device)
+    if align_corners:
+        ys = torch.linspace(-1.0, 1.0, h, **kw)
+        xs = torch.linspace(-1.0, 1.0, w, **kw)
+    else:
+        ys = (torch.arange(h, **kw) * 2 + 1) / h - 1
+        xs = (torch.arange(w, **kw) * 2 + 1) / w - 1
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    base = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)
+    return torch.einsum("nij,hwj->nhwi", theta, base)
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW"):
+    """TSM: of each segment group of ``seg_num`` frames, the first
+    ``int(C * shift_ratio)`` channels move one frame back, the next as
+    many one frame forward, zeros filling in."""
+    if data_format == "NHWC":
+        out = temporal_shift(x.permute(0, 3, 1, 2), seg_num, shift_ratio)
+        return out.permute(0, 2, 3, 1)
+    n, c, h, w = x.shape
+    x5 = x.reshape(n // seg_num, seg_num, c, h, w)
+    fold = int(c * shift_ratio)
+    left = torch.cat([x5[:, 1:, :fold],
+                      torch.zeros_like(x5[:, :1, :fold])], dim=1)
+    right = torch.cat([torch.zeros_like(x5[:, :1, fold:2 * fold]),
+                       x5[:, :-1, fold:2 * fold]], dim=1)
+    return torch.cat([left, right, x5[:, :, 2 * fold:]],
+                     dim=2).reshape(n, c, h, w)
+
+
+def channel_shuffle(x, groups, data_format="NCHW"):
+    if data_format == "NCHW":
+        n, c, h, w = x.shape
+        x = x.reshape(n, groups, c // groups, h, w).transpose(1, 2)
+        return x.reshape(n, c, h, w)
+    n, h, w, c = x.shape
+    x = x.reshape(n, h, w, groups, c // groups).transpose(3, 4)
+    return x.reshape(n, h, w, c)
+
+
+def sequence_mask(x, maxlen=None, dtype="int64"):
+    """``row < length`` over ``maxlen`` positions, in ``dtype``; as in
+    JAX, ``maxlen`` is required."""
+    if maxlen is None:
+        raise ValueError(
+            "sequence_mask requires maxlen under XLA static shapes")
+    lengths = torch.as_tensor(x)
+    row = torch.arange(int(maxlen), device=lengths.device)
+    return (row < lengths[..., None]).to(as_dtype(dtype))
+
+
+def _pad_index(n: int, lo: int, hi: int, mode: str, device):
+    i = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge" or (mode == "reflect" and n == 1):
+        return i.clamp(0, n - 1)
+    if mode == "wrap":
+        return i % n
+    period = 2 * (n - 1)
+    i = i % period
+    return torch.where(i >= n, period - i, i)
+
+
+def _pad_widths(x, width, mode, value):
+    if mode == "constant":
+        return F.pad(x, [v for lo_hi in reversed(width) for v in lo_hi],
+                     value=value)
+    np_mode = {"reflect": "reflect", "replicate": "edge",
+               "circular": "wrap"}[mode]
+    for d, (lo, hi) in enumerate(width):
+        if lo or hi:
+            x = torch.index_select(x, d, _pad_index(
+                x.shape[d], lo, hi, np_mode, x.device))
+    return x
+
+
+def pad(x, pad, mode="constant", value=0.0,  # noqa: A002
+        data_format="NCHW"):
+    """``paddle_tpu/ops/manipulation.py:145-168``: ``pad`` holds a (before,
+    after) pair for every dim when it has ``2 * ndim`` entries, else
+    pairs for the spatial dims of an NC... / N...C map, innermost first
+    (left, right, top, bottom, front, back). Modes ``constant``,
+    ``reflect`` (numpy's: the edge once), ``replicate`` and
+    ``circular``."""
+    pad = [int(p) for p in pad]
+    nd = x.dim()
+    if len(pad) == 2 * nd:
+        width = [(pad[2 * i], pad[2 * i + 1]) for i in range(nd)]
+    else:
+        nsp = len(pad) // 2
+        width = [(0, 0)] * nd
+        spatial = list(range(nd - nsp, nd)) if data_format.startswith(
+            "NC") else list(range(1, 1 + nsp))
+        for i, dim in enumerate(reversed(spatial)):
+            width[dim] = (pad[2 * i], pad[2 * i + 1])
+    return _pad_widths(x, width, mode, value)
+
+
+def pad3d(x, pad, mode="constant", value=0.0,  # noqa: A002
+          data_format="NCDHW"):
+    """``pad = [left, right, top, bottom, front, back]`` over the (D, H,
+    W) dims of an NCDHW / NDHWC input."""
+    l, r, t, b, f, bk = (int(p) for p in pad)
+    if data_format == "NCDHW":
+        width = [(0, 0), (0, 0), (f, bk), (t, b), (l, r)]
+    else:
+        width = [(0, 0), (f, bk), (t, b), (l, r), (0, 0)]
+    return _pad_widths(x, width, mode, value)
+
+
+def zeropad2d(x, padding, data_format="NCHW"):
+    return pad(x, list(padding), mode="constant", value=0.0,
+               data_format=data_format)

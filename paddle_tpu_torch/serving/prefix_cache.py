@@ -44,9 +44,10 @@ Blob codecs: ``raw`` (the pool's bytes), ``int8`` and ``int4``
 Host-side and single-threaded, as in the JAX package: every method runs
 on the engine thread. The cache is bounded by pool pressure alone (the
 JAX constructor's ``max_pages`` soft cap has no caller in either
-package and is not ported). The fleet methods (``fetch_pages``,
-``export_blobs``/``import_blobs``, ``expand_heads``, the
-advertisement) are not ported yet (ROADMAP.md).
+package and is not ported). The fleet methods (``expand_heads``,
+``export_blobs`` / ``import_blobs``, which serve the server's
+``fetch_pages`` op, and ``advertised_keys``) carry pages between
+replicas, as in the JAX package.
 
 Weight generations: ``generation`` salts every chain root, so pages
 computed by other weights miss by construction; ``set_generation``

@@ -298,5 +298,13 @@ def test_layers_draw_kaiming_uniform_and_fan_in_bias():
 
 
 def test_deform_conv2d_is_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """``DeformConv2D`` is ported now (the test keeps its name; its
+    parity with JAX is in ``test_torch_vision_extra.py``): like every
+    entry point it asks for CUDA unless given a device, and it builds
+    the JAX layer's parameters on the CPU."""
+    with pytest.raises(RuntimeError, match="CUDA"):
         tconv.DeformConv2D(4, 6, 3)
+    layer = tconv.DeformConv2D(4, 6, 3, deformable_groups=2, device="cpu")
+    assert tuple(layer.weight.shape) == (6, 4, 3, 3)
+    assert tuple(layer.bias.shape) == (6,)
+    assert layer._deformable_groups == 2

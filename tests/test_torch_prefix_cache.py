@@ -144,7 +144,7 @@ def test_fault_sites_and_dispositions_match_jax():
                                    "cache.spill", "serving.request",
                                    "net.recv", "checkpoint.write",
                                    "checkpoint.read", "checkpoint.load",
-                                   "swap.apply"}
+                                   "swap.apply", "dataloader.fetch"}
     for site in fi.FAULT_SITES:
         assert site in jfi.FAULT_SITES
         assert (site in res.NO_RETRY_SITES) == \
