@@ -131,8 +131,8 @@ failure exits non-zero at once:
 5l. fleet — replicas as processes on the one card (``python -m
    paddle_tpu_torch.serving.server``, GPT-1.3B fp32 seed 0, 8 slots,
    page 64, 96 pages, a 4 GB host tier) under a ``Supervisor`` behind a
-   ``FailoverRouter`` in this process: roles prefill + decode take 4
-   keyed prompts of 1024-1600 tokens (prefill_only on one, a fetch_from
+   ``FailoverRouter`` in this process: roles prefill + decode take 2
+   keyed prompts of 1024 and 1600 tokens (prefill_only on one, a fetch_from
    handoff on the other): every chain handed off and restored, no
    failure, no leak; handoff ms and bytes, client TTFT / TPOT, the
    prefill replica's engine stall during an export, token agreement with
@@ -265,7 +265,27 @@ failure exits non-zero at once:
    S=512: a padding mask takes the plain math (bitwise under
    ``plain_kernels()``), no mask the folded kernel, its logits within
    ``MODEL_REL_TOL`` of the plain path's and an all-ones mask's.
-8c. seq2seq_beam — ``Transformer()`` (Transformer-base), a shared
+8c. export — saved programs in ``inference.Predictor``s, under the
+   git-ignored ``build/export/`` (removed after): (a) the JAX
+   benchmark's config 5 (``bench_all.py:3304-3366``): ResNet-50 fp32
+   NCHW (1, 3, 224, 224) with ``optimize=True`` and BERT-base
+   (``BertForSequenceClassification``, dropout 0) at S=128 on int32 ids,
+   seed-0 weights: logits within ``MODEL_REL_TOL`` of the eager model,
+   no kernel launched (as in JAX: S=128 is under the folded crossover,
+   NCHW fails the fused gate), and the JAX ``_serve_latency`` keys: p50
+   / p99 wall ms with a host fetch over 100 runs, pipelined ms a
+   request over 100 and device ms a request over 300 (one synchronise
+   at the end of each window), the dispatch floor, and a profiled run's
+   device kernel ms; (b) BERT-base at N=1, S=512: 12 ``attention_fwd``
+   launches a run of the loaded program, logits within
+   ``MODEL_REL_TOL`` of the eager run under ``plain_kernels()``; (c)
+   ResNet-50 NHWC at N=1 opted in to the fused bottleneck, saved with
+   ``optimize=False``: 5 ``fused_bottleneck`` launches a run, logits
+   within ``RESNET_REL_TOL`` of the plain path; (d) a bf16-storage
+   predictor against an fp32 one over parameters rounded to bf16
+   (``MODEL_REL_TOL``), and a card program under ``disable_gpu()``
+   refused.
+8d. seq2seq_beam — ``Transformer()`` (Transformer-base), a shared
    vocabulary of 37000, beam 4: 8 sources of 64 tokens,
    ``BeamSearchDecoder`` + ``dynamic_decode`` for at most 64 + 50 steps
    over the decoder with its ``MultiHeadAttention.Cache`` states; each
@@ -4263,7 +4283,9 @@ FLEET_SERVER_ARGS = ("--num-slots", "8", "--page-size", "64",
 # 1600-token prompt's chain 24 pages), and the prefill replica parks the
 # chains the device tier evicts there: room for every chain of the wave
 FLEET_SPILL_MB = 4096
-FLEET_HANDOFF_LENGTHS = (1024, 1200, 1400, 1600)
+# the wave's shortest and longest prompts (the 1200 and 1400 ones were
+# cut to keep the script's clock, ~35 s of handoffs)
+FLEET_HANDOFF_LENGTHS = (1024, 1600)
 FLEET_NEW = 32
 FLEET_PROFILE_MS = 300
 FLEET_STALL_PAGES = 4           # pages exported while the stall is read
@@ -4453,9 +4475,9 @@ def phase_fleet(torch, dev, model, card):
     ``python -m paddle_tpu_torch.serving.server`` processes (seed-0
     weights, 8 slots, page 64, 96 pages, fp32) under a ``Supervisor``,
     fronted by a ``FailoverRouter`` in this process.
-    (1) Roles prefill + decode: 4 keyed prompts of 1024-1600 tokens, 32
+    (1) Roles prefill + decode: 2 keyed prompts of 1024 and 1600 tokens, 32
     new tokens each, one at a time: each runs prefill_only on replica 0
-    and decodes on replica 1 with a fetch_from hint. Held: 4 handoffs,
+    and decodes on replica 1 with a fetch_from hint. Held: 2 handoffs,
     each request's handoff pages = its chain, restored = handoff pages,
     no handoff failure, leak_check on both. Printed: handoff ms, bytes,
     TTFT and TPOT at the client, the token agreement with the in-process
@@ -7844,6 +7866,310 @@ def phase_bert_classify(torch, dev):
     torch.cuda.empty_cache()
 
 
+# export: the JAX package's benchmark config 5 (bench_all.py:3304-3366),
+# the AOT predictor's serving latency: n_runs on the chip, a pipelined
+# window of max(32, n_runs) and a device window of 3x that
+EXPORT_RUNS = 100
+EXPORT_PIPE = max(32, EXPORT_RUNS)
+EXPORT_DEV = 3 * EXPORT_PIPE
+EXPORT_FLOOR_RUNS = max(10, EXPORT_RUNS // 5)
+EXPORT_BERT_S = 128         # config 5's BERT: under the folded crossover
+EXPORT_BERT_LONG = 512      # BERT-base at S=512: the folded kernel (#9)
+EXPORT_DIR = os.path.join(HERE, "build", "export")
+EXPORT_KERNEL_OPS = {"attention_fwd": "paddle_tpu_torch.attention_fwd",
+                     "fused_bottleneck": "paddle_tpu_torch.fused_bottleneck"}
+# device time of a profiled predictor run, by kernel-name substring
+EXPORT_KERNEL_GROUPS = (
+    ("attention_fwd", ("attention_fwd",)),
+    ("fused_bottleneck", ("bottleneck_kernel",)),
+    # cuDNN's convolutions are implicit GEMMs: matched before the GEMMs
+    ("convolution (cuDNN)", ("fprop", "conv", "cudnn", "implicit",
+                             "winograd", "nchw", "nhwc")),
+    ("gemm", ("gemm", "sm90", "cutlass", "xmma")),
+    ("elementwise", ("elementwise", "vectorized")),
+    ("reductions, norms", ("reduce", "norm", "softmax")),
+)
+
+
+def _dispatch_floor_ms(torch, dev):
+    """p50 of a trivial launch and host fetch (``bench_all.py:3319-3329``:
+    ``float(v + 1)`` on a device scalar)."""
+    import numpy as np
+    z = torch.zeros((), device=dev)
+    float(z + 1.0)
+    floor = []
+    for _ in range(EXPORT_FLOOR_RUNS):
+        t0 = time.perf_counter()
+        float(z + 1.0)
+        floor.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(floor, 50))
+
+
+def _serve_latency(torch, pred, inputs, floor_ms):
+    """The JAX harness's serving keys (``bench_all.py:3224-3301``) on a
+    port predictor: inputs staged on the card once (its
+    ``share_external_data`` pattern), per-request wall ms with the host
+    fetch (``run`` with inputs returns numpy), then the inputs bound to
+    the handles and ``run()`` back to back with one synchronise at the
+    end of a window of ``EXPORT_PIPE`` (pipelined) and ``EXPORT_DEV``
+    (device) requests. A loaded program runs op by op, so these windows
+    are paced by the host; the profiled run's device kernel ms says how
+    much of a request the card is busy."""
+    import numpy as np
+    inputs = [pred._to_input(n, a)
+              for n, a in zip(pred.get_input_names(), inputs)]
+    pred.run(inputs)
+    lat = []
+    for _ in range(EXPORT_RUNS):
+        t0 = time.perf_counter()
+        pred.run(inputs)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    for n, a in zip(pred.get_input_names(), inputs):
+        pred.get_input_handle(n).share_external_data(a)
+    pred.run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EXPORT_PIPE):
+        pred.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(EXPORT_DEV):
+        pred.run()
+    torch.cuda.synchronize()
+    dt_dev = time.perf_counter() - t0
+    prof = profile_once(torch, pred.run, EXPORT_KERNEL_GROUPS,
+                        host_ops=False)
+    p50 = float(np.percentile(lat, 50))
+    return {"p50_wall_ms": p50, "p99_wall_ms": float(np.percentile(lat, 99)),
+            "p50_above_floor_ms": max(0.0, p50 - floor_ms),
+            "pipelined_requests_per_s": EXPORT_PIPE / dt,
+            "pipelined_ms_per_req": dt / EXPORT_PIPE * 1e3,
+            "device_ms_per_req": dt_dev / EXPORT_DEV * 1e3,
+            "floor_ms_subtracted": floor_ms, "runs": EXPORT_RUNS,
+            "pipelined_runs": EXPORT_PIPE, "device_window_runs": EXPORT_DEV,
+            "profiled_run": {k: prof[k] for k in (
+                "wall_ms", "device_kernel_ms", "kernels", "idle_share",
+                "by_group_ms")}}
+
+
+def _graph_kernel_ops(pred):
+    """Kernel op nodes in a loaded program's graph, by kernel."""
+    names = [str(n.target) for n in pred._program.exported.graph.nodes
+             if n.op == "call_function"]
+    return {k: sum(op in n for n in names)
+            for k, op in EXPORT_KERNEL_OPS.items()}
+
+
+def _export_run(torch, pred, inputs):
+    """One predictor run with the launch counts set to 0 just before and
+    read just after: (outputs as tensors on the card, launch counts)."""
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    for n, a in zip(pred.get_input_names(), inputs):
+        pred.get_input_handle(n).copy_from_cpu(a)
+    reset_launch_counts()
+    pred.run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    outs = [pred._outputs[n] for n in pred.get_output_names()]
+    return outs, counts
+
+
+def _export_check(phase, name, got, want, tol, rel=None):
+    """A closeness check of the phase: ``rel_err`` (max over max) unless
+    ``rel`` is given (relative in L2); a failure goes to
+    ``FAILED_CHECKS``."""
+    err = rel_err(got, want) if rel is None else rel
+    note_share(f"{phase} {name}", err / tol)
+    if not err <= tol:
+        FAILED_CHECKS.append(f"{phase} {name}: {err:.3g} relative off "
+                             f"(limit {tol:.3g})")
+        emit({"check": f"{phase}_{name}", "ok": False, "rel": err,
+              "tol": tol})
+    return err
+
+
+def _launch_gate(phase, name, counts, want):
+    """Exactly ``want`` launches of each named kernel and none of any
+    other kernel; else the phase raises."""
+    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{phase} {name}: launches {bad}, want {want}")
+
+
+def phase_export(torch, dev, card):
+    """Saved programs through ``inference.Predictor`` (see the module
+    docstring, 8c): config 5 as the JAX benchmark defines it, then the
+    two programs that reach the registered kernels (BERT-base S=512, #9
+    once a layer; ResNet-50 NHWC opted in, #11 on five blocks), then
+    bf16 storage and the device rule."""
+    import shutil
+    import numpy as np
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.nn.norm import BatchNorm2D
+    from paddle_tpu_torch.ops.kernels import fused_conv_block as FC
+    from paddle_tpu_torch.ops.nn_functional import plain_kernels
+    from paddle_tpu_torch.static import InputSpec, save_inference_model
+    from paddle_tpu_torch.vision.models import resnet50
+    phase = "export"
+    t0 = time.monotonic()
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    out = {"phase": phase, "card": card}
+    rng = np.random.default_rng(0)
+    floor = _dispatch_floor_ms(torch, dev)
+    out["dispatch_floor_ms"] = floor
+
+    def saved(prefix, model, spec, **kw):
+        t = time.monotonic()
+        save_inference_model(os.path.join(EXPORT_DIR, prefix), [spec],
+                             layer=model, **kw)
+        return time.monotonic() - t
+
+    def predictor(prefix, precision=None):
+        cfg = Config(os.path.join(EXPORT_DIR, prefix))
+        if precision:
+            cfg.set_precision(precision)
+        return create_predictor(cfg)
+
+    def eager(model, x):
+        with torch.inference_mode():
+            return model(torch.as_tensor(x, device=dev))
+
+    # (a) config 5: ResNet-50 fp32 NCHW with optimize=True, BERT-base S=128
+    rmodel = resnet50(device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    rmodel.eval()
+    rx = rng.standard_normal((1, 3, 224, 224)).astype(np.float32)
+    export_s = {"resnet": saved("resnet", rmodel, InputSpec(
+        (1, 3, 224, 224), "float32", "x"))}
+    bcfg = bert.bert_base(hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    bmodel = bert.BertForSequenceClassification(bcfg, device=dev)
+    bmodel.eval()
+    bx = rng.integers(0, bcfg.vocab_size, (1, EXPORT_BERT_S)).astype(
+        np.int32)
+    export_s["bert"] = saved("bert", bmodel, InputSpec(
+        (1, EXPORT_BERT_S), "int32", "input_ids"))
+    config5 = {}
+    for name, model, x in (("resnet", rmodel, rx), ("bert", bmodel, bx)):
+        pred = predictor(name)
+        (logits,), counts = _export_run(torch, pred, [x])
+        want = eager(model, x)
+        if tuple(logits.shape) != tuple(want.shape) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"{phase} {name}: logits "
+                                 f"{tuple(logits.shape)} or non-finite")
+        _launch_gate(phase, name, counts, {})
+        err = _export_check(phase, name, logits, want, MODEL_REL_TOL)
+        config5[name] = {"logits_rel_vs_eager": err,
+                         "graph_kernel_ops": _graph_kernel_ops(pred),
+                         "launches_per_run": {k: v for k, v in
+                                              counts.items() if v},
+                         "export_s": export_s[name],
+                         **_serve_latency(torch, pred, [x], floor)}
+        del pred
+    out["config5"] = config5
+    emit({"phase": "export_config5", "card": card,
+          "dispatch_floor_ms": floor, **config5})
+
+    # (b) BERT-base, N=1, S=512: the folded forward (#9) once a layer
+    lx = rng.integers(0, bcfg.vocab_size, (1, EXPORT_BERT_LONG)).astype(
+        np.int32)
+    long_s = saved("bert512", bmodel, InputSpec(
+        (1, EXPORT_BERT_LONG), "int32", "input_ids"))
+    pred = predictor("bert512")
+    (logits,), counts = _export_run(torch, pred, [lx])
+    _launch_gate(phase, "bert512", counts,
+                 {"attention_fwd": bcfg.num_hidden_layers})
+    with plain_kernels():
+        want = eager(bmodel, lx)
+    ops = _graph_kernel_ops(pred)
+    if ops["attention_fwd"] != bcfg.num_hidden_layers:
+        raise AssertionError(f"{phase} bert512: graph holds {ops}")
+    out["bert512"] = {
+        "logits_rel_vs_plain": _export_check(phase, "bert512", logits,
+                                             want, MODEL_REL_TOL),
+        "graph_kernel_ops": ops, "launches_per_run": {
+            k: v for k, v in counts.items() if v},
+        "export_s": long_s, **_serve_latency(torch, pred, [lx], floor)}
+    del pred
+
+    # (d) bf16 storage against fp32 over parameters rounded to bf16, and
+    # the device rule (on BERT S=128)
+    low = predictor("bert", "bfloat16")
+    (got,), _ = _export_run(torch, low, [bx])
+    ref = predictor("bert")
+    with torch.no_grad():
+        for v in ref._program.params.values():
+            if v.is_floating_point():
+                v.copy_(v.to(torch.bfloat16).to(v.dtype))
+    (want,), _ = _export_run(torch, ref, [bx])
+    out["bf16_storage"] = {"rel_vs_rounded_fp32": _export_check(
+        phase, "bf16 storage", got, want, MODEL_REL_TOL),
+        "bitwise": bool(torch.equal(got, want))}
+    del low, ref
+    cfg = Config(os.path.join(EXPORT_DIR, "bert"))
+    cfg.disable_gpu()
+    try:
+        create_predictor(cfg)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    if refused is None or "cuda" not in refused or "cpu" not in refused:
+        FAILED_CHECKS.append(f"{phase}: a card program under disable_gpu() "
+                             f"was not refused naming both devices "
+                             f"({refused})")
+    out["disable_gpu_refused"] = refused
+    del rmodel, bmodel
+    torch.cuda.empty_cache()
+
+    # (c) ResNet-50 NHWC, N=1, opted in: #11 on five blocks
+    model = resnet50(data_format="NHWC", device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    model.eval()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm2D):
+                mod._mean.normal_(0.0, 0.3, generator=gen)
+                mod._variance.uniform_(0.5, 2.0, generator=gen)
+    nx = rng.standard_normal((1, 3, 224, 224)).astype(np.float32)
+    FC.enable_fused_conv_eval(True)
+    try:
+        nhwc_s = saved("resnet_nhwc", model, InputSpec(
+            (1, 3, 224, 224), "float32", "x"), optimize=False)
+    finally:
+        FC.enable_fused_conv_eval(False)
+    packs = [m._fused_pack for m in model.modules()
+             if hasattr(m, "_fused_pack")]
+    if any(p is not None for p in packs):
+        raise AssertionError(f"{phase} resnet_nhwc: the export stored a "
+                             f"traced pack on the model")
+    pred = predictor("resnet_nhwc")
+    (logits,), counts = _export_run(torch, pred, [nx])
+    _launch_gate(phase, "resnet_nhwc", counts,
+                 {"fused_bottleneck": RESNET_FUSED_BLOCKS})
+    plain = eager(model, nx).float()
+    ops = _graph_kernel_ops(pred)
+    if ops["fused_bottleneck"] != RESNET_FUSED_BLOCKS:
+        raise AssertionError(f"{phase} resnet_nhwc: graph holds {ops}")
+    rel = float((logits.float() - plain).norm() / plain.norm())
+    out["resnet_nhwc"] = {
+        "logits_rel_l2_vs_plain": _export_check(
+            phase, "resnet_nhwc", logits, plain, RESNET_REL_TOL, rel=rel),
+        "tol_rel": RESNET_REL_TOL, "graph_kernel_ops": ops,
+        "launches_per_run": {k: v for k, v in counts.items() if v},
+        "export_s": nhwc_s, **_serve_latency(torch, pred, [nx], floor)}
+    del pred, model
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["tol_rel"] = MODEL_REL_TOL
+    out["seconds"] = time.monotonic() - t0
+    emit(out)
+
+
 def _sinusoid(torch, n, d, dev):
     """Vaswani et al.'s positional encodings, [n, d]."""
     pos = torch.arange(n, device=dev, dtype=torch.float32)[:, None]
@@ -8043,6 +8369,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     _walled(phase_bert_pretrain, torch, dev, records)
     _walled(phase_bert_classify, torch, dev)
+    _walled(phase_export, torch, dev, smi_line)
     _walled(phase_seq2seq_beam, torch, dev)
     emit({"phase": "check_margins", "tightest": tightest_checks()})
     if FAILED_CHECKS:

@@ -32,6 +32,7 @@ import threading
 from typing import Dict, List, Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -273,6 +274,44 @@ def refuse_grad(name: str, *tensors) -> None:
         raise RuntimeError(
             f"{name} has no backward: call it under torch.no_grad() or on "
             f"tensors that do not require grad")
+
+
+# The port's registered ops (``paddle_tpu_torch::<name>``): one library
+# fragment, kept alive as long as the module.
+_OPS = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+
+
+def register_op(schema: str, cpu, cuda, fake) -> None:
+    """Define the op ``paddle_tpu_torch::<schema>`` with the plain
+    version as its CPU kernel, the launch as its CUDA kernel and a fake
+    implementation for tracing (``torch.export``, ``FakeTensorMode``),
+    through ``torch.library``'s dispatcher API. (``torch.library.
+    custom_op`` wraps each kernel in ``torch._disable_dynamo``, whose
+    first call imports ``torch._dynamo``: 2.3 s on an 8-core x86 CPU at
+    the first launch of every process, a serving replica's first
+    prefill among them.)"""
+    name = schema.split("(", 1)[0]
+    _OPS.define(schema)
+    _OPS.impl(name, cpu, "CPU")
+    _OPS.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"paddle_tpu_torch::{name}", fake,
+                                lib=_OPS)
+
+
+def refuse_trace(name: str, *tensors) -> None:
+    """Raise when a ``ctypes`` kernel is reached while ``torch.export``
+    or ``torch.compile`` traces, or on a traced (fake) tensor: such a
+    kernel has no registered op, so a traced program could only hold
+    its plain version, which would run where the eager model launches
+    the kernel. Only the forward kernels are registered ops
+    (``paddle_tpu_torch::attention_fwd``,
+    ``paddle_tpu_torch::fused_bottleneck``)."""
+    if torch.compiler.is_exporting() or torch.compiler.is_compiling() or \
+            any(t is not None and is_fake(t) for t in tensors):
+        raise RuntimeError(
+            f"{name} cannot be exported or compiled: it is a ctypes kernel "
+            f"with no registered op; export programs that reach only "
+            f"attention_fwd and fused_bottleneck")
 
 
 def ptr(t: Optional[torch.Tensor]):

@@ -31,6 +31,13 @@ reach a kernel as on the TPU.
 Every wrapper takes its plain version (``attention_reference``,
 ``attention_bwd_reference``, ``folded_bwd_reference``) only for CPU
 tensors; for CUDA tensors it launches its kernel or raises.
+
+The forward is the registered op ``paddle_tpu_torch::attention_fwd``
+(``_build.register_op``: a fake implementation for tracing, the plain
+version on the CPU, the kernel on CUDA), so ``torch.export``
+records it in a program and a loaded program launches it. The backward
+kernels are ``ctypes`` calls and refuse to be traced
+(``_build.refuse_trace``): an exported program is an inference program.
 """
 
 from __future__ import annotations
@@ -126,28 +133,69 @@ def attention_fwd(q, k, v, causal: bool = False,
     """The kernel's wrapper: q [B, Sq, H, D], k/v [B, Sk, H, D] (any
     strides with a unit head-dim stride, e.g. slices of the fused QKV
     projection). Returns ``(out, lse or None)``. CPU tensors take the
-    plain version."""
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
+    plain version. It calls the registered op
+    ``paddle_tpu_torch::attention_fwd``, so an exported program records
+    the kernel and a loaded one launches it."""
+    d = q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        out, lse = attention_reference(q, k, v, causal=causal, scale=scale)
-        return out, (lse if return_lse else None)
+    if q.device.type != "cpu":
+        _check_devices("attention_fwd", q, k, v)
+    out, lse = torch.ops.paddle_tpu_torch.attention_fwd(
+        q, k, v, bool(causal), float(scale), bool(return_lse))
+    return out, (lse if return_lse else None)
+
+
+def _check_devices(name, q, k, v):
+    """The checks a traced tensor can answer: every operand on one CUDA
+    device and the shapes of the kernel; the strides, the alignment and
+    the dtype code are read where the kernel launches."""
+    b, sq, h, d = q.shape
+    if k.shape != (b, k.shape[1], h, d) or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    for tname, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name}: {tname} is on {t.device}")
+
+
+# The registered op. ``return_lse=False`` gives an empty f32 lse (a
+# registered op returns tensors only); the wrapper hands None back for it.
+def _attention_fwd_cpu(q, k, v, causal, scale, return_lse):
+    out, lse = attention_reference(q, k, v, causal=causal, scale=scale)
+    return out.contiguous(), (lse if return_lse else lse.new_empty(0))
+
+
+def _attention_fwd_fake(q, k, v, causal, scale, return_lse):
+    b, sq, h, d = q.shape
+    lse = q.new_empty((b, sq, h) if return_lse else (0,),
+                      dtype=torch.float32)
+    return q.new_empty((b, sq, h, d)), lse
+
+
+def _attention_fwd_cuda(q, k, v, causal, scale, return_lse):
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
     dev = _check_operands("attention_fwd", q, k, v, (64, 128, 256))
     check_vector_aligned("attention_fwd", ("q", q), ("k", k), ("v", v))
     code = _build.dtype_code(q, "attention_fwd", ATTENTION_DTYPES)
     out = torch.empty((b, sq, h, d), device=dev, dtype=q.dtype)
-    lse = (torch.empty((b, sq, h), device=dev, dtype=torch.float32)
-           if return_lse else None)
+    lse = torch.empty((b, sq, h) if return_lse else (0,), device=dev,
+                      dtype=torch.float32)
     err = _build.lib().pt_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _build.ptr(lse), b, sq, sk, h, d,
+        lse.data_ptr() if return_lse else None, b, sq, sk, h, d,
         *_strides(q), *_strides(k), *_strides(v), int(bool(causal)), code,
         float(scale), int(return_lse), _build.stream(dev))
     _build.check(err, "attention_fwd")
     attention_fwd.launches += 1
     return out, lse
+
+
+_build.register_op(
+    "attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, float scale, "
+    "bool return_lse) -> (Tensor, Tensor)",
+    _attention_fwd_cpu, _attention_fwd_cuda, _attention_fwd_fake)
 
 
 attention_fwd.launches = 0
@@ -220,6 +268,7 @@ def folded_bwd_reference(q, k, v, do, causal: bool = False,
 def _launch_bwd(name, mode, q, k, v, do, lse, delta, causal, scale):
     """One ``pt_attention_bwd`` call; returns ``(dq, dk, dv)`` with the
     ones the mode does not compute left None."""
+    _build.refuse_trace(name, q, k, v, do, lse, delta)
     do = do if do.stride(3) == 1 else do.contiguous()
     dev = _check_operands(name, q, k, v, BWD_HEAD_DIMS, extra=(do,))
     check_vector_aligned(name, ("q", q), ("k", k), ("v", v), ("dO", do))
@@ -307,6 +356,7 @@ def folded_attention_bwd(q, k, v, do, causal: bool = False,
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if q.device.type == "cpu":
         return folded_bwd_reference(q, k, v, do, causal, scale)
+    _build.refuse_trace("folded_attention_bwd", q, k, v, do)
     b, sq, h, _ = q.shape
     stats = torch.empty((2, b, sq, h), device=q.device, dtype=torch.float32)
     out = _launch_bwd("folded_attention_bwd", 3, q, k, v, do, stats[0],

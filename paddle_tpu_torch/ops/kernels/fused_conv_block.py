@@ -15,7 +15,10 @@ rounded to ``x.dtype`` after their relu, and the output is in
 - :func:`fused_bottleneck_reference` is the plain version.
 - :func:`fused_bottleneck_eval` is the wrapper: the plain version for
   CPU tensors, the kernel for CUDA tensors (or it raises). It has no
-  backward, as the TPU kernel has none.
+  backward, as the TPU kernel has none. It calls the registered op
+  ``paddle_tpu_torch::fused_bottleneck`` (``_build.register_op``: a
+  fake implementation for tracing, the plain version on the CPU, the
+  kernel on CUDA), which ``torch.export`` records in a program.
 - :func:`fused_bottleneck_config` is the kernel's launch configuration:
   the tile of rows by columns one block owns, the tiles of an image and
   the shared bytes; :func:`fused_bottleneck_strip_emulation` runs the
@@ -328,11 +331,24 @@ def fused_bottleneck_strip_emulation(x, w1, b1, w2, b2, w3, b3, config=None):
 def fused_bottleneck_eval(x, w1, b1, w2, b2, w3, b3):
     """The block on NHWC ``x`` with packed weights (see the module
     docstring). CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/fused_bottleneck.cu`` or raise."""
+    ``csrc/fused_bottleneck.cu`` or raise. It calls the registered op
+    ``paddle_tpu_torch::fused_bottleneck``, so an exported program
+    records the kernel and a loaded one launches it."""
     _build.refuse_grad("fused_bottleneck", x, w1, b1, w2, b2, w3, b3)
-    if x.device.type == "cpu":
-        return fused_bottleneck_reference(x, w1, b1, w2, b2, w3, b3)
-    dev = _build.require_cuda("fused_bottleneck", x, w1, b1, w2, b2, w3, b3)
+    if x.device.type != "cpu":
+        _check_block(x, w1, b1, w2, b2, w3, b3)
+    return torch.ops.paddle_tpu_torch.fused_bottleneck(x, w1, b1, w2, b2, w3,
+                                                        b3)
+
+
+def _check_block(x, w1, b1, w2, b2, w3, b3):
+    """The checks a traced tensor can answer: devices, shapes and dtypes
+    (the alignment, the padding and the card's SMs are read where the
+    kernel launches)."""
+    for t in (x, w1, b1, w2, b2, w3, b3):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"fused_bottleneck: all operands must be CUDA "
+                             f"tensors on one device, got one on {t.device}")
     if x.dim() != 4:
         raise ValueError(f"fused_bottleneck: x must be [N, H, W, C], got "
                          f"{tuple(x.shape)}")
@@ -352,6 +368,16 @@ def fused_bottleneck_eval(x, w1, b1, w2, b2, w3, b3):
     for name in ("b1", "b2", "b3"):
         if got[name].dtype != torch.float32:
             raise TypeError(f"fused_bottleneck: {name} must be float32")
+
+
+def _fused_bottleneck_fake(x, w1, b1, w2, b2, w3, b3):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3):
+    dev = _build.require_cuda("fused_bottleneck", x, w1, b1, w2, b2, w3, b3)
+    n, h, w, c = x.shape
+    m = w1.shape[1]
     code = _build.dtype_code(x, "fused_bottleneck x")
     if x.numel() == 0:
         return torch.empty_like(x)
@@ -373,6 +399,13 @@ def fused_bottleneck_eval(x, w1, b1, w2, b2, w3, b3):
                  f"tile {cfg.tr}x{cfg.tc})")
     fused_bottleneck_eval.launches += 1
     return out if kc == c else out[..., :c].contiguous()
+
+
+_build.register_op(
+    "fused_bottleneck(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
+    "Tensor w3, Tensor b3) -> Tensor",
+    fused_bottleneck_reference, _fused_bottleneck_cuda,
+    _fused_bottleneck_fake)
 
 
 def fused_bottleneck_occupancy(smem: int, dtype) -> int:

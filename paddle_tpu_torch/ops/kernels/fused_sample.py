@@ -113,6 +113,7 @@ def fused_argmax(hidden, weight, bias=None, transpose_y: bool = True):
     vdim = _vocab_dim(transpose_y)
     if hidden.device.type == "cpu":
         return fused_argmax_reference(hidden, weight, vdim, bias=bias)
+    _build.refuse_trace("fused_argmax", hidden, weight, bias)
     dev = _build.require_cuda("fused_argmax", hidden, weight, bias)
     b, d = hidden.shape
     vocab = weight.shape[vdim]

@@ -126,6 +126,7 @@ def adam_update(params: List[torch.Tensor], grads: List[torch.Tensor],
                               beta1=beta1, beta2=beta2, eps=eps, step=step,
                               weight_decay=weight_decay, decay=decay)
         return
+    _build.refuse_trace("adam_update", *params, *grads)
     _check(params, grads, exp_avgs, exp_avg_sqs)
     rows = [(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
              p.numel()) for p, g, m, v in

@@ -258,6 +258,7 @@ def paged_decode(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
             q.reshape(b, 1, h, d), k_pages, v_pages, page_table, seq_lens,
             k_scale=k_scale, v_scale=v_scale,
             scale=scale).reshape(b, h, d)
+    _build.refuse_trace("paged_decode", q, k_pages, v_pages)
     quant = k_pages.dtype == torch.int8
     if quant != (k_scale is not None) or (k_scale is None) != (v_scale is
                                                                 None):
@@ -368,6 +369,7 @@ def decode_out_proj(ctx, w, bias=None):
     _build.refuse_grad("decode_out_proj", ctx, w, bias)
     if ctx.device.type == "cpu":
         return decode_out_proj_reference(ctx, w, bias)
+    _build.refuse_trace("decode_out_proj", ctx, w, bias)
     dev = _build.require_cuda("decode_out_proj", ctx, w, bias)
     b, k = ctx.shape
     k_w, n = w.shape

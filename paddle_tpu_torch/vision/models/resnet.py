@@ -130,7 +130,14 @@ class BottleneckBlock(nn.Module):
 
     def _fused_eval(self, x):
         """Fold and pack once per weight version, then one kernel launch
-        (``resnet.py:93-116``)."""
+        (``resnet.py:93-116``). While ``torch.export`` (or
+        ``torch.compile``) traces, the pack is computed inside the graph
+        from the traced weights and never stored on the module, as the
+        JAX package keys its pack on tracers under ``jit``
+        (``resnet.py:106-110``): a traced tensor has no ``data_ptr``."""
+        if torch.compiler.is_exporting() or torch.compiler.is_compiling():
+            return FC.fused_bottleneck_eval(x.contiguous(),
+                                            *FC.pack_bottleneck(self))
         key = self._pack_key()
         if self._fused_pack is None or self._fused_pack[0] != key:
             self._fused_pack = (key, FC.pack_bottleneck(self))

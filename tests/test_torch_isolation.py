@@ -109,6 +109,9 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "import paddle_tpu_torch.serving.autoscaler\n"
         "import paddle_tpu_torch.tools.flight_inspect\n"
         "import paddle_tpu_torch.tools.chaos_serving\n"
+        "import paddle_tpu_torch.static, paddle_tpu_torch.framework\n"
+        "import paddle_tpu_torch.inference.capi_bridge\n"
+        "import paddle_tpu_torch.jit.dy2static\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
