@@ -161,7 +161,7 @@ failure exits non-zero at once:
    mid-spawn and mid-scale-down, restarted on its journal; 6 keyed
    requests of 2-3 pages) and (c) ``run_roll_chaos`` (the supervisor
    SIGKILLed mid-roll, a corrupt checkpoint refused, a replica SIGKILLed
-   mid-roll): each report ok, 2 recoveries in (b), no stranded process,
+   mid-roll), both at 4 of the model's 24 layers: each report ok, 2 recoveries in (b), no stranded process,
    no generation failure; the supervisor's restart-to-serving seconds
    and each journaled action's wall seconds; no supervisor process ever
    holds the card's device files open (``nvidia-smi`` here names every
@@ -293,6 +293,34 @@ failure exits non-zero at once:
    causal mask; ms a step and tokens/s. Its attention is plain math at
    these lengths, as in the JAX package.
 
+8e. quant — quantization, under the git-ignored ``build/quant/``
+   (removed after): (a) ``int8_linear`` at BERT-base's encoder shapes
+   (M=1024: 768x768, 768x3072, 3072x768) and ResNet-50's fc (128 x 2048
+   x 1000), ``int8_conv2d`` at every distinct ResNet-50 convolution at
+   N=128 224x224 NCHW and a MobileNet v2 depthwise layer: each bitwise
+   against its plain version (float64 products), timed (median of 20,
+   L2 flushed) beside the plain version, the bound (bytes at 3.35 TB/s
+   or int8 products at 1979 TOPS), ``torch._int_mm`` on pre-quantized
+   activations and cuDNN's fp32 convolution; past 65535 row tiles (the
+   stem at N=336, a linear of 2^22 + 1 rows) each once, bitwise, untimed;
+   (b) LeNet on the JAX int8
+   test's task (10 templates + noise) trained through ``hapi.Model``
+   (Adam 1e-3, 60 steps), evaluated, ``PTQ.calibrate`` over 8 batches,
+   ``convert_to_int8``, evaluated again (fp32 accuracy > 0.9, the drop
+   to int8 <= 0.01, argmax agreement >= 0.98), then saved and served by
+   ``inference.Predictor`` with ``enable_low_precision("int8")``: 2
+   ``int8_conv2d`` + 3 ``int8_linear`` launches a run, within 1e-4 of
+   the eager int8 logits; (c) ResNet-50 NCHW at N=128 (seed-0 weights,
+   seeded BN statistics): PTQ over 4 batches, 53 ``int8_conv2d`` + 1
+   ``int8_linear`` launches a forward, logits bitwise the plain int8
+   path at N=16 and within ``QUANT_RESNET_GAP`` of fp32 (relative in
+   L2), ms a forward beside fp32; QAT (``ImperativeQuantAware``) through
+   ``hapi.Model.fit`` for 4 steps, ms a step; (d) BERT-base
+   classification at B=8 S=128: PTQ, int8, one ``int8_linear`` launch a
+   ``Linear``, logits bitwise the plain int8 path, the gap to fp32; (e)
+   2:4 masks on BERT-base's encoder linears (``sparsity.prune_model``)
+   kept through 2 ``hapi`` steps under ``sparsity.decorate``.
+
 Then, if no check failed, the script's wall time, a ``kernels`` line,
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -400,6 +428,12 @@ KERNEL_META = {
     # rule that XLA fuses into the jitted step
     "adam_update": ("paddle_tpu_torch/csrc/adam_update.cu",
                     "paddle_tpu/optimizer/optimizer.py:420"),
+    # the port's own kernels: no TPU kernel; they replace the JAX int8
+    # layers' XLA dot_general / conv_general_dilated with int32 sums
+    "int8_linear": ("paddle_tpu_torch/csrc/int8_gemm.cu",
+                    "paddle_tpu/quantization/quant.py:250"),
+    "int8_conv2d": ("paddle_tpu_torch/csrc/int8_gemm.cu",
+                    "paddle_tpu/quantization/quant.py:292"),
 }
 # the fp16 instantiations (train_amp's fp16 paths), each a record of its
 # own beside the kernel's: "<kernel>_fp16"
@@ -4791,8 +4825,15 @@ FA_CHAOS_REQUESTS = 6
 FA_CHAOS_LENGTHS = (130, 191)       # rng.integers(lo, hi): 2-3 pages
 FA_CHAOS_MAX_SEQ = 256
 FA_CHAOS_PAGE = 64
+# the chaos runs' depth cut: GPT-1.3B's widths at 4 of its 24 layers.
+# The journal's recovery does not depend on depth; at 24 layers the two
+# runs took 220 s of the script's 1200 s limit on one H100.
+FA_CHAOS_LAYERS = 4
 FA_DEVICE = "cuda"                  # the chaos replicas' --device
 FA_APPS_EVERY_S = 1.0
+# a failed autoscale chaos run copies its logs and journal here (git-
+# ignored, beside the phase's directory, which the next run empties)
+FA_CHAOS_KEEP = os.path.join(HERE, "build", "fleet-autoscale-chaos-kept")
 
 
 def _proc_cmdline(pid):
@@ -5113,10 +5154,12 @@ def phase_fleet_autoscale(torch, dev, model, card):
                         page_size=FA_CHAOS_PAGE,
                         max_seq_len=FA_CHAOS_MAX_SEQ, max_new_tokens=FA_NEW,
                         requests=FA_CHAOS_REQUESTS,
-                        prompt_len_range=FA_CHAOS_LENGTHS)
+                        prompt_len_range=FA_CHAOS_LENGTHS,
+                        num_layers=FA_CHAOS_LAYERS)
         t0 = time.monotonic()
         rep = chaos_serving.run_autoscale_chaos(
-            log_dir=os.path.join(root, "autoscale-chaos"), **chaos_kw)
+            log_dir=os.path.join(root, "autoscale-chaos"),
+            failure_dir=FA_CHAOS_KEEP, **chaos_kw)
         out["autoscale_chaos"] = dict(_chaos_summary(rep),
                                       phase_wall_s=time.monotonic() - t0)
         if not rep.ok or rep.recoveries != 2 or rep.stranded_processes \
@@ -8295,6 +8338,565 @@ def phase_seq2seq_beam(torch, dev):
 
 
 # each phase's wall seconds, by function name, emitted before "wall"
+# -- phase 8e ----------------------------------------------------------------
+
+# (a) the int8 kernels' shapes. int8_linear: BERT-base's encoder linears
+# at B=8, S=128 (M = 1024; q / k / v / out 768x768, the FFN 768x3072 and
+# 3072x768; the row weights them as one encoder layer runs them) and
+# ResNet-50's fc at N=128. int8_conv2d: every distinct convolution of
+# ResNet-50 at N=128, 224x224, NCHW (the row weights each by how often a
+# forward runs it), and MobileNet v2's first stride-2 depthwise layer
+# (96 channels at 112x112).
+QUANT_LINEAR = ((1024, 768, 768, 4), (1024, 768, 3072, 1),
+                (1024, 3072, 768, 1))          # (M, K, N, times a layer)
+QUANT_FC = (128, 2048, 1000)
+QUANT_N = 128
+QUANT_IMAGE = 224
+QUANT_DEPTHWISE = (96, 112, 3, 2, 1)           # (C, H = W, k, stride, pad)
+QUANT_PLAIN_ITERS = 5                          # the float64 plain version's
+# more than 65535 row tiles of 64 (a CUDA grid's y limit): ResNet-50's
+# stem at N=336 (rows N * 112 * 112) and a linear of 2^22 + 1 rows; each
+# checked bitwise once, untimed
+QUANT_TALL_STEM_N = 336
+QUANT_TALL_LINEAR = (2 ** 22 + 1, 32, 16)      # (M, K, N)
+# (b) LeNet on the JAX int8 test's task (tests/test_int8_execution.py:
+# 31-86): its bounds, and the predictor against the eager int8 logits
+QUANT_LENET_STEPS = 60
+QUANT_LENET_ACC = 0.9
+QUANT_LENET_DROP = 0.01
+QUANT_LENET_AGREE = 0.98
+QUANT_PRED_TOL = 1e-4
+# (c) ResNet-50 at config 1's shapes: PTQ over 4 batches, the bitwise
+# check at N=16, QAT through hapi.Model.fit for 4 steps. The int8
+# logits' gap to the fp32 forward, relative in L2: per-tensor 8-bit
+# activations and weights through 53 convolutions of random (seed-0)
+# weights; a bound that catches a broken layer, not a quality target
+# (an H100 measured 0.0140 for ResNet-50 and 0.0179 for BERT-base)
+QUANT_CALIB_BATCHES = 4
+QUANT_CHECK_N = 16
+QUANT_QAT_STEPS = 4
+QUANT_RESNET_GAP = 0.1
+QUANT_CONVS, QUANT_FCS = 53, 1
+# (d) BERT-base classification, B=8, S=128; the same gap bound
+QUANT_BERT_B, QUANT_BERT_S = 8, 128
+QUANT_BERT_GAP = 0.1
+# (e) 2:4 sparsity: hapi steps under sparsity.decorate
+QUANT_SPARSE_STEPS = 2
+QUANT_KERNELS = ("int8_linear", "int8_conv2d")
+
+
+@contextlib.contextmanager
+def int8_plain():
+    """The int8 layers on their plain versions for the duration (a
+    comparison on the card; the layers themselves never choose it): the
+    float64 products of ``ops/kernels/int8_matmul.py``."""
+    from paddle_tpu_torch.ops.kernels import int8_matmul as I
+    from paddle_tpu_torch.quantization import quant as Q
+    saved = Q.int8_linear, Q.int8_conv2d
+    Q.int8_linear = I.int8_linear_reference
+    Q.int8_conv2d = I.int8_conv2d_reference
+    try:
+        yield
+    finally:
+        Q.int8_linear, Q.int8_conv2d = saved
+
+
+def _rel_l2(got, want) -> float:
+    g, w = got.double(), want.double()
+    return float((g - w).norm() / w.norm())
+
+
+def _resnet_conv_shapes(torch, dev):
+    """Distinct (C, H, W, M, k, stride, pad, groups) of ResNet-50's
+    convolutions at QUANT_IMAGE and how often a forward runs each."""
+    from paddle_tpu_torch.nn.conv import Conv2D
+    from paddle_tpu_torch.vision.models import resnet50
+    model = resnet50(device=dev)
+    model.eval()
+    seen = {}
+
+    def hook(mod, inputs, out):
+        x = inputs[0]
+        pad = mod._padding if isinstance(mod._padding, int) else \
+            mod._padding[0]
+        key = (x.shape[1], x.shape[2], x.shape[3], mod.weight.shape[0],
+               mod.weight.shape[2], mod._stride if isinstance(
+                   mod._stride, int) else mod._stride[0], pad, mod._groups)
+        seen[key] = seen.get(key, 0) + 1
+
+    hs = [m.register_forward_hook(hook) for m in model.modules()
+          if isinstance(m, Conv2D)]
+    with torch.no_grad():
+        model(torch.zeros(1, 3, QUANT_IMAGE, QUANT_IMAGE, device=dev))
+    for h in hs:
+        h.remove()
+    del model
+    return seen
+
+
+def quant_kernel_rows(torch, dev, records, timer):
+    """(a): each shape bitwise against the plain version, the kernel's
+    ms (median of 20, L2 flushed), the plain version's (median of
+    QUANT_PLAIN_ITERS), the bound, torch._int_mm on pre-quantized
+    activations for the linear and cuDNN's fp32 convolution as the
+    conv's note."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.inference.costs import (bound_ms,
+                                                  int8_conv2d_cost,
+                                                  int8_linear_cost)
+    from paddle_tpu_torch.ops.kernels import int8_matmul as I
+    out = {}
+    lin_rows = []
+    for (m, k, n, times) in QUANT_LINEAR + (QUANT_FC + (0,),):
+        name = f"int8_linear M={m} K={k} N={n}"
+        gen = check_gen(torch, dev, name)
+        x = torch.randn(m, k, generator=gen, device=dev)
+        wq = torch.randint(-127, 128, (k, n), generator=gen,
+                           device=dev).to(torch.int8)
+        ws = torch.rand(n, generator=gen, device=dev) + 0.05
+        act = (x.abs().amax() * 0.9).reshape(())
+        bias = torch.randn(n, generator=gen, device=dev)
+        got = I.int8_linear(x, wq, ws, act, bias)
+        want = I.int8_linear_reference(x, wq, ws, act, bias)
+        torch.cuda.synchronize()
+        check_equal(name, got, want)
+        qx = I.quantize_activation(x, act)
+        nbytes, ops = int8_linear_cost(m, k, n)
+        bms, by = bound_ms(nbytes, ops, "int8")
+        lin_rows.append({
+            "M": m, "K": k, "N": n, "times_a_layer": times,
+            "bitwise": bool(torch.equal(got, want)),
+            "max_abs_err": max_err(got, want),
+            "ms": timer(lambda: I.int8_linear(x, wq, ws, act, bias)),
+            "plain_ms": timer(lambda: I.int8_linear_reference(
+                x, wq, ws, act, bias), iters=QUANT_PLAIN_ITERS),
+            "int_mm_ms": timer(lambda: torch._int_mm(qx, wq)),
+            "bound_ms": bms, "bound_by": by})
+        del x, wq, qx, got, want
+    layer = [r for r in lin_rows if r["times_a_layer"]]
+    records["int8_linear"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in lin_rows),
+        "ms": sum(r["ms"] * r["times_a_layer"] for r in layer),
+        "plain_ms": sum(r["plain_ms"] * r["times_a_layer"] for r in layer),
+        "bound_ms": sum(r["bound_ms"] * r["times_a_layer"] for r in layer),
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                    for r in layer) else "int8"),
+        "library_ms": sum(r["int_mm_ms"] * r["times_a_layer"]
+                          for r in layer),
+        "per_shape": lin_rows,
+        "note": "one BERT-base encoder layer's six linears at B=8 S=128; "
+                "library: torch._int_mm on pre-quantized activations"}
+    out["int8_linear"] = lin_rows
+
+    shapes = _resnet_conv_shapes(torch, dev)
+    if sum(shapes.values()) != QUANT_CONVS:
+        raise AssertionError(f"quant: ResNet-50 ran {sum(shapes.values())} "
+                             f"convolutions, want {QUANT_CONVS}")
+    c, h, k, s, p = QUANT_DEPTHWISE
+    conv_cases = [(key, times) for key, times in sorted(shapes.items())]
+    conv_cases.append(((c, h, h, c, k, s, p, c), 0))
+    conv_rows = []
+    for (cin, hh, ww, m, kk, st, pd, g), times in conv_cases:
+        name = (f"int8_conv2d C={cin} {hh}x{ww} M={m} k={kk} s={st} "
+                f"g={g}")
+        gen = check_gen(torch, dev, name)
+        x = torch.randn(QUANT_N, cin, hh, ww, generator=gen, device=dev)
+        wq = torch.randint(-127, 128, (m, cin // g, kk, kk), generator=gen,
+                           device=dev).to(torch.int8)
+        ws = (torch.rand((), generator=gen, device=dev) + 0.05)
+        act = (x.abs().amax() * 0.9).reshape(())
+        bias = torch.randn(m, generator=gen, device=dev)
+        args = (x, wq, ws, act, bias, (st, st), (pd, pd, pd, pd), (1, 1),
+                g)
+        got = I.int8_conv2d(*args)
+        want = I.int8_conv2d_reference(*args)
+        torch.cuda.synchronize()
+        check_equal(name, got, want)
+        oh, ow = got.shape[2], got.shape[3]
+        nbytes, ops = int8_conv2d_cost(QUANT_N, cin, hh, ww, m, kk, oh, ow,
+                                       g)
+        bms, by = bound_ms(nbytes, ops, "int8")
+        wf = wq.float()
+        conv_rows.append({
+            "C": cin, "H": hh, "W": ww, "M": m, "k": kk, "stride": st,
+            "pad": pd, "groups": g, "times_a_forward": times,
+            "bitwise": bool(torch.equal(got, want)),
+            "max_abs_err": max_err(got, want),
+            "ms": timer(lambda: I.int8_conv2d(*args)),
+            "plain_ms": timer(lambda: I.int8_conv2d_reference(*args),
+                              iters=QUANT_PLAIN_ITERS),
+            "cudnn_fp32_ms": timer(lambda: F.conv2d(
+                x, wf, bias, st, pd, 1, g), iters=QUANT_PLAIN_ITERS),
+            "bound_ms": bms, "bound_by": by})
+        del x, wq, wf, got, want, args
+        torch.cuda.empty_cache()
+    fwd = [r for r in conv_rows if r["times_a_forward"]]
+    records["int8_conv2d"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
+        "ms": sum(r["ms"] * r["times_a_forward"] for r in fwd),
+        "plain_ms": sum(r["plain_ms"] * r["times_a_forward"] for r in fwd),
+        "bound_ms": sum(r["bound_ms"] * r["times_a_forward"] for r in fwd),
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in fwd)
+                     else "int8"),
+        "library_ms": None,
+        "per_shape": conv_rows,
+        "note": "ResNet-50's 53 convolutions at N=128 224x224 NCHW; no "
+                "PyTorch call computes an int8 convolution on CUDA; "
+                "cuDNN fp32 (TF32 off) on the same shapes: %.3f ms" % sum(
+                    r["cudnn_fp32_ms"] * r["times_a_forward"] for r in fwd)}
+    out["int8_conv2d"] = conv_rows
+    out["tall_grids"] = quant_tall_checks(torch, dev)
+    return out
+
+
+def quant_tall_checks(torch, dev):
+    """The kernels past 65535 row tiles, bitwise against the plain
+    versions (QUANT_TALL_*)."""
+    from paddle_tpu_torch.ops.kernels import int8_matmul as I
+    m, k, n = QUANT_TALL_LINEAR
+    b = QUANT_TALL_STEM_N
+    # (name, kernel, plain, x, wq, w_scale and bias shapes, conv args)
+    cases = ((f"int8_linear tall M={m} K={k} N={n}", I.int8_linear,
+              I.int8_linear_reference, (m, k), (k, n), (n,), (n,), ()),
+             (f"int8_conv2d tall stem N={b}", I.int8_conv2d,
+              I.int8_conv2d_reference, (b, 3, QUANT_IMAGE, QUANT_IMAGE),
+              (64, 3, 7, 7), (), (64,), ((2, 2), (3, 3, 3, 3), (1, 1), 1)))
+    rows = []
+    for name, fn, ref, xs, wshape, sshape, bshape, extra in cases:
+        gen = check_gen(torch, dev, name)
+        x = torch.randn(xs, generator=gen, device=dev)
+        wq = torch.randint(-127, 128, wshape, generator=gen,
+                           device=dev).to(torch.int8)
+        ws = torch.rand(sshape, generator=gen, device=dev) + 0.05
+        act = (x.abs().amax() * 0.9).reshape(())
+        bias = torch.randn(bshape, generator=gen, device=dev)
+        got = fn(x, wq, ws, act, bias, *extra)
+        want = ref(x, wq, ws, act, bias, *extra)
+        torch.cuda.synchronize()
+        check_equal(name, got, want)
+        rows.append({"name": name, "shape": list(got.shape),
+                     "bitwise": bool(torch.equal(got, want))})
+        del x, wq, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _lenet_task(np):
+    """tests/test_int8_execution.py:31-38: 10 templates + noise."""
+    rng = np.random.default_rng(0)
+    templates = rng.normal(size=(10, 1, 28, 28)).astype("float32")
+    y = rng.integers(0, 10, size=512).astype("int64")
+    x = (templates[y]
+         + 0.3 * rng.normal(size=(512, 1, 28, 28))).astype("float32")
+    return x, y
+
+
+def quant_lenet(torch, dev, root):
+    """(b): LeNet trained through hapi.Model, PTQ, int8, and the int8
+    program in the predictor."""
+    import numpy as np
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn.loss import CrossEntropyLoss
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.quantization.quant import PTQ, convert_to_int8
+    from paddle_tpu_torch.static import InputSpec, save_inference_model
+    from paddle_tpu_torch.vision.models import LeNet
+    phase = "quant lenet"
+    x, y = _lenet_task(np)
+    net = LeNet(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    model = Model(net)
+    model.prepare(optim.Adam(learning_rate=1e-3), CrossEntropyLoss(),
+                  Accuracy())
+    t0 = time.monotonic()
+    model.fit([(x[:256], y[:256])], epochs=QUANT_LENET_STEPS, verbose=0)
+    train_s = time.monotonic() - t0
+    held = [(x[256 + 64 * i:320 + 64 * i], y[256 + 64 * i:320 + 64 * i])
+            for i in range(4)]
+    acc32 = float(model.evaluate(held, verbose=0)["acc"])
+    logits32 = model.predict(held, stack_outputs=True)[0]
+    ptq = PTQ()
+    ptq.calibrate(net, [(x[i * 32:(i + 1) * 32],) for i in range(8)],
+                  num_batches=8)
+    convert_to_int8(net, ptq)
+    kinds = [type(mod).__name__ for mod in net.modules()]
+    reset_launch_counts()
+    acc8 = float(model.evaluate(held, verbose=0)["acc"])
+    counts = launch_counts()
+    logits8 = model.predict(held, stack_outputs=True)[0]
+    agree = float((logits8.argmax(1) == logits32.argmax(1)).mean())
+    if not (acc32 > QUANT_LENET_ACC and acc32 - acc8 <= QUANT_LENET_DROP
+            and agree >= QUANT_LENET_AGREE):
+        FAILED_CHECKS.append(f"{phase}: fp32 acc {acc32}, int8 {acc8}, "
+                             f"agreement {agree}")
+    _launch_gate(phase, "evaluate", counts,
+                 {"int8_conv2d": 8, "int8_linear": 12})
+    prefix = os.path.join(root, "lenet_int8")
+    save_inference_model(prefix, [InputSpec([32, 1, 28, 28], "float32",
+                                            "x")], layer=net)
+    cfg = Config(prefix)
+    cfg.enable_low_precision("int8")
+    pred = create_predictor(cfg)
+    (got,), counts = _export_run(torch, pred, [x[256:288]])
+    _launch_gate(phase, "predictor", counts,
+                 {"int8_conv2d": 2, "int8_linear": 3})
+    with torch.no_grad():
+        want = net(torch.as_tensor(x[256:288], device=dev))
+    err = _export_check(phase, "predictor", got, want, QUANT_PRED_TOL)
+    return {"fp32_acc": acc32, "int8_acc": acc8, "argmax_agreement": agree,
+            "bounds": {"fp32_acc_over": QUANT_LENET_ACC,
+                       "drop_at_most": QUANT_LENET_DROP,
+                       "agreement_at_least": QUANT_LENET_AGREE},
+            "int8_layers": {k: kinds.count(k) for k in ("Int8Conv2D",
+                                                        "Int8Linear")},
+            "train_steps": QUANT_LENET_STEPS, "train_s": train_s,
+            "predictor_rel_vs_eager": err,
+            "predictor_bitwise": bool(torch.equal(got, want)),
+            "predictor_launches": {k: v for k, v in counts.items() if v},
+            "graph_ops": {k: sum(k in str(n.target) for n in
+                                 pred._program.exported.graph.nodes)
+                          for k in QUANT_KERNELS}}
+
+
+def _timed_forward(torch, model, x, runs=3):
+    """Median ms of ``runs`` eval forwards (CUDA events)."""
+    times = []
+    with torch.inference_mode():
+        model(x)
+        for _ in range(runs):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            model(x)
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def quant_resnet(torch, dev, launches):
+    """(c): ResNet-50 PTQ -> int8 at N=128; QAT through hapi."""
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.hapi import Callback, Model
+    from paddle_tpu_torch.nn.norm import BatchNorm2D
+    from paddle_tpu_torch.ops import nn_functional as NF
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.quantization.quant import (ImperativeQuantAware,
+                                                     PTQ, convert_to_int8)
+    from paddle_tpu_torch.vision.models import resnet50
+    phase = "quant resnet"
+    out = {}
+    model = resnet50(device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm2D):
+                mod._mean.normal_(0.0, 0.3, generator=gen)
+                mod._variance.uniform_(0.5, 2.0, generator=gen)
+    model.eval()
+    shape = (QUANT_N, 3, QUANT_IMAGE, QUANT_IMAGE)
+    x = torch.randn(shape, generator=gen, device=dev)
+    with torch.inference_mode():
+        ref32 = model(x)
+    out["fp32_ms"] = _timed_forward(torch, model, x)
+    ptq = PTQ()
+    t0 = time.monotonic()
+    ptq.calibrate(model, [(torch.randn(shape, generator=gen, device=dev),)
+                          for _ in range(QUANT_CALIB_BATCHES)],
+                  num_batches=QUANT_CALIB_BATCHES)
+    out["calibrate_s"] = time.monotonic() - t0
+    convert_to_int8(model, ptq)
+    reset_launch_counts()
+    with torch.inference_mode():
+        logits = model(x)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    _launch_gate(phase, "forward", counts,
+                 {"int8_conv2d": QUANT_CONVS, "int8_linear": QUANT_FCS})
+    launches["int8_conv2d"] = counts["int8_conv2d"]
+    if tuple(logits.shape) != (QUANT_N, 1000) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"{phase}: logits {tuple(logits.shape)} or "
+                             f"non-finite")
+    gap = _rel_l2(logits, ref32)
+    note_share(f"{phase} gap to fp32", gap / QUANT_RESNET_GAP)
+    if not gap <= QUANT_RESNET_GAP:
+        FAILED_CHECKS.append(f"{phase}: int8 logits {gap:.3g} relative "
+                             f"in L2 off fp32 (bound {QUANT_RESNET_GAP})")
+    out.update({"launches_a_forward": {k: v for k, v in counts.items()
+                                       if v},
+                "rel_l2_gap_to_fp32": gap, "gap_bound": QUANT_RESNET_GAP,
+                "int8_ms": _timed_forward(torch, model, x),
+                "pr20_fp32_kernel_path_ms": 49.02})
+    xs = x[:QUANT_CHECK_N].contiguous()
+    with torch.inference_mode():
+        got = model(xs)
+        with int8_plain():
+            want = model(xs)
+    torch.cuda.synchronize()
+    check_equal(f"{phase} N={QUANT_CHECK_N} against the plain int8 path",
+                got, want)
+    out["plain_bitwise_n16"] = bool(torch.equal(got, want))
+    def forward():
+        with torch.inference_mode():
+            model(x)
+
+    out["profile_int8"] = {k: v for k, v in profile_once(
+        torch, forward, (("int8", ("int8",)),) + RESNET_KERNEL_GROUPS,
+        host_ops=False).items()
+        if k in ("wall_ms", "device_kernel_ms", "idle_share",
+                 "by_group_ms")}
+    del model, logits, ref32, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # QAT: fake-quant layers (plain PyTorch, as in JAX) under hapi.fit
+    model = resnet50(device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    ImperativeQuantAware().quantize(model)
+    hm = Model(model)
+    hm.prepare(optim.Momentum(learning_rate=RT_LR, momentum=RT_MOMENTUM),
+               lambda logits, y: NF.cross_entropy(logits.float(), y).mean())
+    y = torch.randint(0, RT_CLASSES, (QUANT_N,), generator=gen, device=dev)
+    times, losses = [], []
+
+    class _Clock(Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            torch.cuda.synchronize()
+            self.t = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - self.t) * 1e3)
+            losses.append(float(logs["loss"]))
+
+    hm.fit([(x, y)] * QUANT_QAT_STEPS, epochs=1, verbose=0,
+           callbacks=[_Clock()])
+    scales = [float(m.act_quant.scale) for m in model.modules()
+              if hasattr(m, "act_quant")]
+    if not all(math.isfinite(v) for v in losses + scales):
+        raise AssertionError(f"{phase} qat: losses {losses}")
+    out["qat"] = {"steps": QUANT_QAT_STEPS, "losses": losses,
+                  "ms_a_step": times, "steady_ms": sorted(times[1:])[
+                      len(times[1:]) // 2],
+                  "config1_bf16_ms_pr20": 155.9,
+                  "fake_quant_layers": len(scales),
+                  "act_scale_range": [min(scales), max(scales)]}
+    del model, hm, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_bert(torch, dev, launches):
+    """(d) BERT-base classification PTQ -> int8; (e) 2:4 sparsity."""
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch import sparsity
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.nn.loss import CrossEntropyLoss
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.quantization.quant import (Int8Linear, PTQ,
+                                                     convert_to_int8)
+    phase = "quant bert"
+    out = {}
+    model, cfg = _bert_model(torch, dev, "BertForSequenceClassification")
+    model.eval()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, S = QUANT_BERT_B, QUANT_BERT_S
+
+    def ids():
+        return torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device=dev)
+
+    x = ids()
+    with torch.inference_mode():
+        ref32 = model(x)
+    ptq = PTQ()
+    ptq.calibrate(model, [(ids(),) for _ in range(2)], num_batches=2)
+    convert_to_int8(model, ptq)
+    n_int8 = sum(isinstance(m, Int8Linear) for m in model.modules())
+    reset_launch_counts()
+    with torch.inference_mode():
+        logits = model(x)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    _launch_gate(phase, "forward", counts, {"int8_linear": n_int8})
+    launches["int8_linear"] = counts["int8_linear"]
+    with torch.inference_mode(), int8_plain():
+        want = model(x)
+    torch.cuda.synchronize()
+    check_equal(f"{phase} against the plain int8 path", logits, want)
+    gap = _rel_l2(logits, ref32)
+    note_share(f"{phase} gap to fp32", gap / QUANT_BERT_GAP)
+    if not gap <= QUANT_BERT_GAP:
+        FAILED_CHECKS.append(f"{phase}: int8 logits {gap:.3g} relative "
+                             f"in L2 off fp32 (bound {QUANT_BERT_GAP})")
+    out.update({"int8_linears": n_int8, "launches_a_forward": {
+        k: v for k, v in counts.items() if v}, "plain_bitwise": bool(
+            torch.equal(logits, want)), "rel_l2_gap_to_fp32": gap,
+        "gap_bound": QUANT_BERT_GAP,
+        "int8_ms": _timed_forward(torch, model, x)})
+    del model, logits, want, ref32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) 2:4 masks on the encoder's linears, then hapi steps
+    model, cfg = _bert_model(torch, dev, "BertForSequenceClassification")
+    t0 = time.monotonic()
+    masks = sparsity.prune_model(model.bert.encoder)
+    prune_s = time.monotonic() - t0
+    hm = Model(model)
+    hm.prepare(sparsity.decorate(optim.AdamW(learning_rate=1e-4)),
+               CrossEntropyLoss())
+    labels = torch.randint(0, 2, (B,), generator=gen, device=dev)
+    hm.fit([(ids(), labels) for _ in range(QUANT_SPARSE_STEPS)], epochs=1,
+           verbose=0)
+    weights = dict(model.bert.encoder.named_parameters())
+    held = sum(sparsity.check_sparsity(weights[n]) for n in masks)
+    if held != len(masks) or not masks:
+        FAILED_CHECKS.append(f"quant sparsity: 2:4 holds on {held} of "
+                             f"{len(masks)} pruned weights after "
+                             f"{QUANT_SPARSE_STEPS} steps")
+    out["sparsity"] = {"pruned_weights": len(masks), "held_after_steps":
+                       held, "steps": QUANT_SPARSE_STEPS,
+                       "prune_s": prune_s}
+    sparsity.reset_masks()
+    del model, hm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_quant(torch, dev, records, launches, card):
+    """Quantization (see the module docstring, 8e)."""
+    import shutil
+    t0 = time.monotonic()
+    root = os.path.join(HERE, "build", "quant")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    timer = Timer(torch, dev)
+    out = {"phase": "quant", "card": card}
+    try:
+        out["kernels"] = quant_kernel_rows(torch, dev, records, timer)
+        out["lenet"] = quant_lenet(torch, dev, root)
+        out["resnet50"] = quant_resnet(torch, dev, launches)
+        out["bert"] = quant_bert(torch, dev, launches)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        del timer
+        torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t0
+    emit(out)
+
+
 PHASE_WALLS = {}
 
 
@@ -8371,6 +8973,9 @@ def main() -> int:
     _walled(phase_bert_classify, torch, dev)
     _walled(phase_export, torch, dev, smi_line)
     _walled(phase_seq2seq_beam, torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _walled(phase_quant, torch, dev, records, launches, smi_line)
     emit({"phase": "check_margins", "tightest": tightest_checks()})
     if FAILED_CHECKS:
         emit({"phase": "checks", "ok": False, "failed": FAILED_CHECKS})
@@ -8395,7 +9000,7 @@ def main() -> int:
             "bound_by": ("bytes" if r["bound_by"] == "bytes"
                          else "operations"),
             "bound_route": r["bound_by"], "library_ms": r["library_ms"]})
-        for key in ("verify_shape", "per_shape"):
+        for key in ("verify_shape", "per_shape", "note"):
             if key in r:
                 kernels[-1][key] = r[key]
     emit({"kernels": kernels})

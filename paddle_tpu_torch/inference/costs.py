@@ -30,8 +30,9 @@ from __future__ import annotations
 from typing import Dict, Iterable
 
 __all__ = ["HBM_BYTES_PER_S", "TF32_FLOPS", "BF16_FLOPS", "FP16_FLOPS",
-           "PRODUCT_ROUTES", "PAGED_POOLS", "bound_ms",
-           "attention_fwd_cost", "paged_bytes", "out_proj_cost",
+           "INT8_OPS", "PRODUCT_ROUTES", "PAGED_POOLS", "bound_ms",
+           "attention_fwd_cost", "int8_linear_cost", "int8_conv2d_cost",
+           "paged_bytes", "out_proj_cost",
            "kv_position_bytes", "step_cost", "decode_cost",
            "prefill_cost", "restore_cost"]
 
@@ -39,12 +40,14 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 TF32_FLOPS = 495e12         # dense TF32 on the tensor cores
 BF16_FLOPS = 989e12         # dense bf16 on the tensor cores
 FP16_FLOPS = 989e12         # dense fp16 on the tensor cores
+INT8_OPS = 1979e12          # dense int8 on the tensor cores
 # route of a function's products -> (flops each costs, peak, bound_by):
 # an fp32 product to fp32 accuracy on the tensor cores is three TF32
 # products (3xTF32: hi*hi + hi*lo + lo*hi)
 PRODUCT_ROUTES = {"fp32": (3.0, TF32_FLOPS, "3xtf32"),
                   "bf16": (1.0, BF16_FLOPS, "bf16"),
-                  "fp16": (1.0, FP16_FLOPS, "fp16")}
+                  "fp16": (1.0, FP16_FLOPS, "fp16"),
+                  "int8": (1.0, INT8_OPS, "int8")}
 
 # bytes of one pool value and of the query / context element, by pool
 PAGED_POOLS = {"fp32": (4, 4), "bf16": (2, 2), "int8": (1, 4)}
@@ -67,6 +70,23 @@ def attention_fwd_cost(B, S, H, D, causal, itemsize=4):
     pairs = S * (S + 1) // 2 if causal else S * S
     return (4 * B * S * H * D * itemsize + B * S * H * 4,
             4 * B * H * D * pairs)
+
+
+def int8_linear_cost(M, K, N, x_size=4):
+    """(bytes, ops) of one ``int8_linear``: x [M, K] read and the fp32
+    out [M, N] written once, the int8 weight, its [N] scale and the bias
+    read once; 2 ops per multiply-add."""
+    return (M * K * x_size + K * N + 8 * N + M * N * 4, 2 * M * K * N)
+
+
+def int8_conv2d_cost(B, C, H, W, M, k, OH, OW, groups, x_size=4):
+    """(bytes, ops) of one ``int8_conv2d``: x read and the fp32 out
+    written once, the int8 weight and the bias read once; 2 ops per
+    multiply-add of the implicit GEMM (rows B*OH*OW, depth C/groups*k*k,
+    M columns)."""
+    depth = C // groups * k * k
+    return (B * C * H * W * x_size + M * depth + 4 * M
+            + B * M * OH * OW * 4, 2 * B * OH * OW * M * depth)
 
 
 def paged_bytes(tokens, B, H, D, max_pages, pool):

@@ -18,6 +18,7 @@ from .attention import (attention_bwd_dkv, attention_bwd_dq,
                         folded_attention_bwd)
 from .fused_conv_block import fused_bottleneck_eval
 from .fused_sample import fused_argmax
+from .int8_matmul import int8_conv2d, int8_linear
 from .optimizer_update import adam_update
 from .paged_attention import decode_out_proj, paged_decode
 
@@ -32,6 +33,8 @@ KERNELS = {
     "folded_attention_bwd": folded_attention_bwd,
     "fused_bottleneck": fused_bottleneck_eval,
     "adam_update": adam_update,
+    "int8_linear": int8_linear,
+    "int8_conv2d": int8_conv2d,
 }
 
 

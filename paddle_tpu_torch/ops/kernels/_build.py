@@ -90,6 +90,15 @@ SIGNATURES: Dict[str, List] = {
     "pt_adam_update": [_P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                        _F, _I, _P],
     "pt_adam_update_max_tensors": [],
+    # x, qx workspace, wq, w_scale, act_scale, bias, out, M, K, N,
+    # x dtype, has_bias, stream
+    "pt_int8_linear": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, qx workspace, wq, w_scale, act_scale, bias, out, B, C, H, W, M,
+    # kh, kw, OH, OW, strides, top / left pads, dilations, groups,
+    # x dtype, has_bias, stream
+    "pt_int8_conv2d": [_P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -281,7 +290,8 @@ def refuse_grad(name: str, *tensors) -> None:
 _OPS = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
 
 
-def register_op(schema: str, cpu, cuda, fake) -> None:
+def register_op(schema: str, cpu, cuda, fake, backward=None,
+                setup_context=None) -> None:
     """Define the op ``paddle_tpu_torch::<schema>`` with the plain
     version as its CPU kernel, the launch as its CUDA kernel and a fake
     implementation for tracing (``torch.export``, ``FakeTensorMode``),
@@ -289,13 +299,18 @@ def register_op(schema: str, cpu, cuda, fake) -> None:
     custom_op`` wraps each kernel in ``torch._disable_dynamo``, whose
     first call imports ``torch._dynamo``: 2.3 s on an 8-core x86 CPU at
     the first launch of every process, a serving replica's first
-    prefill among them.)"""
+    prefill among them.) ``backward`` / ``setup_context``, where given,
+    are its autograd formula (``torch.library.register_autograd``)."""
     name = schema.split("(", 1)[0]
     _OPS.define(schema)
     _OPS.impl(name, cpu, "CPU")
     _OPS.impl(name, cuda, "CUDA")
     torch.library.register_fake(f"paddle_tpu_torch::{name}", fake,
                                 lib=_OPS)
+    if backward is not None:
+        torch.library.register_autograd(
+            f"paddle_tpu_torch::{name}", backward,
+            setup_context=setup_context, lib=_OPS)
 
 
 def refuse_trace(name: str, *tensors) -> None:
@@ -311,7 +326,8 @@ def refuse_trace(name: str, *tensors) -> None:
         raise RuntimeError(
             f"{name} cannot be exported or compiled: it is a ctypes kernel "
             f"with no registered op; export programs that reach only "
-            f"attention_fwd and fused_bottleneck")
+            f"attention_fwd, fused_bottleneck, int8_linear and "
+            f"int8_conv2d")
 
 
 def ptr(t: Optional[torch.Tensor]):

@@ -635,6 +635,9 @@ class Autoscaler:
         self.recovery: Optional[Dict] = None
         self._last_up_t: Optional[float] = None
         self._last_down_t: Optional[float] = None
+        # when the last spawn joined the fleet (committed, or adopted by
+        # recovery): a drain waits its cooldown after it too
+        self._last_join_t: Optional[float] = None
         self._handoff_fail_seen = 0
         self._action_lock = threading.Lock()
         self._state_lock = threading.Lock()
@@ -728,6 +731,8 @@ class Autoscaler:
         for seq, verdict, why in plan["resolve"]:
             if verdict == "commit":
                 self.journal.commit(seq, resumed=why)
+                if why == "adopted_on_recovery":
+                    self._last_join_t = time.monotonic()
             else:
                 self.journal.rollback(seq, reason=why)
             report["resolved"].append({"seq": seq, "phase": verdict,
@@ -890,13 +895,20 @@ class Autoscaler:
         return self._record(action, f"refused_{why}", ok=False)
 
     def _cooldown_left(self, direction: str, now: float) -> float:
+        """Seconds until an action of ``direction`` may start unforced. A
+        drain (or re-role) waits ``cooldown_down_s`` after the last drain
+        and after the last spawn joined: an idle fleet's pressure verdict
+        would otherwise undo a scale-up the moment it commits (an
+        autoscale chaos run on an H100 saw a pressure drain begin 10 ms
+        after a forced spawn committed; the JAX package's autoscaler
+        waits only after a drain)."""
         if direction == "up":
-            last, cd = self._last_up_t, self.cfg.cooldown_up_s
+            lasts, cd = (self._last_up_t,), self.cfg.cooldown_up_s
         else:
-            last, cd = self._last_down_t, self.cfg.cooldown_down_s
-        if last is None:
-            return 0.0
-        return max(0.0, last + cd - now)
+            lasts, cd = ((self._last_down_t, self._last_join_t),
+                         self.cfg.cooldown_down_s)
+        return max([0.0] + [last + cd - now for last in lasts
+                            if last is not None])
 
     def _wait_replica_ready(self, rep, timeout_s: float) -> bool:
         from .supervisor import _rpc
@@ -958,6 +970,7 @@ class Autoscaler:
             rep.ready = True
             self.journal.commit(seq)
             self.sup.attach_replica(rep)
+            self._last_join_t = time.monotonic()
             self.journal.record_fleet(self._fleet_entries())
             return self._record("spawn", reason, ok=True,
                                 replica=rep.idx, port=rep.port,

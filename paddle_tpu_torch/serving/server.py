@@ -1964,16 +1964,22 @@ def client_request(host: str, port: int, payload: Dict,
     raise ConnectionError("server closed the connection mid-request")
 
 
-def build_model(name: str, device=None):
+def build_model(name: str, device=None, num_layers: Optional[int] = None):
     """A seed-0 random-init model of a named config on ``device`` (the
-    served model and a ``--draft-model`` alike)."""
+    served model and a ``--draft-model`` alike); ``num_layers`` cuts the
+    config's depth, its widths kept."""
+    import dataclasses
+
     from ..models.gpt import CONFIGS, GPTForCausalLM
     if name not in CONFIGS:
         raise SystemExit(f"unknown --model {name!r}; choose from "
                          f"{sorted(CONFIGS)}")
+    cfg = CONFIGS[name]()
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(0)
-    model = GPTForCausalLM(CONFIGS[name](), device=dev, generator=gen)
+    model = GPTForCausalLM(cfg, device=dev, generator=gen)
     model.eval()
     return model
 
@@ -1983,6 +1989,9 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="paddle_tpu_torch serving front-end (newline-JSON)")
     parser.add_argument("--model", default="gpt_125m")
+    parser.add_argument("--num-layers", type=int, default=None,
+                        help="the model's first N blocks (default: its "
+                             "config's depth)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; 'cpu' runs the "
                              "plain PyTorch versions of the kernels)")
@@ -2122,7 +2131,10 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
-    model = build_model(args.model, device)
+    if args.num_layers is None:
+        model = build_model(args.model, device)
+    else:
+        model = build_model(args.model, device, args.num_layers)
     engine_kwargs = {"num_slots": args.num_slots,
                      "page_size": args.page_size,
                      "kv_int8": args.kv_int8,

@@ -6,7 +6,7 @@ over its parameters and buffers; ``save_inference_model`` writes it in
 the port's own format and ``load_inference_model`` /
 ``inference.Predictor`` run it on the device it was exported for.
 ``static/nn.py`` waits for the op library (ROADMAP.md 3(e)), as do
-``cpu_places`` / ``cuda_places`` and ``accuracy``; none is importable.
+``cpu_places`` / ``cuda_places``; none is importable.
 """
 
 from .program import (CompiledProgram, Executor, InputSpec,  # noqa: F401
@@ -15,7 +15,7 @@ from .program import (CompiledProgram, Executor, InputSpec,  # noqa: F401
                       program_guard, save_inference_model)
 from .api import (BuildStrategy, ExecutionStrategy,  # noqa: F401,E402
                   ParallelExecutor, Print, Scope, Variable,
-                  WeightNormParamAttr, append_backward, auc,
+                  WeightNormParamAttr, accuracy, append_backward, auc,
                   create_global_var, create_parameter,
                   default_startup_program, deserialize_persistables,
                   deserialize_program, device_guard, global_scope,

@@ -3,11 +3,11 @@
 shells and ``ParallelExecutor``, program and persistable
 (de)serialisation, program-state utilities, ``device_guard`` /
 ``name_scope``, ``Print``, ``py_func``, ``append_backward`` /
-``gradients`` and ``auc``.
+``gradients``, ``accuracy`` and ``auc``.
 
-Autodiff facades run on PyTorch's autograd. Waiting for other items of
+Autodiff facades run on PyTorch's autograd. Waiting for another item of
 ROADMAP.md's 3(e), and not importable: ``cpu_places`` / ``cuda_places``
-(``core/place.py``), ``accuracy`` (``metric/``).
+(``core/place.py``).
 """
 
 from __future__ import annotations
@@ -317,6 +317,14 @@ def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
 
 
 # -- metrics ------------------------------------------------------------------
+
+def accuracy(input, label, k=1, correct=None, total=None):  # noqa: A002
+    """``paddle.static.accuracy`` (``fluid/layers/metric_op.py``): the
+    functional ``metric.accuracy``; ``correct`` / ``total`` are filled
+    when given."""
+    from ..metric import accuracy as _acc
+    return _acc(input, label, k=k, correct=correct, total=total)
+
 
 def auc(input, label, curve="ROC", num_thresholds=4095,  # noqa: A002
         topk=1, slide_steps=1):

@@ -19,8 +19,9 @@ A program is exported on its layer's device: the graph holds the
 kernel choices the model made there at those shapes, as the StableHLO
 holds the TPU's. The forward kernels are registered ops
 (``paddle_tpu_torch::attention_fwd``, ``paddle_tpu_torch::
-fused_bottleneck``), so a program exported on the card launches them
-when loaded; the other kernels refuse to be traced. A loaded program
+fused_bottleneck``, and the int8 layers' ``int8_linear`` /
+``int8_conv2d``), so a program exported on the card launches them when
+loaded; the other kernels refuse to be traced. A loaded program
 runs its graph op by op (no graph replay).
 """
 

@@ -165,14 +165,16 @@ def _greedy(model, prompts, max_new, page_size: int,
 
 def _reference_outputs(model_name: str, prompts, max_new,
                        page_size: int, max_seq_len: int,
-                       device: str = "cuda") -> List[List[int]]:
+                       device: str = "cuda",
+                       num_layers: Optional[int] = None
+                       ) -> List[List[int]]:
     """Fault-free greedy outputs on the seed-0 weights a replica builds,
     computed in this process before any fault is armed: the
     bit-identity oracle for every replayed or failed-over request
     (batching never changes a greedy output)."""
     from ..serving.server import build_model
 
-    model = build_model(model_name, device)
+    model = build_model(model_name, device, num_layers)
     out = _greedy(model, prompts, max_new, page_size, max_seq_len)
     del model
     _free_device_memory()
@@ -196,10 +198,13 @@ def _prompts(rng, n: int, lo: int, hi: int):
 
 
 def _server_args(device: str, page_size: int, max_seq_len: int,
-                 num_slots: int) -> List[str]:
+                 num_slots: int, num_layers: Optional[int] = None
+                 ) -> List[str]:
+    depth = [] if num_layers is None else ["--num-layers", str(num_layers)]
     return ["--device", device, "--page-size", str(page_size),
             "--max-seq-len", str(max_seq_len),
-            "--num-slots", str(num_slots), "--stall-timeout-s", "120"]
+            "--num-slots", str(num_slots), "--stall-timeout-s",
+            "120"] + depth
 
 
 def _tally(report: ChaosReport, outcomes: Sequence[Optional[Dict]],
@@ -780,17 +785,25 @@ class _CliFleet:
         t.start()
         return t
 
-    def wait_router(self, min_live: int = 1,
-                    timeout_s: float = 300.0) -> Dict:
+    def wait_router(self, min_live: int = 1, timeout_s: float = 300.0,
+                    context: Optional[Dict] = None) -> Dict:
+        """Until the router serves ``min_live`` live replicas; else a
+        ``RuntimeError`` that carries ``context`` (what the caller did
+        before the wait, e.g. a scale-up's reply), the last health
+        reply and the autoscaler's status as the wait ended."""
         deadline = time.monotonic() + timeout_s
+        h: Dict = {}
         while time.monotonic() < deadline:
             h = self.op({"op": "health"}, timeout_s=5.0)
             if h.get("live", 0) >= min_live:
                 return h
             time.sleep(0.3)
-        raise RuntimeError(f"router not serving {min_live} live "
-                           f"replica(s) within {timeout_s}s "
-                           f"(logs: {self.log_dir})")
+        status = self.op({"op": "autoscale"}, timeout_s=5.0)
+        raise RuntimeError(
+            f"router not serving {min_live} live replica(s) within "
+            f"{timeout_s}s (logs: {self.log_dir}); before the wait: "
+            f"{_brief(context)}; last health: {_brief(h)}; autoscaler: "
+            f"{_brief(status)}")
 
     def generate(self, payload: Dict, timeout_s: float) -> Dict:
         """The front door dies while the supervisor is down: transport
@@ -961,6 +974,44 @@ def _action_walls(jobj: Optional[Dict]) -> List[Dict]:
     return out
 
 
+def _brief(obj, limit: int = 2000) -> str:
+    """``obj`` as JSON, cut to ``limit`` characters."""
+    text = json.dumps(obj, default=str, sort_keys=True)
+    return text if len(text) <= limit else text[:limit] + "..."
+
+
+def _scale_up_reason(reply: Dict) -> str:
+    """What a forced scale-up answered: the autoscaler's reason
+    (``forced``, ``refused_at_max``, ``never_ready``, ...), a typed
+    error, or the transport error of a reply that never came."""
+    result = reply.get("result") or {}
+    return str(result.get("reason") or reply.get("error")
+               or reply.get("_transport_error") or _brief(reply, 200))
+
+
+def keep_logs(log_dir: str, dest: Optional[str]) -> str:
+    """Copy the logs (``*.log``, the flight bundles) and the journal of
+    a chaos run from ``log_dir`` into ``dest`` and return where they
+    are; without ``dest`` they stay in ``log_dir``."""
+    import shutil
+    if not dest or os.path.abspath(dest) == os.path.abspath(log_dir):
+        return log_dir
+    os.makedirs(dest, exist_ok=True)
+    for root, _, files in os.walk(log_dir):
+        rel = os.path.relpath(root, log_dir)
+        for name in files:
+            if not (name.endswith((".log", ".json", ".jsonl"))
+                    or "flight" in rel):
+                continue
+            os.makedirs(os.path.join(dest, rel), exist_ok=True)
+            try:
+                shutil.copy2(os.path.join(root, name),
+                             os.path.join(dest, rel, name))
+            except OSError:
+                pass
+    return dest
+
+
 def _reap_stranded(report: ChaosReport, journal: str) -> None:
     """After the final graceful stop no serving process may still carry
     the journal's marker; any found is counted and killed."""
@@ -986,7 +1037,9 @@ def run_autoscale_chaos(requests: int = 8, seed: int = 0,
                         request_timeout_s: float = 300.0,
                         drain_timeout_s: float = 120.0,
                         device: str = "cuda",
-                        log_dir: Optional[str] = None) -> ChaosReport:
+                        log_dir: Optional[str] = None,
+                        failure_dir: Optional[str] = None,
+                        num_layers: Optional[int] = None) -> ChaosReport:
     """INVARIANT 7: SIGKILL the SUPERVISOR itself mid-scale-action, once
     mid-SPAWN (journal ``begin`` + process launched, not committed) and
     once mid-SCALE-DOWN (victim marked draining, drain not yet run),
@@ -1012,7 +1065,15 @@ def run_autoscale_chaos(requests: int = 8, seed: int = 0,
     recovery found no open action of the kind killed counts an
     ``arming_failures`` (the kill missed its window). ``prompt_len_range`` (tokens) should
     cover at least two full pages, so the scale-down's handoff carries
-    chains."""
+    chains.
+
+    A failed run (an exception, or a report that is not ok) copies the
+    replicas' and the supervisor's logs and the journal into
+    ``failure_dir`` (else they stay in ``log_dir``) and names it; the
+    forced scale-up's reply is in ``details`` and, when the fleet then
+    never serves two live replicas, in the error with the last health
+    reply and the autoscaler's status. ``num_layers`` cuts the model's
+    depth in the replicas and the oracle alike."""
     import numpy as np
 
     from ..serving.supervisor import _free_port
@@ -1030,10 +1091,13 @@ def run_autoscale_chaos(requests: int = 8, seed: int = 0,
     # absolute path (the env marker is compared as a string)
     journal = os.path.join(log_dir, "fleet-journal.json")
     rport = _free_port()
+    # the cooldown (5 s; the reference's harness 0.5) also holds a
+    # pressure drain off for that long after a spawn joins: the forced
+    # scale-up's replica must still be live when phase B forces its drain
     fleet = _CliFleet(
-        _supervisor_cmd(model, 1, rport, log_dir, journal, 1, 0.5,
+        _supervisor_cmd(model, 1, rport, log_dir, journal, 1, 5.0,
                         _server_args(device, page_size, max_seq_len,
-                                     num_slots)),
+                                     num_slots, num_layers)),
         hold_s, log_dir, rport, journal)
     report = ChaosReport(requests=requests)
     outcomes: List[Optional[Dict]] = [None] * requests
@@ -1046,11 +1110,12 @@ def run_autoscale_chaos(requests: int = 8, seed: int = 0,
             request_timeout_s)
 
     fleet.launch()
+    error: Optional[BaseException] = None
     try:
         # the oracle runs while the fleet boots (no fault is armed
         # before the first kill)
         expected = _reference_outputs(model, prompts, max_new, page_size,
-                                      max_seq_len, device)
+                                      max_seq_len, device, num_layers)
         fleet.wait_router(min_live=1)
 
         # ---- phase A: SIGKILL mid-SPAWN under keyed traffic ----------
@@ -1069,13 +1134,17 @@ def run_autoscale_chaos(requests: int = 8, seed: int = 0,
         # may have been adopted and committed OR rolled back; a refusal
         # like at_max is fine as long as 2 end up live)
         t0 = time.monotonic()
+        before = fleet.op({"op": "health"}, timeout_s=5.0)
         up = fleet.op({"op": "autoscale", "action": "scale_up"},
                       timeout_s=240.0)
-        fleet.wait_router(min_live=2)
-        report.details.append({"scale_up": (up.get("result") or {})
-                               .get("reason", up.get("error")),
-                               "scale_up_s": round(time.monotonic() - t0,
-                                                   3)})
+        # recorded before the wait, so a refused or failed scale-up is
+        # in the report and in the wait's error
+        report.details.append({"scale_up": _scale_up_reason(up),
+                               "scale_up_reply_s": round(
+                                   time.monotonic() - t0, 3)})
+        fleet.wait_router(min_live=2, context={
+            "scale_up": up, "health_before_scale_up": before})
+        report.details[-1]["scale_up_s"] = round(time.monotonic() - t0, 3)
 
         # ---- phase B: SIGKILL mid-SCALE-DOWN under keyed traffic -----
         wave2 = _run_clients(range(requests // 2, requests), client)
@@ -1098,12 +1167,19 @@ def run_autoscale_chaos(requests: int = 8, seed: int = 0,
         _reissue(report, fleet, prompts, max_new, keys, expected,
                  request_timeout_s)
         _final_checks(report, fleet, drain_timeout_s)
+    except BaseException as e:
+        error = e
+        raise
     finally:
         fleet.stop()
-    _reap_stranded(report, journal)
+        _reap_stranded(report, journal)
+        if error is not None or not report.ok:
+            kept = keep_logs(log_dir, failure_dir)
+            if error is not None:
+                error.add_note(f"logs and journal kept in {kept}")
+            else:
+                report.details.append({"log_dir": log_dir, "kept": kept})
     report.wall_s = round(time.monotonic() - t_start, 3)
-    if not report.ok:
-        report.details.append({"log_dir": log_dir})
     return report
 
 
@@ -1117,7 +1193,8 @@ def run_roll_chaos(requests: int = 8, seed: int = 0,
                    drain_timeout_s: float = 120.0,
                    converge_timeout_s: float = 300.0,
                    device: str = "cuda",
-                   log_dir: Optional[str] = None) -> ChaosReport:
+                   log_dir: Optional[str] = None,
+                   num_layers: Optional[int] = None) -> ChaosReport:
     """INVARIANT 9: interrupt a live rolling weight upgrade every way the
     journal must survive, under keyed traffic:
 
@@ -1143,7 +1220,8 @@ def run_roll_chaos(requests: int = 8, seed: int = 0,
     The fleet boots from generation 0's checkpoint while this process
     makes generation 1, its torn copy (hard links but for the torn
     shard) and both generations' reference tokens; the checkpoints lie
-    under ``log_dir`` and are deleted when the run ends."""
+    under ``log_dir`` and are deleted when the run ends. ``num_layers``
+    cuts the model's depth in the replicas and the oracle alike."""
     import shutil
 
     import numpy as np
@@ -1174,7 +1252,7 @@ def run_roll_chaos(requests: int = 8, seed: int = 0,
     # generation 0 is the deterministic boot build, so replicas spawned
     # without a checkpoint and replicas restored from ckpt_a serve the
     # same tokens
-    base = build_model(model, device)
+    base = build_model(model, device, num_layers)
     state_a = checkpoint_state(base)
     t0 = time.monotonic()
     ResilientCheckpointManager(ckpt_a).save(1, state_a)
@@ -1188,7 +1266,8 @@ def run_roll_chaos(requests: int = 8, seed: int = 0,
     fleet = _CliFleet(
         _supervisor_cmd(model, 2, rport, log_dir, journal, 2, 3600.0,
                         _server_args(device, page_size, max_seq_len,
-                                     num_slots), checkpoint=ckpt_a),
+                                     num_slots, num_layers),
+                        checkpoint=ckpt_a),
         hold_s, log_dir, rport, journal)
     report = ChaosReport(requests=requests)
     outcomes: List[Optional[Dict]] = [None] * requests

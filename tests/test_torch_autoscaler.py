@@ -1295,3 +1295,155 @@ def test_spawn_kills_the_process_it_replaces(tmp_path, monkeypatch):
         assert running == [rep.proc] and len(spawned) == 11
     finally:
         rep.close_log()
+
+
+# -- the autoscale chaos harness's diagnostics ---------------------------------
+
+def _cli_fleet(tmp_path, replies):
+    """A ``_CliFleet`` whose router answers from ``replies`` (op ->
+    reply); no process is started."""
+    from paddle_tpu_torch.tools import chaos_serving as cs
+    fleet = cs._CliFleet(["true"], 0.0, str(tmp_path), 1,
+                         str(tmp_path / "fleet-journal.json"))
+    fleet.op = lambda payload, timeout_s=10.0: dict(
+        replies[payload["op"]])
+    return fleet
+
+
+def test_wait_router_error_carries_scale_up_and_health(tmp_path):
+    """A refused scale-up followed by a fleet that never serves two live
+    replicas: the error names the refusal, the last health reply (one
+    live replica, the other not ready) and the autoscaler's status, so
+    the fault can be told apart after the machine is gone."""
+    health = {"status": "ok", "live": 1, "replicas": [
+        {"idx": 0, "ready": True, "alive": True},
+        {"idx": 1, "ready": False, "alive": True}]}
+    fleet = _cli_fleet(tmp_path, {
+        "health": health,
+        "autoscale": {"autoscaler": {"replicas": 3,
+                                     "recovery": {"adopted": [1]}}}})
+    up = {"result": {"reason": "refused_at_max", "ok": False}}
+    with pytest.raises(RuntimeError) as err:
+        fleet.wait_router(min_live=2, timeout_s=0.4,
+                          context={"scale_up": up})
+    msg = str(err.value)
+    assert "refused_at_max" in msg
+    assert '"ready": false' in msg and '"live": 1' in msg
+    assert '"adopted": [1]' in msg
+    assert fleet.wait_router(min_live=1, timeout_s=0.4) == health
+    fleet.stop()
+
+
+def test_scale_up_reason_names_refusals_errors_and_transport():
+    from paddle_tpu_torch.tools.chaos_serving import _scale_up_reason
+    assert _scale_up_reason({"result": {"reason": "forced", "ok": True}}) \
+        == "forced"
+    assert _scale_up_reason({"result": {"reason": "never_ready"}}) == \
+        "never_ready"
+    assert _scale_up_reason({"error": "autoscaler not enabled"}) == \
+        "autoscaler not enabled"
+    assert _scale_up_reason(
+        {"_transport_error": "ConnectionRefusedError: [Errno 111]"}
+    ).startswith("ConnectionRefusedError")
+
+
+def test_keep_logs_copies_logs_flight_and_journal(tmp_path):
+    from paddle_tpu_torch.tools.chaos_serving import keep_logs
+    src = tmp_path / "run"
+    (src / "flight").mkdir(parents=True)
+    (src / "replica0.log").write_text("boot\n")
+    (src / "supervisor-cli.log").write_text("sup\n")
+    (src / "fleet-journal.json").write_text("{}")
+    (src / "flight" / "bundle-1.tar").write_text("x")
+    (src / "weights.bin").write_text("big")
+    dest = tmp_path / "kept"
+    assert keep_logs(str(src), str(dest)) == str(dest)
+    kept = sorted(str(p.relative_to(dest)) for p in dest.rglob("*")
+                  if p.is_file())
+    assert kept == ["fleet-journal.json", os.path.join("flight",
+                                                       "bundle-1.tar"),
+                    "replica0.log", "supervisor-cli.log"]
+    assert keep_logs(str(src), None) == str(src)
+
+
+def test_autoscale_chaos_failure_keeps_its_error_and_the_logs(
+        tmp_path, monkeypatch):
+    """A run that raises stops the fleet, copies the logs once, and
+    re-raises the original exception with the kept directory as a
+    note."""
+    from paddle_tpu_torch.tools import chaos_serving as cs
+    stops = []
+
+    class Fleet:
+        def __init__(self, *args):
+            pass
+
+        def launch(self):
+            pass
+
+        def stop(self):
+            stops.append(1)
+
+    def oracle(*args):
+        raise AssertionError("oracle disagrees")
+
+    monkeypatch.setattr(cs, "_CliFleet", Fleet)
+    monkeypatch.setattr(cs, "_reference_outputs", oracle)
+    monkeypatch.setattr(cs.time, "sleep", lambda s: None)
+    log_dir, dest = tmp_path / "run", tmp_path / "kept"
+    log_dir.mkdir()
+    (log_dir / "replica0.log").write_text("boot\n")
+    with pytest.raises(AssertionError, match="oracle disagrees") as err:
+        cs.run_autoscale_chaos(requests=2, device="cpu",
+                               log_dir=str(log_dir), failure_dir=str(dest))
+    assert err.value.__notes__ == [f"logs and journal kept in {dest}"]
+    assert (dest / "replica0.log").read_text() == "boot\n"
+    assert stops == [1]
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_pressure_drain_waits_its_cooldown_after_a_spawn(
+        pkg, tmp_path, monkeypatch):
+    """A forced spawn joins an idle fleet; the next pressure verdict says
+    scale down. The port's autoscaler refuses that drain for
+    ``cooldown_down_s`` after the spawn joined; the JAX package's drains
+    at once, undoing the scale-up (the autoscale chaos run on the card
+    that served one live replica for 300 s: a pressure drain began 10 ms
+    after the forced spawn committed). A forced drain is not held."""
+    sup_mod, as_mod = (tsup, tas) if pkg == "port" else (jsup, jas)
+    monkeypatch.delenv("PT_AUTOSCALE_HOLD_S", raising=False)
+    sup = sup_mod.Supervisor(model="gpt_tiny", replicas=1,
+                             collect_metrics=False, log_dir=str(tmp_path))
+    _capture_spawns(monkeypatch, sup_mod)
+    asc = as_mod.Autoscaler(sup, as_mod.AutoscaleConfig(
+        min_replicas=1, max_replicas=3, cooldown_up_s=60.0,
+        cooldown_down_s=60.0), journal_path=str(tmp_path / "j.json"))
+    for rep in sup.replicas:
+        rep.proc, rep.ready = _FakeProc(), True
+    asc._wait_replica_ready = lambda rep, timeout_s: True
+    asc._finish_drain = lambda victim, seq, reason: {"reason": "drained"}
+    assert asc.scale_up(force=True)["ok"]
+    for rep in sup.replicas:
+        rep.close_log()
+    assert len(sup.replicas) == 2
+    got = asc.scale_down(reason="pressure")["reason"]
+    if pkg == "port":
+        assert got == "refused_cooldown"
+        assert asc.status()["cooldown_down_remaining_s"] > 59.0
+        assert asc.scale_down(force=True)["reason"] == "drained"
+    else:
+        assert got == "drained"
+
+
+def test_chaos_depth_cut_reaches_replicas_and_oracle():
+    """``num_layers`` cuts the served model's depth, its widths kept, and
+    the chaos harnesses pass it to every replica's command line."""
+    from paddle_tpu_torch.serving.server import build_model
+    from paddle_tpu_torch.tools.chaos_serving import _server_args
+    full = build_model("gpt_tiny", "cpu")
+    cut = build_model("gpt_tiny", "cpu", num_layers=1)
+    assert cut.config.num_layers == 1 < full.config.num_layers
+    assert cut.config.hidden_size == full.config.hidden_size
+    args = _server_args("cpu", 8, 96, 2, num_layers=1)
+    assert args[args.index("--num-layers") + 1] == "1"
+    assert "--num-layers" not in _server_args("cpu", 8, 96, 2)
