@@ -2302,6 +2302,46 @@ def profile_decode_steps(torch, model):
                 [name[:60], us / 1e3 / steps] for name, us in top]}
 
 
+def decode_boundary_ms(torch, model, steps=12):
+    """Steady decode steps at 8 slots (the profile's prompts) timed with
+    ``Layer.__call__`` and with it bypassed (``nn.Module.__call__``), in
+    turns L, M, M, L of ``steps`` steps on one engine, unprofiled: the
+    eager API's boundary cost on the host-paced step. ROADMAP's 17.92 ms
+    step (profiled) predates the ``Layer`` base class."""
+    from paddle_tpu_torch.inference import create_decode_engine
+    from paddle_tpu_torch.nn.layer import Layer
+    eng = create_decode_engine(model, device=model.device, num_slots=8,
+                               page_size=64)
+    gen = torch.Generator().manual_seed(1)
+    for n in (300, 500, 700, 900, 1100, 1300, 1500, 1700):
+        eng.submit(torch.randint(0, model.config.vocab_size, (n,),
+                                 generator=gen).numpy(),
+                   max_new_tokens=6 + 4 * steps + 4)
+    for _ in range(6):  # admissions + warm decode steps
+        eng.step()
+    layer_call = Layer.__call__
+    turns = {"layer": [], "module": []}
+    try:
+        for kind in ("layer", "module", "module", "layer"):
+            Layer.__call__ = layer_call if kind == "layer" \
+                else torch.nn.Module.__call__
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            turns[kind].append((time.monotonic() - t0) * 1e3 / steps)
+    finally:
+        Layer.__call__ = layer_call
+    eng.close()
+    layer = sum(turns["layer"]) / 2
+    module = sum(turns["module"]) / 2
+    return {"layer_call_step_ms": layer, "module_call_step_ms": module,
+            "boundary_ms_per_step": layer - module, "turns_ms": turns,
+            "steps_a_turn": steps,
+            "roadmap_step_ms_before_layer_base": 17.92}
+
+
 ENGINE_NEW = 32  # new tokens a request on the engine phase's main path
 
 
@@ -2369,12 +2409,13 @@ def phase_engine(torch, dev, records, launches):
     first_agree = sum(oa[0] == ob[0] for oa, ob in
                       zip(outs, outs_plain)) / float(len(lengths))
     prof = profile_decode_steps(torch, model)
+    boundary = decode_boundary_ms(torch, model)
     emit({"phase": "engine", "ok": True, "model": "gpt_1p3b",
           "model_build_s": build_s, "prompt_lengths": list(lengths),
           "max_new_tokens": max_new, "launches": dict(launches),
           "kernel_path": info, "plain_path": info_plain,
           "token_agreement": agree, "first_token_agreement": first_agree,
-          "decode_profile": prof,
+          "decode_profile": prof, "layer_boundary": boundary,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     engine_variants(torch, model, gen)
     engine_wide(torch, model, gen)
@@ -4330,6 +4371,9 @@ FLEET_FAILOVER_KILL_AT = 8      # streamed tokens before the kill
 FLEET_FRESH_LENGTHS = (300, 700)
 FLEET_ROLL_NEW = 16
 FLEET_CANARY_S = 2.0
+# the roll's depth: GPT-1.3B's widths at 4 of its 24 layers (the whole
+# model's roll took 42.8-69.3 s, most of it writing and loading 5.3 GB)
+FLEET_ROLL_LAYERS = 4
 FLEET_KERNELS = {"decode": ("paged_decode_kernel", "out_proj_kernel",
                             "argmax_tiles_kernel"),
                  "prefill": ("attention_fwd_kernel",
@@ -4526,15 +4570,18 @@ def phase_fleet(torch, dev, model, card):
     tokens; the stream completes on the survivor equal to the in-process
     engine's tokens, the killed replica respawns; fresh prompts equal the
     in-process engine's. (4) ``roll_fleet`` onto a seed-1 checkpoint
-    (canary 2 s) while a client streams: both replicas at generation 1,
-    no failed request, a fresh prompt equal to the in-process engine on
-    seed-1 weights. (5) ``fleet_stats`` and ``fleet_capacity`` through
-    the router."""
+    (canary 2 s) while a client streams, on a second mixed pair at
+    FLEET_ROLL_LAYERS of GPT-1.3B's 24 layers (``--num-layers``; the
+    widths uncut): both replicas at generation 1, no failed request, a
+    fresh prompt equal to the in-process engine on seed-1 weights of
+    that depth. (5) ``fleet_stats`` and ``fleet_capacity`` through the
+    router."""
+    import dataclasses
     import shutil
     import tempfile
     from paddle_tpu_torch.distributed.resilience import (
         ResilientCheckpointManager)
-    from paddle_tpu_torch.models.gpt import checkpoint_state, load_jax_state
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, load_jax_state
     from paddle_tpu_torch.serving.prefix_cache import PrefixCache
     phase = "fleet"
     V = model.config.vocab_size
@@ -4564,12 +4611,15 @@ def phase_fleet(torch, dev, model, card):
             [byte_check["tokens"]],
             _alone(torch, model, [hand[0][:FLEET_BYTES_LEN]],
                    FLEET_NEW))}
-    state_a = checkpoint_state(model)
-    state_b = _seeded_state(torch, dev, model.config, 1)
-    load_jax_state(model, state_b)
-    ref_b = _alone(torch, model, fresh[:1], FLEET_NEW)
-    load_jax_state(model, state_a)
-    del state_a
+    # the roll runs on a fleet of GPT-1.3B's widths at FLEET_ROLL_LAYERS
+    # of its 24 layers (the replicas' --num-layers): seed-1 weights of
+    # that depth, and the in-process reference of the same depth
+    roll_cfg = dataclasses.replace(model.config,
+                                   num_layers=FLEET_ROLL_LAYERS)
+    state_b = _seeded_state(torch, dev, roll_cfg, 1)
+    roll_model = GPTForCausalLM(roll_cfg, device=dev)
+    load_jax_state(roll_model, state_b)
+    ref_b = _alone(torch, roll_model, fresh[:1], FLEET_NEW)
     ckdir = os.path.join(HERE, "build", "fleet-ckpt")
     shutil.rmtree(ckdir, ignore_errors=True)
     t0 = time.monotonic()
@@ -4760,7 +4810,20 @@ def phase_fleet(torch, dev, model, card):
             _fleet_tokens(torch, model, f"{phase} fresh prompts vs the "
                           f"in-process engine", got, ref_fresh, fresh)
 
-            # (4) roll onto seed-1 weights while a client streams
+            fs = _rpc(router.port, {"op": "fleet_stats"})["fleet"]
+            out["fleet_stats_mixed"] = {
+                "restarts_total": fs["restarts_total"],
+                "weight_generations": fs["weight_generations"],
+                "router": fs["router"]}
+        finally:
+            _stop_fleet(sup, router)
+
+        # (4) roll onto seed-1 weights while a client streams, on a mixed
+        # pair at FLEET_ROLL_LAYERS of the 24 layers
+        sup, router, boot_s = _start_fleet(
+            ["mixed", "mixed"], ("--num-layers", str(FLEET_ROLL_LAYERS)))
+        try:
+            out["roll_boot_s"] = boot_s
             stop, during = threading.Event(), []
 
             def client():
@@ -4792,15 +4855,15 @@ def phase_fleet(torch, dev, model, card):
                                      f"{gens}, requests {during}")
             got_b = [_routed(router.port, p, FLEET_NEW)[0]["generated"]
                      for p in fresh[:1]]
-            _fleet_tokens(torch, model, f"{phase} after the roll vs seed-1 "
-                          f"weights", got_b, ref_b, fresh[:1])
+            _fleet_tokens(torch, roll_model, f"{phase} after the roll vs "
+                          f"seed-1 weights", got_b, ref_b, fresh[:1])
             out["roll"] = {"wall_s": roll_s, "swapped": roll["swapped"],
                            "canary": roll["canary"],
+                           "layers": FLEET_ROLL_LAYERS,
                            "requests_during": len(during),
                            "swap_ms": pauses}
             fs = _rpc(router.port, {"op": "fleet_stats"})["fleet"]
-            out["fleet_stats_mixed"] = {
-                "restarts_total": fs["restarts_total"],
+            out["fleet_stats_roll"] = {
                 "weight_generations": fs["weight_generations"],
                 "router": fs["router"]}
         finally:
@@ -4808,6 +4871,7 @@ def phase_fleet(torch, dev, model, card):
     finally:
         shutil.rmtree(prof_dir, ignore_errors=True)
         shutil.rmtree(ckdir, ignore_errors=True)
+    del roll_model
     emit(dict(out, ok=True))
     _free_engine_memory(torch)
 
@@ -5889,6 +5953,372 @@ def phase_train(torch, dev, launches):
         del step, model
         torch.cuda.empty_cache()
     remat_memory(torch, dev, ids)
+
+
+# -- the eager tensor API on the card (slice 18) ------------------------------
+
+EAGER_STEPS = 3               # (b): steps of each loop
+EAGER_B, EAGER_S = 2, 2048    # (b): phase_train's batch
+EAGER_VALUE_REL = 1e-5        # (a): CUDA against CPU, relative L2 of a value
+EAGER_GRAD_REL = 1e-4         # (a), (c): relative L2 of a gradient
+EAGER_SWEEP_BITWISE = ("manipulation", "creation", "search")
+# float outputs of these sum in an order that differs by device (atomic
+# adds, broadcast sums) or step differently; they take EAGER_VALUE_REL
+EAGER_SWEEP_SUMMED = {"index_add", "scatter_nd_add", "scatter_nd",
+                      "put_along_axis", "scatter", "linspace", "logspace",
+                      "arange"}
+WGAN_IN, WGAN_WIDTH, WGAN_B = 1024, 4096, 256   # (c): the penalty's MLP
+WGAN_REL = 1e-4
+
+
+def _eager_rel(got, want) -> float:
+    """Relative L2 distance of two arrays over the finite entries of
+    ``want`` (inf when their NaN or inf positions differ)."""
+    import numpy as np
+    g, w = np.asarray(got), np.asarray(want)
+    if np.iscomplexobj(w):
+        g, w = np.stack([g.real, g.imag]), np.stack([w.real, w.imag])
+    g, w = g.astype(np.float64), w.astype(np.float64)
+    finite = np.isfinite(w)
+    if not np.array_equal(np.isnan(g), np.isnan(w)) or not np.array_equal(
+            g[~finite & ~np.isnan(w)], w[~finite & ~np.isnan(w)]):
+        return float("inf")
+    d = np.linalg.norm((g - w)[finite])
+    n = np.linalg.norm(w[finite])
+    return float(d / n) if n else float(d)
+
+
+def _eager_place(dev) -> str:
+    return "gpu:0" if dev.type == "cuda" else "cpu"
+
+
+def _eager_args(paddle, args, grad, dev):
+    import numpy as np
+    place = _eager_place(dev)
+    out = []
+    for i, a in enumerate(args):
+        if isinstance(a, np.ndarray):
+            out.append(paddle.to_tensor(a, place=place,
+                                        stop_gradient=i not in grad))
+        elif isinstance(a, list) and a and all(isinstance(b, np.ndarray)
+                                               for b in a):
+            out.append([paddle.to_tensor(b, place=place,
+                                         stop_gradient=i not in grad)
+                        for b in a])
+        else:
+            out.append(a)
+    return out
+
+
+def _eager_leaves(out):
+    if isinstance(out, (list, tuple)):
+        return [x for o in out for x in _eager_leaves(o)]
+    return [out]
+
+
+def _eager_run(paddle, dispatch, name, args, kwargs, grad, dev):
+    """One sweep case on ``dev``: the outputs' (numpy, dtype, device)
+    and the inputs' gradients of ``sum(out * w)``."""
+    import numpy as np
+    from paddle_tpu_torch.tools.eager_sweep import rng_for
+    targs = _eager_args(paddle, args, grad, dev)
+    outs = _eager_leaves(dispatch.wrapped_ops[name](*targs, **kwargs))
+    vals = [(o.numpy(), str(o.dtype), o.value.device.type)
+            if isinstance(o, paddle.Tensor) else (o, None, None)
+            for o in outs]
+    grads = []
+    if grad:
+        r = rng_for(name + "/w")
+        loss = None
+        for o in outs:
+            if isinstance(o, paddle.Tensor) and o.value.is_floating_point() \
+                    and not o.stop_gradient:
+                w = r.standard_normal(o.shape).astype(np.float32)
+                term = (o * paddle.to_tensor(w, place=o.place)).sum()
+                loss = term if loss is None else loss + term
+        if loss is not None:
+            loss.backward()
+        for i in grad:
+            leaves = targs[i] if isinstance(targs[i], list) else [targs[i]]
+            grads += [None if t.grad is None else t.grad.numpy()
+                      for t in leaves]
+    return vals, grads
+
+
+def eager_op_sweep(torch, dev):
+    """(a) Every op of the six eager modules on CUDA ``Tensor``s and on
+    CPU ones from the same seeded numpy inputs: every output on the card;
+    integer and bool outputs and the data-movement ops' floats bitwise,
+    other floats within EAGER_VALUE_REL (relative L2), gradients within
+    EAGER_GRAD_REL; random ops: one seed draws the same values twice,
+    the moments within 5 standard errors (mean) and 10% (variance)."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import dispatch
+    from paddle_tpu_torch.ops.registry import all_ops
+    from paddle_tpu_torch.tools.eager_sweep import RANDOM, all_cases
+    cpu = torch.device("cpu")
+    checked, worst = set(), {"value": 0.0, "grad": 0.0}
+    failures = []
+    t0 = time.monotonic()
+    for module, (name, args, kwargs, grad) in all_cases():
+        gv, gg = _eager_run(paddle, dispatch, name, args, kwargs, grad, dev)
+        cv, cg = _eager_run(paddle, dispatch, name, args, kwargs, grad, cpu)
+        checked.add(name)
+        for (a, adt, adev), (b, bdt, _) in zip(gv, cv):
+            if adt is None:
+                if a != b:
+                    failures.append(f"{name}: {a} != {b}")
+                continue
+            if adev != dev.type or adt != bdt or np.shape(a) != np.shape(b):
+                failures.append(f"{name}: {adev} {adt} {np.shape(a)} vs "
+                                f"{bdt} {np.shape(b)}")
+                continue
+            exact = not np.issubdtype(np.asarray(b).dtype, np.inexact) or (
+                module in EAGER_SWEEP_BITWISE
+                and name not in EAGER_SWEEP_SUMMED)
+            if exact:
+                if not np.array_equal(a, b, equal_nan=np.issubdtype(
+                        np.asarray(b).dtype, np.inexact)):
+                    failures.append(f"{name}: not bitwise the CPU's")
+                continue
+            rel = _eager_rel(a, b)
+            worst["value"] = max(worst["value"], rel)
+            if not rel <= EAGER_VALUE_REL:
+                failures.append(f"{name}: value rel {rel:.3g}")
+        for a, b in zip(gg, cg):
+            if (a is None) != (b is None):
+                failures.append(f"{name}: gradient on one device only")
+            elif a is not None:
+                rel = _eager_rel(a, b)
+                worst["grad"] = max(worst["grad"], rel)
+                if not rel <= EAGER_GRAD_REL:
+                    failures.append(f"{name}: grad rel {rel:.3g}")
+    moments = {}
+    for name, args, kwargs, mean, var in RANDOM:
+        targs = _eager_args(paddle, args, (), dev)
+        paddle.seed(11)
+        a = dispatch.wrapped_ops[name](*targs, **kwargs)
+        paddle.seed(11)
+        b = dispatch.wrapped_ops[name](*targs, **kwargs)
+        checked.add(name)
+        if a.value.device.type != dev.type or not torch.equal(a.value,
+                                                              b.value):
+            failures.append(f"{name}: not on the card or not repeatable")
+            continue
+        x = a.numpy().astype(np.float64).reshape(-1)
+        z = (x.mean() - mean) / np.sqrt(var / x.size)
+        vr = x.var() / var - 1.0
+        moments[name] = [round(float(z), 3), round(float(vr), 4)]
+        if not (abs(z) < 5 and abs(vr) < 0.1):
+            failures.append(f"{name}: mean z {z:.3g}, variance {vr:.3g}")
+    six = {n for n, o in all_ops().items() if o.module in (
+        "creation", "math", "manipulation", "search", "random",
+        "math_extra")}
+    if checked != six:
+        failures.append(f"ops not checked: {sorted(six - checked)}")
+    for f in failures:
+        FAILED_CHECKS.append(f"eager_api sweep: {f}")
+    return {"ops_checked": len(checked), "registry_ops": len(six),
+            "cases": len(all_cases()) + len(RANDOM),
+            "value_rel_max": worst["value"], "grad_rel_max": worst["grad"],
+            "tol": {"value_rel": EAGER_VALUE_REL, "grad_rel": EAGER_GRAD_REL,
+                    "bitwise": "int / bool outputs; manipulation, creation "
+                               "and search floats but accumulations"},
+            "random_moments_z_and_var_rel": moments,
+            "failures": len(failures), "s": time.monotonic() - t0}
+
+
+def eager_gpt_dygraph(torch, dev):
+    """(b) GPT-1.3B (B=2, S=2048, fp32) trained in the reference's
+    dygraph idiom, ``to_tensor`` -> ``model(x, labels=x)`` ->
+    ``backward`` -> ``opt.step()`` -> ``opt.clear_grad()``, then the same
+    steps from the same state through ``jit.TrainStep``: the losses and
+    the final parameters bitwise equal; #5, #7, #8 and ``adam_update``
+    launched by the eager loop as by ``phase_train``."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import checkpoint_state, load_jax_state
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    B, S = EAGER_B, EAGER_S
+    t0 = time.monotonic()
+    model = _train_model(torch, dev)
+    build_s = time.monotonic() - t0
+    V, L = model.config.vocab_size, model.config.num_layers
+    ids = np.random.default_rng(5).integers(0, V, (B, S)).astype(np.int64)
+    snap = checkpoint_state(model)
+    opt = paddle.optimizer.AdamW(learning_rate=TRAIN_LR,
+                                 parameters=model.parameters())
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    eager, eager_ms = [], []
+    for _ in range(EAGER_STEPS):
+        t0 = time.monotonic()
+        x = paddle.to_tensor(ids)
+        loss = model(x, labels=x)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        eager.append(loss.value.detach())
+        torch.cuda.synchronize()
+        eager_ms.append((time.monotonic() - t0) * 1e3)
+    counts = launch_counts()
+    if not isinstance(loss, paddle.Tensor) or x.dtype != paddle.int32:
+        raise AssertionError(f"eager_api: loss {type(loss)}, ids "
+                             f"{x.dtype}")
+    eager_params = _bit_sums(torch, dict(model.named_parameters()))
+    per_step = {n: counts[n] / EAGER_STEPS for n in TRAIN_STEP_KERNELS}
+    want = {"attention_fwd": L, "attention_bwd_dq": L,
+            "attention_bwd_dkv": L,
+            "adam_update": len(list(model.parameters()))}
+    if per_step != want:
+        raise AssertionError(f"eager_api: launches a step {per_step}, "
+                             f"want {want}")
+    load_jax_state(model, snap)
+    del snap, opt
+    step = TrainStep(model, paddle.optimizer.AdamW(learning_rate=TRAIN_LR),
+                     lambda m, b: m(b, labels=b), seed=0, device=dev)
+    ids_dev = torch.from_numpy(ids).to(dev)
+    traced, step_ms = [], []
+    for _ in range(EAGER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        traced.append(step(ids_dev))
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+    same_loss = all(torch.equal(a, b) for a, b in zip(eager, traced))
+    same_params = torch.equal(eager_params, _bit_sums(
+        torch, dict(model.named_parameters())))
+    losses = [float(v) for v in eager]
+    if not (same_loss and same_params):
+        raise AssertionError(f"eager_api: the dygraph loop {losses} is not "
+                             f"bitwise TrainStep's "
+                             f"{[float(v) for v in traced]} (params "
+                             f"equal: {same_params})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"eager_api: losses do not fall: {losses}")
+    del step, model
+    _free_engine_memory(torch)
+    return {"model": "gpt_1p3b", "layers": L, "B": B, "S": S,
+            "optimizer": f"AdamW({TRAIN_LR})", "steps": EAGER_STEPS,
+            "losses": losses, "bitwise_equal_train_step": True,
+            "params_bitwise_equal": True, "launches_per_step": per_step,
+            # each loop's first step also allocates its gradients and
+            # Adam slots; ms a step is the mean of the warm steps
+            "eager_step_ms": eager_ms, "train_step_step_ms": step_ms,
+            "eager_ms_per_step": _warm_mean(eager_ms),
+            "train_step_ms_per_step": _warm_mean(step_ms),
+            "boundary_ms_per_step": _warm_mean(eager_ms)
+            - _warm_mean(step_ms), "model_build_s": build_s}
+
+
+def _warm_mean(ms):
+    return sum(ms[1:]) / len(ms[1:])
+
+
+def _wgan_gp_grads(paddle, place, w1v, w2v, realv, fakev, epsv):
+    """The WGAN-GP gradient penalty's gradients (``tests/
+    test_double_grad.py:103``) with respect to a tanh MLP's weights."""
+    t = lambda a, sg=True: paddle.to_tensor(a, place=place,  # noqa: E731
+                                            stop_gradient=sg)
+    w1, w2 = t(w1v, False), t(w2v, False)
+    eps = t(epsv)
+    x_interp = eps * t(realv) + (1.0 - eps) * t(fakev)
+    x_interp.stop_gradient = False
+    d_out = paddle.matmul(paddle.tanh(paddle.matmul(x_interp, w1)), w2)
+    (gx,) = paddle.grad(d_out.sum(), [x_interp], create_graph=True)
+    gp = ((paddle.sqrt((gx * gx).sum(axis=1) + 1e-12) - 1.0) ** 2).mean()
+    return paddle.grad(gp, [w1, w2])
+
+
+def eager_autograd(torch, dev):
+    """(c) ``paddle.grad(create_graph=True)`` through the WGAN-GP penalty
+    of a 4096-unit MLP at B=256 against the same on the CPU, a user
+    ``PyLayer`` against the built-in op's gradient, and hooks and
+    ``retain_grads`` on CUDA tensors."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    rng = np.random.default_rng(7)
+    w1 = (rng.standard_normal((WGAN_IN, WGAN_WIDTH)) /
+          np.sqrt(WGAN_IN)).astype(np.float32)
+    w2 = (rng.standard_normal((WGAN_WIDTH, 1)) /
+          np.sqrt(WGAN_WIDTH)).astype(np.float32)
+    real = rng.standard_normal((WGAN_B, WGAN_IN)).astype(np.float32)
+    fake = rng.standard_normal((WGAN_B, WGAN_IN)).astype(np.float32)
+    eps = rng.uniform(size=(WGAN_B, 1)).astype(np.float32)
+    card = _eager_place(dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    g_card = _wgan_gp_grads(paddle, card, w1, w2, real, fake, eps)
+    torch.cuda.synchronize()
+    card_ms = (time.monotonic() - t0) * 1e3
+    g_cpu = _wgan_gp_grads(paddle, "cpu", w1, w2, real, fake, eps)
+    wgan = [_eager_rel(a.numpy(), b.numpy()) for a, b in zip(g_card, g_cpu)]
+    on_card = all(g.value.device.type == dev.type for g in g_card)
+    if not (on_card and max(wgan) <= WGAN_REL):
+        FAILED_CHECKS.append(f"eager_api wgan-gp: rel {wgan}, on the card "
+                             f"{on_card}")
+
+    class Tanh(paddle.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            y = paddle.tanh(x)
+            ctx.save_for_backward(y)
+            return y
+
+        @staticmethod
+        def backward(ctx, gy):
+            (y,) = ctx.saved_tensor()
+            return gy * (1.0 - y * y)
+
+    xv = rng.standard_normal((WGAN_B, WGAN_WIDTH)).astype(np.float32)
+    wv = rng.standard_normal((WGAN_B, WGAN_WIDTH)).astype(np.float32)
+    x1 = paddle.to_tensor(xv, place=card, stop_gradient=False)
+    x2 = paddle.to_tensor(xv, place=card, stop_gradient=False)
+    w = paddle.to_tensor(wv, place=card)
+    (Tanh.apply(x1) * w).sum().backward()
+    (paddle.tanh(x2) * w).sum().backward()
+    pylayer = _eager_rel(x1.grad.numpy(), x2.grad.numpy())
+    if not (x1.grad.value.device.type == dev.type
+            and pylayer <= EAGER_GRAD_REL):
+        FAILED_CHECKS.append(f"eager_api PyLayer: rel {pylayer}")
+    seen = []
+    h = paddle.to_tensor(xv[:4], place=card, stop_gradient=False)
+    h.register_hook(lambda g: (seen.append(g.value.device.type), g * 2)[1])
+    mid = h * 3.0
+    mid.retain_grads()
+    (mid * mid).sum().backward()
+    want_mid = 2 * 3.0 * xv[:4]
+    hooks = (seen == [dev.type] and mid.grad.value.device.type == dev.type
+             and np.allclose(mid.grad.numpy(), want_mid, rtol=1e-6)
+             and np.allclose(h.grad.numpy(), 2 * 3.0 * want_mid, rtol=1e-6))
+    if not hooks:
+        FAILED_CHECKS.append(f"eager_api hooks: seen {seen}")
+    return {"wgan_gp": {"in": WGAN_IN, "width": WGAN_WIDTH, "B": WGAN_B,
+                        "grad_rel_vs_cpu": wgan, "tol_rel": WGAN_REL,
+                        "card_ms": card_ms},
+            "pylayer_grad_rel": pylayer, "hooks_retain_grads": hooks}
+
+
+def phase_eager_api(torch, dev):
+    """The eager tensor API on the card (slice 18): (a) the op sweep,
+    (b) GPT-1.3B in the dygraph idiom against ``TrainStep``, (c)
+    autograd. The expected place is set to the card for the phase."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place
+    paddle.set_device(_eager_place(dev))
+    try:
+        sweep = eager_op_sweep(torch, dev)
+        emit({"phase": "eager_api_ops", "ok": sweep["failures"] == 0,
+              **sweep})
+        gpt = eager_gpt_dygraph(torch, dev)
+        emit({"phase": "eager_api_gpt", "ok": True, **gpt})
+        auto = eager_autograd(torch, dev)
+        emit({"phase": "eager_api_autograd", "ok": True, **auto})
+    finally:
+        place.reset_device()
 
 
 REMAT_LAYERS = 4
@@ -8959,6 +9389,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _walled(phase_train, torch, dev, launches)
+    _walled(phase_eager_api, torch, dev)
     _walled(phase_train_bf16, torch, dev, launches)
     _walled(phase_train_amp, torch, dev, launches)
     _walled(phase_resnet, torch, dev, launches)

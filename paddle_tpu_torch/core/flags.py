@@ -9,6 +9,10 @@ time with :func:`set_flags`. The port defines only the flags it reads:
   updates each group of parameters with one dtype and one set of slot
   dtypes in one pass (``optimizer/optimizer.py``), instead of one pass a
   parameter.
+- ``default_dtype`` (default ``"float32"``, ``flags.py:109``): the
+  floating dtype of new tensors (``core/dtype.py``).
+- ``check_nan_inf`` and ``benchmark`` (``flags.py:106-107``): the eager
+  dispatch's NaN / Inf scan and per-op timing (``dispatch.py``).
 """
 
 from __future__ import annotations
@@ -72,3 +76,11 @@ def set_flags(flags: Dict[str, Any]) -> None:
 define_flag("fuse_optimizer", False,
             "Update each group of parameters with one dtype and one set "
             "of slot dtypes in one pass instead of one pass a parameter.")
+define_flag("default_dtype", "float32",
+            "Default floating dtype of new tensors (``core/dtype.py``).")
+define_flag("check_nan_inf", False,
+            "Scan each eager op's floating outputs for NaN / Inf and raise "
+            "(``dispatch.call_fn``).")
+define_flag("benchmark", False,
+            "Synchronise after each eager op and add its microseconds to "
+            "the ``op_us/<name>`` stat (``dispatch.call_fn``).")

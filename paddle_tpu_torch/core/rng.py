@@ -44,3 +44,46 @@ def key_scope(generator: Optional[torch.Generator]
         yield generator
     finally:
         _SCOPE.generator = prev
+
+
+# -- the eager API's generators (``paddle_tpu/core/rng.py:24-81``) -----------
+
+_SEED = {"seed": None}
+_GENERATORS = {}
+_GEN_LOCK = threading.Lock()
+
+
+def seed(value: int) -> None:
+    """``paddle.seed``: reseed the eager random ops' generators (one a
+    device, made on first use from this seed) and torch's global
+    generators, which the layers' initializers draw from when given no
+    generator."""
+    with _GEN_LOCK:
+        _SEED["seed"] = int(value)
+        _GENERATORS.clear()
+    torch.manual_seed(int(value))
+
+
+def default_generator(device) -> torch.Generator:
+    """The eager random ops' generator on ``device``: seeded from
+    :func:`seed` (0 before any call), one a device."""
+    device = torch.device(device)
+    key = (device.type, device.index or 0)
+    with _GEN_LOCK:
+        gen = _GENERATORS.get(key)
+        if gen is None:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(_SEED["seed"] or 0)
+            _GENERATORS[key] = gen
+        return gen
+
+
+def generator_for(device) -> torch.Generator:
+    """The generator a random op on ``device`` draws from: the
+    innermost :func:`key_scope`'s when it lives there, else
+    :func:`default_generator`."""
+    scoped = next_generator()
+    if scoped is not None and scoped.device.type == torch.device(
+            device).type:
+        return scoped
+    return default_generator(device)

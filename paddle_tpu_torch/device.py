@@ -18,10 +18,17 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means CUDA. Raises
-    ``RuntimeError`` when CUDA is asked for (explicitly or by default)
-    and ``torch.cuda.is_available()`` is false."""
-    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    """``device`` as a ``torch.device``; ``None`` means the expected
+    place (``core/place.py``: CUDA until ``set_device`` names another),
+    and a place resolves to its device. Raises ``RuntimeError`` when
+    CUDA is asked for (explicitly or by default) and
+    ``torch.cuda.is_available()`` is false."""
+    from .core import place
+    if device is None:
+        device = place.expected_spelling()
+    elif isinstance(device, place.Place):
+        return device.torch_device
+    dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -44,3 +51,48 @@ def setup_precision() -> None:
 def module_device(module: torch.nn.Module) -> torch.device:
     """The device a module's parameters live on."""
     return next(module.parameters()).device
+
+
+# -- ``paddle.device`` (port of ``paddle_tpu/device.py``) ---------------------
+
+def set_device(device):
+    """Set the expected place (``"cpu"``, ``"gpu"``, ``"gpu:0"``)."""
+    from .core.place import set_device as _set
+    return _set(device)
+
+
+def get_device() -> str:
+    from .core.place import get_device as _get
+    return _get()
+
+
+def is_compiled_with_cuda() -> bool:
+    return torch.cuda.is_available()
+
+
+def is_compiled_with_rocm() -> bool:
+    return torch.version.hip is not None
+
+
+def is_compiled_with_tpu() -> bool:
+    return False
+
+
+def is_compiled_with_npu() -> bool:
+    return False
+
+
+def is_compiled_with_xpu() -> bool:
+    return False
+
+
+def get_cudnn_version():
+    """cuDNN's version as an int, or None without cuDNN."""
+    return torch.backends.cudnn.version()
+
+
+def __getattr__(name):
+    if name == "XPUPlace":
+        from .core.place import XPUPlace
+        return XPUPlace
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -34,6 +34,7 @@ from ..nn.common import Dropout, Embedding, Linear
 from ..nn.layers import LayerNorm
 from ..nn.transformer import TransformerEncoder, TransformerEncoderLayer
 from ..ops import nn_functional as NF
+from ..nn.layer import Layer
 
 
 @dataclasses.dataclass
@@ -75,7 +76,7 @@ def _placement(device, dtype, generator):
     return dict(device=dev, dtype=dtype, generator=generator)
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, config: BertConfig, *, device=None,
                  dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -105,7 +106,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(emb))
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     def __init__(self, config: BertConfig, *, device=None,
                  dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -133,7 +134,7 @@ class BertModel(nn.Module):
         return seq_out, pooled
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(Layer):
     """MLM + NSP heads (the reference's pretraining benchmark)."""
 
     def __init__(self, config: BertConfig, *, device=None,
@@ -179,7 +180,7 @@ class BertForPretraining(nn.Module):
         return loss
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(Layer):
     def __init__(self, config: BertConfig, num_classes: int = 2, *,
                  device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):

@@ -53,6 +53,7 @@ from ..nn.layers import (ColumnParallelLinear, Dropout, Embedding,
                          VocabParallelEmbedding, gelu)
 from ..ops import nn_functional as NF
 from ..ops.kernels.attention import SavedAttention
+from ..nn.layer import Layer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -551,7 +552,7 @@ def _remat_block(block: nn.Module, x, save_attention: bool = False):
     return checkpoint(run, x, use_reentrant=False)
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     def __init__(self, config: GPTConfig, device=None, dtype=torch.float32,
                  generator=None):
         super().__init__()
@@ -664,7 +665,7 @@ class GPTAttention(nn.Module):
         return w, getattr(self.out_proj, "bias", None)
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     def __init__(self, config: GPTConfig, device=None, dtype=torch.float32,
                  generator=None):
         super().__init__()
@@ -679,7 +680,7 @@ class GPTMLP(nn.Module):
         return self.fc_out(gelu(self.fc_in(x)))
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     """Pre-norm transformer block."""
 
     def __init__(self, config: GPTConfig, device=None, dtype=torch.float32,
@@ -710,7 +711,7 @@ class GPTBlock(nn.Module):
         return x
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, config: GPTConfig, device=None, dtype=torch.float32,
                  generator=None):
         super().__init__()
@@ -768,7 +769,7 @@ class GPTModel(nn.Module):
         return self.ln_f(x), new_caches
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """GPT with the LM head tied to ``wte`` (or an untied ``[E, V]``
     head). Built on ``device`` (CUDA unless the caller names another;
     raises without a GPU) from ``generator`` (a fresh generator seeded

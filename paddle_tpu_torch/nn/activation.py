@@ -13,9 +13,10 @@ from torch import nn
 from ..device import resolve_device
 from ..ops import nn_functional as NF
 from .initializer import Constant, create_parameter
+from .layer import Layer
 
 
-class _Act(nn.Module):
+class _Act(Layer):
     _op = ""
     _kwargs: dict = {}
 
@@ -30,7 +31,7 @@ class _Act(nn.Module):
         return ", ".join(f"{k}={v}" for k, v in self._extra.items())
 
 
-class _Args(nn.Module):
+class _Args(Layer):
     """An activation whose arguments (``_names``, set by the constructor)
     follow ``x`` to ``NF.<_op>`` in order, as the JAX layer passes
     them."""
@@ -185,7 +186,7 @@ class Maxout(_Args):
         self.groups, self.axis = groups, axis
 
 
-class PReLU(nn.Module):
+class PReLU(Layer):
     """``where(x >= 0, x, weight * x)`` with ``weight [num_parameters]``
     (one slope, or one a channel on axis 1), each ``init``."""
 

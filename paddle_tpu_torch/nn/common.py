@@ -42,9 +42,10 @@ from ..ops import nn_functional as NF
 from .initializer import Normal, create_parameter
 from .layers import Dropout  # noqa: F401
 from .layers import Linear as _Linear
+from .layer import Layer
 
 
-class Identity(nn.Module):
+class Identity(Layer):
     def forward(self, x):
         return x
 
@@ -73,7 +74,7 @@ class Linear(_Linear):
         return f"in={self.in_features}, out={self.out_features}"
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """Row lookup into ``weight [num_embeddings, embedding_dim]``."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
@@ -97,7 +98,7 @@ class Embedding(nn.Module):
         return f"{self._num_embeddings}, {self._embedding_dim}"
 
 
-class Flatten(nn.Module):
+class Flatten(Layer):
     """Dims ``start_axis..stop_axis`` into one (``manipulation.py:95``)."""
 
     def __init__(self, start_axis: int = 1, stop_axis: int = -1):
@@ -111,7 +112,7 @@ class Flatten(nn.Module):
         return torch.flatten(x, self.start_axis, self.stop_axis)
 
 
-class Dropout2D(nn.Module):
+class Dropout2D(Layer):
     """Whole channels of an NCHW / NHWC input."""
 
     _fn = staticmethod(NF.dropout2d)
@@ -133,7 +134,7 @@ class Dropout3D(Dropout2D):
         super().__init__(p, data_format)
 
 
-class AlphaDropout(nn.Module):
+class AlphaDropout(Layer):
     def __init__(self, p: float = 0.5, name=None):
         super().__init__()
         self.p = p
@@ -142,7 +143,7 @@ class AlphaDropout(nn.Module):
         return NF.alpha_dropout(x, p=self.p, training=self.training)
 
 
-class Pad1D(nn.Module):
+class Pad1D(Layer):
     """``ops/nn_functional.py`` ``pad`` over the last (NCL) or middle
     (NLC) dim; an int pads both sides."""
 
@@ -180,7 +181,7 @@ class Pad3D(Pad1D):
                         data_format=self._fmt)
 
 
-class ZeroPad2D(nn.Module):
+class ZeroPad2D(Layer):
     def __init__(self, padding, data_format="NCHW"):
         super().__init__()
         self._pad = padding if isinstance(padding, (list, tuple)) else \
@@ -191,7 +192,7 @@ class ZeroPad2D(nn.Module):
         return NF.zeropad2d(x, self._pad, data_format=self._fmt)
 
 
-class Upsample(nn.Module):
+class Upsample(Layer):
     def __init__(self, size=None, scale_factor=None, mode="nearest",
                  align_corners=False, align_mode=0, data_format="NCHW"):
         super().__init__()
@@ -218,7 +219,7 @@ class UpsamplingBilinear2D(Upsample):
                          align_corners=True, data_format=data_format)
 
 
-class PixelShuffle(nn.Module):
+class PixelShuffle(Layer):
     def __init__(self, upscale_factor: int, data_format="NCHW"):
         super().__init__()
         self.upscale_factor = upscale_factor
@@ -228,7 +229,7 @@ class PixelShuffle(nn.Module):
         return NF.pixel_shuffle(x, self.upscale_factor, self.data_format)
 
 
-class Bilinear(nn.Module):
+class Bilinear(Layer):
     """``out[b, o] = x1[b] @ weight[o] @ x2[b] + bias[o]``."""
 
     def __init__(self, in1_features, in2_features, out_features,
@@ -248,7 +249,7 @@ class Bilinear(nn.Module):
         return NF.bilinear(x1, x2, self.weight, self.bias)
 
 
-class CosineSimilarity(nn.Module):
+class CosineSimilarity(Layer):
     def __init__(self, axis=1, eps=1e-8):
         super().__init__()
         self.axis, self.eps = axis, eps
@@ -257,7 +258,7 @@ class CosineSimilarity(nn.Module):
         return NF.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
 
 
-class Unfold(nn.Module):
+class Unfold(Layer):
     def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
                  name=None):
         super().__init__()
@@ -268,7 +269,7 @@ class Unfold(nn.Module):
         return NF.unfold(x, k, strides=s, paddings=p, dilations=d)
 
 
-class Fold(nn.Module):
+class Fold(Layer):
     def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
                  dilations=1, name=None):
         super().__init__()
@@ -280,7 +281,7 @@ class Fold(nn.Module):
         return NF.fold(x, o, k, strides=s, paddings=p, dilations=d)
 
 
-class PairwiseDistance(nn.Module):
+class PairwiseDistance(Layer):
     """``||x - y + epsilon||_p`` over the last dim."""
 
     def __init__(self, p: float = 2.0, epsilon: float = 1e-6,

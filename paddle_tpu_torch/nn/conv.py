@@ -34,9 +34,10 @@ from ..device import resolve_device
 from ..ops import nn_functional as NF
 from ..ops import vision_extra as VE
 from .initializer import KaimingUniform, Uniform, create_parameter
+from .layer import Layer
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     def __init__(self, in_channels, out_channels, kernel_size, stride,
                  padding, dilation, groups, bias_attr, weight_attr,
                  data_format, ndim, transposed=False, output_padding=0, *,

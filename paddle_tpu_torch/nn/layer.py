@@ -1,4 +1,18 @@
-"""Moving weights between the JAX package and the port.
+"""``Layer``, the base of the port's layers and models (port of
+``paddle_tpu/nn/layer.py:41-365``), and moving weights between the JAX
+package and the port.
+
+``Layer`` subclasses ``torch.nn.Module`` and adds Paddle's names that
+torch lacks (``create_parameter``, ``add_sublayer``, ``sublayers``,
+``set_state_dict``, ``clear_gradients``, ``register_forward_post_hook``,
+...). Its ``__call__`` unwraps eager ``Tensor`` arguments to their
+values and wraps the outputs back only when a ``Tensor`` came in:
+plain ``torch.Tensor`` arguments reach ``forward`` untouched and come
+back as they are, so inside a model every op sees plain tensors. Where
+Paddle and torch give one name two meanings, torch's stays:
+``parameters()`` is a generator (a list in the JAX package),
+``state_dict()`` holds torch tensors, ``to()`` and ``register_buffer``
+take torch's arguments as well as Paddle's spellings.
 
 The port's modules name their parameters and buffers as the JAX
 package's ``Layer`` does (``nn/layer.py:239-252``), so a JAX model's
@@ -10,11 +24,13 @@ checkpoint_state``, loads without renaming or transposing: keys such as
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..tensor import Tensor
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
@@ -110,3 +126,191 @@ def load_jax_state(model: nn.Module, state: Dict[str, Any]) -> None:
                 raise ValueError(f"{name}: shape {tuple(src.shape)} != "
                                  f"{tuple(t.shape)}")
             t.copy_(src.to(dtype=t.dtype))
+
+
+# -- Layer --------------------------------------------------------------------
+
+def _unwrap_args(obj):
+    if isinstance(obj, Tensor):
+        return obj.value
+    if isinstance(obj, list):
+        return [_unwrap_args(o) for o in obj]
+    if isinstance(obj, tuple):
+        return tuple(_unwrap_args(o) for o in obj)
+    return obj
+
+
+def _torch_spelling(v):
+    """A device or dtype in Paddle's spelling (a place, ``"gpu:0"``,
+    ``"float32"``) as torch takes it; torch's own pass unchanged."""
+    from ..core.dtype import convert_dtype
+    from ..core.place import Place, place_of
+    if isinstance(v, Place):
+        return v.torch_device
+    if isinstance(v, str):
+        head = v.split(":")[0].lower()
+        if head in ("gpu", "tpu", "npu", "xpu"):
+            return place_of(v).torch_device
+        if head not in ("cpu", "cuda", "meta"):
+            return convert_dtype(v)
+    if isinstance(v, np.dtype) or (isinstance(v, type) and issubclass(
+            v, np.generic)):
+        return convert_dtype(v)
+    return v
+
+
+class Layer(nn.Module):
+    """A ``torch.nn.Module`` with the reference ``Layer``'s names."""
+
+    _name_scope: Optional[str] = None
+    _dtype = torch.float32
+
+    def __init__(self, name_scope: Optional[str] = None, dtype="float32"):
+        super().__init__()
+        from ..core.dtype import convert_dtype
+        self._dtype = convert_dtype(dtype)
+        if name_scope is not None:
+            self._name_scope = name_scope
+
+    def __call__(self, *args, **kwargs):
+        # every module call of the port passes here with plain tensors:
+        # the scan is type checks inline, and the plain call goes to
+        # what nn.Module.__call__ runs (_wrapped_call_impl) one frame
+        # sooner, so a call costs the frames it cost before
+        for a in args:
+            t = type(a)
+            if t is Tensor:
+                return self._eager_call(args, kwargs)
+            if t is list or t is tuple:
+                for b in a:
+                    if type(b) is Tensor:
+                        return self._eager_call(args, kwargs)
+        if kwargs:
+            for a in kwargs.values():
+                if type(a) is Tensor:
+                    return self._eager_call(args, kwargs)
+        if self._compiled_call_impl is not None:
+            return self._compiled_call_impl(*args, **kwargs)
+        return self._call_impl(*args, **kwargs)
+
+    def _eager_call(self, args, kwargs):
+        """A call with eager ``Tensor`` arguments: ``forward`` sees their
+        values, and the outputs come back as ``Tensor``s."""
+        from ..dispatch import _wrap
+        out = self._wrapped_call_impl(
+            *_unwrap_args(args),
+            **{k: _unwrap_args(v) for k, v in kwargs.items()})
+        return _wrap(out)
+
+    # -- construction helpers -------------------------------------------------
+
+    def create_parameter(self, shape, dtype=None, default_initializer=None,
+                         is_bias: bool = False, attr=None):
+        """A ``Parameter`` on the expected place, drawn by the
+        initializer ``attr`` / ``default_initializer`` / the global one
+        name (``xavier_uniform``, zeros for a bias)."""
+        from ..core.dtype import convert_dtype
+        from ..device import resolve_device
+        from ..tensor import Parameter
+        from .initializer import create_parameter
+        p = create_parameter(tuple(shape), attr=attr,
+                             default_initializer=default_initializer,
+                             is_bias=is_bias, device=resolve_device(None),
+                             dtype=convert_dtype(dtype or self._dtype))
+        out = Parameter(p, name=getattr(p, "param_name", None),
+                        trainable=p.requires_grad)
+        return out
+
+    def add_parameter(self, name: str, parameter):
+        self.register_parameter(name, parameter)
+        return parameter
+
+    def add_sublayer(self, name: str, sublayer: nn.Module):
+        self.add_module(name, sublayer)
+        return sublayer
+
+    def register_buffer(self, name: str, tensor, persistable: bool = True,
+                        persistent: Optional[bool] = None):
+        """torch's ``register_buffer``; Paddle's third argument
+        (``persistable``) means torch's ``persistent``, and an eager
+        ``Tensor`` is stored as its value."""
+        from ..tensor import unwrap
+        keep = persistable if persistent is None else persistent
+        super().register_buffer(name, unwrap(tensor), persistent=keep)
+        return tensor
+
+    # -- traversal ------------------------------------------------------------
+
+    def named_sublayers(self, prefix: str = "", include_self: bool = False
+                        ) -> Iterator[Tuple[str, nn.Module]]:
+        if include_self:
+            yield prefix, self
+        for name, layer in self._modules.items():
+            if layer is None:
+                continue
+            sub_prefix = f"{prefix}.{name}" if prefix else name
+            yield sub_prefix, layer
+            if isinstance(layer, Layer):
+                yield from layer.named_sublayers(sub_prefix)
+            else:
+                for n, m in layer.named_modules(prefix=sub_prefix):
+                    if m is not layer:
+                        yield n, m
+
+    def sublayers(self, include_self: bool = False) -> List[nn.Module]:
+        return [m for _, m in self.named_sublayers(include_self=include_self)]
+
+    # -- hooks ----------------------------------------------------------------
+
+    def register_forward_post_hook(self, hook: Callable):
+        """``hook(layer, inputs, outputs)`` after each forward; a value
+        it returns replaces the outputs. The handle's ``remove()`` takes
+        it off."""
+        return self.register_forward_hook(hook)
+
+    # -- state dict -----------------------------------------------------------
+
+    def set_state_dict(self, state_dict, use_structured_name: bool = True):
+        """Copy ``state_dict`` (name -> Tensor, torch tensor or array)
+        into the parameters and buffers in place, each in its own dtype;
+        shape mismatches raise. Returns the names the dict lacks."""
+        from ..tensor import unwrap
+        own = self.state_dict(keep_vars=True)
+        missing = []
+        with torch.no_grad():
+            for name, target in own.items():
+                if name not in state_dict:
+                    missing.append(name)
+                    continue
+                value = unwrap(state_dict[name])
+                if not isinstance(value, torch.Tensor):
+                    value = _from_host(value)
+                if tuple(value.shape) != tuple(target.shape):
+                    raise ValueError(
+                        f"shape mismatch for {name}: {tuple(value.shape)} "
+                        f"vs {tuple(target.shape)}")
+                target.copy_(value.to(device=target.device,
+                                      dtype=target.dtype))
+        return missing
+
+    load_dict = set_state_dict
+
+    # -- dtype / device -------------------------------------------------------
+
+    def to(self, *args, **kwargs):
+        args = tuple(_torch_spelling(a) for a in args)
+        kwargs = {k: _torch_spelling(v) if k in ("device", "dtype") else v
+                  for k, v in kwargs.items()}
+        return super().to(*args, **kwargs)
+
+    def astype(self, dtype):
+        return self.to(dtype=dtype)
+
+    # -- misc -----------------------------------------------------------------
+
+    def clear_gradients(self) -> None:
+        for p in self.parameters():
+            p.grad = None
+
+    def full_name(self) -> str:
+        return self._name_scope or type(self).__name__.lower()

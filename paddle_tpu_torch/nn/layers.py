@@ -29,6 +29,7 @@ from torch import nn
 
 from ..amp.auto_cast import amp_cast
 from ..ops import nn_functional as NF
+from .layer import Layer
 
 
 def _normal(shape, std: float, device, dtype, generator) -> nn.Parameter:
@@ -37,7 +38,7 @@ def _normal(shape, std: float, device, dtype, generator) -> nn.Parameter:
     return nn.Parameter(w)
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """``y = x @ weight + bias`` with ``weight`` of shape ``[in, out]``.
     Under ``auto_cast`` it is the JAX op ``linear`` with the bias among
     its inputs (``ColumnParallelLinear``, ``mp_layers.py:137-138``);
@@ -82,7 +83,7 @@ class RowParallelLinear(Linear):
     _bias_in_op = False
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """Row lookup into ``weight [num_embeddings, dim]``."""
 
     def __init__(self, num_embeddings: int, dim: int, *, device=None,
@@ -100,7 +101,7 @@ class VocabParallelEmbedding(Embedding):
     """Single-device VocabParallelEmbedding: a plain ``Embedding``."""
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """Layer norm over the last dim with ``weight``/``bias`` named as in
     the JAX package's checkpoints. An input of another dtype than the
     parameters (bf16 activations with the bf16 recipe's fp32 norms) is
@@ -126,7 +127,7 @@ class LayerNorm(nn.Module):
         return F.layer_norm(x, (x.shape[-1],), w, b, self.epsilon)
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """``nn_functional.dropout`` in ``self.training`` mode."""
 
     def __init__(self, p: float = 0.5, axis=None,
@@ -144,7 +145,7 @@ class Dropout(nn.Module):
         return f"p={self.p}"
 
 
-class ParallelCrossEntropy(nn.Module):
+class ParallelCrossEntropy(Layer):
     """Per-position cross entropy (``reduction="none"``) that gives 0 at
     ``ignore_index`` labels."""
 

@@ -16,9 +16,10 @@ from ..device import resolve_device
 from ..ops import loss_extra as LE
 from ..ops import nn_functional as NF
 from .initializer import create_parameter
+from .layer import Layer
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0, name=None):
@@ -39,7 +40,7 @@ class CrossEntropyLoss(nn.Module):
             label_smoothing=self.label_smoothing)
 
 
-class _Reduced(nn.Module):
+class _Reduced(Layer):
     """A loss whose only option is ``reduction``."""
 
     _fn = None
@@ -68,7 +69,7 @@ class SoftMarginLoss(_Reduced):
     _fn = staticmethod(NF.soft_margin_loss)
 
 
-class SmoothL1Loss(nn.Module):
+class SmoothL1Loss(Layer):
     def __init__(self, reduction="mean", delta=1.0, name=None):
         super().__init__()
         self.reduction = reduction
@@ -78,7 +79,7 @@ class SmoothL1Loss(nn.Module):
         return NF.smooth_l1_loss(input, label, self.reduction, self.delta)
 
 
-class NLLLoss(nn.Module):
+class NLLLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  name=None):
         super().__init__()
@@ -91,7 +92,7 @@ class NLLLoss(nn.Module):
                            self.reduction)
 
 
-class BCELoss(nn.Module):
+class BCELoss(Layer):
     def __init__(self, weight=None, reduction="mean", name=None):
         super().__init__()
         self.weight = weight
@@ -102,7 +103,7 @@ class BCELoss(nn.Module):
                                        self.reduction)
 
 
-class BCEWithLogitsLoss(nn.Module):
+class BCEWithLogitsLoss(Layer):
     def __init__(self, weight=None, reduction="mean", pos_weight=None,
                  name=None):
         super().__init__()
@@ -115,7 +116,7 @@ class BCEWithLogitsLoss(nn.Module):
             logit, label, self.weight, self.reduction, self.pos_weight)
 
 
-class MarginRankingLoss(nn.Module):
+class MarginRankingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -126,7 +127,7 @@ class MarginRankingLoss(nn.Module):
                                       self.reduction)
 
 
-class HingeEmbeddingLoss(nn.Module):
+class HingeEmbeddingLoss(Layer):
     def __init__(self, margin=1.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -137,7 +138,7 @@ class HingeEmbeddingLoss(nn.Module):
                                        self.reduction)
 
 
-class CosineEmbeddingLoss(nn.Module):
+class CosineEmbeddingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -148,7 +149,7 @@ class CosineEmbeddingLoss(nn.Module):
                                         self.reduction)
 
 
-class TripletMarginLoss(nn.Module):
+class TripletMarginLoss(Layer):
     def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
                  reduction="mean", name=None):
         super().__init__()
@@ -161,7 +162,7 @@ class TripletMarginLoss(nn.Module):
                                       self.swap, self.reduction)
 
 
-class CTCLoss(nn.Module):
+class CTCLoss(Layer):
     def __init__(self, blank=0, reduction="mean"):
         super().__init__()
         self.blank = blank
@@ -174,7 +175,7 @@ class CTCLoss(nn.Module):
                            norm_by_times=norm_by_times)
 
 
-class HSigmoidLoss(nn.Module):
+class HSigmoidLoss(Layer):
     """The default tree touches internal nodes ``0 .. num_classes - 2``
     (weight ``[num_classes - 1, D]``); a custom tree indexes up to
     ``num_classes`` rows."""
@@ -201,7 +202,7 @@ class HSigmoidLoss(nn.Module):
                                 path_table=path_table, path_code=path_code)
 
 
-class MultiLabelSoftMarginLoss(nn.Module):
+class MultiLabelSoftMarginLoss(Layer):
     def __init__(self, weight=None, reduction="mean", name=None):
         super().__init__()
         self.weight = weight
@@ -212,7 +213,7 @@ class MultiLabelSoftMarginLoss(nn.Module):
             input, label, weight=self.weight, reduction=self.reduction)
 
 
-class PoissonNLLLoss(nn.Module):
+class PoissonNLLLoss(Layer):
     def __init__(self, log_input=True, full=False, epsilon=1e-8,
                  reduction="mean", name=None):
         super().__init__()
@@ -224,7 +225,7 @@ class PoissonNLLLoss(nn.Module):
                                    epsilon=ep, reduction=red)
 
 
-class GaussianNLLLoss(nn.Module):
+class GaussianNLLLoss(Layer):
     def __init__(self, full=False, epsilon=1e-6, reduction="mean",
                  name=None):
         super().__init__()

@@ -32,6 +32,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops import nn_functional as NF
 from .initializer import Constant, create_parameter
+from .layer import Layer
 
 
 def _scale_and_shift(shape, weight_attr, bias_attr, device, dtype):
@@ -45,7 +46,7 @@ def _scale_and_shift(shape, weight_attr, bias_attr, device, dtype):
     return weight, bias
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None, *, device=None,
@@ -145,7 +146,7 @@ class SyncBatchNorm(_BatchNormBase):
         return layer
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """Layer norm over the trailing ``normalized_shape`` (``norm.py:
     126-152``)."""
 
@@ -169,7 +170,7 @@ class LayerNorm(nn.Module):
         return f"normalized_shape={self._normalized_shape}"
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     def __init__(self, hidden_size, epsilon=1e-6, *, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -182,7 +183,7 @@ class RMSNorm(nn.Module):
         return NF.rms_norm(x, self.weight, self._epsilon)
 
 
-class GroupNorm(nn.Module):
+class GroupNorm(Layer):
     def __init__(self, num_groups, num_channels, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  name=None, *, device=None, dtype=torch.float32):
@@ -199,7 +200,7 @@ class GroupNorm(nn.Module):
                              self._epsilon, self._data_format)
 
 
-class InstanceNorm1D(nn.Module):
+class InstanceNorm1D(Layer):
     """Per sample and channel over the spatial dims. ``weight_attr=False``
     drops both parameters; a ``bias_attr`` of False does not drop the
     bias, as in the JAX layer (``norm.py:178-194``)."""
@@ -239,7 +240,7 @@ class InstanceNorm3D(InstanceNorm1D):
                          bias_attr, data_format, name, **kw)
 
 
-class LocalResponseNorm(nn.Module):
+class LocalResponseNorm(Layer):
     def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
                  data_format="NCHW", name=None):
         super().__init__()
@@ -251,7 +252,7 @@ class LocalResponseNorm(nn.Module):
                                       self.k, self._data_format)
 
 
-class DataNorm(nn.Module):
+class DataNorm(Layer):
     """Normalisation by accumulated statistics (``norm.py:222-266``):
     the output uses the buffers as they are, then training folds the
     batch in (``size * decay + n``, ``sum * decay + sum(x)``, ``square_sum
@@ -292,7 +293,7 @@ class DataNorm(nn.Module):
         return out
 
 
-class SpectralNorm(nn.Module):
+class SpectralNorm(Layer):
     """``weight / sigma(weight)`` by power iteration (``norm.py:269-319``):
     ``weight_u [h]`` and ``weight_v [w]`` start as normalised normal
     draws from ``generator`` and are updated at every call; sigma is a

@@ -9,9 +9,10 @@ from __future__ import annotations
 from torch import nn
 
 from ..ops import nn_functional as NF
+from .layer import Layer
 
 
-class MaxPool1D(nn.Module):
+class MaxPool1D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0,
                  return_mask=False, ceil_mode=False, name=None):
         super().__init__()
@@ -23,7 +24,7 @@ class MaxPool1D(nn.Module):
                              self.return_mask)
 
 
-class AvgPool1D(nn.Module):
+class AvgPool1D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, exclusive=True,
                  ceil_mode=False, name=None):
         super().__init__()
@@ -35,7 +36,7 @@ class AvgPool1D(nn.Module):
                              self.exclusive)
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     _fn = staticmethod(NF.max_pool2d)
 
     def __init__(self, kernel_size, stride=None, padding=0,
@@ -61,7 +62,7 @@ class MaxPool3D(MaxPool2D):
                          ceil_mode, data_format)
 
 
-class AvgPool2D(nn.Module):
+class AvgPool2D(Layer):
     _fn = staticmethod(NF.avg_pool2d)
 
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
@@ -89,7 +90,7 @@ class AvgPool3D(AvgPool2D):
                          divisor_override, data_format)
 
 
-class AdaptiveAvgPool1D(nn.Module):
+class AdaptiveAvgPool1D(Layer):
     def __init__(self, output_size, name=None):
         super().__init__()
         self.output_size = output_size
@@ -106,7 +107,7 @@ class AdaptiveMaxPool1D(AdaptiveAvgPool1D):
         return NF.adaptive_max_pool1d(x, self.output_size)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     _fn = staticmethod(NF.adaptive_avg_pool2d)
 
     def __init__(self, output_size, data_format="NCHW", name=None):
@@ -125,7 +126,7 @@ class AdaptiveAvgPool3D(AdaptiveAvgPool2D):
         super().__init__(output_size, data_format)
 
 
-class AdaptiveMaxPool2D(nn.Module):
+class AdaptiveMaxPool2D(Layer):
     _fn = staticmethod(NF.adaptive_max_pool2d)
 
     def __init__(self, output_size, return_mask=False, name=None):
@@ -141,7 +142,7 @@ class AdaptiveMaxPool3D(AdaptiveMaxPool2D):
     _fn = staticmethod(NF.adaptive_max_pool3d)
 
 
-class LPPool2D(nn.Module):
+class LPPool2D(Layer):
     def __init__(self, norm_type, kernel_size, stride=None, padding=0,
                  ceil_mode=False, data_format="NCHW", name=None):
         super().__init__()

@@ -27,6 +27,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops import rnn as R
 from .initializer import Uniform, create_parameter
+from .layer import Layer
 
 _GATES = {"SimpleRNN": 1, "LSTM": 4, "GRU": 3}
 
@@ -67,7 +68,7 @@ def _draw(device, dtype, generator, hidden_size):
     return lambda shape: create_parameter(shape, **kw)
 
 
-class _RNNBase(nn.Module):
+class _RNNBase(Layer):
     def __init__(self, mode, input_size, hidden_size, num_layers=1,
                  direction="forward", time_major=False, dropout=0.0,
                  activation="tanh", *, device=None, dtype=torch.float32,
@@ -145,7 +146,7 @@ class GRU(_RNNBase):
                          direction, time_major, dropout, **kwargs)
 
 
-class _CellBase(nn.Module):
+class _CellBase(Layer):
     def __init__(self, mode, input_size, hidden_size, *, device=None,
                  dtype=torch.float32,
                  generator: Optional[torch.Generator] = None, **attrs):
@@ -204,7 +205,7 @@ class GRUCell(_CellBase):
         return h, h
 
 
-class RNN(nn.Module):
+class RNN(Layer):
     """Walk a cell over time. With ``sequence_length``, a row's states
     stop changing and its outputs are zero past its length (the
     reverse walk keeps the initial state until it enters the row's
@@ -248,7 +249,7 @@ class RNN(nn.Module):
         return torch.stack(outs, dim=time_axis), states
 
 
-class RNNCellBase(nn.Module):
+class RNNCellBase(Layer):
     """Base of user-defined cells: ``forward(inputs, states) ->
     (output, new_states)``; zero-filled initial states from
     ``state_shape``."""
@@ -278,7 +279,7 @@ class RNNCellBase(nn.Module):
             "get_initial_states")
 
 
-class BiRNN(nn.Module):
+class BiRNN(Layer):
     """``cell_fw`` forward and ``cell_bw`` reversed, outputs joined on
     the feature axis; states ``(fw, bw)``."""
 

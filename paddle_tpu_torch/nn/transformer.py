@@ -36,6 +36,7 @@ from ..device import resolve_device
 from ..ops import nn_functional as NF
 from .common import Dropout, Linear
 from .layers import LayerNorm
+from .layer import Layer
 
 
 def _activation(name: str):
@@ -47,7 +48,7 @@ def _activation(name: str):
     return fn
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """Multi-head attention with separate q/k/v projections and an
     optional key/value cache for incremental decoding."""
 
@@ -124,7 +125,7 @@ def _config(args):
     return {k: v for k, v in args.items() if k not in ("self", "__class__")}
 
 
-class _Layer(nn.Module):
+class _Layer(Layer):
     """What the encoder and decoder layers share: their configuration,
     the attention blocks (``attentions``: their names), the feed-forward
     block, and ``norms`` layer norms each with its dropout."""
@@ -231,7 +232,7 @@ class TransformerDecoderLayer(_Layer):
         return (self.self_attn.gen_cache(memory),)
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
         self.layers = nn.ModuleList([encoder_layer] + [
@@ -256,7 +257,7 @@ class TransformerEncoder(nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     def __init__(self, decoder_layer, num_layers, norm=None):
         super().__init__()
         self.layers = nn.ModuleList([decoder_layer] + [
@@ -283,7 +284,7 @@ class TransformerDecoder(nn.Module):
         return [layer.gen_cache(memory) for layer in self.layers]
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """Encoder-decoder at Transformer-base by default (d_model 512, 8
     heads, 6 + 6 layers, FFN 2048); a final ``LayerNorm`` on each side
     when ``normalize_before``."""

@@ -44,6 +44,7 @@ from torch import nn
 
 from ..ops.kernels.int8_matmul import (int8_conv2d, int8_linear,
                                        quantize_activation)
+from ..nn.layer import Layer
 
 KV_QMAX_INT8 = 127.0
 KV_QMAX_INT4 = 7.0
@@ -190,7 +191,7 @@ def fake_quant(x: torch.Tensor, scale, bits: int = 8) -> torch.Tensor:
     return _FakeQuant.apply(x, s, float(2 ** (bits - 1) - 1))
 
 
-class FakeQuantLayer(nn.Module):
+class FakeQuantLayer(Layer):
     """Observes the activation's abs-max in training (the first batch
     sets the buffer ``scale``, later ones move it by ``moving_rate``) and
     fake-quantizes against it."""
@@ -224,7 +225,7 @@ def _quantizable():
     return Linear, Conv2D
 
 
-class QuantizedLinear(nn.Module):
+class QuantizedLinear(Layer):
     """A ``Linear`` with fake-quantized weight (per output channel: the
     abs-max over axis 0 of the ``[in, out]`` weight, or one for the
     tensor) and activation."""
@@ -251,7 +252,7 @@ class QuantizedLinear(nn.Module):
         return out if b is None else out + b
 
 
-class QuantizedConv2D(nn.Module):
+class QuantizedConv2D(Layer):
     """A ``Conv2D`` with a per-tensor fake-quantized weight and a
     fake-quantized activation."""
 
@@ -386,7 +387,7 @@ def _scalar_buffer(value, device) -> torch.Tensor:
     return torch.tensor(np.float32(value), device=device)
 
 
-class Int8Linear(nn.Module):
+class Int8Linear(Layer):
     """A ``Linear`` executing int8 x int8 -> int32 (``int8_linear``):
     the ``[in, out]`` weight held as the int8 buffer ``weight_int8`` with
     a per-output-channel ``weight_scale``, the activation quantized
@@ -408,7 +409,7 @@ class Int8Linear(nn.Module):
                            self.act_scale, self.bias)
 
 
-class Int8Conv2D(nn.Module):
+class Int8Conv2D(Layer):
     """A ``Conv2D`` executing int8 x int8 -> int32 (``int8_conv2d``), one
     weight scale for the tensor, NCHW."""
 
@@ -478,7 +479,7 @@ def convert_to_int8(model: nn.Module, ptq: PTQ) -> nn.Module:
     return model
 
 
-class WeightOnlyInt8Linear(nn.Module):
+class WeightOnlyInt8Linear(Layer):
     """Weight-only int8 linear (``quant.py:427-474``): the ``[in, out]``
     weight quantized per output channel into the buffers ``weight_int8``
     (int8) and ``weight_scale`` (float32), the bias kept as it was. The

@@ -5,8 +5,8 @@ A Program is a traced, exported PyTorch computation (``torch.export``)
 over its parameters and buffers; ``save_inference_model`` writes it in
 the port's own format and ``load_inference_model`` /
 ``inference.Predictor`` run it on the device it was exported for.
-``static/nn.py`` waits for the op library (ROADMAP.md 3(e)), as do
-``cpu_places`` / ``cuda_places``; none is importable.
+``static/nn.py`` waits for the rest of the op library (ROADMAP.md
+3(e)) and is not importable.
 """
 
 from .program import (CompiledProgram, Executor, InputSpec,  # noqa: F401
@@ -16,7 +16,8 @@ from .program import (CompiledProgram, Executor, InputSpec,  # noqa: F401
 from .api import (BuildStrategy, ExecutionStrategy,  # noqa: F401,E402
                   ParallelExecutor, Print, Scope, Variable,
                   WeightNormParamAttr, accuracy, append_backward, auc,
-                  create_global_var, create_parameter,
+                  cpu_places, create_global_var, create_parameter,
+                  cuda_places,
                   default_startup_program, deserialize_persistables,
                   deserialize_program, device_guard, global_scope,
                   gradients, load, load_from_file, load_program_state,

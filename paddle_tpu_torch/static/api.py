@@ -5,9 +5,8 @@ shells and ``ParallelExecutor``, program and persistable
 ``name_scope``, ``Print``, ``py_func``, ``append_backward`` /
 ``gradients``, ``accuracy`` and ``auc``.
 
-Autodiff facades run on PyTorch's autograd. Waiting for another item of
-ROADMAP.md's 3(e), and not importable: ``cpu_places`` / ``cuda_places``
-(``core/place.py``).
+Autodiff facades run on PyTorch's autograd. ``cpu_places`` /
+``cuda_places`` give ``core/place.py``'s places.
 """
 
 from __future__ import annotations
@@ -27,6 +26,26 @@ from .program import Program, convert_dtype
 
 # Variable: every value is a tensor
 Variable = torch.Tensor
+
+
+# -- places -------------------------------------------------------------------
+
+def cpu_places(device_count: Optional[int] = None):
+    """reference: paddle.static.cpu_places (``CPU_NUM`` places, or
+    ``device_count``)."""
+    from ..core.place import CPUPlace
+    if device_count is None:
+        device_count = int(os.environ.get("CPU_NUM", 1))
+    return [CPUPlace(i) for i in range(device_count)]
+
+
+def cuda_places(device_ids=None):
+    """reference: paddle.static.cuda_places: a place a CUDA device (or
+    one a listed id)."""
+    from ..core.place import CUDAPlace
+    if device_ids is None:
+        device_ids = list(range(max(1, torch.cuda.device_count())))
+    return [CUDAPlace(i) for i in device_ids]
 
 
 # -- scopes -------------------------------------------------------------------

@@ -42,6 +42,7 @@ from torch.utils import _pytree as pytree
 
 from ..device import DeviceLike, module_device, resolve_device
 from ..io.collate import default_collate_fn
+from ..nn.layer import Layer
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "float16": torch.float16, "bfloat16": torch.bfloat16,
@@ -98,7 +99,7 @@ def _as_input(x, spec: InputSpec, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x), device=device).to(spec.dtype)
 
 
-class _Traced(nn.Module):
+class _Traced(Layer):
     """The traced signature, ``forward(params, buffers, *inputs)``. The
     function is held as a plain attribute, so a layer it closes over is
     no submodule and its weights enter the graph only as inputs."""

@@ -17,9 +17,10 @@ from ...nn.common import Linear
 from ...nn.container import Sequential
 from ...nn.conv import Conv2D
 from ...nn.pooling import MaxPool2D
+from ...nn.layer import Layer
 
 
-class LeNet(nn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes=10, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()

@@ -28,13 +28,14 @@ from ...nn.conv import Conv2D
 from ...nn.norm import BatchNorm2D
 from ...nn.pooling import AdaptiveAvgPool2D
 from ._layout import boundary_in, boundary_out, flatten_nchw_order
+from ...nn.layer import Layer
 
 
 def _norm_kw(kw):
     return dict(device=kw["device"], dtype=kw["dtype"])
 
 
-class _ConvBNRelu(nn.Module):
+class _ConvBNRelu(Layer):
     def __init__(self, in_c, out_c, k, stride=1, padding=0, groups=1,
                  relu6=False, data_format="NCHW", **kw):
         super().__init__()
@@ -48,7 +49,7 @@ class _ConvBNRelu(nn.Module):
         return self.act(self.bn(self.conv(x)))
 
 
-class _DepthwiseSep(nn.Module):
+class _DepthwiseSep(Layer):
     def __init__(self, in_c, out_c, stride, data_format="NCHW", **kw):
         super().__init__()
         self.dw = _ConvBNRelu(in_c, in_c, 3, stride, 1, groups=in_c,
@@ -66,7 +67,7 @@ def _model_kw(device, dtype, generator):
     return dict(device=dev, dtype=dtype, generator=generator)
 
 
-class MobileNetV1(nn.Module):
+class MobileNetV1(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True,
                  data_format="NCHW", *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -106,7 +107,7 @@ class MobileNetV1(nn.Module):
         return x
 
 
-class _InvertedResidual(nn.Module):
+class _InvertedResidual(Layer):
     def __init__(self, in_c, out_c, stride, expand_ratio,
                  data_format="NCHW", **kw):
         super().__init__()
@@ -130,7 +131,7 @@ class _InvertedResidual(nn.Module):
         return x + out if self.use_res else out
 
 
-class MobileNetV2(nn.Module):
+class MobileNetV2(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True,
                  data_format="NCHW", *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):

@@ -35,9 +35,10 @@ from ...nn.norm import BatchNorm2D
 from ...nn.pooling import AdaptiveAvgPool2D, MaxPool2D
 from ...ops.kernels import fused_conv_block as FC
 from ._layout import boundary_in, boundary_out, flatten_nchw_order
+from ...nn.layer import Layer
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -68,7 +69,7 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -144,7 +145,7 @@ class BottleneckBlock(nn.Module):
         return FC.fused_bottleneck_eval(x.contiguous(), *self._fused_pack[1])
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, data_format="NCHW", *,
                  device=None, dtype=torch.float32,

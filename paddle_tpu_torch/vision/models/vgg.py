@@ -25,6 +25,7 @@ from ...nn.conv import Conv2D
 from ...nn.norm import BatchNorm2D
 from ...nn.pooling import AdaptiveAvgPool2D, MaxPool2D
 from ._layout import boundary_in, boundary_out, flatten_nchw_order
+from ...nn.layer import Layer
 
 _CFGS = {
     "A": [64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"],
@@ -55,7 +56,7 @@ def _make_features(cfg, batch_norm, data_format, kw):
     return Sequential(*layers)
 
 
-class VGG(nn.Module):
+class VGG(Layer):
     def __init__(self, features, num_classes=1000, with_pool=True,
                  data_format="NCHW", *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
