@@ -31,13 +31,12 @@ _SUBPACKAGES = ("nn", "optimizer", "amp", "io", "static", "jit",
                 "distributed", "metric", "vision", "models", "hapi",
                 "framework", "inference", "serving", "autograd", "ops",
                 "quantization", "sparsity", "regularizer", "device", "core",
-                "dispatch", "tensor")
+                "dispatch", "tensor", "linalg", "fft")
 
-# the JAX package's subpackages that wait for ROADMAP.md's 3(e)
+# the JAX package's subpackages that wait for ROADMAP.md's 3(e) item 6
 _NOT_PORTED = {"text": "paddle_tpu/text/", "onnx": "paddle_tpu/onnx/",
                "hub": "paddle_tpu/hub.py",
                "distribution": "paddle_tpu/distribution.py",
-               "linalg": "paddle_tpu/linalg.py", "fft": "paddle_tpu/fft.py",
                "utils": "paddle_tpu/utils/",
                "incubate": "paddle_tpu/incubate/",
                "native": "paddle_tpu/native.py",

@@ -165,12 +165,11 @@ for _n in ("logical_not", "bitwise_not"):
     globals()[_n] = _with_out_param(_n, unary=True)
 del _n, _with_out_param
 
-# the names control_flow would give (``paddle_tpu/__init__.py:71-77``)
-for _n in ("TensorArray", "create_array", "array_write", "array_read",
-           "array_length", "tensor_array_to_tensor", "array_to_lod_tensor",
-           "lod_tensor_to_array"):
-    globals()[_n] = _NotPorted(_n, "paddle_tpu/ops/control_flow.py")
-del _n
+# control_flow's names (``paddle_tpu/__init__.py:71-77``)
+from .ops.control_flow import (TensorArray, array_length,  # noqa: F401,E402
+                               array_read, array_to_lod_tensor, array_write,
+                               create_array, lod_tensor_to_array,
+                               tensor_array_to_tensor)
 
 EAGER_NAMES = sorted(n for n in globals() if not n.startswith("_")
                      and n not in ("annotations", "OPS", "EAGER_NAMES"))

@@ -8,8 +8,11 @@ records onto torch's graph, and an op the JAX package marks
 non-differentiable runs under ``torch.no_grad``. Every output is
 canonicalised to the JAX package's x32 dtypes (torch's int64 sums,
 indices and counts come back int32), so no eager tensor holds a 64-bit
-dtype. Under ``auto_cast`` the ops of the six eager modules cast their
-floating inputs at dispatch, as JAX's ``call_fn`` does
+dtype. The host-side ops' numpy results become ``Tensor``s too, as
+JAX's ``_wrap_outputs`` wraps them, on the device of the op's tensor
+arguments (the expected place when it has none). Under ``auto_cast``
+the ops of the six eager modules cast their floating inputs at
+dispatch, as JAX's ``call_fn`` does
 (``dispatch.py:117-121``); the port's other modules cast inside through
 ``amp.amp_cast``. ``FLAGS_check_nan_inf`` and ``FLAGS_benchmark`` act
 here (``dispatch.py:162-168``).
@@ -128,6 +131,27 @@ def _wrap(obj, inputs=()):
     return obj
 
 
+def _has_host(obj) -> bool:
+    if isinstance(obj, (np.ndarray, np.generic)):
+        return True
+    if isinstance(obj, (list, tuple)):
+        return any(_has_host(o) for o in obj)
+    return False
+
+
+def _host_to_device(obj, device):
+    """Numpy arrays and scalars in a host op's result as tensors on
+    ``device``."""
+    if isinstance(obj, (np.ndarray, np.generic)):
+        from .tensor import to_value
+        return to_value(obj, device=device)
+    if isinstance(obj, list):
+        return [_host_to_device(o, device) for o in obj]
+    if isinstance(obj, tuple):
+        return tuple(_host_to_device(o, device) for o in obj)
+    return obj
+
+
 def _tensor_args(args):
     return tuple(a for a in args if isinstance(a, torch.Tensor))
 
@@ -183,10 +207,17 @@ def call_fn(fn: Callable, name: str, differentiable: bool, args, kwargs,
     bench = get_flag("benchmark")
     t0 = time.perf_counter() if bench else 0.0
     if differentiable:
-        out = _wrap(fn(*args, **kwargs), _tensor_args(args))
+        raw = fn(*args, **kwargs)
     else:
         with torch.no_grad():
-            out = _wrap(fn(*args, **kwargs), _tensor_args(args))
+            raw = fn(*args, **kwargs)
+    if _has_host(raw):
+        dev = device or _first_device((args, kwargs))
+        if dev is None:
+            from .core.place import expected_device
+            dev = expected_device()
+        raw = _host_to_device(raw, dev)
+    out = _wrap(raw, _tensor_args(args))
     if get_flag("check_nan_inf"):
         _check_nan_inf(out, name)
     if bench:

@@ -1,9 +1,9 @@
 """Framework utilities (port of ``paddle_tpu/framework/``): save / load
 with the encrypted envelope, the trainer runtime behind
 ``static.Executor.train_from_dataset``, the execution-mode switch
-(``mode.py``) and ``unique_name``. ``DistMultiTrainer`` /
-``DownpourWorker`` wait for the parameter server and ``ragged.py`` for
-ROADMAP.md's 3(e)."""
+(``mode.py``), ``unique_name`` and the host ``RaggedTensor``
+(``ragged.py``). ``DistMultiTrainer`` / ``DownpourWorker`` wait for the
+parameter server."""
 
 from . import unique_name  # noqa: F401
 from .io import load, save  # noqa: F401

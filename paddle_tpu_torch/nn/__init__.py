@@ -1,17 +1,16 @@
 """``paddle.nn``: layers, containers, initializers and the functional
 API (port of ``paddle_tpu/nn/__init__.py``, with its export list).
 
-Every layer is a ``Layer`` (a ``torch.nn.Module``). Not ported yet, and
-raising ``NotImplementedError`` naming ROADMAP.md when used:
-``LayerList``, ``LayerDict``, ``ParameterList`` (``nn/container.py``),
-``utils`` (``nn/utils.py``), ``functional_call``, ``bind_state`` and
-``functional_state`` (``nn/layer.py``).
+Every layer is a ``Layer`` (a ``torch.nn.Module``); the containers
+(``LayerList``, ``LayerDict``, ``ParameterList``) are ``Layer``s too,
+``utils`` holds the weight reparametrisations, and ``functional_call`` /
+``bind_state`` / ``functional_state`` run a layer as a function of its
+state.
 """
 
-from .._not_ported import NotPorted as _NotPorted
 from ..optimizer.clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa
                               ClipGradByValue)
-from . import functional, initializer  # noqa: F401
+from . import functional, initializer, utils  # noqa: F401
 from .activation import (CELU, ELU, GELU, GLU, Hardshrink,  # noqa: F401
                          Hardsigmoid, Hardswish, Hardtanh, LeakyReLU,
                          LogSigmoid, LogSoftmax, Maxout, Mish, PReLU, ReLU,
@@ -23,12 +22,14 @@ from .common import (AlphaDropout, Bilinear, CosineSimilarity,  # noqa: F401
                      Identity, Linear, Pad1D, Pad2D, Pad3D, PairwiseDistance,
                      PixelShuffle, Unfold, Upsample, UpsamplingBilinear2D,
                      UpsamplingNearest2D, ZeroPad2D)
-from .container import Sequential  # noqa: F401
+from .container import (LayerDict, LayerList,  # noqa: F401
+                        ParameterList, Sequential)
 from .conv import (Conv1D, Conv1DTranspose, Conv2D,  # noqa: F401
                    Conv2DTranspose, Conv3D, Conv3DTranspose, DeformConv2D)
 from .decode import BeamSearchDecoder, dynamic_decode  # noqa: F401
 from .initializer import ParamAttr  # noqa: F401
-from .layer import Layer  # noqa: F401
+from .layer import (Layer, bind_state, functional_call,  # noqa: F401
+                    functional_state)
 from .layers import LayerNorm  # noqa: F401
 from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,  # noqa
                    CrossEntropyLoss, CTCLoss, GaussianNLLLoss, HingeEmbeddingLoss,
@@ -49,12 +50,3 @@ from .rnn import (BiRNN, GRU, GRUCell, LSTM, LSTMCell, RNN,  # noqa: F401
 from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
-
-LayerList = _NotPorted("nn.LayerList", "paddle_tpu/nn/container.py")
-LayerDict = _NotPorted("nn.LayerDict", "paddle_tpu/nn/container.py")
-ParameterList = _NotPorted("nn.ParameterList", "paddle_tpu/nn/container.py")
-utils = _NotPorted("nn.utils", "paddle_tpu/nn/utils.py")
-functional_call = _NotPorted("nn.functional_call", "paddle_tpu/nn/layer.py")
-bind_state = _NotPorted("nn.bind_state", "paddle_tpu/nn/layer.py")
-functional_state = _NotPorted("nn.functional_state",
-                              "paddle_tpu/nn/layer.py")

@@ -1,11 +1,14 @@
-"""``Sequential`` (port of ``paddle_tpu/nn/container.py:13-29``).
+"""The layer containers (port of ``paddle_tpu/nn/container.py``):
+``Sequential``, ``LayerList``, ``ParameterList`` and ``LayerDict``.
 
-It is torch's ``nn.Sequential`` with ``Layer``'s names and call: torch
-already names the children ``"0"``, ``"1"``, ... as the JAX one does, so
-state-dict keys such as ``layer1.0.downsample.1._mean`` match without
-renaming. As in the JAX container, ``(name, layer)`` pairs name their
-children. ``LayerList``, ``LayerDict`` and ``ParameterList`` wait for
-ROADMAP.md's 3(e).
+Each is torch's container (``nn.Sequential``, ``nn.ModuleList``,
+``nn.ParameterList``, ``nn.ModuleDict``) with ``Layer``'s names and
+call. torch already names list children ``"0"``, ``"1"``, ... as the JAX
+containers do, so state-dict keys such as
+``layer1.0.downsample.1._mean`` or ``blocks.3.weight`` match and
+``nn.layer.load_jax_state`` finds every parameter under its JAX name.
+As in the JAX ``Sequential``, ``(name, layer)`` pairs name their
+children.
 """
 
 from collections import OrderedDict
@@ -21,3 +24,35 @@ class Sequential(nn.Sequential, Layer):
                           and isinstance(it[0], str) for it in layers):
             layers = (OrderedDict(layers),)
         nn.Sequential.__init__(self, *layers)
+
+
+class LayerList(nn.ModuleList, Layer):
+    """A list of layers named ``"0"``, ``"1"``, ...; ``append`` returns
+    the list, a slice is a ``LayerList``."""
+
+    def __init__(self, sublayers=()):
+        nn.ModuleList.__init__(self, list(sublayers))
+
+
+class ParameterList(nn.ParameterList, Layer):
+    """A list of parameters named ``"0"``, ``"1"``, ...; ``append``
+    returns the list."""
+
+    def __init__(self, parameters=()):
+        nn.ParameterList.__init__(self, list(parameters))
+
+
+class LayerDict(nn.ModuleDict, Layer):
+    """Layers by name in insertion order; ``update`` takes a dict or
+    ``(name, layer)`` pairs, iteration gives the names."""
+
+    def __init__(self, sublayers=None):
+        nn.ModuleDict.__init__(self)
+        if sublayers:
+            self.update(sublayers)
+
+    def update(self, sublayers) -> None:
+        items = sublayers.items() if isinstance(sublayers, dict) else \
+            sublayers
+        for name, layer in items:
+            self.add_sublayer(name, layer)

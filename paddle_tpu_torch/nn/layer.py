@@ -24,13 +24,14 @@ checkpoint_state``, loads without renaming or transposing: keys such as
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..tensor import Tensor
+from ..tensor import Tensor, unwrap
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
@@ -314,3 +315,81 @@ class Layer(nn.Module):
 
     def full_name(self) -> str:
         return self._name_scope or type(self).__name__.lower()
+
+
+# -- functional capture (``paddle_tpu/nn/layer.py:333-420``) -------------------
+
+def functional_state(layer: nn.Module, trainable_only: bool = False
+                     ) -> Dict[str, Any]:
+    """The layer's tensors, detached, as ``{"params": {name: tensor},
+    "buffers": {name: tensor}}`` under the JAX package's names."""
+    params = {n: p.detach() for n, p in layer.named_parameters()
+              if p is not None and (not trainable_only or p.requires_grad)}
+    buffers = {n: b.detach() for n, b in layer.named_buffers()
+               if b is not None}
+    return {"params": params, "buffers": buffers}
+
+
+def _owner(layer: nn.Module, name: str):
+    """The submodule holding ``name`` and its attribute, or (None, attr)
+    when the layer has no such submodule."""
+    mod, _, attr = name.rpartition(".")
+    try:
+        return (layer.get_submodule(mod) if mod else layer), attr
+    except AttributeError:
+        return None, attr
+
+
+@contextlib.contextmanager
+def bind_state(layer: nn.Module, state: Dict[str, Any]):
+    """Substitute ``state``'s tensors for the layer's parameters and
+    buffers of the same names for the duration (names the layer lacks
+    are ignored); the originals come back on exit. The forward then
+    computes on the substituted tensors, and autograd (or
+    ``torch.func``) differentiates with respect to them."""
+    swapped = []
+    try:
+        for kind, table in (("params", "_parameters"),
+                            ("buffers", "_buffers")):
+            for name, value in state.get(kind, {}).items():
+                owner, attr = _owner(layer, name)
+                slots = getattr(owner, table, {})
+                if attr not in slots:
+                    continue
+                swapped.append((slots, attr, slots[attr]))
+                slots[attr] = unwrap(value)
+        yield layer
+    finally:
+        for slots, attr, old in reversed(swapped):
+            slots[attr] = old
+
+
+def functional_call(layer: nn.Module, state: Dict[str, Any], *args,
+                    training: Optional[bool] = None, rng_key=None,
+                    mutable_buffers: bool = False, **kwargs):
+    """``layer(*args, **kwargs)`` as a function of ``state``: plain
+    outputs, or ``(outputs, new buffers)`` with ``mutable_buffers`` (a
+    BatchNorm's running statistics after the call). ``training`` sets
+    the mode for the call only; ``rng_key`` (a ``torch.Generator``)
+    drives the random ops inside. Unlike the JAX function, which runs
+    under the eager tape's ``no_grad`` and is differentiated by
+    ``jax.grad``, the call records on autograd's graph: that is how
+    PyTorch differentiates it."""
+    from ..core import rng as rng_mod
+    prev_training = layer.training
+    if training is not None:
+        layer.train(training)
+    try:
+        with bind_state(layer, state):
+            with rng_mod.key_scope(rng_key) if rng_key is not None else \
+                    contextlib.nullcontext():
+                out = layer(*[unwrap(a) for a in args],
+                            **kwargs)
+            if mutable_buffers:
+                new_buffers = {n: b for n, b in layer.named_buffers()
+                               if b is not None}
+                return out, new_buffers
+            return out
+    finally:
+        if training is not None:
+            layer.train(prev_training)

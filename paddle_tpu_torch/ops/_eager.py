@@ -34,6 +34,14 @@ def device_of(*xs) -> torch.device:
     return expected_device()
 
 
+def host(x) -> np.ndarray:
+    """``x`` as a numpy array for a host-side op: a tensor, on any
+    device, is copied to the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def tensor(x, device=None, dtype=None) -> torch.Tensor:
     """``x`` as a tensor (a tensor stays itself, cast to ``dtype`` when
     given)."""

@@ -4,10 +4,10 @@
 It holds the JAX package's names, module by module in its order
 (``_jax_names.JAX_OPS``): under each, the port's function of that name
 in the same module, or, where the port has none yet, a stub that
-raises ``NotImplementedError`` naming ROADMAP.md (the linalg, fft,
-control-flow, sequence, metric_extra and nlp_ctr_extra ops, and the
-rest of detection / loss_extra / decode_extra). No name is silently
-missing. The eager wrappers over these functions are ``dispatch.py``'s.
+raises ``NotImplementedError`` naming ROADMAP.md (one is left:
+``paged_attention_head_sharded``, which waits for tensor-parallel
+serving). No name is silently missing. The eager wrappers over these
+functions are ``dispatch.py``'s.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ DISPATCH_AMP_MODULES = frozenset({"creation", "math", "manipulation",
 PORTED_MODULES = frozenset({"creation", "math", "manipulation", "search",
                             "random", "math_extra", "nn_functional", "rnn",
                             "vision_extra", "detection", "loss_extra",
-                            "decode_extra"})
+                            "decode_extra", "linalg", "fft", "sequence",
+                            "metric_extra", "nlp_ctr_extra"})
 
 
 @dataclass
@@ -77,10 +78,10 @@ def not_ported(name: str, module: str) -> Callable:
     def stub(*args, **kwargs):
         raise NotImplementedError(
             f"paddle_tpu_torch: op {name!r} (paddle_tpu/ops/{module}.py) is "
-            f"not ported yet; see ROADMAP.md, Queue 1 item 3(e)")
+            f"not ported yet; see ROADMAP.md, Queue 1 item 4")
     stub.__name__ = stub.__qualname__ = name
     stub.__doc__ = (f"Not ported yet: ``paddle_tpu/ops/{module}.py`` "
-                    f"``{name}`` (ROADMAP.md, Queue 1 item 3(e)).")
+                    f"``{name}`` (ROADMAP.md, Queue 1 item 4).")
     return stub
 
 

@@ -5,8 +5,9 @@ A Program is a traced, exported PyTorch computation (``torch.export``)
 over its parameters and buffers; ``save_inference_model`` writes it in
 the port's own format and ``load_inference_model`` /
 ``inference.Predictor`` run it on the device it was exported for.
-``static/nn.py`` waits for the rest of the op library (ROADMAP.md
-3(e)) and is not importable.
+``static.nn`` holds the layer builders with named parameters in
+``global_scope()`` (``fc``, ``conv2d``, ``multi_box_head``, ...) and
+re-exports the control-flow, sequence and ``crf_decoding`` ops.
 """
 
 from .program import (CompiledProgram, Executor, InputSpec,  # noqa: F401
@@ -24,3 +25,4 @@ from .api import (BuildStrategy, ExecutionStrategy,  # noqa: F401,E402
                   name_scope, normalize_program, py_func, save,
                   save_to_file, scope_guard, serialize_persistables,
                   serialize_program, set_program_state)
+from . import nn  # noqa: F401,E402
