@@ -148,7 +148,8 @@ failure exits non-zero at once:
    seed-1 weights; ``fleet_stats`` and ``fleet_capacity`` through the
    router.
 5m. fleet_autoscale — the autoscaler at the same width: (a) in this
-   process, one replica under a ``Supervisor`` with an ``Autoscaler``
+   process, one replica (4 of the 24 layers since PR 26) under a
+   ``Supervisor`` with an ``Autoscaler``
    and a ``FailoverRouter``: 4 keyed prompts of 130-190 tokens (16 new
    tokens) served, a forced ``scale_up`` (its seconds), a profiled
    64-token stream of a fifth prompt on the spawned replica naming the
@@ -340,6 +341,32 @@ failure exits non-zero at once:
    a BiGRU-CRF tagger at PaddleNLP LAC's widths, B=128, T=64: NLL and
    gradients against the CPU, Viterbi paths apart from ties,
    ``chunk_eval`` counts, 20 Adam steps, ms a step, the CRF's own share.
+8g. slice 20, the auxiliary surfaces: (a) ``profiler`` (before the
+   ``generate`` phase, which converts the model to int8 weights): the
+   engine phase's 8 requests
+   under ``profiler.profiler(trace_dir, profile_path)`` with a
+   ``SpanTracer`` at rate 1.0 and a ``RecordEvent`` a step: tokens equal
+   to the run without the profiler, the host JSON with the markers and
+   the bridged request spans, the device trace naming the serving
+   kernels in the launch counters' counts, ``summary()`` rows, the
+   decode step's ms with the profiler on and off; (b) ``offload`` (after
+   the train phase): GPT-1.3B at full depth, S=2048, B=2, fp32, remat,
+   3 SGD steps as plain remat, with activation offload and with
+   ``remat_save_attention``: offload bitwise plain remat, its 24 block
+   inputs in pinned host memory (the card holds that much less after the
+   forward, the forward peak lower), saved attention within 1e-5
+   relative and one ``attention_fwd`` launch fewer a layer and step;
+   peak memory and ms a step; (d) ``aux_surfaces``: 200000 draws of
+   ``distribution.Normal`` / ``Uniform`` / ``Categorical`` held to their
+   moments, densities against the CPU, ``text.viterbi_decode`` at 57
+   tags, B=128, T=64 against the CPU apart from ties,
+   ``utils.run_check()``; (e) ``onnx``: BERT-base exported from the card
+   at S=128 (config 5) and S=512 (#9 a layer, written as its plain
+   math), run by ``onnx/_interp.py`` in numpy within ``ONNX_REL_TOL``
+   of the card's forward; (c) ``compile_cache``: two children with no
+   ``nvcc``, one pointed at a copy of the built library (it loads it
+   from there, launches the serving kernels, builds nothing), one at an
+   empty directory (it raises).
 
 Then, if no check failed, the script's wall time, a ``kernels`` line,
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -4913,6 +4940,9 @@ FA_CHAOS_PAGE = 64
 # The journal's recovery does not depend on depth; at 24 layers the two
 # runs took 220 s of the script's 1200 s limit on one H100.
 FA_CHAOS_LAYERS = 4
+# (a)'s depth: GPT-1.3B's widths at 4 of its 24 layers, as the chaos
+# parts run (the whole script passed 1000 s with slice 20's phases)
+FA_LIVE_LAYERS = 4
 FA_DEVICE = "cuda"                  # the chaos replicas' --device
 FA_APPS_EVERY_S = 1.0
 # a failed autoscale chaos run copies its logs and journal here (git-
@@ -5043,17 +5073,22 @@ class _CardApps:
         return None
 
 
-def fleet_autoscale_live(torch, model, root):
+def fleet_autoscale_live(torch, dev, root):
     """(a): a ``Supervisor`` + ``Autoscaler`` + ``FailoverRouter`` in this
-    process on one replica; 4 keyed prompts served, a forced scale-up,
+    process on one replica of GPT-1.3B's widths at ``FA_LIVE_LAYERS``
+    layers (the replicas' ``--num-layers``; the in-process reference is
+    the same seed-0 model); 4 keyed prompts served, a forced scale-up,
     served again (and a profiled stream on the spawned replica), a forced
     scale-down, served again."""
     from paddle_tpu_torch.serving.autoscaler import (AutoscaleConfig,
                                                      Autoscaler)
+    from paddle_tpu_torch.serving.server import build_model
     from paddle_tpu_torch.serving.supervisor import (FailoverRouter,
                                                      Supervisor)
     from paddle_tpu_torch.tools.flight_inspect import lint_fleet_journal
     phase = "fleet_autoscale"
+    model = build_model(FLEET_MODEL, dev, FA_LIVE_LAYERS)
+    model.eval()
     V = model.config.vocab_size
     gen = torch.Generator().manual_seed(41)
     prompts = [torch.randint(0, V, (n,), generator=gen).tolist()
@@ -5068,7 +5103,8 @@ def fleet_autoscale_live(torch, model, root):
                                                            "")}
     sup = Supervisor(model=FLEET_MODEL, replicas=1,
                      server_args=list(FLEET_SERVER_ARGS)
-                     + ["--spill-mb", str(FA_SPILL_MB)],
+                     + ["--spill-mb", str(FA_SPILL_MB),
+                        "--num-layers", str(FA_LIVE_LAYERS)],
                      replica_env=env, probe_interval_s=0.25,
                      ready_timeout_s=600,
                      log_dir=os.path.join(root, "logs"))
@@ -5195,7 +5231,8 @@ def _chaos_summary(report):
 def phase_fleet_autoscale(torch, dev, model, card):
     """The autoscaler on the card at GPT-1.3B's full width (seed-0
     weights, fp32). (a) In this process: one replica (FLEET_SERVER_ARGS,
-    a 512 MB host tier) under a ``Supervisor`` with an ``Autoscaler``
+    a 512 MB host tier, ``FA_LIVE_LAYERS`` of the 24 layers) under a
+    ``Supervisor`` with an ``Autoscaler``
     behind a ``FailoverRouter``; 4 keyed prompts of 130-190 tokens, 16
     new tokens each, served one at a time; a forced ``scale_up``; the
     spawned replica streams 64 tokens of a fifth prompt under a profile
@@ -5231,7 +5268,7 @@ def phase_fleet_autoscale(torch, dev, model, card):
     t_phase = time.monotonic()
     try:
         t0 = time.monotonic()
-        out["live"] = fleet_autoscale_live(torch, model, root)
+        out["live"] = fleet_autoscale_live(torch, dev, root)
         out["live"]["wall_s"] = time.monotonic() - t0
         _free_engine_memory(torch)
         chaos_kw = dict(model=FLEET_MODEL, device=FA_DEVICE,
@@ -10175,6 +10212,567 @@ def phase_op_library(torch, dev, smi_line):
             torch.cuda.empty_cache()
 
 
+# -- slice 20: the profiler, offload, the kernel cache, the small surfaces,
+# ONNX --------------------------------------------------------------------
+
+# the device trace's kernel symbols of the serving kernels: one event a
+# wrapper launch
+PROFILER_SYMBOLS = {"paged_decode": "paged_decode_kernel",
+                    "decode_out_proj": "out_proj_kernel",
+                    "fused_argmax": "argmax_tiles_kernel",
+                    "attention_fwd": "attention_fwd_kernel"}
+PROFILER_DIR = os.path.join(HERE, "build", "profiler_smoke")
+# new tokens a request in the profiler phase: the engine phase's
+# requests, half their decode (the device trace grows by ~900 kernel
+# events a step)
+PROFILER_NEW = ENGINE_NEW // 2
+
+
+def _marked_engine_run(torch, model, prompts, max_new, tracer):
+    """The engine phase's run with a ``RecordEvent`` around every step
+    and ``tracer`` on the engine; returns (tokens, decode step ms
+    median, steps)."""
+    from paddle_tpu_torch.core.profiler import RecordEvent
+    from paddle_tpu_torch.inference import create_decode_engine
+    eng = create_decode_engine(model, device=model.device, num_slots=8,
+                               page_size=64, num_pages=96, tracer=tracer)
+    rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    steps = 0
+    while eng.num_queued or eng.num_active:
+        with RecordEvent("engine.step"):
+            eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    eng.check_no_leak()
+    outs = [eng.result(r)[len(p):].tolist() for r, p in zip(rids, prompts)]
+    decode_ms = sorted(e["decode_ms"] for e in eng.step_timeline()
+                       if "decode_ms" in e)
+    eng.close()
+    return outs, decode_ms[len(decode_ms) // 2], steps
+
+
+def phase_profiler(torch, dev, model, prompts):
+    """(a) The engine phase's 8 requests under ``profiler.profiler``
+    with a ``SpanTracer`` at rate 1.0 and a ``RecordEvent`` a step: the
+    greedy tokens of the run without the profiler; the host JSON holds
+    the markers and every request's bridged spans; the device trace
+    names the serving kernels' launches in the launch counters' counts;
+    ``summary()`` returns rows; the decode step's ms with the profiler
+    on and off."""
+    import io
+    import shutil
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.serving.tracing import SpanTracer
+    t0 = time.monotonic()
+    shutil.rmtree(PROFILER_DIR, ignore_errors=True)
+    os.makedirs(PROFILER_DIR)
+    plain, step_ms_off, steps_off = _marked_engine_run(
+        torch, model, prompts, PROFILER_NEW, SpanTracer(sample_rate=1.0))
+    host = os.path.join(PROFILER_DIR, "host.json")
+    tracer = SpanTracer(sample_rate=1.0)
+    reset_launch_counts()
+    with profiler.profiler(trace_dir=PROFILER_DIR, profile_path=host):
+        got, step_ms_on, steps = _marked_engine_run(
+            torch, model, prompts, PROFILER_NEW, tracer)
+    counts = launch_counts()
+    if got != plain:
+        raise AssertionError("profiler: greedy tokens differ from the run "
+                             "without the profiler")
+    with open(host) as f:
+        events = json.load(f)["traceEvents"]
+    markers = sum(e["name"] == "engine.step" for e in events)
+    ids = {t["trace_id"] for t in tracer.finished()}
+    spans = [e for e in events if e["args"].get("annotation") in ids]
+    requests = sum(e["name"] == "request" for e in spans)
+    if markers != steps or requests != len(prompts) or len(ids) != \
+            len(prompts):
+        raise AssertionError(f"profiler host trace: {markers} markers for "
+                             f"{steps} steps, {requests} request spans "
+                             f"for {len(prompts)} requests")
+    device_trace = os.path.join(PROFILER_DIR, "device_trace.json")
+    traced, n_kernels = _kernel_event_counts(
+        device_trace, tuple(PROFILER_SYMBOLS.values()))
+    kernels = {name: {"launch_counter": counts[name],
+                      "device_trace": traced[sym]}
+               for name, sym in PROFILER_SYMBOLS.items()}
+    for name, c in kernels.items():
+        if c["launch_counter"] <= 0 or c["launch_counter"] != \
+                c["device_trace"]:
+            raise AssertionError(f"profiler: {name} {c}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = profiler.summary(top_k=5)
+    if not rows or rows[0][1] <= 0:
+        raise AssertionError(f"profiler summary rows {rows}")
+    emit({"phase": "profiler", "ok": True, "requests": len(prompts),
+          "new_tokens": PROFILER_NEW, "steps": steps,
+          "steps_without_profiler": steps_off,
+          "tokens_equal": True, "host_markers": markers,
+          "bridged_spans": len(spans),
+          "span_names": sorted({e["name"] for e in spans}),
+          "kernels": kernels, "device_trace_kernels": n_kernels,
+          "device_trace_mb": os.path.getsize(device_trace) / 1e6,
+          "summary_top": [[r[0], r[1], r[2]] for r in rows[:3]],
+          "decode_step_ms_profiler_off": step_ms_off,
+          "decode_step_ms_profiler_on": step_ms_on,
+          "s": time.monotonic() - t0})
+    shutil.rmtree(PROFILER_DIR, ignore_errors=True)
+
+
+OFFLOAD_B, OFFLOAD_S, OFFLOAD_STEPS = 2, 2048, 3
+OFFLOAD_LR = 1e-3
+
+
+def _offload_run(torch, dev, ids, offload, **cfg_kw):
+    """3 SGD steps of GPT-1.3B with remat from seed-0 weights, after one
+    forward that measures what it leaves on the card for the backward;
+    returns losses, ms a step, peak memory and launch counts."""
+    from paddle_tpu_torch.core import offload as off
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.optimizer import SGD
+    model = _train_model(torch, dev, remat=True, **cfg_kw)
+    model.train()
+    off.set_activation_offload(offload)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        off.reset_offload_stats()
+        loss = model(ids, labels=ids)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - start
+        fwd_peak = torch.cuda.max_memory_allocated() - start
+        staged = off.offload_stats()
+        del loss
+        step = TrainStep(model, SGD(learning_rate=OFFLOAD_LR),
+                         lambda m, b: m(b[0], labels=b[1]), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        losses, ms = [], []
+        for _ in range(OFFLOAD_STEPS):
+            t = time.monotonic()
+            losses.append(step((ids, ids)))
+            torch.cuda.synchronize()
+            ms.append((time.monotonic() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - start
+        return {"losses": [l.item() for l in losses],
+                "loss_bits": [l.detach().view(torch.int32).item()
+                              for l in losses],
+                "ms_a_step": ms, "held_after_forward_gb": held / 1e9,
+                "forward_peak_gb": fwd_peak / 1e9,
+                "step_peak_gb": peak / 1e9, "staged": staged,
+                "launches": launch_counts()}
+    finally:
+        off.set_activation_offload(False)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_offload(torch, dev):
+    """(b) GPT-1.3B's width at full depth (24 layers), S=2048, B=2, fp32,
+    ``remat=True``: 3 SGD steps from the seed-0 weights and one batch,
+    as plain remat, with activation offload, and with
+    ``remat_save_attention``. Offload's losses bitwise plain remat's and
+    its block inputs in pinned host memory (the card holds less after
+    the forward, by about the staged bytes, and its forward peak is
+    lower); saved attention within 1e-5 relative, with one
+    ``attention_fwd`` launch fewer a layer and step."""
+    from paddle_tpu_torch.models.gpt import gpt_1p3b
+    t0 = time.monotonic()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ids = torch.randint(0, gpt_1p3b().vocab_size, (OFFLOAD_B, OFFLOAD_S),
+                        device=dev, generator=gen)
+    runs = {"remat": _offload_run(torch, dev, ids, False),
+            "offload": _offload_run(torch, dev, ids, True),
+            "remat_save_attention": _offload_run(
+                torch, dev, ids, False, remat_save_attention=True)}
+    plain, off, saved = (runs["remat"], runs["offload"],
+                         runs["remat_save_attention"])
+    layers = 24
+    if off["loss_bits"] != plain["loss_bits"]:
+        raise AssertionError(f"offload losses {off['losses']} are not "
+                             f"plain remat's {plain['losses']}")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(saved["losses"],
+                                                  plain["losses"]))
+    if not gap <= 1e-5:
+        raise AssertionError(f"remat_save_attention losses "
+                             f"{saved['losses']} vs {plain['losses']}: "
+                             f"{gap:.3g} relative")
+    fwd = {tag: r["launches"]["attention_fwd"] for tag, r in runs.items()}
+    if fwd["remat"] - fwd["remat_save_attention"] != layers * OFFLOAD_STEPS \
+            or fwd["offload"] != fwd["remat"]:
+        raise AssertionError(f"attention_fwd launches {fwd}")
+    block = OFFLOAD_B * OFFLOAD_S * 2048 * 4
+    staged = off["staged"]
+    if staged["packed"] != layers or staged["bytes"] != layers * block:
+        raise AssertionError(f"offload staged {staged}, want {layers} "
+                             f"block inputs of {block} bytes")
+    freed = (plain["held_after_forward_gb"] - off["held_after_forward_gb"]
+             ) * 1e9
+    if not freed >= 0.9 * staged["bytes"]:
+        raise AssertionError(f"offload left {freed / 1e9:.3f} GB more on "
+                             f"the card after the forward than without; "
+                             f"{staged['bytes'] / 1e9:.3f} GB were staged")
+    if not off["forward_peak_gb"] < plain["forward_peak_gb"]:
+        raise AssertionError(f"offload forward peak {off['forward_peak_gb']}"
+                             f" GB, remat {plain['forward_peak_gb']} GB")
+    emit({"phase": "offload", "ok": True, "model": "gpt_1p3b", "fp32": True,
+          "layers": layers, "B": OFFLOAD_B, "S": OFFLOAD_S,
+          "sgd_steps": OFFLOAD_STEPS,
+          "losses": {tag: r["losses"] for tag, r in runs.items()},
+          "offload_losses_bitwise_remat": True,
+          "save_attention_rel_gap": gap,
+          "attention_fwd_launches": fwd,
+          "staged_block_inputs": staged,
+          "held_after_forward_gb": {tag: r["held_after_forward_gb"]
+                                    for tag, r in runs.items()},
+          "forward_peak_gb": {tag: r["forward_peak_gb"]
+                              for tag, r in runs.items()},
+          "forward_peak_saved_gb": plain["forward_peak_gb"]
+          - off["forward_peak_gb"],
+          "step_peak_gb": {tag: r["step_peak_gb"] for tag, r in
+                           runs.items()},
+          "step_peak_saved_gb": plain["step_peak_gb"] - off["step_peak_gb"],
+          "ms_a_step": {tag: r["ms_a_step"] for tag, r in runs.items()},
+          "s": time.monotonic() - t0})
+
+
+CACHE_DIR = os.path.join(HERE, "build", "compile_cache_smoke")
+
+# the engine of the cache check: GPT-1.3B's width at 2 layers, two
+# prompts (the prefill reaches attention_fwd), 4 new tokens
+CACHE_CHILD = r"""
+import dataclasses, json, os, sys
+import torch
+from paddle_tpu_torch.core import compile_cache
+from paddle_tpu_torch.inference import create_decode_engine
+from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
+from paddle_tpu_torch.ops.kernels import _build, launch_counts
+dev = torch.device("cuda", 0)
+cfg = dataclasses.replace(gpt_1p3b(), num_layers=2)
+model = GPTForCausalLM(cfg, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+eng = create_decode_engine(model, device=dev, num_slots=2, page_size=64,
+                           num_pages=32)
+gen = torch.Generator().manual_seed(0)
+rids = [eng.submit(torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+                   .numpy(), max_new_tokens=4) for n in (300, 700)]
+out = eng.run()
+print(json.dumps({"cache_dir": compile_cache.compile_cache_dir(),
+                  "loaded_from": _build.loaded_from(),
+                  "launches": launch_counts(),
+                  "tokens": [out[r][-4:].tolist() for r in rids]}))
+"""
+
+
+def _no_nvcc_env(cache):
+    """The environment of a child with ``cache`` as its kernel cache and
+    no ``nvcc`` to be found (neither on PATH nor under CUDA_HOME)."""
+    path = [p for p in os.environ.get("PATH", "").split(os.pathsep)
+            if p and not os.path.exists(os.path.join(p, "nvcc"))]
+    return dict(os.environ, PADDLE_TPU_COMPILE_CACHE=cache,
+                CUDA_HOME=os.path.join(CACHE_DIR, "no_cuda"),
+                PATH=os.pathsep.join(path), PYTHONPATH=HERE)
+
+
+def phase_compile_cache(torch, dev):
+    """(c) The kernel cache: a child pointed at a directory holding a
+    copy of the built library (and its stamp), with no ``nvcc`` it
+    could call, builds an engine (which turns the cache on), decodes,
+    loads the library from the cache and launches the serving kernels,
+    and the directory gains nothing; a child pointed at an empty
+    directory, with no ``nvcc`` either, raises. The two run at once."""
+    import shutil
+    from paddle_tpu_torch.ops.kernels import _build
+    t0 = time.monotonic()
+    shutil.rmtree(CACHE_DIR, ignore_errors=True)
+    filled = os.path.join(CACHE_DIR, "filled")
+    empty = os.path.join(CACHE_DIR, "empty")
+    os.makedirs(filled)
+    os.makedirs(empty)
+    lib = os.path.join(_build.loaded_from(), _build.LIB_NAME)
+    for f in (lib, lib + ".hash"):
+        shutil.copy(f, filled)
+    before = sorted(os.listdir(filled))
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", CACHE_CHILD], cwd=HERE,
+        env=_no_nvcc_env(d), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for name, d in (("filled", filled), ("empty", empty))}
+    res = {}
+    try:
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=300)
+            res[name] = (p.returncode, out, err)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rc, out, err = res["filled"]
+    if rc != 0:
+        raise AssertionError(f"compile_cache: the filled cache's child "
+                             f"failed ({rc}): {err[-2000:]}")
+    child = json.loads(out.strip().splitlines()[-1])
+    if child["cache_dir"] != filled or child["loaded_from"] != filled:
+        raise AssertionError(f"compile_cache: child loaded from "
+                             f"{child['loaded_from']} (cache "
+                             f"{child['cache_dir']}), not {filled}")
+    missing = [n for n in SERVING_KERNELS if child["launches"][n] <= 0]
+    if missing or sorted(os.listdir(filled)) != before:
+        raise AssertionError(f"compile_cache: kernels not launched "
+                             f"{missing} or the cache changed "
+                             f"{sorted(os.listdir(filled))}")
+    rc_e, _, err_e = res["empty"]
+    if rc_e == 0 or "nvcc not found" not in err_e:
+        raise AssertionError(f"compile_cache: the empty cache's child "
+                             f"exited {rc_e} without the nvcc error: "
+                             f"{err_e[-1000:]}")
+    emit({"phase": "compile_cache", "ok": True, "cache": "filled copy",
+          "loaded_from_cache": True, "nvcc_calls": 0,
+          "launches": {n: child["launches"][n] for n in SERVING_KERNELS},
+          "cache_files": sorted(os.listdir(filled)),
+          "empty_cache_error": err_e.strip().splitlines()[-1][:200],
+          "s": time.monotonic() - t0})
+    shutil.rmtree(CACHE_DIR, ignore_errors=True)
+
+
+# text.viterbi_decode at the widths of PaddleNLP's lexical-analysis
+# example: 57 tags, batch 128, 64 tokens
+VITERBI_TAGS, VITERBI_B, VITERBI_T = 57, 128, 64
+AUX_DRAWS = 200000
+
+
+def _viterbi_path_score(pot, trans, path):
+    """The score of each row's ``path`` under ``pot`` / ``trans``."""
+    import torch
+    b, t, _ = pot.shape
+    rows = torch.arange(b)
+    p = path.long()
+    s = pot[rows, 0, p[:, 0]]
+    for i in range(1, t):
+        s = s + trans[p[:, i - 1], p[:, i]] + pot[rows, i, p[:, i]]
+    return s
+
+
+def phase_aux_surfaces(torch, dev):
+    """(d) ``distribution``: 200000 draws of Normal, Uniform and
+    Categorical on the card held to their means and variances (5
+    standard errors, 10%), densities / entropies / KLs on the card
+    against the CPU; ``text.viterbi_decode`` at the lexical-analysis
+    widths on the card against the CPU on the same tensors (rows past
+    each seeded length padded with zeros); ``utils.run_check()`` on the
+    card."""
+    import io
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distribution as D
+    from paddle_tpu_torch import text, utils
+    from paddle_tpu_torch.core import place
+    t0 = time.monotonic()
+    out = {"phase": "aux_surfaces"}
+    paddle.set_device(_eager_place(dev))
+    try:
+        loc = np.array([0.5, -2.0, 3.0], np.float32)
+        scale = np.array([1.0, 0.25, 4.0], np.float32)
+        logits = np.log(np.array([[0.1, 0.2, 0.7], [0.5, 0.25, 0.25]],
+                                 np.float32))
+        normal, uniform = D.Normal(loc, scale), D.Uniform(loc, loc + scale)
+        cat = D.Categorical(logits)
+        stats = {}
+        for name, dist, mean, var in (
+                ("normal", normal, loc, scale ** 2),
+                ("uniform", uniform, loc + scale / 2, scale ** 2 / 12)):
+            d = dist.sample((AUX_DRAWS,), seed=5).value
+            if d.device.type != "cuda":
+                raise AssertionError(f"{name} drew on {d.device}")
+            m = d.double().mean(0).cpu().numpy()
+            v = d.double().var(0).cpu().numpy()
+            se = np.sqrt(var / AUX_DRAWS)
+            ok = bool(np.all(np.abs(m - mean) <= 5 * se)
+                      and np.all(np.abs(v / var - 1) <= 0.1))
+            stats[name] = {"mean_in_se": (np.abs(m - mean) / se).tolist(),
+                           "var_rel": (v / var - 1).tolist(), "ok": ok}
+        draws = cat.sample((AUX_DRAWS,), seed=5).value
+        p = torch.softmax(torch.from_numpy(logits), -1).numpy()
+        freq = np.stack([(draws == c).double().mean(0).cpu().numpy()
+                         for c in range(3)], -1)
+        se = np.sqrt(p * (1 - p) / AUX_DRAWS)
+        stats["categorical"] = {"freq_in_se": (np.abs(freq - p) / se)
+                                .max().item(),
+                                "ok": bool(np.all(np.abs(freq - p)
+                                                  <= 5 * se))}
+        if not all(s["ok"] for s in stats.values()):
+            raise AssertionError(f"distribution draws {stats}")
+        value = np.array([0.1, -1.9, 2.0], np.float32)
+        idx = np.array([[2], [0]], np.int32)
+        dens = {
+            "normal_log_prob": lambda m: m.Normal(loc, scale).log_prob(
+                value),
+            "normal_entropy": lambda m: m.Normal(loc, scale).entropy(),
+            "normal_kl": lambda m: m.Normal(loc, scale).kl_divergence(
+                m.Normal(scale, loc ** 2 + 1)),
+            "uniform_log_prob": lambda m: m.Uniform(loc, loc + scale)
+            .log_prob(loc + 0.3 * scale),
+            "categorical_log_prob": lambda m: m.Categorical(logits)
+            .log_prob(idx),
+            "categorical_entropy": lambda m: m.Categorical(logits)
+            .entropy(),
+            "categorical_kl": lambda m: m.Categorical(logits)
+            .kl_divergence(m.Categorical(logits[::-1].copy()))}
+        errs = {}
+        for name, fn in dens.items():
+            got = fn(D).value
+            paddle.set_device("cpu")
+            want = fn(D).value
+            paddle.set_device(_eager_place(dev))
+            if got.device.type != "cuda":
+                raise AssertionError(f"{name} ran on {got.device}")
+            errs[name] = check_close(f"aux {name}", got.cpu(), want, 1e-6,
+                                     1e-6)
+        out["distribution"] = {"draws": AUX_DRAWS, "stats": stats,
+                               "card_vs_cpu_max_abs_err": errs}
+        # viterbi
+        rng = np.random.default_rng(0)
+        lens = rng.integers(VITERBI_T // 4, VITERBI_T + 1, VITERBI_B)
+        pot = rng.standard_normal((VITERBI_B, VITERBI_T, VITERBI_TAGS)
+                                  ).astype(np.float32)
+        pot[np.arange(VITERBI_T)[None, :] >= lens[:, None]] = 0.0
+        trans = rng.standard_normal((VITERBI_TAGS, VITERBI_TAGS)).astype(
+            np.float32)
+        pot_c, trans_c = torch.from_numpy(pot), torch.from_numpy(trans)
+        pot_g, trans_g = pot_c.to(dev), trans_c.to(dev)
+        text.viterbi_decode(pot_g, trans_g)  # warm
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        s_g, p_g = text.viterbi_decode(pot_g, trans_g)
+        torch.cuda.synchronize()
+        card_ms = (time.monotonic() - t) * 1e3
+        t = time.monotonic()
+        s_c, p_c = text.viterbi_decode(pot_c, trans_c)
+        cpu_ms = (time.monotonic() - t) * 1e3
+        if p_g.device.type != "cuda" or p_g.dtype != torch.int32 or \
+                s_g.dtype != torch.float32:
+            raise AssertionError(f"viterbi on {p_g.device} {p_g.dtype}")
+        score_err = check_close("aux viterbi scores", s_g.cpu(), s_c, 1e-4,
+                                1e-5)
+        differ = (p_g.cpu() != p_c).any(1)
+        ties = 0
+        if differ.any():
+            rows = differ.nonzero()[:, 0]
+            sg = _viterbi_path_score(pot_c[rows], trans_c, p_g.cpu()[rows])
+            sc = _viterbi_path_score(pot_c[rows], trans_c, p_c[rows])
+            tied = (sg - sc).abs() <= 1e-4 * sc.abs().clamp_min(1.0)
+            ties = int(tied.sum())
+            if not bool(tied.all()):
+                raise AssertionError(f"viterbi: {int((~tied).sum())} rows "
+                                     f"differ from the CPU's without a tie")
+        out["viterbi"] = {"tags": VITERBI_TAGS, "B": VITERBI_B,
+                          "T": VITERBI_T, "lengths_seed": 0,
+                          "score_max_abs_err": score_err,
+                          "rows_differing": int(differ.sum()),
+                          "rows_tied": ties, "card_ms": card_ms,
+                          "cpu_ms": cpu_ms}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            utils.run_check()
+        lines = buf.getvalue().strip().splitlines()
+        if not lines or "installed successfully" not in lines[-1] or \
+                "cuda" not in lines[0]:
+            raise AssertionError(f"run_check printed {lines}")
+        out["run_check"] = lines
+    finally:
+        place.reset_device()
+    out.update({"ok": True, "s": time.monotonic() - t0})
+    emit(out)
+
+
+ONNX_DIR = os.path.join(HERE, "build", "onnx_smoke")
+# BERT-base through onnx.export: config 5's S=128 (under the folded
+# crossover: plain attention) and S=512, where every layer's attention is
+# the folded kernel #9, written into the file as its plain math. The
+# file's values, run in numpy (float32), against the card's forward:
+# max abs error within ONNX_REL_TOL of the largest output magnitude
+# (fp32 sums of 12 layers in two orders; the engine's MODEL_REL_TOL)
+ONNX_SEQS = (128, 512)
+ONNX_REL_TOL = MODEL_REL_TOL
+
+
+def phase_onnx(torch, dev):
+    """(e) ``onnx.export`` of the BERT-base encoder (seed-0 weights, B=1)
+    from the card at S=128 and S=512; the bytes parsed back and run by
+    the numpy interpreter of ``onnx/_interp.py`` against the card's own
+    forward of the same model and input."""
+    import shutil
+    import numpy as np
+    from paddle_tpu_torch import onnx
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.onnx import _interp
+    from paddle_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from paddle_tpu_torch.static import InputSpec
+    t0 = time.monotonic()
+    shutil.rmtree(ONNX_DIR, ignore_errors=True)
+    os.makedirs(ONNX_DIR)
+    cfg = bert.bert_base(hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+    model = bert.BertModel(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    model.eval()
+    rng = np.random.default_rng(0)
+    cases = []
+    for s in ONNX_SEQS:
+        ids = rng.integers(0, cfg.vocab_size, (1, s)).astype(np.int32)
+        t = time.monotonic()
+        path = onnx.export(model, os.path.join(ONNX_DIR, f"bert_s{s}"),
+                           input_spec=[InputSpec((1, s), "int32",
+                                                 "input_ids")])
+        export_s = time.monotonic() - t
+        with open(path, "rb") as f:
+            data = f.read()
+        t = time.monotonic()
+        nodes = _interp.parse_model(data)[0]
+        got = _interp.run_model(data, {"input_ids": ids})
+        numpy_s = time.monotonic() - t
+        reset_launch_counts()
+        with torch.no_grad():
+            want = model(torch.from_numpy(ids).to(dev))
+        torch.cuda.synchronize()
+        folded = launch_counts()["attention_fwd"]
+        if s >= 256 and folded != cfg.num_hidden_layers:
+            raise AssertionError(f"onnx S={s}: attention_fwd launched "
+                                 f"{folded} times, want one a layer")
+        errs = []
+        for name, g, w in zip(("sequence", "pooled"), got, want):
+            w = w.float().cpu()
+            if tuple(g.shape) != tuple(w.shape) or \
+                    not np.isfinite(g).all():
+                raise AssertionError(f"onnx S={s} {name}: {g.shape}")
+            tol = ONNX_REL_TOL * float(w.abs().max())
+            errs.append(check_close(f"onnx bert S={s} {name}",
+                                    torch.from_numpy(g), w, tol, 0.0))
+        cases.append({"S": s, "nodes": len(nodes),
+                      "ops": len({n["op"] for n in nodes}),
+                      "file_mb": len(data) / 1e6,
+                      "attention_fwd_launches_on_card": folded,
+                      "max_abs_err": dict(zip(("sequence", "pooled"),
+                                              errs)),
+                      "export_s": export_s, "numpy_s": numpy_s})
+        os.remove(path)
+    emit({"phase": "onnx", "ok": True, "model": "bert_base", "B": 1,
+          "rel_tol": ONNX_REL_TOL, "cases": cases,
+          "s": time.monotonic() - t0})
+    shutil.rmtree(ONNX_DIR, ignore_errors=True)
+    del model
+    torch.cuda.empty_cache()
+
+
 PHASE_WALLS = {}
 
 
@@ -10229,6 +10827,7 @@ def main() -> int:
             smi_line)
     _walled(phase_fleet, torch, dev, model, smi_line)
     _walled(phase_fleet_autoscale, torch, dev, model, smi_line)
+    _walled(phase_profiler, torch, dev, model, engine_prompts)
     _walled(phase_generate, torch, dev, model, smi_line)
     del model, small
     # the engine and the server leave reference cycles: collected here,
@@ -10237,6 +10836,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _walled(phase_train, torch, dev, launches)
+    _walled(phase_offload, torch, dev)
     _walled(phase_eager_api, torch, dev)
     _walled(phase_train_bf16, torch, dev, launches)
     _walled(phase_train_amp, torch, dev, launches)
@@ -10258,6 +10858,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _walled(phase_op_library, torch, dev, smi_line)
+    _walled(phase_aux_surfaces, torch, dev)
+    _walled(phase_onnx, torch, dev)
+    _walled(phase_compile_cache, torch, dev)
     emit({"phase": "check_margins", "tightest": tightest_checks()})
     if FAILED_CHECKS:
         emit({"phase": "checks", "ok": False, "failed": FAILED_CHECKS})

@@ -31,17 +31,12 @@ _SUBPACKAGES = ("nn", "optimizer", "amp", "io", "static", "jit",
                 "distributed", "metric", "vision", "models", "hapi",
                 "framework", "inference", "serving", "autograd", "ops",
                 "quantization", "sparsity", "regularizer", "device", "core",
-                "dispatch", "tensor", "linalg", "fft")
+                "dispatch", "tensor", "linalg", "fft", "profiler", "utils",
+                "sysconfig", "distribution", "incubate", "text", "hub",
+                "onnx")
 
-# the JAX package's subpackages that wait for ROADMAP.md's 3(e) item 6
-_NOT_PORTED = {"text": "paddle_tpu/text/", "onnx": "paddle_tpu/onnx/",
-               "hub": "paddle_tpu/hub.py",
-               "distribution": "paddle_tpu/distribution.py",
-               "utils": "paddle_tpu/utils/",
-               "incubate": "paddle_tpu/incubate/",
-               "native": "paddle_tpu/native.py",
-               "profiler": "paddle_tpu/core/profiler.py",
-               "sysconfig": "paddle_tpu/sysconfig.py"}
+# the JAX package's subpackages that wait for ROADMAP.md's Queue 1
+_NOT_PORTED = {"native": "paddle_tpu/native.py"}
 
 
 def _eager():

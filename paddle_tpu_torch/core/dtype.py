@@ -120,3 +120,22 @@ def get_default_dtype() -> str:
 def set_default_dtype(d: DTypeLike) -> None:
     """reference: paddle.set_default_dtype(d)."""
     set_flags({"default_dtype": dtype_name(d)})
+
+
+def is_floating(dtype: DTypeLike) -> bool:
+    return convert_dtype(dtype).is_floating_point
+
+
+def is_integer(dtype: DTypeLike) -> bool:
+    d = convert_dtype(dtype)
+    return not (d.is_floating_point or d.is_complex or d == torch.bool)
+
+
+def finfo(dtype: DTypeLike) -> torch.finfo:
+    """``jnp.finfo`` of the dtype (``core/dtype.py:104``): ``bits``,
+    ``eps``, ``max``, ``min``, ``tiny``, ``resolution``."""
+    return torch.finfo(convert_dtype(dtype))
+
+
+def iinfo(dtype: DTypeLike) -> torch.iinfo:
+    return torch.iinfo(convert_dtype(dtype))

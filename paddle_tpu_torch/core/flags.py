@@ -13,6 +13,8 @@ time with :func:`set_flags`. The port defines only the flags it reads:
   floating dtype of new tensors (``core/dtype.py``).
 - ``check_nan_inf`` and ``benchmark`` (``flags.py:106-107``): the eager
   dispatch's NaN / Inf scan and per-op timing (``dispatch.py``).
+- ``profiler_enabled`` (default False, ``flags.py:111``): collect
+  ``RecordEvent`` host events (``core/profiler.py``).
 """
 
 from __future__ import annotations
@@ -84,3 +86,4 @@ define_flag("check_nan_inf", False,
 define_flag("benchmark", False,
             "Synchronise after each eager op and add its microseconds to "
             "the ``op_us/<name>`` stat (``dispatch.call_fn``).")
+define_flag("profiler_enabled", False, "Collect RecordEvent host events.")

@@ -54,3 +54,7 @@ class StatRegistry:
 
 GLOBAL_STATS = StatRegistry()
 
+
+def stat(name: str) -> StatValue:
+    """The named counter of :data:`GLOBAL_STATS` (``monitor.py:60``)."""
+    return GLOBAL_STATS.get(name)

@@ -53,15 +53,15 @@ _GENERATORS = {}
 _GEN_LOCK = threading.Lock()
 
 
-def seed(value: int) -> None:
+def seed(seed: int) -> None:
     """``paddle.seed``: reseed the eager random ops' generators (one a
     device, made on first use from this seed) and torch's global
     generators, which the layers' initializers draw from when given no
     generator."""
     with _GEN_LOCK:
-        _SEED["seed"] = int(value)
+        _SEED["seed"] = int(seed)
         _GENERATORS.clear()
-    torch.manual_seed(int(value))
+    torch.manual_seed(int(seed))
 
 
 def default_generator(device) -> torch.Generator:

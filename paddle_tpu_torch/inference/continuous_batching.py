@@ -104,6 +104,7 @@ from typing import (Any, Callable, Dict, Hashable, List, Optional,
 import numpy as np
 import torch
 
+from ..core.compile_cache import enable_compile_cache
 from ..device import module_device, resolve_device
 from ..distributed.fault_inject import InjectedFault, fault_point
 
@@ -448,6 +449,10 @@ class ContinuousBatchingEngine:
                              f"decode); got {multi_step}")
         if mesh is not None:
             raise _not_ported("mesh")
+        # the kernel cache (PADDLE_TPU_COMPILE_CACHE): a restarted server
+        # loads the kernel library its last run built instead of
+        # compiling it again (``continuous_batching.py:489-496``)
+        enable_compile_cache()
         self.model = model
         model.eval()
         # the generation of the weights this engine serves: swap_weights

@@ -31,7 +31,7 @@ from torch import nn
 from ..amp.auto_cast import amp_cast
 from ..device import resolve_device
 from ..nn.common import Dropout, Embedding, Linear
-from ..nn.layers import LayerNorm
+from ..nn.norm import LayerNorm
 from ..nn.transformer import TransformerEncoder, TransformerEncoderLayer
 from ..ops import nn_functional as NF
 from ..nn.layer import Layer

@@ -20,7 +20,9 @@ cross entropy and its plain mean over every position, ignored ones
 included, as the JAX model does; ``loss_chunk_size`` computes it over
 sequence chunks whose logits are recomputed in backward, and ``remat``
 recomputes blocks in backward (``torch.utils.checkpoint``), with
-``remat_save_attention`` all but the attention kernel's forward.
+``remat_save_attention`` all but the attention kernel's forward; the
+choice and activation offload (the block inputs kept in pinned host
+memory) are ``core/offload.py``'s.
 
 Generation (``generate``) runs the eager loop over a growing ``(k, v)``
 cache, or the one-launch mode over a ``StaticKVCache`` (dense buffers
@@ -35,6 +37,7 @@ Not ported yet (see ROADMAP.md): MoE, sequence parallelism.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, List, NamedTuple, Optional
 
@@ -45,12 +48,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..amp.auto_cast import amp_cast, auto_cast, current_args
-from ..core import rng
+from ..core import offload, rng
 from ..device import resolve_device
 from ..nn.layer import checkpoint_state, load_jax_state  # noqa: F401
 from ..nn.layers import (ColumnParallelLinear, Dropout, Embedding,
-                         LayerNorm, ParallelCrossEntropy, RowParallelLinear,
+                         ParallelCrossEntropy, RowParallelLinear,
                          VocabParallelEmbedding, gelu)
+from ..nn.norm import LayerNorm
 from ..ops import nn_functional as NF
 from ..ops.kernels.attention import SavedAttention
 from ..nn.layer import Layer
@@ -513,13 +517,17 @@ def multi_step_decode(step_fn, pools, table, lens, tokens, active, rem,
     return carry.ring, carry.steps, carry.cur, carry.lens, carry.act, pools
 
 
-def _remat_block(block: nn.Module, x, save_attention: bool = False):
+def _remat_block(block: nn.Module, x):
     """Run ``block`` under ``torch.utils.checkpoint`` (``gpt.py:663-686``):
-    its activations are recomputed in backward instead of kept. With
-    ``save_attention`` (``remat_save_attention``, ``gpt.py:953-971``) the
+    its activations are recomputed in backward instead of kept. The
+    policy is ``core.offload``'s (``remat_policy``), read here as the
+    JAX package reads it at trace time: with ``ATTN_OUT_NAME`` among the
+    saved names (``remat_save_attention``, ``gpt.py:953-971``) the
     attention kernel's forward outputs are kept aside
     (``SavedAttention``) and the recompute takes them instead of running
-    the kernel again; everything else is recomputed.
+    the kernel again; with activation offload on, the block input, the
+    one tensor the checkpoint saves, is kept in pinned host memory until
+    the recompute.
 
     The recompute runs on autograd's thread, so it re-opens what the
     forward saw in this thread: the ``key_scope`` generator, rewound to
@@ -531,7 +539,9 @@ def _remat_block(block: nn.Module, x, save_attention: bool = False):
     amp = current_args()
     before = gen.get_state() if gen is not None else None
     ran = []
-    saved = SavedAttention() if save_attention else None
+    policy = offload.remat_policy()
+    saved = SavedAttention() if policy is not None and \
+        offload.ATTN_OUT_NAME in policy.saved else None
 
     def run(h):
         after = None
@@ -549,7 +559,10 @@ def _remat_block(block: nn.Module, x, save_attention: bool = False):
             if after is not None:
                 gen.set_state(after)
 
-    return checkpoint(run, x, use_reentrant=False)
+    stage = offload.offload_block_inputs() if policy is not None and \
+        policy.offloaded else contextlib.nullcontext()
+    with stage:
+        return checkpoint(run, x, use_reentrant=False)
 
 
 class GPTAttention(Layer):
@@ -568,14 +581,15 @@ class GPTAttention(Layer):
         self.attn_dropout_p = c.attn_dropout
         self.use_flash = c.use_flash_attention
 
-    def forward(self, x, cache=None, prefill_len=None,
-                prefill_chained: bool = False, fused: bool = False,
-                use_cache: bool = False):
+    def forward(self, x, cache=None, use_cache: bool = False,
+                prefill_len=None, prefill_chained: bool = False, *,
+                fused: bool = False):
         """``cache``: a ``PagedKVCache`` (ragged paged decode), a
         ``StaticKVCache`` (fixed-shape decode), or with ``use_cache`` a
         ``(k, v)`` pair or None (the eager cache: the new keys and
         values are concatenated to it). A cached call returns ``(out,
-        new cache)``."""
+        new cache)``. The positional order is the JAX layer's
+        (``gpt.py:704``)."""
         b, s, _ = x.shape
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
@@ -696,13 +710,13 @@ class GPTBlock(Layer):
         self.mlp = GPTMLP(config, **kw)
         self.dropout = Dropout(config.dropout)
 
-    def forward(self, x, cache=None, prefill_len=None,
-                prefill_chained=False, fused=False, use_cache=False):
+    def forward(self, x, cache=None, use_cache=False, prefill_len=None,
+                prefill_chained=False, *, fused=False):
         if cache is not None or use_cache:
-            a, new_cache = self.attn(self.ln_1(x), cache,
+            a, new_cache = self.attn(self.ln_1(x), cache, True,
                                      prefill_len=prefill_len,
                                      prefill_chained=prefill_chained,
-                                     fused=fused, use_cache=True)
+                                     fused=fused)
             x = x + self.dropout(a)
             x = x + self.dropout(self.mlp(self.ln_2(x)))
             return x, new_cache
@@ -727,16 +741,34 @@ class GPTModel(Layer):
             for _ in range(c.num_layers)])
         self.ln_f = LayerNorm(c.hidden_size, c.layer_norm_epsilon,
                               device=device, dtype=dtype)
+        # selective remat is scoped to THIS model's forward
+        # (``gpt.py:950-959``): building a model never touches the
+        # process-wide selection of ``core.offload``
+        self._remat_names = ((offload.ATTN_OUT_NAME,)
+                             if c.remat_save_attention else None)
 
     def forward(self, input_ids, position_ids=None,
-                caches: Optional[List[Any]] = None,
-                prefill_lens=None, prefill_chained: bool = False,
+                caches: Optional[List[Any]] = None, use_cache: bool = False,
+                prefill_lens=None, prefill_chained: bool = False, *,
                 fused: bool = False):
-        """``caches``: one cache a layer, all of one kind: a
-        ``PagedKVCache``, a ``StaticKVCache`` or an eager ``(k, v)``
-        pair (None before the first call). Positions continue from the
-        cache: each sequence's length, ``pos``, or the pair's length
-        (``gpt.py:985-1000``)."""
+        """The JAX positional order (``gpt.py:966-968``). ``caches``: one
+        cache a layer, all of one kind: a ``PagedKVCache``, a
+        ``StaticKVCache`` or an eager ``(k, v)`` pair (None before the
+        first call). With caches, or ``use_cache`` (the eager pairs
+        start empty), returns ``(hidden, new caches)``. Positions
+        continue from the cache: each sequence's length, ``pos``, or the
+        pair's length (``gpt.py:985-1000``)."""
+        if self._remat_names is not None:
+            with offload.override_remat_saved_names(self._remat_names):
+                return self._forward(input_ids, position_ids, caches,
+                                     use_cache, prefill_lens,
+                                     prefill_chained, fused)
+        return self._forward(input_ids, position_ids, caches, use_cache,
+                             prefill_lens, prefill_chained, fused)
+
+    def _forward(self, input_ids, position_ids, caches, use_cache,
+                 prefill_lens, prefill_chained, fused):
+        use_cache = use_cache or caches is not None
         b, s = input_ids.shape
         if position_ids is None:
             position_ids = torch.arange(s, device=input_ids.device)[None]
@@ -751,20 +783,20 @@ class GPTModel(Layer):
             position_ids = position_ids.expand(b, s)
         x = self.wte(input_ids) + self.wpe(position_ids)
         x = self.drop(x)
-        if caches is None:
+        if not use_cache:
             remat = self.config.remat and torch.is_grad_enabled()
             for i, block in enumerate(self.h):
                 if remat and i % self.config.remat_every == 0:
-                    x = _remat_block(block, x,
-                                     self.config.remat_save_attention)
+                    x = _remat_block(block, x)
                 else:
                     x = block(x)
             return self.ln_f(x)
+        if caches is None:
+            caches = [None] * len(self.h)
         new_caches = []
         for block, cache in zip(self.h, caches):
-            x, nc = block(x, cache, prefill_len=prefill_lens,
-                          prefill_chained=prefill_chained, fused=fused,
-                          use_cache=True)
+            x, nc = block(x, cache, True, prefill_lens, prefill_chained,
+                          fused=fused)
             new_caches.append(nc)
         return self.ln_f(x), new_caches
 
@@ -824,8 +856,8 @@ class GPTForCausalLM(Layer):
         """Cached forward returning final hidden states ``[B, S, E]`` and
         the new caches: the fused hot path samples straight from the
         hidden row, so the [B, S, vocab] logits never exist."""
-        return self.gpt(input_ids, None, caches, prefill_lens=prefill_lens,
-                        prefill_chained=prefill_chained, fused=fused)
+        return self.gpt(input_ids, None, caches, True, prefill_lens,
+                        prefill_chained, fused=fused)
 
     def verify_step(self, input_ids, caches, valid_len):
         """Speculative verify forward over paged slots
@@ -1068,8 +1100,8 @@ class GPTForCausalLM(Layer):
         all B * (S - 1) positions."""
         if caches is not None:
             hidden, new_caches = self.gpt(
-                input_ids, position_ids, caches, prefill_lens=prefill_lens,
-                prefill_chained=prefill_chained, fused=fused)
+                input_ids, position_ids, caches, True, prefill_lens,
+                prefill_chained, fused=fused)
             return self.logits(hidden), new_caches
         hidden = self.gpt(input_ids, position_ids)
         if labels is None:

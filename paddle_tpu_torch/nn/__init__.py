@@ -30,7 +30,6 @@ from .decode import BeamSearchDecoder, dynamic_decode  # noqa: F401
 from .initializer import ParamAttr  # noqa: F401
 from .layer import (Layer, bind_state, functional_call,  # noqa: F401
                     functional_state)
-from .layers import LayerNorm  # noqa: F401
 from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,  # noqa
                    CrossEntropyLoss, CTCLoss, GaussianNLLLoss, HingeEmbeddingLoss,
                    HSigmoidLoss, KLDivLoss, L1Loss, MarginRankingLoss,
@@ -39,8 +38,8 @@ from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,  # noqa
                    TripletMarginLoss)
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D,  # noqa: F401
                    BatchNorm3D, DataNorm, GroupNorm, InstanceNorm1D,
-                   InstanceNorm2D, InstanceNorm3D, LocalResponseNorm,
-                   RMSNorm, SpectralNorm, SyncBatchNorm)
+                   InstanceNorm2D, InstanceNorm3D, LayerNorm,
+                   LocalResponseNorm, RMSNorm, SpectralNorm, SyncBatchNorm)
 from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,  # noqa: F401
                       AdaptiveAvgPool3D, AdaptiveMaxPool1D, AdaptiveMaxPool2D,
                       AdaptiveMaxPool3D, AvgPool1D, AvgPool2D, AvgPool3D,

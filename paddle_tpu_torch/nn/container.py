@@ -3,8 +3,10 @@
 
 Each is torch's container (``nn.Sequential``, ``nn.ModuleList``,
 ``nn.ParameterList``, ``nn.ModuleDict``) with ``Layer``'s names and
-call. torch already names list children ``"0"``, ``"1"``, ... as the JAX
-containers do, so state-dict keys such as
+call, and the JAX keywords of ``append`` / ``insert`` / ``extend``
+(``layer=``, ``layers=``, ``parameter=``). torch already names list
+children ``"0"``, ``"1"``, ... as the JAX containers do, so state-dict
+keys such as
 ``layer1.0.downsample.1._mean`` or ``blocks.3.weight`` match and
 ``nn.layer.load_jax_state`` finds every parameter under its JAX name.
 As in the JAX ``Sequential``, ``(name, layer)`` pairs name their
@@ -33,6 +35,15 @@ class LayerList(nn.ModuleList, Layer):
     def __init__(self, sublayers=()):
         nn.ModuleList.__init__(self, list(sublayers))
 
+    def append(self, layer) -> "LayerList":
+        return nn.ModuleList.append(self, layer)
+
+    def insert(self, index: int, layer) -> None:
+        nn.ModuleList.insert(self, index, layer)
+
+    def extend(self, layers) -> "LayerList":
+        return nn.ModuleList.extend(self, layers)
+
 
 class ParameterList(nn.ParameterList, Layer):
     """A list of parameters named ``"0"``, ``"1"``, ...; ``append``
@@ -40,6 +51,9 @@ class ParameterList(nn.ParameterList, Layer):
 
     def __init__(self, parameters=()):
         nn.ParameterList.__init__(self, list(parameters))
+
+    def append(self, parameter) -> "ParameterList":
+        return nn.ParameterList.append(self, parameter)
 
 
 class LayerDict(nn.ModuleDict, Layer):

@@ -261,6 +261,24 @@ class Layer(nn.Module):
     def sublayers(self, include_self: bool = False) -> List[nn.Module]:
         return [m for _, m in self.named_sublayers(include_self=include_self)]
 
+    def parameters(self, include_sublayers: bool = True,
+                   recurse: Optional[bool] = None):
+        """torch's generator, under Paddle's keyword too:
+        ``include_sublayers`` is torch's ``recurse``."""
+        return super().parameters(
+            recurse=include_sublayers if recurse is None else recurse)
+
+    def named_parameters(self, prefix: str = "",
+                         include_sublayers: bool = True,
+                         remove_duplicate: bool = True,
+                         recurse: Optional[bool] = None):
+        """torch's generator of ``(name, parameter)``, under Paddle's
+        keywords too (``named_parameters(prefix, include_sublayers)``)."""
+        return super().named_parameters(
+            prefix=prefix,
+            recurse=include_sublayers if recurse is None else recurse,
+            remove_duplicate=remove_duplicate)
+
     # -- hooks ----------------------------------------------------------------
 
     def register_forward_post_hook(self, hook: Callable):

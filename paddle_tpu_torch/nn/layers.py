@@ -15,8 +15,8 @@ conventions.
   the per-position hard-label cross entropy.
 
 Parameters are created on an explicit ``device`` and initialised from an
-explicit ``torch.Generator`` (normal(0, std) weights, zero biases, unit
-layer-norm scales).
+explicit ``torch.Generator`` (normal(0, std) weights, zero biases). The
+models' layer norm is ``nn.norm.LayerNorm``, JAX's layer.
 """
 
 from __future__ import annotations
@@ -101,37 +101,11 @@ class VocabParallelEmbedding(Embedding):
     """Single-device VocabParallelEmbedding: a plain ``Embedding``."""
 
 
-class LayerNorm(Layer):
-    """Layer norm over the last dim with ``weight``/``bias`` named as in
-    the JAX package's checkpoints. An input of another dtype than the
-    parameters (bf16 activations with the bf16 recipe's fp32 norms) is
-    normalised and scaled in the parameters' dtype and returned in its
-    own, as the JAX function multiplies by its fp32 weight and casts
-    back (``ops/nn_functional.py`` ``layer_norm``); PyTorch's CUDA layer
-    norm takes no mixed dtypes."""
-
-    def __init__(self, dim: int, epsilon: float = 1e-5, *, device=None,
-                 dtype=torch.float32):
-        super().__init__()
-        self.epsilon = float(epsilon)
-        self.weight = nn.Parameter(torch.ones(dim, device=device,
-                                              dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(dim, device=device,
-                                             dtype=dtype))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = amp_cast("layer_norm", x, self.weight, self.bias)
-        if x.dtype != w.dtype:
-            return F.layer_norm(x.to(w.dtype), (x.shape[-1],), w, b,
-                                self.epsilon).to(x.dtype)
-        return F.layer_norm(x, (x.shape[-1],), w, b, self.epsilon)
-
-
 class Dropout(Layer):
     """``nn_functional.dropout`` in ``self.training`` mode."""
 
     def __init__(self, p: float = 0.5, axis=None,
-                 mode: str = "upscale_in_train"):
+                 mode: str = "upscale_in_train", name=None):
         super().__init__()
         self.p = p
         self.axis = axis

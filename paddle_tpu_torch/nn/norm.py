@@ -147,8 +147,16 @@ class SyncBatchNorm(_BatchNormBase):
 
 
 class LayerNorm(Layer):
-    """Layer norm over the trailing ``normalized_shape`` (``norm.py:
-    126-152``)."""
+    """Layer norm over the trailing ``normalized_shape`` dims (an int or
+    a list; ``norm.py:126-152``), with ``weight`` (ones) and ``bias``
+    (zeros) named as in the JAX package's checkpoints, either left out
+    by ``weight_attr=False`` / ``bias_attr=False``. It is the models'
+    norm too. An input of another dtype than the parameters (bf16
+    activations with the bf16 recipe's fp32 norms) is normalised and
+    scaled in the parameters' dtype and returned in its own, as the JAX
+    function multiplies by its fp32 weight and casts back
+    (``nn_functional.layer_norm``); PyTorch's CUDA layer norm takes no
+    mixed dtypes."""
 
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
                  bias_attr=None, name=None, *, device=None,

@@ -35,7 +35,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops import nn_functional as NF
 from .common import Dropout, Linear
-from .layers import LayerNorm
+from .norm import LayerNorm
 from .layer import Layer
 
 

@@ -12,11 +12,14 @@ The library is loaded with ``ctypes``; every pointer and the stream are
 ``c_void_p``. The build runs at the first kernel launch (never at
 import, so the CPU tests import the package without ``nvcc``) and is
 keyed on a hash of the sources: an unchanged tree reuses
-``build/kernels/libpt_kernels.so``. Builds are serialised across
-processes by an ``flock`` on ``build/kernels/.build.lock`` (the replicas
-of a fleet booting from a fresh tree all reach their first launch
-together): whoever takes the lock second finds the stamp written and
-loads the first one's library.
+``build/kernels/libpt_kernels.so``. The directory is the kernel cache's
+when it is on (``core/compile_cache.py``, ``PADDLE_TPU_COMPILE_CACHE``):
+one that holds the library of the current digest serves it without
+``nvcc``. Builds are serialised across processes by an ``flock`` on
+``<dir>/.build.lock`` (the replicas of a fleet booting from a fresh tree
+all reach their first launch together): whoever takes the lock second
+finds the stamp written and loads the first one's library. One process
+loads one library (:func:`loaded_from`).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from typing import Dict, List, Optional
 
 import torch
 from torch._subclasses.fake_tensor import is_fake
+
+from ...core import compile_cache
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -103,6 +108,19 @@ SIGNATURES: Dict[str, List] = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_lib_dir: Optional[str] = None
+
+
+def build_dir() -> str:
+    """Where the library is built and found: the kernel cache's directory
+    when it is on, else ``build/kernels/``."""
+    return compile_cache.compile_cache_dir() or BUILD_DIR
+
+
+def loaded_from() -> Optional[str]:
+    """The directory the loaded library came from (None before the first
+    kernel launch)."""
+    return _lib_dir
 
 
 def _sources() -> List[str]:
@@ -137,13 +155,18 @@ def build(verbose: bool = False) -> str:
     not exist yet; returns the library path. ``verbose`` adds
     ``-Xptxas=-v``, prints each kernel's registers, shared memory and
     spills to stderr and keeps them beside the library
-    (:func:`ptxas_report_path`), rebuilding a library that has none."""
+    (:func:`ptxas_report_path`), rebuilding a library that has none.
+    ``$PADDLE_TPU_COMPILE_CACHE``, when no cache directory was enabled
+    yet, is read here (``compile_cache.enable_compile_cache``)."""
+    if compile_cache.compile_cache_dir() is None:
+        compile_cache.enable_compile_cache()
     digest = source_hash()
-    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
+    out_dir = build_dir()
+    lib_path = os.path.join(out_dir, LIB_NAME)
     if _built(digest, verbose):
         return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".build.lock"), "a") as lock:
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, ".build.lock"), "a") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if not _built(digest, verbose):
@@ -156,7 +179,7 @@ def build(verbose: bool = False) -> str:
 def _built(digest: str, verbose: bool) -> bool:
     """The library of ``digest`` exists with its stamp (and, for a
     verbose build, its ptxas report)."""
-    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
+    lib_path = os.path.join(build_dir(), LIB_NAME)
     stamp = lib_path + ".hash"
     if not (os.path.exists(lib_path) and os.path.exists(stamp) and (
             not verbose or os.path.exists(ptxas_report_path()))):
@@ -168,10 +191,10 @@ def _built(digest: str, verbose: bool) -> bool:
 def _compile(digest: str, verbose: bool) -> None:
     """Compile every source and link the library (under the build
     lock); the stamp is written last, atomically."""
-    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
+    lib_path = os.path.join(build_dir(), LIB_NAME)
     stamp = lib_path + ".hash"
     report = ptxas_report_path()
-    obj_dir = os.path.join(BUILD_DIR, "obj-" + digest)
+    obj_dir = os.path.join(build_dir(), "obj-" + digest)
     os.makedirs(obj_dir, exist_ok=True)
     nvcc = _nvcc()
     procs = []
@@ -217,20 +240,21 @@ def _compile(digest: str, verbose: bool) -> None:
 def ptxas_report_path() -> str:
     """Where a verbose build keeps ``ptxas -v``'s lines for the current
     library."""
-    return os.path.join(BUILD_DIR, LIB_NAME + ".ptxas")
+    return os.path.join(build_dir(), LIB_NAME + ".ptxas")
 
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
-    global _lib
+    global _lib, _lib_dir
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build())
+            path = build()
+            handle = ctypes.CDLL(path)
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = handle
+            _lib, _lib_dir = handle, os.path.dirname(path)
         return _lib
 
 

@@ -304,7 +304,7 @@ def paged_attention_fused(q, k_pages, v_pages, page_table, seq_lens, w,
         k_scale=k_scale, v_scale=v_scale, scale=scale, q_offsets=q_offsets)
 
 
-def paged_page_splice(pool, block, page):
+def paged_page_splice(pool, block, page=0):
     """Write restored page content into ``pool`` [P+1, page, ...] in
     place at the page indices ``page`` (an int or [n] ints):
     ``block`` is [page, ...] for one index or [n, page, ...] for n
@@ -515,9 +515,10 @@ def thresholded_relu(x, threshold=1.0):
 
 # -- lookups, dropouts ---------------------------------------------------------
 
-def embedding(x, weight, padding_idx=None):
+def embedding(x, weight, padding_idx=None, sparse=False):
     """``nn_functional.py:180-185``: the rows of ``weight`` at ``x``,
-    zero where ``x == padding_idx``."""
+    zero where ``x == padding_idx``. ``sparse`` changes nothing, as in
+    the JAX function (the gradient is dense)."""
     out = F.embedding(x, weight)
     if padding_idx is not None:
         out = out * (x != padding_idx).unsqueeze(-1).to(out.dtype)
@@ -1036,7 +1037,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     """``nn_functional.py:662-673``, over the trailing ``normalized_shape``
     dims. An input of another dtype than the parameters is normalised in
     the parameters' dtype and returned in its own, as in
-    ``nn.layers.LayerNorm`` (PyTorch's CUDA layer norm takes no mixed
+    ``nn.LayerNorm`` (PyTorch's CUDA layer norm takes no mixed
     dtypes)."""
     x, weight, bias = amp_cast("layer_norm", x, weight, bias)
     if isinstance(normalized_shape, int):

@@ -57,7 +57,7 @@ class ClipGradByGlobalNorm(GradClipBase):
     """Scale every gradient by ``min(clip_norm / max(||g||, 1e-12), 1)``
     where ``||g||`` is the L2 norm over all of them, taken in fp32."""
 
-    def __init__(self, clip_norm: float):
+    def __init__(self, clip_norm: float, group_name: str = "default_group"):
         self.clip_norm = float(clip_norm)
 
     def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -36,9 +36,11 @@ forward span) is carried as ``remote_parent`` in the child root's args
 links into one tree.
 
 Export: ``to_dict`` span trees and Chrome trace-event JSON
-(``to_chrome`` / ``chrome_events``). This is the PyTorch port's host
-copy of ``paddle_tpu/serving/tracing.py``: the profiler bridge of the
-JAX package is left out, since the port has no host-event profiler.
+(``to_chrome`` / ``chrome_events``). This is the PyTorch port's copy of
+``paddle_tpu/serving/tracing.py``. When ``core/profiler.py`` is enabled,
+finished spans are also injected as host events (``profiler_bridge``),
+so one ``export_chrome_trace`` carries the request spans beside the
+``RecordEvent`` markers.
 
 Debug mode: PT_SERVING_DEBUG=1 (see server.py) is now this tracer at
 ``sample_rate=1.0`` with the ``stderr_span_sink`` — one event
@@ -55,6 +57,8 @@ import threading
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from ..core import profiler
 
 __all__ = ["Span", "RequestTrace", "SpanTracer", "stderr_span_sink",
            "chrome_events", "request_latencies"]
@@ -200,17 +204,22 @@ class SpanTracer:
 
     ``sample_rate`` in [0, 1]: deterministic accumulator sampling.
     ``on_span(kind, trace_id, span_dict)`` is the optional live sink
-    (``stderr_span_sink`` — the PT_SERVING_DEBUG lifecycle stream)."""
+    (``stderr_span_sink`` — the PT_SERVING_DEBUG lifecycle stream);
+    ``profiler_bridge`` additionally injects finished spans into
+    core/profiler.py's host-event buffer whenever that profiler is
+    enabled, so one ``export_chrome_trace`` carries both."""
 
     def __init__(self, sample_rate: float = 0.0, max_traces: int = 64,
                  max_spans_per_trace: int = 4096,
-                 on_span: Optional[Callable] = None):
+                 on_span: Optional[Callable] = None,
+                 profiler_bridge: bool = True):
         self.sample_rate = float(sample_rate)
         if not 0.0 <= self.sample_rate <= 1.0:
             raise ValueError(
                 f"sample_rate must be in [0, 1], got {self.sample_rate}")
         self.max_spans_per_trace = int(max_spans_per_trace)
         self.on_span = on_span
+        self.profiler_bridge = bool(profiler_bridge)
         self._ring: "deque[Dict]" = deque(maxlen=int(max_traces))
         self._events: "deque[Dict]" = deque(maxlen=256)
         self._acc = 0.0
@@ -291,6 +300,9 @@ class SpanTracer:
                 self.on_span(kind, trace.trace_id, span.to_dict())
             except Exception:
                 pass  # a sink must never break the serving path
+        if kind != "begin" and self.profiler_bridge \
+                and span.t1_us is not None:
+            _bridge_profiler(trace.trace_id, span)
 
     def annotate(self, name: str, **args) -> None:
         """Tracer-level event not tied to one request (resurrection
@@ -417,3 +429,16 @@ def stderr_span_sink(kind: str, trace_id: Optional[str],
     print(f"[pt-serving-trace {time.monotonic():.3f}] {kind} "
           f"{span.get('name')} trace={tid}{dur} {kv}".rstrip(),
           file=sys.stderr, flush=True)
+
+
+def _bridge_profiler(trace_id: str, span: Span) -> None:
+    """Inject a closed span into core/profiler.py's host-event buffer
+    when that profiler is enabled: serving spans then ride the same
+    ``export_chrome_trace`` as the RecordEvent markers."""
+    if not profiler.profiler_active():
+        return
+    try:
+        profiler.external_event(span.name, span.t0_us, span.t1_us,
+                                annotation=trace_id)
+    except Exception:
+        pass  # the bridge must never break the serving path

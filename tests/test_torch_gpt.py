@@ -158,3 +158,38 @@ def test_configs_mirror_jax():
                       "num_heads", "max_seq_len", "layer_norm_epsilon",
                       "tie_word_embeddings", "dtype"):
             assert getattr(t, field) == getattr(j, field), (name, field)
+
+
+@pytest.mark.parametrize("side", ["jax", "port"])
+def test_positional_use_cache_follows_jax(models, side):
+    """``GPTModel`` / ``GPTBlock`` / ``GPTAttention`` take JAX's order
+    ``(x, position_ids / cache, ..., use_cache, prefill_lens, ...)``:
+    ``gpt(ids, None, None, True)`` returns ``(hidden, caches)`` with one
+    eager ``(k, v)`` pair a layer, and a second call continues from them.
+    The port's hiddens are JAX's within 1e-4."""
+    jm, tm = models
+    ids = np.random.default_rng(3).integers(0, 1024, (1, 5)).astype(
+        np.int32)
+    nxt = np.array([[17]], np.int32)
+    h, caches = jm.gpt(Tensor(ids), None, None, True)
+    h2, caches2 = jm.gpt(Tensor(nxt), None, caches, True)
+    jx = Tensor(np.asarray(jm.gpt.wte(Tensor(ids)).value))
+    jblk = jm.gpt.h[0](jx, None, True)
+    jatt = jm.gpt.h[0].attn(jx, None, True)
+    assert len(caches) == len(caches2) == 2 and len(jblk) == len(jatt) == 2
+    if side == "jax":
+        return
+    with torch.no_grad():
+        th, tcaches = tm.gpt(torch.from_numpy(ids).long(), None, None, True)
+        th2, tcaches2 = tm.gpt(torch.from_numpy(nxt).long(), None,
+                               tcaches, True)
+        tx = torch.from_numpy(np.array(jx.value))
+        tblk = tm.gpt.h[0](tx, None, True)
+        tatt = tm.gpt.h[0].attn(tx, None, True)
+    assert len(tcaches) == len(tcaches2) == 2
+    assert tuple(tcaches2[0][0].shape) == tuple(caches2[0][0].shape)
+    for got, want in ((th, h), (th2, h2), (tblk[0], jblk[0]),
+                      (tatt[0], jatt[0]), (tcaches2[1][1], caches2[1][1])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(
+            want.value if isinstance(want, Tensor) else want),
+            atol=1e-4, rtol=1e-4)

@@ -480,3 +480,49 @@ def test_spectral_norm_carries_u_v_and_matches_jax():
     sigma = float((wt / out).detach().reshape(-1)[0])
     np.testing.assert_allclose(wt.grad.numpy(), np.full(w.shape, 1 / sigma),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["list_shape", "int_shape",
+                                  "weight_attr_false", "bf16_input"])
+def test_nn_layer_norm_is_the_jax_layer(case):
+    """``paddle_tpu_torch.nn.LayerNorm`` is JAX's layer: a list
+    ``normalized_shape`` normalises the trailing dims, an int the last,
+    ``weight_attr=False`` / ``bias_attr=False`` drop the parameters, and
+    ``name`` is taken; a bf16 input with fp32 parameters is normalised in
+    fp32 and returned in bf16, within 2u of the JAX layer. The models
+    build the same class (one ``LayerNorm`` in the port)."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.models import gpt as tgpt
+    shape, kw, xs = {
+        "list_shape": ([4, 8], {}, (2, 3, 4, 8)),
+        "int_shape": (8, dict(name="ln"), (2, 3, 4, 8)),
+        "weight_attr_false": ([4, 8], dict(weight_attr=False,
+                                           bias_attr=False), (2, 3, 4, 8)),
+        "bf16_input": (8, {}, (3, 5, 8)),
+    }[case]
+    pt.seed(0)
+    j = jnn.LayerNorm(shape, **kw)
+    t = tnn.LayerNorm(shape, **kw, device="cpu")
+    assert set(t.state_dict()) == set(j.state_dict())
+    if case == "weight_attr_false":
+        assert t.weight is None and t.bias is None
+    else:
+        rng = np.random.default_rng(30)
+        state = {k: v + rng.normal(0, 0.1, v.shape).astype(v.dtype)
+                 for k, v in jax_state(j).items()}
+        load_jax_state(t, state)
+        j.set_state_dict(state)
+    x = _x(xs, 31)
+    if case == "bf16_input":
+        xb = torch.from_numpy(x).bfloat16()
+        with torch.no_grad():
+            got = t(xb)
+        assert got.dtype == torch.bfloat16 and t.weight.dtype == \
+            torch.float32
+        want = j(Tensor(jnp.asarray(xb.float().numpy(), jnp.bfloat16)))
+        _same(got.float(), np.asarray(want.value, np.float32), tol=2 * U)
+    else:
+        with torch.no_grad():
+            _same(t(torch.from_numpy(x)), j(Tensor(jnp.asarray(x))).value)
+    m = tgpt.GPTForCausalLM(tgpt.gpt_tiny(), device="cpu")
+    assert type(m.gpt.ln_f) is tnn.LayerNorm is tnorm.LayerNorm

@@ -33,7 +33,7 @@ from paddle_tpu.tensor import Tensor
 import jax.numpy as jnp
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import gpt as tgpt
-from paddle_tpu_torch.nn.layers import LayerNorm
+from paddle_tpu_torch.nn.norm import LayerNorm
 from paddle_tpu_torch.ops import nn_functional as tnf
 from paddle_tpu_torch.ops.kernels import attention as tat
 from paddle_tpu_torch.optimizer import AdamW, lr as tlr
@@ -206,7 +206,7 @@ def test_layer_norm_of_bf16_activations_with_fp32_parameters():
     w = (1.0 + 0.1 * rng.standard_normal(64)).astype(np.float32)
     b = (0.1 * rng.standard_normal(64)).astype(np.float32)
     xb = torch.from_numpy(x).bfloat16()
-    ln = LayerNorm(64)
+    ln = LayerNorm(64, device="cpu")
     with torch.no_grad():
         ln.weight.copy_(torch.from_numpy(w))
         ln.bias.copy_(torch.from_numpy(b))

@@ -187,7 +187,7 @@ def test_incremental_decode_equals_full_causal_forward(normalize_before):
 
 
 def tnorm(d):
-    from paddle_tpu_torch.nn.layers import LayerNorm
+    from paddle_tpu_torch.nn.norm import LayerNorm
     return LayerNorm(d, device="cpu")
 
 
